@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (llama_pipeline_parallel_tpu_torch) on one
+NVIDIA card and check it.
+
+Run from the root of a checkout: `python3 chip_smoke.py`. Phases, each of
+which raises on failure:
+
+1. build   -- nvcc builds every `csrc/*.cu` of the port (one process per
+              source, all started together); prints the build seconds and
+              the card's name and power limit.
+2. kernels -- each flash attention kernel (forward out + lse, dq, dk/dv)
+              against its plain PyTorch version on the same inputs, element
+              by element: at the training step's shape (b=1, h=32, s=2048,
+              hd=128, bf16, causal) against the plain version in fp32, and in
+              a small fp32 case with GQA, segment ids and offsets (with rows
+              that see no key). TF32 is off. At the step's shape the same
+              check must also reject planted faults confined to the last
+              tiles. Times each kernel, its plain version and, as a yardstick
+              the port never calls, F.scaled_dot_product_attention.
+3. trainer -- `run_training` on conf/llama_7b_pp4.yaml at LLaMA-7B width, cut
+              to 4 layers, seq 2048, 2 microbatches, 4 steps, attention=flash:
+              every loss finite, exactly layers x microbatches x steps launches
+              of each kernel. Then step 1 again on the same params and batch
+              with flash and with exact attention: per-token losses and
+              gradients agree, and a planted attention fault is rejected.
+
+Prints one JSON line of per-kernel numbers, then the card's name and power
+limit (nvidia-smi), then, as the last line,
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Exits non-zero without that line when there is no CUDA device, outside a
+checkout of the repository, or when any check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): dense bf16
+# tensor-core rate and HBM3 bandwidth, for the bound of each kernel
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+SLICE = dict(b=1, h=32, h_kv=32, s=2048, hd=128)
+SMALL = dict(b=2, h=8, h_kv=2, s=256, hd=128, q_offset=64, kv_offset=128)
+TRAIN_OVERRIDES = [
+    "mesh.pp=1", "mesh.dp=1", "model.num_hidden_layers=4", "dataset.seq_length=2048",
+    "max_seq_length=2048", "per_device_train_batch_size=1",
+    "gradient_accumulation_steps=2", "max_steps=4", "total_steps=8", "warmup_steps=1",
+    "attention=flash", "activation_checkpointing=false",
+]
+# bf16 outputs, held element by element to |got - ref| <= rtol * |ref| + atol:
+# rounding an fp32 result to bf16 (8 significant bits, to nearest) costs at
+# most 2^-8 of the element's own size; fp32 summation order and expf add
+# ~1e-6 relative, which atol = 2^-8 * rms(ref) covers near zero
+BF16_RTOL = 2.0 ** -8
+# fp32 against fp32 (absolute): products of O(1) values over <= 2048 terms,
+# in another summation order, and expf / logf against torch's
+FP32_TOL = 1e-4
+# planted faults: how many keys (or queries) the kernels are made to miss
+PLANT_CUT = 64
+# the trainer, step 1 again on the same params and batch. In bf16 (the
+# slice's compute dtype) any two implementations differ by more than their
+# attention does: one rounding flip cascades through the bf16 GEMMs until
+# every activation carries ~2^-8 relative noise, which moves per-token losses
+# by up to ~5e-2 (measured on an H100 against exact attention computed in
+# fp32 inside the bf16 model; 8.9e-2 against the bf16 exact path). So in
+# bf16 only the step's mean loss is held to the exact path ...
+STEP_LOSS_TOL = 2e-3
+# ... and per-token losses and gradients are held in fp32 compute (the fp32
+# kernels against exact attention): fp32 summation order only, ~1e-6
+# relative, which the same cascade spreads to ~1e-5 on a loss of 11.2
+TOKEN_LOSS_TOL = 1e-3  # max over the step's 4096 tokens of |loss_flash - loss_exact|
+GRAD_REL_TOL = 1e-3    # ||g_flash - g_exact|| / ||g_exact|| over all parameters
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Median device time of one call, by CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def tolerance(ref, fp32: bool) -> tuple[float, float]:
+    """(rtol, atol) of an output held to |got - ref| <= rtol * |ref| + atol."""
+    if fp32:
+        return 0.0, FP32_TOL
+    return BF16_RTOL, BF16_RTOL * ref.float().square().mean().sqrt().item()
+
+
+def reading(got, ref, rtol: float, atol: float) -> tuple[float, float]:
+    """(max |got - ref|, max over elements of |got - ref| / their limit)."""
+    diff = (got.float() - ref.float()).abs()
+    ratio = diff / (rtol * ref.float().abs() + atol)
+    return diff.max().item(), ratio.max().item()
+
+
+def check(name: str, got, ref, tol: tuple[float, float]) -> float:
+    err, ratio = reading(got, ref, *tol)
+    log(f"  {name}: max_abs_err {err:.3e}, worst err / limit {ratio:.3f} "
+        f"(limit {tol[0]:.4g} x |ref| + {tol[1]:.3e})")
+    if not math.isfinite(ratio) or ratio > 1.0:
+        raise AssertionError(f"{name}: an element is {ratio} times its limit")
+    return err
+
+
+def expect_rejected(name: str, got, ref, tol: tuple[float, float]) -> None:
+    err, ratio = reading(got, ref, *tol)
+    log(f"  planted {name}: max_abs_err {err:.3e}, worst err / limit {ratio:.1f} "
+        f"(must exceed 1)")
+    if not ratio > 1.0:
+        raise AssertionError(f"the check of {name} passes a planted fault "
+                             f"(worst err / limit {ratio})")
+
+
+def phase_build() -> None:
+    from llama_pipeline_parallel_tpu_torch.ops import kernel_build
+
+    sources = sorted(f[:-3] for f in os.listdir(kernel_build.CSRC_DIR) if f.endswith(".cu"))
+    t0 = time.perf_counter()
+    reports = kernel_build.build(sources)
+    log(f"[build] {sources} built in {time.perf_counter() - t0:.1f} s "
+        f"({'compiled' if reports else 'already built'})")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    log(f"[build] card: {card_line()}")
+
+
+def make_inputs(b, h, h_kv, s, hd, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    return (randn(b, h, s, hd), randn(b, h_kv, s, hd), randn(b, h_kv, s, hd),
+            randn(b, h, s, hd))
+
+
+def kernel_case(fa, q, k, v, do, kw, fp32: bool, plant: bool = False) -> dict:
+    """Run the three kernels on (q, k, v, do) and hold each against its plain
+    version in fp32 on the same inputs (the bwd ones given the same lse and
+    delta). Returns {kernel: max_abs_err}.
+
+    With `plant`, the same check must reject each kernel made wrong in the last
+    tiles only: forward and dq run on K/V without the last PLANT_CUT keys (the
+    last q block loses its diagonal tile), dk/dv on q, dO, lse and delta
+    without the last PLANT_CUT queries (the last kv tile gets nothing)."""
+    group = q.shape[1] // k.shape[1]
+    k_full = k.repeat_interleave(group, dim=1).contiguous()
+    v_full = v.repeat_interleave(group, dim=1).contiguous()
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    kf32, vf32 = k_full.float(), v_full.float()
+
+    out, lse = fa._fwd_cuda(q, k, v, **kw)
+    ref_out, ref_lse = fa._fwd_plain(q32, k32, v32, **kw)
+    delta = (do32 * ref_out).sum(dim=-1, keepdim=True)
+    dq = fa._bwd_dq_cuda(q, k_full, v_full, delta, ref_lse, do, **kw)
+    dk, dv = fa._bwd_dkv_cuda(q, k_full, v_full, delta, ref_lse, do, **kw)
+    ref_dq = fa._bwd_dq_plain(q32, kf32, vf32, delta, ref_lse, do32, **kw)
+    ref_dk, ref_dv = fa._bwd_dkv_plain(q32, kf32, vf32, delta, ref_lse, do32, **kw)
+
+    tol = {name: tolerance(ref, fp32) for name, ref in
+           (("out", ref_out), ("dq", ref_dq), ("dk", ref_dk), ("dv", ref_dv))}
+    empty = int((ref_lse <= fa.NEG_INF / 2).sum())
+    log(f"  rows that see no key: {empty}")
+    errs = {
+        "fwd": max(check("fwd out", out, ref_out, tol["out"]),
+                   check("fwd lse", lse, ref_lse, (0.0, FP32_TOL))),
+        "dq": check("dq", dq, ref_dq, tol["dq"]),
+        "dkv": max(check("dk", dk, ref_dk, tol["dk"]), check("dv", dv, ref_dv, tol["dv"])),
+    }
+    if plant:
+        def cut(t):
+            return t[:, :, :-PLANT_CUT].contiguous()
+
+        expect_rejected("fwd out (last keys hidden)",
+                        fa._fwd_cuda(q, cut(k), cut(v), **kw)[0], ref_out, tol["out"])
+        expect_rejected("dq (last keys hidden)", fa._bwd_dq_cuda(
+            q, cut(k_full), cut(v_full), delta, ref_lse, do, **kw), ref_dq, tol["dq"])
+        dk_bad, dv_bad = fa._bwd_dkv_cuda(cut(q), k_full, v_full, cut(delta), cut(ref_lse),
+                                          cut(do), **kw)
+        expect_rejected("dk (last queries hidden)", dk_bad, ref_dk, tol["dk"])
+        expect_rejected("dv (last queries hidden)", dv_bad, ref_dv, tol["dv"])
+    return errs
+
+
+def causal_pairs(b, h, s) -> int:
+    return b * h * s * (s + 1) // 2
+
+
+def bounds(b, h, s, hd, elem_bytes) -> dict:
+    """Least time of each kernel on the card: the larger of its bytes (each
+    input read once, each output written once) over the memory rate and its
+    operations (the causal pairs this run needs) over the bf16 peak."""
+    tensor = b * h * s * hd * elem_bytes
+    rows = b * h * s * 4
+    pairs = causal_pairs(b, h, s)
+    work = {  # (bytes moved, operations)
+        "fwd": (4 * tensor + rows, 2 * 2 * hd * pairs),                # q k v in, out + lse
+        "dq": (5 * tensor + 2 * rows, 3 * 2 * hd * pairs),             # q k v dO lse delta, dq
+        "dkv": (6 * tensor + 2 * rows, 4 * 2 * hd * pairs),            # ..., dk dv
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
+        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+    return out
+
+
+def phase_kernels() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[kernels] TF32 off (torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False)")
+
+    c = SMALL
+    log(f"[kernels] small case fp32 GQA {c['h']}:{c['h_kv']} s={c['s']} segments, "
+        f"q_offset={c['q_offset']} kv_offset={c['kv_offset']} (tol {FP32_TOL})")
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["hd"], torch.float32, 1)
+    seg = torch.zeros((c["b"], c["s"]), dtype=torch.int32, device="cuda")
+    seg[0, :100], seg[0, 100:200] = 1, 2           # two segments, then a pad tail
+    seg[1, :30], seg[1, 30:160], seg[1, 160:] = 3, 4, 5
+    kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=c["q_offset"],
+              kv_offset=c["kv_offset"], segments_q=seg, segments_kv=seg)
+    kernel_case(fa, q, k, v, do, kw, fp32=True)
+
+    c = SLICE
+    log(f"[kernels] slice shape b={c['b']} h={c['h']} s={c['s']} hd={c['hd']} bf16 causal "
+        f"vs the plain version in fp32")
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["hd"], torch.bfloat16, 0)
+    kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=0, kv_offset=0,
+              segments_q=None, segments_kv=None)
+    errs = kernel_case(fa, q, k, v, do, kw, fp32=False, plant=True)
+
+    out, lse = fa._fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    bwd_args = (q, k, v, delta, lse, do)
+    timings = {
+        "fwd": (cuda_ms(lambda: fa._fwd_cuda(q, k, v, **kw)),
+                cuda_ms(lambda: fa._fwd_plain(q, k, v, **kw))),
+        "dq": (cuda_ms(lambda: fa._bwd_dq_cuda(*bwd_args, **kw)),
+               cuda_ms(lambda: fa._bwd_dq_plain(*bwd_args, **kw))),
+        "dkv": (cuda_ms(lambda: fa._bwd_dkv_cuda(*bwd_args, **kw)),
+                cuda_ms(lambda: fa._bwd_dkv_plain(*bwd_args, **kw))),
+    }
+    # yardstick only: one PyTorch call computing the same forward
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    sdpa_both = cuda_ms(sdpa_fwd_bwd)
+    log(f"[kernels] yardstick F.scaled_dot_product_attention: fwd {sdpa_fwd:.4f} ms, "
+        f"fwd+bwd {sdpa_both:.4f} ms")
+
+    bound = bounds(c["b"], c["h"], c["s"], c["hd"], 2)
+    source = "llama_pipeline_parallel_tpu_torch/csrc/flash_attention.cu"
+    replaces = {"fwd": "llama_pipeline_parallel_tpu/ops/flash_attention.py:194",
+                "dq": "llama_pipeline_parallel_tpu/ops/flash_attention.py:343",
+                "dkv": "llama_pipeline_parallel_tpu/ops/flash_attention.py:364"}
+    names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
+    rows = {}
+    for key in ("fwd", "dq", "dkv"):
+        ms, plain_ms = timings[key]
+        rows[key] = {"name": names[key], "route": "cuda", "source": source,
+                     "replaces": replaces[key], "launches": None,
+                     "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                     **bound[key], "library_ms": sdpa_fwd if key == "fwd" else None}
+        log(f"  {names[key]}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
+    return rows
+
+
+def phase_trainer() -> dict:
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.train import build_model_config, run_training
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    cfg = load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/flash"])
+    layers = cfg["model"]["num_hidden_layers"]
+    expected = layers * cfg["gradient_accumulation_steps"] * cfg["max_steps"]
+    log(f"[trainer] {config} {' '.join(TRAIN_OVERRIDES)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    summary = run_training(cfg, device="cuda")
+    launches = dict(fa.launch_counts)
+    losses = summary["losses"]
+    step_ms = 1e3 * statistics.median(summary["step_times"][1:])
+    log(f"[trainer] losses {losses}")
+    log(f"[trainer] step {step_ms:.1f} ms (median of steps 2-{len(losses)}), "
+        f"{summary['tokens_per_step'] / step_ms * 1e3:.0f} tokens/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"kernel launches {launches} (expected {expected} each)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"launch counts {launches}, expected {expected} each "
+                             f"({layers} layers x microbatches x steps)")
+    # at init the logits are about normal with variance 0.02^2 * d (lm_head
+    # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
+    mcfg = build_model_config(cfg["model"])
+    expected_loss = math.log(mcfg.vocab_size) + 0.02 ** 2 * mcfg.hidden_size / 2
+    if abs(losses[0] - expected_loss) > 0.1:
+        raise AssertionError(f"first loss {losses[0]} far from {expected_loss:.3f}, "
+                             f"the expectation at random init")
+    del summary
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    attention_parity(config, out_dir, losses[0])
+    return launches
+
+
+def attention_parity(config: str, out_dir: str, run_loss: float) -> None:
+    """Step 1 of the slice again, on the params and batch the trainer's run
+    started from (build_run, same seed), with flash and with exact attention:
+    in bf16 the step loss; in fp32 compute the per-token losses and the
+    gradients, which attention decides (the mean loss at random init barely
+    depends on it). A planted fault -- flash attention that hides the last
+    PLANT_CUT keys, so the last q block loses its diagonal tile -- must fail
+    the per-token check."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.ops.attention import attention
+    from llama_pipeline_parallel_tpu_torch.ops.flash_attention import flash_attention
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import shift_labels
+    from llama_pipeline_parallel_tpu_torch.train import build_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/parity"]),
+                    "cuda")
+    batch = next(run.batches())
+    params = run.state.params
+    targets = shift_labels(batch["labels"])
+    count = (targets != llama.IGNORE_INDEX).sum()
+    mb = targets.shape[0] // run.num_microbatches
+
+    def step_one(attn_fn, mcfg, grad: bool):
+        """Per-token losses of step 1 ([tokens] fp32) and, with `grad`, the
+        gradients of the step's mean loss."""
+        for p in params.values():
+            p.grad = None
+        losses = []
+        for i in range(run.num_microbatches):
+            rows = slice(i * mb, (i + 1) * mb)
+            with torch.set_grad_enabled(grad):
+                logits = llama.forward(params, batch["input_ids"][rows],
+                                       batch["attention_mask"][rows],
+                                       batch["position_ids"][rows], cfg=mcfg,
+                                       attn_fn=attn_fn)
+                tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                      targets[rows].reshape(-1).long(),
+                                      ignore_index=llama.IGNORE_INDEX, reduction="none")
+                if grad:
+                    (tok.sum() / count).backward()
+            losses.append(tok.detach())
+            del logits
+        grads = {k: p.grad for k, p in params.items()} if grad else None
+        return torch.cat(losses), grads
+
+    def mean(tok) -> float:
+        return tok.sum().item() / count.item()
+
+    bf16 = run.model_cfg
+    flash_bf16, _ = step_one(run.attn_fn, bf16, grad=False)
+    exact_bf16, _ = step_one(attention, bf16, grad=False)
+    step_diff = abs(mean(flash_bf16) - mean(exact_bf16))
+    run_diff = abs(mean(flash_bf16) - run_loss)
+
+    fp32 = dataclasses.replace(bf16, dtype=torch.float32)
+    flash_tok, flash_grads = step_one(run.attn_fn, fp32, grad=True)
+    flash_grads = {k: g.clone() for k, g in flash_grads.items()}
+    exact_tok, exact_grads = step_one(attention, fp32, grad=True)
+    tok_diff = (flash_tok - exact_tok).abs().max().item()
+    sq_diff = sum((flash_grads[k] - g).square().sum() for k, g in exact_grads.items())
+    sq_ref = sum(g.square().sum() for g in exact_grads.values())
+    grad_rel = (sq_diff / sq_ref).sqrt().item()
+    del flash_grads, exact_grads
+    log(f"[trainer] step 1 on the same params and batch, flash vs exact attention: bf16 "
+        f"step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}; per-token max |diff| "
+        f"{(flash_bf16 - exact_bf16).abs().max().item():.3e}, not held); fp32 per-token "
+        f"loss max |diff| {tok_diff:.3e} (tol {TOKEN_LOSS_TOL}), gradient rel diff "
+        f"{grad_rel:.3e} (tol {GRAD_REL_TOL}); this step's bf16 flash loss vs the "
+        f"run's first: {run_diff:.2e}")
+    if not step_diff <= STEP_LOSS_TOL:
+        raise AssertionError(f"flash vs exact step loss differ by {step_diff}")
+    if not tok_diff <= TOKEN_LOSS_TOL:
+        raise AssertionError(f"flash vs exact per-token losses differ by {tok_diff}")
+    if not grad_rel <= GRAD_REL_TOL:
+        raise AssertionError(f"flash vs exact gradients differ by {grad_rel} (relative)")
+    # the same params and batch as the run (a different batch moves it ~3e-2)
+    if not run_diff <= 1e-4:
+        raise AssertionError(f"step 1 recomputed gives loss {run_diff} off the run's")
+
+    def hide_last_keys(q, k, v, padding_mask=None, *, causal=True):
+        return flash_attention(q, k[:, :-PLANT_CUT], v[:, :-PLANT_CUT], None, causal=causal)
+
+    bad_tok, _ = step_one(hide_last_keys, fp32, grad=False)
+    bad_diff = (bad_tok - exact_tok).abs().max().item()
+    log(f"[trainer] planted fault (last {PLANT_CUT} keys hidden), fp32: per-token loss "
+        f"max |diff| {bad_diff:.3e}, step loss |diff| {abs(mean(bad_tok) - mean(exact_tok)):.3e}")
+    if not bad_diff > TOKEN_LOSS_TOL:
+        raise AssertionError(f"the per-token check passes a planted fault ({bad_diff})")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA "
+              "card", file=sys.stderr)
+        return 2
+    try:
+        import llama_pipeline_parallel_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout of the repository ({e})",
+              file=sys.stderr)
+        return 2
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    phase_build()
+    rows = phase_kernels()
+    launches = phase_trainer()
+    for key, row in rows.items():
+        row["launches"] = launches[key]
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

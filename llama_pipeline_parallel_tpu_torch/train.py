@@ -1,0 +1,294 @@
+"""The trainer: config -> model -> data -> step loop, on one device.
+
+The counterpart of llama_pipeline_parallel_tpu/train.py for a single device
+(pp = dp = tp = sp = 1): the same config keys, the same synthetic data for
+the same seed, the same schedule-total rules and the same metrics line keys
+where they apply. Checkpointing, resume, evaluation, the observatories,
+fault injection and preemption handling are not ported yet; a config that
+asks for a layout or feature this trainer does not have is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from llama_pipeline_parallel_tpu_torch.data.collator import PretokenizedCollator
+from llama_pipeline_parallel_tpu_torch.data.datasets import SyntheticDataset
+from llama_pipeline_parallel_tpu_torch.data.loader import DataLoader, RepeatingLoader
+from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
+from llama_pipeline_parallel_tpu_torch.models.llama.model import (
+    LlamaForCausalLM,
+    init_params,
+)
+from llama_pipeline_parallel_tpu_torch.ops.attention import attention
+from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
+    flash_attention,
+)
+from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig
+from llama_pipeline_parallel_tpu_torch.parallel.train_step import TrainState, train_step
+from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
+from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
+from llama_pipeline_parallel_tpu_torch.utils.metrics import (
+    MetricsWriter,
+    peak_flops,
+    train_flops_per_token,
+)
+
+logger = get_logger(__name__)
+
+_PRESETS = {
+    "tiny": LlamaConfig.tiny,
+    "llama_7b": LlamaConfig.llama_7b,
+    "llama_13b": LlamaConfig.llama_13b,
+    "llama_33b": LlamaConfig.llama_33b,
+    "llama_65b": LlamaConfig.llama_65b,
+    "llama2_7b": LlamaConfig.llama2_7b,
+    "llama2_13b": LlamaConfig.llama2_13b,
+    "llama2_70b": LlamaConfig.llama2_70b,
+    "codellama_34b_16k": LlamaConfig.codellama_34b_16k,
+}
+
+# config keys that name features of the JAX trainer this one does not have yet
+_NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "model_name_or_path",
+               "eval_dataset", "fault_plan", "profile_steps")
+
+
+def build_model_config(node: dict) -> LlamaConfig:
+    node = dict(node)
+    if "_target_" in node:
+        return instantiate(node)
+    preset = node.pop("preset", None)
+    for key in ("dtype", "param_dtype"):
+        if isinstance(node.get(key), str):
+            node[key] = getattr(torch, node[key])
+    if preset is not None:
+        return _PRESETS[preset](**node)
+    return LlamaConfig(**node)
+
+
+def build_dataset_and_collator(cfg: dict, model_cfg: LlamaConfig) -> tuple[Any, Any]:
+    data_cfg = cfg.get("dataset")
+    if data_cfg is not None and not data_cfg.get("synthetic"):
+        raise NotImplementedError(
+            "only the synthetic dataset is ported; tokenizer-backed datasets "
+            "and their collators come with a later slice")
+    if int(cfg.get("packing_factor", 1) or 1) > 1:
+        raise ValueError("packing_factor requires a tokenizer-backed dataset (the "
+                         "synthetic dataset emits fixed full-length rows)")
+    seq = (data_cfg or {}).get("seq_length", cfg.get("max_seq_length", 512))
+    ds = SyntheticDataset(
+        vocab_size=model_cfg.vocab_size, seq_length=seq,
+        pseudo_dataset_len=(data_cfg or {}).get("pseudo_dataset_len", 4096),
+        seed=cfg.get("seed", 42),
+        pad_fraction=(data_cfg or {}).get("pad_fraction", 0.0))
+    return ds, PretokenizedCollator()
+
+
+def _flash_without_mask(q, k, v, padding_mask=None, *, causal=True):
+    """flash_attention minus the segment-id stream: for unpacked right-padded
+    batches the segment test is a documented no-op."""
+    return flash_attention(q, k, v, None, causal=causal)
+
+
+def _measure_attention(model_cfg: LlamaConfig, seq_len: int, micro_batch: int,
+                       device: torch.device) -> Any:
+    """Time exact vs flash (fwd+bwd, bf16, device-synchronised) at the run's
+    (microbatch, seq) shape on the card and return the faster."""
+    rng = np.random.RandomState(0)
+    h, hkv, hd = model_cfg.num_attention_heads, model_cfg.kv_heads, model_cfg.head_dim
+    b = max(int(micro_batch), 1)
+
+    def rand(heads):
+        return torch.from_numpy(rng.randn(b, seq_len, heads, hd).astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16).requires_grad_()
+
+    q, k, v = rand(h), rand(hkv), rand(hkv)
+
+    def time_one(fn):
+        def run():
+            out = fn(q, k, v, None, causal=True)
+            out.float().square().sum().backward()
+        run()  # warm-up (and the kernels' build on first use)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) / 3
+
+    t_exact, t_flash = time_one(attention), time_one(flash_attention)
+    logger.info("attention=auto @ batch %d seq %d: exact %.2fms, flash %.2fms",
+                b, seq_len, 1e3 * t_exact, 1e3 * t_flash)
+    return _flash_without_mask if t_flash < t_exact else attention
+
+
+def select_attention(impl: str, seq_length: int, device: torch.device,
+                     model_cfg: LlamaConfig | None = None, micro_batch: int = 1) -> Any:
+    """'exact' | 'flash' | 'auto'. `auto` (needs `model_cfg`) measures both
+    paths on the card at the run's (microbatch, seq) shape and keeps the
+    faster; off the card it takes the exact path (the flash kernels' plain
+    version is slower there). Flash runs drop the segment-id stream
+    (`_flash_without_mask`): batches are unpacked and right-padded."""
+    if impl == "exact":
+        return attention
+    if impl == "flash":
+        return _flash_without_mask
+    if impl == "auto":
+        if device.type != "cuda":
+            return attention
+        if model_cfg is None:
+            raise ValueError("attention=auto measures at the model's shape: pass model_cfg")
+        if model_cfg.head_dim not in KERNEL_HEAD_DIMS:
+            logger.warning("attention=auto: head_dim %d has no flash kernel; using "
+                           "the exact path", model_cfg.head_dim)
+            return attention
+        return _measure_attention(model_cfg, seq_length, micro_batch, device)
+    raise ValueError(f"unknown attention impl {impl!r} (use exact|flash|auto)")
+
+
+def _check_supported(cfg: dict) -> None:
+    mesh = cfg.get("mesh") or {}
+    layout = {ax: int(mesh.get(ax, 1)) for ax in ("pp", "dp", "tp", "sp")}
+    if any(n != 1 for n in layout.values()):
+        raise NotImplementedError(
+            f"this trainer runs on one device (pp=dp=tp=sp=1); got {layout}. "
+            f"Pipeline, data, tensor and sequence parallelism come with later slices")
+    kernels = cfg.get("kernels") or {}
+    if any(v != "xla" for v in kernels.values()):
+        raise NotImplementedError(f"kernels.* = {kernels}: the CE and prologue "
+                                  f"kernels are not ported yet")
+    asked = [key for key in _NOT_PORTED if cfg.get(key)]
+    if asked:
+        raise NotImplementedError(f"not ported yet: {asked}")
+
+
+@dataclasses.dataclass
+class Run:
+    """A configured training run on one device: what `run_training` loops
+    over, and what tools/torch_step_profile.py profiles."""
+
+    device: torch.device
+    model_cfg: LlamaConfig
+    loader: DataLoader
+    state: TrainState
+    attn_fn: Any
+    num_microbatches: int
+    remat: bool
+    seq_length: int
+    end_step: int
+
+    def batches(self) -> Iterator[dict[str, torch.Tensor]]:
+        for batch in RepeatingLoader(self.loader):
+            yield {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+
+    def step(self, batch: dict[str, torch.Tensor]) -> dict:
+        return train_step(self.state, batch, self.model_cfg,
+                          num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
+                          remat=self.remat)
+
+
+def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
+    """Model, optimizer, data and attention for `cfg` on `device` (the card
+    unless the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device=cuda but torch.cuda.is_available() is false; pass "
+                           "device='cpu' (--device cpu) to run on the CPU")
+    _check_supported(cfg)
+    seed = cfg.get("seed", 42)
+    model_cfg = build_model_config(cfg["model"])
+    dataset, collator = build_dataset_and_collator(cfg, model_cfg)
+    micro_batch = cfg.get("per_device_train_batch_size", 1)
+    num_microbatches = cfg.get("gradient_accumulation_steps", 1)
+    loader = DataLoader(dataset, collator, per_replica_batch=micro_batch * num_microbatches,
+                        seed=seed)
+    steps_per_epoch = len(loader)
+    if steps_per_epoch == 0:
+        raise ValueError(f"dataset of {len(dataset)} examples yields 0 steps at "
+                         f"batch {micro_batch * num_microbatches}")
+
+    # `total_steps` (schedule horizon) is separate from `max_steps` (loop end)
+    epochs = cfg.get("num_train_epochs", 1)
+    t_total = cfg.get("total_steps") or cfg.get("max_steps") or steps_per_epoch * epochs
+    end_step = min(cfg.get("max_steps") or t_total, t_total)
+    warmup = cfg.get("warmup_steps")
+    if warmup is None:
+        warmup = max(int(t_total * cfg.get("warmup_proportion", 0.0)), 1)
+    ocfg = OptimizerConfig(
+        learning_rate=cfg.get("learning_rate", 1e-6),
+        weight_decay=cfg.get("weight_decay", 0.001),
+        beta1=cfg.get("adam_beta1", 0.9), beta2=cfg.get("adam_beta2", 0.99),
+        eps=cfg.get("adam_eps", 1e-8),
+        max_grad_norm=cfg.get("max_grad_norm", 5.0),
+        total_steps=t_total, warmup_steps=warmup)
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    model = LlamaForCausalLM(model_cfg, init_params(model_cfg, device=device,
+                                                    generator=generator))
+    params = model.params()
+    seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
+    return Run(device=device, model_cfg=model_cfg, loader=loader,
+               state=TrainState(step=0, params=params, optimizer=AdamW(params, ocfg)),
+               attn_fn=select_attention(cfg.get("attention", "auto"), seq_length, device,
+                                        model_cfg=model_cfg, micro_batch=micro_batch),
+               num_microbatches=num_microbatches,
+               remat=cfg.get("activation_checkpointing", True),
+               seq_length=seq_length, end_step=end_step)
+
+
+def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:
+    """The training run; returns a summary dict for programmatic callers.
+    Runs on `device` (the card unless the caller asks for the CPU)."""
+    run = build_run(cfg, device)
+    device = run.device
+    if cfg.get("save_steps") or cfg.get("save_final", True):
+        logger.warning("checkpointing is not ported yet: save_steps / save_final "
+                       "write nothing")
+    logging_steps = cfg.get("logging_steps", 10)
+    peak = peak_flops(device)
+    flops_per_token = train_flops_per_token(run.model_cfg, run.seq_length)
+
+    def peak_bytes():
+        return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+    writer = MetricsWriter(cfg["output_dir"], config_snapshot=cfg)
+    batches = run.batches()
+    losses, step_times, window = [], [], []
+    tokens_per_step = 0
+    try:
+        for step in range(run.end_step):
+            batch = next(batches)
+            tokens_per_step = batch["input_ids"].numel()
+            t0 = time.perf_counter()
+            metrics = run.step(batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            step_times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            window.append(step)
+            if (step + 1) % logging_steps == 0 or step + 1 == run.end_step:
+                secs = sum(step_times[s] for s in window)
+                tps = tokens_per_step * len(window) / max(secs, 1e-9)
+                scalars = {"loss": float(np.mean([losses[s] for s in window])),
+                           "lr": metrics["lr"],
+                           "grad_norm": float(metrics["grad_norm"]),
+                           "tokens_per_sec": tps, "tokens_per_sec_per_chip": tps,
+                           "step_time": secs / len(window),
+                           "device_peak_bytes": peak_bytes()}
+                if peak:
+                    scalars["mfu"] = flops_per_token * tps / peak
+                writer.log(step + 1, scalars)
+                window.clear()
+    finally:
+        writer.close()
+    return {"final_step": run.end_step,
+            "final_loss": losses[-1] if losses else float("nan"),
+            "steps_per_epoch": len(run.loader), "output_dir": cfg["output_dir"],
+            "losses": losses, "step_times": step_times,
+            "tokens_per_step": tokens_per_step, "peak_memory_bytes": peak_bytes()}

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Where the time of one training step of the PyTorch/CUDA port goes, on the card.
+
+    python tools/torch_step_profile.py [--config conf/llama_7b_pp4.yaml]
+        [--steps 3] [key=value ...]
+
+Builds the run as `run_training` does (`build_run`; defaults: the single-card
+LLaMA-7B-width slice, chip_smoke.TRAIN_OVERRIDES), takes one warm-up step, then profiles
+`--steps` steps with torch.profiler (CPU + CUDA activities). Prints, per step:
+the wall time (host clock around synchronised steps), device busy time (sum
+of kernel times; the port runs one stream) and idle share, device time by
+kernel family (the port's flash kernels, cuBLAS GEMMs, other PyTorch kernels,
+copies), the fifteen costliest kernels, and one JSON line with the same numbers.
+Prints the card's name and power limit beside them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
+
+FAMILIES = (  # (family, substrings of kernel names), first match wins
+    ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
+    ("copy", ("Memcpy", "Memset", "copy_")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other_pytorch"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", default=os.path.join(ROOT, "conf", "llama_7b_pp4.yaml"))
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("overrides", nargs="*")
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_step_profile: needs a CUDA device", file=sys.stderr)
+        return 2
+    from llama_pipeline_parallel_tpu_torch.train import build_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    run = build_run(load_config(args.config, TRAIN_OVERRIDES + args.overrides), "cuda")
+    batches = run.batches()
+
+    def step():
+        run.step(next(batches))
+        torch.cuda.synchronize()
+
+    step()  # warm-up: kernel build / load, cuBLAS handles, allocator
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        wall = (time.perf_counter() - t0) / args.steps
+    kernels = {}  # device-side events only: an op's own row would count its kernels twice
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total / 1e3 / args.steps
+    if not kernels:
+        print("torch_step_profile: the trace holds no device time", file=sys.stderr)
+        return 1
+    by_family = {}
+    for name, ms in kernels.items():
+        by_family[family(name)] = by_family.get(family(name), 0.0) + ms
+    busy = sum(kernels.values())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    print(f"per step ({args.steps} steps profiled): wall {1e3 * wall:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle share {1 - busy / (1e3 * wall):.4f}")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:16s} {ms:9.3f} ms  ({ms / busy:.1%} of busy)")
+    print("top kernels (ms per step):")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {ms:9.3f}  {name[:110]}")
+    print(json.dumps({"card": card, "steps": args.steps, "wall_ms": 1e3 * wall,
+                      "busy_ms": busy, "idle_share": 1 - busy / (1e3 * wall),
+                      "family_ms": by_family}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
