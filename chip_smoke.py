@@ -17,12 +17,27 @@ which raises on failure:
               check must also reject planted faults confined to the last
               tiles. Times each kernel, its plain version and, as a yardstick
               the port never calls, F.scaled_dot_product_attention.
-3. trainer -- `run_training` on conf/llama_7b_pp4.yaml at LLaMA-7B width, cut
-              to 4 layers, seq 2048, 2 microbatches, 4 steps, attention=flash:
-              every loss finite, exactly layers x microbatches x steps launches
-              of each kernel. Then step 1 again on the same params and batch
-              with flash and with exact attention: per-token losses and
-              gradients agree, and a planted attention fault is rejected.
+3. ce      -- each fused CE kernel (forward lse + target logit, dh, dW)
+              against its plain PyTorch version on the same inputs, element
+              by element: at the training step's head shape (2048 tokens,
+              width 4096, vocab 32000, bf16) with 4 vocab chunks and with 1,
+              against the plain version in fp32, and in a small fp32 case
+              ragged to every tile; targets on chunk edges, in the last vocab
+              tile and ignored. The same check must reject planted faults: the
+              kernels on W without its last vocab columns (forward, dh) or on
+              the tokens without the last ones (dW). Times each kernel, the
+              dh + dW pair, its plain version and, as yardsticks the port never
+              calls, cuBLAS h @ W, g @ W^T and h^T @ g.
+4. trainer -- `run_training` on conf/llama_7b_pp4.yaml at LLaMA-7B width, cut
+              to 4 layers, seq 2048, 2 microbatches, 4 steps, attention=flash,
+              kernels.ce=pallas, loss_vocab_chunks=4: every loss finite,
+              exactly layers x microbatches x steps launches of each flash
+              kernel and microbatches x steps of each CE kernel. Then step 1
+              again on the same params and batch with flash and with exact
+              attention: per-token losses and gradients agree, and a planted
+              attention fault is rejected; and with the CE kernel head and the
+              dense head: step losses and gradients agree, and a planted CE
+              fault is rejected.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -54,8 +69,13 @@ TRAIN_OVERRIDES = [
     "mesh.pp=1", "mesh.dp=1", "model.num_hidden_layers=4", "dataset.seq_length=2048",
     "max_seq_length=2048", "per_device_train_batch_size=1",
     "gradient_accumulation_steps=2", "max_steps=4", "total_steps=8", "warmup_steps=1",
-    "attention=flash", "activation_checkpointing=false",
+    "attention=flash", "activation_checkpointing=false", "kernels.ce=pallas",
+    "loss_vocab_chunks=4",
 ]
+# the fused CE head: the step's shape (tokens of one microbatch, width,
+# vocab) and a small case ragged to every kernel tile (128 x 128 x 16)
+CE_SLICE = dict(n=2048, d=4096, v=32000)
+CE_SMALL = dict(n=300, d=200, v=1000, chunks=4)
 # bf16 outputs, held element by element to |got - ref| <= rtol * |ref| + atol:
 # rounding an fp32 result to bf16 (8 significant bits, to nearest) costs at
 # most 2^-8 of the element's own size; fp32 summation order and expf add
@@ -79,6 +99,11 @@ STEP_LOSS_TOL = 2e-3
 # relative, which the same cascade spreads to ~1e-5 on a loss of 11.2
 TOKEN_LOSS_TOL = 1e-3  # max over the step's 4096 tokens of |loss_flash - loss_exact|
 GRAD_REL_TOL = 1e-3    # ||g_flash - g_exact|| / ||g_exact|| over all parameters
+# the CE kernel head against the dense head, fp32 compute: the same loss up to
+# fp32 summation order (~1e-6 relative on a loss of 11.2); gradients within
+# GRAD_REL_TOL. Step 1 recomputed on the run's path must repeat the run's loss.
+CE_STEP_LOSS_FP32_TOL = 1e-4
+RUN_REPEAT_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -312,12 +337,151 @@ def phase_kernels() -> dict:
     return rows
 
 
+def ce_inputs(n, d, v, dtype, seed, w_scale):
+    """h [n, d], w [d, V] in `dtype`; int32 safe targets with some tokens
+    ignored and targets on every 4-chunk edge and in the last PLANT_CUT vocab
+    columns; svec = valid * 0.37 (a cotangent that is not 1)."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(n, d, generator=g, device="cuda").to(dtype)
+    w = (w_scale * torch.randn(d, v, generator=g, device="cuda")).to(dtype)
+    t = torch.randint(0, v, (n,), generator=g, device="cuda")
+    vc = v // 4
+    edges = [0, vc - 1, vc, 2 * vc - 1, 2 * vc, 3 * vc - 1, 3 * vc, v - PLANT_CUT, v - 2, v - 1]
+    t[:len(edges)] = torch.tensor(edges, device="cuda")
+    t[len(edges)::37] = fc.IGNORE_INDEX
+    valid = t != fc.IGNORE_INDEX
+    safe_t = torch.where(valid, t, 0).to(torch.int32)
+    return h, w, safe_t, valid.float() * 0.37
+
+
+def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, plant: bool = False) -> dict:
+    """Run the three CE kernels and hold each against its plain version in
+    fp32 on the same inputs (the backward ones given the same lse, with g
+    rounded to the inputs' dtype as the kernels round it). Returns
+    {kernel: max_abs_err}.
+
+    With `plant`, the same check must reject each kernel made wrong at the
+    edge only: forward and dh on W without its last PLANT_CUT vocab columns
+    (the tokens whose target lay there lose it), dW on the tokens without
+    the last PLANT_CUT."""
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+
+    hf, wf = h.float(), w.float()
+    lse, tgt = fc._fwd_stats_cuda(h, w, safe_t, chunks)
+    ref_lse, ref_tgt = fc._fwd_stats_plain(hf, wf, safe_t, chunks)
+    dh, dw = fc._backward_cuda(h, w, safe_t, ref_lse, svec, chunks)
+    ref_dh = fc._dh_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
+    ref_dw = fc._dw_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
+    tol = {"dh": tolerance(ref_dh, fp32), "dw": tolerance(ref_dw, fp32)}
+    errs = {"ce_fwd": max(check("ce lse", lse, ref_lse, (0.0, FP32_TOL)),
+                          check("ce tgt", tgt, ref_tgt, (0.0, FP32_TOL))),
+            "ce_dh": check("ce dh", dh, ref_dh, tol["dh"]),
+            "ce_dw": check("ce dW", dw, ref_dw, tol["dw"])}
+    if plant:
+        cut_w = w[:, :-PLANT_CUT].contiguous()
+        lse_bad, tgt_bad = fc._fwd_stats_cuda(h, cut_w, safe_t, chunks)
+        expect_rejected("ce lse (last vocab columns hidden)", lse_bad, ref_lse, (0.0, FP32_TOL))
+        expect_rejected("ce tgt (last vocab columns hidden)", tgt_bad, ref_tgt, (0.0, FP32_TOL))
+        expect_rejected("ce dh (last vocab columns hidden)",
+                        fc._dh_cuda(h, cut_w, safe_t, ref_lse, svec, chunks), ref_dh, tol["dh"])
+        keep = slice(0, h.shape[0] - PLANT_CUT)
+        expect_rejected("ce dW (last tokens hidden)",
+                        fc._dw_cuda(h[keep], w, safe_t[keep], ref_lse[keep], svec[keep], chunks),
+                        ref_dw, tol["dw"])
+    return errs
+
+
+def ce_bounds(n, d, v, elem_bytes) -> dict:
+    """Least time of each CE kernel (and of the dh + dW pair, which shares
+    one logits recompute) on the card: the larger of its bytes (each input
+    read once, each output written once) over the memory rate and its
+    operations over the bf16 peak. A product is 2 n d V operations: the
+    forward does one; dh and dW, as the TPU kernels define them, a recompute
+    and their own product each; the pair three."""
+    flops = 2 * n * d * v
+    ins = (n * d + d * v) * elem_bytes + 3 * n * 4        # h, W; t, lse, s
+    work = {  # (bytes moved, operations)
+        "ce_fwd": (ins - n * 4 + 2 * n * 4, flops),         # h W t in, lse tgt out
+        "ce_dh": (ins + n * d * 4, 2 * flops),              # dh fp32 out
+        "ce_dw": (ins + d * v * elem_bytes, 2 * flops),     # dW out
+        "pair": (ins + n * d * 4 + d * v * elem_bytes, 3 * flops),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
+        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+    return out
+
+
+def phase_ce() -> dict:
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = CE_SMALL
+    log(f"[ce] small case fp32 n={c['n']} d={c['d']} V={c['v']} chunks={c['chunks']} "
+        f"(ragged to every tile; tol {FP32_TOL})")
+    h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], torch.float32, 2, w_scale=0.3)
+    ce_case(h, w, safe_t, svec, c["chunks"], fp32=True)
+
+    c = CE_SLICE
+    for chunks in (1, 4):
+        log(f"[ce] slice shape n={c['n']} d={c['d']} V={c['v']} bf16, {chunks} vocab "
+            f"chunk(s), vs the plain version in fp32")
+        h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], torch.bfloat16, 3, w_scale=0.02)
+        log(f"  ignored tokens: {int((svec == 0).sum())}")
+        errs = ce_case(h, w, safe_t, svec, chunks, fp32=False, plant=chunks == 4)
+        torch.cuda.empty_cache()
+
+    lse, _ = fc._fwd_stats_cuda(h, w, safe_t, chunks)
+    bwd = (h, w, safe_t, lse, svec, chunks)
+    timings = {
+        "ce_fwd": (cuda_ms(lambda: fc._fwd_stats_cuda(h, w, safe_t, chunks)),
+                   cuda_ms(lambda: fc._fwd_stats_plain(h, w, safe_t, chunks))),
+        "ce_dh": (cuda_ms(lambda: fc._dh_cuda(*bwd)), cuda_ms(lambda: fc._dh_plain(*bwd))),
+        "ce_dw": (cuda_ms(lambda: fc._dw_cuda(*bwd)), cuda_ms(lambda: fc._dw_plain(*bwd))),
+    }
+    pair_ms = cuda_ms(lambda: fc._backward_cuda(*bwd))
+    # yardsticks only: cuBLAS on each product the kernels compute
+    g = torch.randn(c["n"], c["v"], device="cuda").to(torch.bfloat16)
+    library = {"ce_fwd": cuda_ms(lambda: h @ w), "ce_dh": cuda_ms(lambda: g @ w.T),
+               "ce_dw": cuda_ms(lambda: h.T @ g)}
+    del g
+    torch.cuda.empty_cache()
+    bound = ce_bounds(c["n"], c["d"], c["v"], 2)
+    log(f"[ce] yardsticks (cuBLAS bf16): h @ W {library['ce_fwd']:.4f} ms, g @ W^T "
+        f"{library['ce_dh']:.4f} ms, h^T @ g {library['ce_dw']:.4f} ms")
+    log(f"[ce] dh + dW pair (one recompute): {pair_ms:.4f} ms (bound "
+        f"{bound['pair']['bound_ms']:.4f} ms by {bound['pair']['bound_by']})")
+    source = "llama_pipeline_parallel_tpu_torch/csrc/fused_ce.cu"
+    replaces = {"ce_fwd": "llama_pipeline_parallel_tpu/ops/pallas_ce.py:111",
+                "ce_dh": "llama_pipeline_parallel_tpu/ops/pallas_ce.py:222",
+                "ce_dw": "llama_pipeline_parallel_tpu/ops/pallas_ce.py:239"}
+    rows = {}
+    for key in ("ce_fwd", "ce_dh", "ce_dw"):
+        ms, plain_ms = timings[key]
+        rows[key] = {"name": key, "route": "cuda", "source": source,
+                     "replaces": replaces[key], "launches": None, "max_abs_err": errs[key],
+                     "ms": ms, "plain_ms": plain_ms, **bound[key],
+                     "library_ms": library[key]}
+        log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
+    return rows
+
+
 def phase_trainer() -> dict:
     import gc
 
     import torch
 
     from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
     from llama_pipeline_parallel_tpu_torch.train import build_model_config, run_training
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
@@ -325,25 +489,29 @@ def phase_trainer() -> dict:
     config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
     cfg = load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/flash"])
     layers = cfg["model"]["num_hidden_layers"]
-    expected = layers * cfg["gradient_accumulation_steps"] * cfg["max_steps"]
+    microbatches = cfg["gradient_accumulation_steps"] * cfg["max_steps"]
+    expected = {**{key: layers * microbatches for key in fa.launch_counts},
+                **{key: microbatches for key in fc.launch_counts}}
     log(f"[trainer] {config} {' '.join(TRAIN_OVERRIDES)}")
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    fc.reset_launch_counts()
     summary = run_training(cfg, device="cuda")
-    launches = dict(fa.launch_counts)
+    launches = {**fa.launch_counts, **fc.launch_counts}
     losses = summary["losses"]
     step_ms = 1e3 * statistics.median(summary["step_times"][1:])
     log(f"[trainer] losses {losses}")
     log(f"[trainer] step {step_ms:.1f} ms (median of steps 2-{len(losses)}), "
         f"{summary['tokens_per_step'] / step_ms * 1e3:.0f} tokens/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"kernel launches {launches} (expected {expected} each)")
+        f"kernel launches {launches} (expected {expected})")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    if any(n != expected for n in launches.values()):
-        raise AssertionError(f"launch counts {launches}, expected {expected} each "
-                             f"({layers} layers x microbatches x steps)")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected} (flash: "
+                             f"{layers} layers x microbatches x steps; CE: microbatches x "
+                             f"steps)")
     # at init the logits are about normal with variance 0.02^2 * d (lm_head
     # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
     mcfg = build_model_config(cfg["model"])
@@ -355,11 +523,14 @@ def phase_trainer() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    attention_parity(config, out_dir, losses[0])
+    attention_parity(config, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ce_parity(config, out_dir, losses[0])
     return launches
 
 
-def attention_parity(config: str, out_dir: str, run_loss: float) -> None:
+def attention_parity(config: str, out_dir: str) -> None:
     """Step 1 of the slice again, on the params and batch the trainer's run
     started from (build_run, same seed), with flash and with exact attention:
     in bf16 the step loss; in fp32 compute the per-token losses and the
@@ -417,7 +588,6 @@ def attention_parity(config: str, out_dir: str, run_loss: float) -> None:
     flash_bf16, _ = step_one(run.attn_fn, bf16, grad=False)
     exact_bf16, _ = step_one(attention, bf16, grad=False)
     step_diff = abs(mean(flash_bf16) - mean(exact_bf16))
-    run_diff = abs(mean(flash_bf16) - run_loss)
 
     fp32 = dataclasses.replace(bf16, dtype=torch.float32)
     flash_tok, flash_grads = step_one(run.attn_fn, fp32, grad=True)
@@ -432,17 +602,13 @@ def attention_parity(config: str, out_dir: str, run_loss: float) -> None:
         f"step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}; per-token max |diff| "
         f"{(flash_bf16 - exact_bf16).abs().max().item():.3e}, not held); fp32 per-token "
         f"loss max |diff| {tok_diff:.3e} (tol {TOKEN_LOSS_TOL}), gradient rel diff "
-        f"{grad_rel:.3e} (tol {GRAD_REL_TOL}); this step's bf16 flash loss vs the "
-        f"run's first: {run_diff:.2e}")
+        f"{grad_rel:.3e} (tol {GRAD_REL_TOL})")
     if not step_diff <= STEP_LOSS_TOL:
         raise AssertionError(f"flash vs exact step loss differ by {step_diff}")
     if not tok_diff <= TOKEN_LOSS_TOL:
         raise AssertionError(f"flash vs exact per-token losses differ by {tok_diff}")
     if not grad_rel <= GRAD_REL_TOL:
         raise AssertionError(f"flash vs exact gradients differ by {grad_rel} (relative)")
-    # the same params and batch as the run (a different batch moves it ~3e-2)
-    if not run_diff <= 1e-4:
-        raise AssertionError(f"step 1 recomputed gives loss {run_diff} off the run's")
 
     def hide_last_keys(q, k, v, padding_mask=None, *, causal=True):
         return flash_attention(q, k[:, :-PLANT_CUT], v[:, :-PLANT_CUT], None, causal=causal)
@@ -453,6 +619,104 @@ def attention_parity(config: str, out_dir: str, run_loss: float) -> None:
         f"max |diff| {bad_diff:.3e}, step loss |diff| {abs(mean(bad_tok) - mean(exact_tok)):.3e}")
     if not bad_diff > TOKEN_LOSS_TOL:
         raise AssertionError(f"the per-token check passes a planted fault ({bad_diff})")
+
+
+def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
+    """Step 1 of the slice again, on the params and batch the trainer's run
+    started from, with the CE kernel head (the run's) and the dense head
+    (lm_head + cross-entropy on fp32 logits): in bf16 the step loss, which
+    must also repeat the run's first loss; in fp32 compute the step loss and
+    the gradients, where only summation order separates the heads. A planted
+    fault -- the kernel head on W without its last PLANT_CUT vocab columns --
+    must fail the fp32 check."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
+        LossHead,
+        head_loss_sum_count,
+        shift_labels,
+    )
+    from llama_pipeline_parallel_tpu_torch.train import build_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/ce"]),
+                    "cuda")
+    if not run.head.kernel_ce:
+        raise AssertionError(f"the slice's run does not take the CE kernel head: {run.head}")
+    batch = next(run.batches())
+    params = run.state.params
+    targets = shift_labels(batch["labels"])
+    count = (targets != llama.IGNORE_INDEX).sum()
+    mb = targets.shape[0] // run.num_microbatches
+
+    def kernel_head(hn, tgt, mcfg):
+        return head_loss_sum_count(params, hn, tgt, mcfg, run.head)[0]
+
+    def dense_head(hn, tgt, mcfg):
+        return head_loss_sum_count(params, hn, tgt, mcfg, LossHead())[0]
+
+    def cut_head(hn, tgt, mcfg):
+        w = params["lm_head"].to(mcfg.dtype)[:, :-PLANT_CUT]
+        return kernel_ce_sum_count(hn, w, tgt, run.head.loss_chunks)[0]
+
+    def step_one(head, mcfg, grad: bool):
+        """Step 1's mean loss and, with `grad`, its gradients."""
+        for p in params.values():
+            p.grad = None
+        total = 0.0
+        for i in range(run.num_microbatches):
+            rows = slice(i * mb, (i + 1) * mb)
+            with torch.set_grad_enabled(grad):
+                hn = llama.hidden_states(params, batch["input_ids"][rows],
+                                         batch["attention_mask"][rows],
+                                         batch["position_ids"][rows], cfg=mcfg,
+                                         attn_fn=run.attn_fn)
+                loss = head(hn, targets[rows], mcfg) / count
+                if grad:
+                    loss.backward()
+            total += loss.item()
+        grads = {k: p.grad.clone() for k, p in params.items()} if grad else None
+        return total, grads
+
+    def rel(a, b) -> float:
+        sq_diff = sum((a[k] - g).square().sum() for k, g in b.items())
+        return (sq_diff / sum(g.square().sum() for g in b.values())).sqrt().item()
+
+    bf16 = run.model_cfg
+    kernel_bf16, _ = step_one(kernel_head, bf16, grad=False)
+    dense_bf16, _ = step_one(dense_head, bf16, grad=False)
+    step_diff, run_diff = abs(kernel_bf16 - dense_bf16), abs(kernel_bf16 - run_loss)
+    fp32 = dataclasses.replace(bf16, dtype=torch.float32)
+    kernel_loss, kernel_grads = step_one(kernel_head, fp32, grad=True)
+    dense_loss, dense_grads = step_one(dense_head, fp32, grad=True)
+    loss_diff, grad_rel = abs(kernel_loss - dense_loss), rel(kernel_grads, dense_grads)
+    del kernel_grads
+    log(f"[trainer] step 1 on the same params and batch, CE kernel head vs dense head: "
+        f"bf16 step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}); fp32 step loss "
+        f"|diff| {loss_diff:.3e} (tol {CE_STEP_LOSS_FP32_TOL}), gradient rel diff "
+        f"{grad_rel:.3e} (tol {GRAD_REL_TOL}); this step's bf16 loss on the run's path vs "
+        f"the run's first: {run_diff:.2e} (tol {RUN_REPEAT_TOL})")
+    if not step_diff <= STEP_LOSS_TOL:
+        raise AssertionError(f"CE kernel vs dense head step loss differ by {step_diff}")
+    if not loss_diff <= CE_STEP_LOSS_FP32_TOL:
+        raise AssertionError(f"CE kernel vs dense head fp32 step loss differ by {loss_diff}")
+    if not grad_rel <= GRAD_REL_TOL:
+        raise AssertionError(f"CE kernel vs dense head gradients differ by {grad_rel}")
+    # the same params and batch as the run (a different batch moves it ~3e-2)
+    if not run_diff <= RUN_REPEAT_TOL:
+        raise AssertionError(f"step 1 recomputed gives loss {run_diff} off the run's")
+
+    bad_loss, bad_grads = step_one(cut_head, fp32, grad=True)
+    bad_diff, bad_rel = abs(bad_loss - dense_loss), rel(bad_grads, dense_grads)
+    log(f"[trainer] planted CE fault (last {PLANT_CUT} vocab columns hidden), fp32: step "
+        f"loss |diff| {bad_diff:.3e}, gradient rel diff {bad_rel:.3e}")
+    if bad_diff <= CE_STEP_LOSS_FP32_TOL and bad_rel <= GRAD_REL_TOL:
+        raise AssertionError(f"the CE head check passes a planted fault ({bad_diff}, "
+                             f"{bad_rel})")
 
 
 def main() -> int:
@@ -472,6 +736,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels()
+    rows.update(phase_ce())
     launches = phase_trainer()
     for key, row in rows.items():
         row["launches"] = launches[key]

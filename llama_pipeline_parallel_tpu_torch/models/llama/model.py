@@ -180,7 +180,7 @@ def lm_head(params: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
-def forward(
+def hidden_states(
     params: Params,
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor | None = None,
@@ -190,7 +190,8 @@ def forward(
     attn_fn: AttnFn = attention,
     remat: bool = False,
 ) -> torch.Tensor:
-    """Single-device full forward -> fp32 logits [b, s, V].
+    """Single-device forward up to and including the final norm -> [b, s, d]
+    in `cfg.dtype`: what the loss head takes.
 
     `attention_mask` is per-token [b, s] SEGMENT IDS (0 = pad; packed batches
     number each example 1..k), never a materialised [b, 1, L, L] tensor."""
@@ -202,7 +203,23 @@ def forward(
     layers = {name[len("layers."):]: leaf for name, leaf in params.items()
               if name.startswith("layers.")}
     x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat)
-    x = final_norm(params, x, cfg)
+    return final_norm(params, x, cfg)
+
+
+def forward(
+    params: Params,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor | None = None,
+    position_ids: torch.Tensor | None = None,
+    *,
+    cfg: LlamaConfig,
+    attn_fn: AttnFn = attention,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Single-device full forward -> fp32 logits [b, s, V] (`hidden_states`,
+    then `lm_head`)."""
+    x = hidden_states(params, input_ids, attention_mask, position_ids, cfg=cfg,
+                      attn_fn=attn_fn, remat=remat)
     return lm_head(params, x, cfg)
 
 

@@ -10,6 +10,11 @@ pp = dp = tp = sp = 1, where the pipeline's `_loss_and_grad_local`
   masters) — so the sum is exactly the full-batch gradient;
 - then clip and update.
 
+The loss head is the reference's (`pipeline.py`'s `head`): the dense
+lm_head + cross-entropy, or, with `loss_vocab_chunks > 1` or `kernels.ce:
+pallas`, a fused head on the final-normed hidden states that never builds the
+[tokens, V] logits — the vocab-chunked PyTorch op or the CUDA kernels.
+
 Metrics are `loss`, `grad_norm` (before clipping), `lr` (the schedule at the
 step count before its increment) and `step`, as in the reference.
 """
@@ -24,6 +29,8 @@ import torch
 from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
+from llama_pipeline_parallel_tpu_torch.ops.cross_entropy import fused_ce_sum_count
+from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, global_norm
 
 
@@ -32,6 +39,25 @@ class TrainState:
     step: int
     params: llama.Params  # fp32 masters, requires_grad
     optimizer: AdamW
+
+
+@dataclasses.dataclass(frozen=True)
+class LossHead:
+    """Which loss head a step runs: `loss_chunks` vocab chunks
+    (`loss_vocab_chunks`), `kernel_ce` the CUDA kernels (`kernels.ce: pallas`)."""
+
+    loss_chunks: int = 1
+    kernel_ce: bool = False
+
+
+def head_loss_sum_count(params: llama.Params, hn: torch.Tensor, targets: torch.Tensor,
+                        cfg: LlamaConfig, head: LossHead) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss sum, valid count) of the final-normed hidden states `hn` against
+    next-token `targets`, through `head` (reference: pipeline.py's `head`)."""
+    if head.loss_chunks > 1 or head.kernel_ce:
+        op = kernel_ce_sum_count if head.kernel_ce else fused_ce_sum_count
+        return op(hn, params["lm_head"].to(cfg.dtype), targets, head.loss_chunks)
+    return llama.token_loss_sum_and_count_preshifted(llama.lm_head(params, hn, cfg), targets)
 
 
 def shift_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -43,7 +69,7 @@ def shift_labels(labels: torch.Tensor) -> torch.Tensor:
 
 def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
                num_microbatches: int = 1, attn_fn: Callable = attention,
-               remat: bool = False) -> dict:
+               remat: bool = False, head: LossHead = LossHead()) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. Returns the metrics."""
     ids = batch["input_ids"]
@@ -61,11 +87,11 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     loss = torch.zeros((), device=ids.device)
     for i in range(num_microbatches):
         rows = slice(i * mb, (i + 1) * mb)
-        logits = llama.forward(params, ids[rows],
-                               None if mask is None else mask[rows],
-                               None if positions is None else positions[rows],
-                               cfg=cfg, attn_fn=attn_fn, remat=remat)
-        mb_loss = llama.token_loss_sum_and_count_preshifted(logits, targets[rows])[0]
+        hn = llama.hidden_states(params, ids[rows],
+                                 None if mask is None else mask[rows],
+                                 None if positions is None else positions[rows],
+                                 cfg=cfg, attn_fn=attn_fn, remat=remat)
+        mb_loss = head_loss_sum_count(params, hn, targets[rows], cfg, head)[0]
         mb_loss = mb_loss / global_count
         mb_loss.backward()
         loss += mb_loss.detach()

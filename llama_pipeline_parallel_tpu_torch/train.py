@@ -31,7 +31,11 @@ from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig
-from llama_pipeline_parallel_tpu_torch.parallel.train_step import TrainState, train_step
+from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
+    LossHead,
+    TrainState,
+    train_step,
+)
 from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 from llama_pipeline_parallel_tpu_torch.utils.metrics import (
@@ -152,6 +156,41 @@ def select_attention(impl: str, seq_length: int, device: torch.device,
     raise ValueError(f"unknown attention impl {impl!r} (use exact|flash|auto)")
 
 
+def _kernel_flags(cfg: dict) -> tuple[bool, bool]:
+    """The `kernels.*` block, as the reference's `_kernel_flags` parses it:
+    `ce` selects the loss head's backend, `prologue` the decoder layers'
+    rms_norm -> QKV -> RoPE prologue; values `xla` (default) or `pallas`,
+    unknown keys and values rejected. Here `pallas` selects the hand-written
+    CUDA kernels. Returns (kernel_ce, kernel_prologue)."""
+    node = cfg.get("kernels") or {}
+    if not isinstance(node, dict):
+        raise ValueError(f"kernels must be a mapping of op backends, e.g. "
+                         f"kernels: {{ce: pallas}} -- got {node!r}")
+    unknown = set(node) - {"ce", "prologue"}
+    if unknown:
+        raise ValueError(f"unknown kernels.* key(s) {sorted(unknown)}; "
+                         f"known: ['ce', 'prologue']")
+    flags = []
+    for key in ("ce", "prologue"):
+        val = node.get(key, "xla")
+        if val not in ("xla", "pallas"):
+            raise ValueError(f"kernels.{key} must be 'xla' or 'pallas', got {val!r}")
+        flags.append(val == "pallas")
+    return flags[0], flags[1]
+
+
+def _loss_head(cfg: dict, model_cfg: LlamaConfig) -> LossHead:
+    """`loss_vocab_chunks` and `kernels.ce`, checked as the reference's
+    pipeline build checks them."""
+    chunks = int(cfg.get("loss_vocab_chunks", 1))
+    if chunks < 1:
+        raise ValueError("loss_vocab_chunks must be >= 1")
+    if model_cfg.vocab_size % chunks:
+        raise ValueError(f"loss_vocab_chunks={chunks} must divide "
+                         f"vocab_size={model_cfg.vocab_size}")
+    return LossHead(loss_chunks=chunks, kernel_ce=_kernel_flags(cfg)[0])
+
+
 def _check_supported(cfg: dict) -> None:
     mesh = cfg.get("mesh") or {}
     layout = {ax: int(mesh.get(ax, 1)) for ax in ("pp", "dp", "tp", "sp")}
@@ -159,10 +198,9 @@ def _check_supported(cfg: dict) -> None:
         raise NotImplementedError(
             f"this trainer runs on one device (pp=dp=tp=sp=1); got {layout}. "
             f"Pipeline, data, tensor and sequence parallelism come with later slices")
-    kernels = cfg.get("kernels") or {}
-    if any(v != "xla" for v in kernels.values()):
-        raise NotImplementedError(f"kernels.* = {kernels}: the CE and prologue "
-                                  f"kernels are not ported yet")
+    if _kernel_flags(cfg)[1]:
+        raise NotImplementedError("kernels.prologue=pallas: the prologue kernels are "
+                                  "not ported yet")
     asked = [key for key in _NOT_PORTED if cfg.get(key)]
     if asked:
         raise NotImplementedError(f"not ported yet: {asked}")
@@ -180,6 +218,7 @@ class Run:
     attn_fn: Any
     num_microbatches: int
     remat: bool
+    head: LossHead
     seq_length: int
     end_step: int
 
@@ -190,7 +229,7 @@ class Run:
     def step(self, batch: dict[str, torch.Tensor]) -> dict:
         return train_step(self.state, batch, self.model_cfg,
                           num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
-                          remat=self.remat)
+                          remat=self.remat, head=self.head)
 
 
 def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
@@ -203,6 +242,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
     _check_supported(cfg)
     seed = cfg.get("seed", 42)
     model_cfg = build_model_config(cfg["model"])
+    head = _loss_head(cfg, model_cfg)
     dataset, collator = build_dataset_and_collator(cfg, model_cfg)
     micro_batch = cfg.get("per_device_train_batch_size", 1)
     num_microbatches = cfg.get("gradient_accumulation_steps", 1)
@@ -238,7 +278,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
                attn_fn=select_attention(cfg.get("attention", "auto"), seq_length, device,
                                         model_cfg=model_cfg, micro_batch=micro_batch),
                num_microbatches=num_microbatches,
-               remat=cfg.get("activation_checkpointing", True),
+               remat=cfg.get("activation_checkpointing", True), head=head,
                seq_length=seq_length, end_step=end_step)
 
 

@@ -27,7 +27,7 @@ from llama_pipeline_parallel_tpu_torch.models.llama import model as t_llama
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig as TConfig
 from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
 from llama_pipeline_parallel_tpu_torch.parallel import train_step as t_ts
-from llama_pipeline_parallel_tpu_torch.train import run_training, select_attention
+from llama_pipeline_parallel_tpu_torch.train import build_run, run_training, select_attention
 from llama_pipeline_parallel_tpu_torch.utils import config as t_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -250,12 +250,26 @@ def test_optimizer_matches_optax_over_several_updates(ref):
 # the slice as a whole: the train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("impl", ["exact", "flash"])
-def test_train_step_matches_reference(ref, impl):
+# the loss heads: dense (lm_head + CE), the vocab-chunked op
+# (loss_vocab_chunks=4), and the CE kernels (kernels.ce=pallas), which run
+# their plain versions on the CPU against the reference's Pallas kernels in
+# interpret mode
+HEADS = {"dense": dict(), "chunked": dict(loss_chunks=4),
+         "kernel": dict(loss_chunks=4, kernel_ce=True)}
+
+
+@pytest.mark.parametrize("impl,head", [
+    pytest.param("exact", "dense", id="exact"),
+    pytest.param("flash", "dense", id="flash"),
+    pytest.param("exact", "chunked", id="exact-chunked"),
+    pytest.param("exact", "kernel", id="exact-kernel"),
+    pytest.param("flash", "kernel", id="flash-kernel"),
+])
+def test_train_step_matches_reference(ref, impl, head):
     """3 steps of the reference's jitted train step on a 1-device mesh
     (pp = dp = 1, 2 microbatches) against the port's train_step, from the
     same params (convert.py) and the same loader batches (right-padded rows,
-    so the valid-target count is not the row count)."""
+    so the valid-target count is not the row count), with each loss head."""
     cfg_j, cfg_t = ref.config.LlamaConfig.tiny(), TConfig.tiny()
     tree, params = _params(ref, seed=1)
     mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=1, dp=1))
@@ -270,8 +284,8 @@ def test_train_step_matches_reference(ref, impl):
         def ref_attn(q, k, v, padding_mask=None, *, causal=True):
             return ref.fa.flash_attention(q, k, v, None, causal=causal)
     step_fn = ref.ts.make_train_step(
-        mesh, cfg_j, ref.pl.PipelineConfig(num_stages=1, num_microbatches=2), tx, sched,
-        stacked, attn_fn=ref_attn)
+        mesh, cfg_j, ref.pl.PipelineConfig(num_stages=1, num_microbatches=2, **HEADS[head]),
+        tx, sched, stacked, attn_fn=ref_attn)
 
     leaves = {k: v.requires_grad_() for k, v in params.items()}
     t_state = t_ts.TrainState(step=0, params=leaves,
@@ -284,7 +298,8 @@ def test_train_step_matches_reference(ref, impl):
     for batch in list(loader)[:3]:
         state, want = step_fn(state, {k: jnp.asarray(v) for k, v in batch.items()})
         got = t_ts.train_step(t_state, {k: torch.from_numpy(v) for k, v in batch.items()},
-                              cfg_t, num_microbatches=2, attn_fn=t_attn, remat=True)
+                              cfg_t, num_microbatches=2, attn_fn=t_attn, remat=True,
+                              head=t_ts.LossHead(**HEADS[head]))
         np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=1e-5)
         np.testing.assert_allclose(got["grad_norm"].item(), float(want["grad_norm"]), rtol=1e-4)
         np.testing.assert_allclose(got["lr"], float(want["lr"]), rtol=1e-6)
@@ -317,11 +332,48 @@ def test_cli_cpu_run_loss_decreases(tmp_path):
     assert lines[-1]["loss"] < lines[0]["loss"] - 0.5
 
 
+def test_cli_cpu_run_with_kernel_ce_head(tmp_path):
+    """The CLI with `kernels.ce=pallas loss_vocab_chunks=4` on the CPU (the
+    kernels' plain versions) gives the dense head's losses step by step."""
+    args = ["mesh.pp=1", "mesh.dp=1", "dataset.pseudo_dataset_len=4", "logging_steps=4",
+            "max_steps=8"]
+    cmd = [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.cli", "--config",
+           "conf/tiny_smoke.yaml", "--device", "cpu", *args, f"output_dir={tmp_path}/ce",
+           "kernels.ce=pallas", "loss_vocab_chunks=4"]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    got = [json.loads(x) for x in open(tmp_path / "ce" / "metrics.jsonl")]
+    dense = run_training(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
+                                              args + [f"output_dir={tmp_path}/dense"]),
+                         device="cpu")
+    assert [r["step"] for r in got] == [4, 8]
+    want = [np.mean(dense["losses"][:4]), np.mean(dense["losses"][4:])]
+    np.testing.assert_allclose([r["loss"] for r in got], want, rtol=1e-5)
+    assert got[-1]["loss"] < got[0]["loss"]
+
+
 def test_trainer_refuses_what_it_does_not_run(tmp_path):
     cfg = t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                [f"output_dir={tmp_path}"])
     with pytest.raises(NotImplementedError, match="one device"):
         run_training(cfg, device="cpu")  # tiny_smoke is pp=2 dp=2
+    one = ["mesh.pp=1", "mesh.dp=1", f"output_dir={tmp_path}"]
+
+    def build(*overrides):
+        return build_run(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
+                                              one + list(overrides)), device="cpu")
+
+    with pytest.raises(NotImplementedError, match="prologue"):
+        build("kernels.prologue=pallas")
+    with pytest.raises(ValueError, match="unknown kernels"):
+        build("kernels.attention=pallas")
+    with pytest.raises(ValueError, match="'xla' or 'pallas'"):
+        build("kernels.ce=cuda")
+    with pytest.raises(ValueError, match="must divide vocab_size=256"):
+        build("loss_vocab_chunks=3")
+    run = build("kernels.ce=pallas", "loss_vocab_chunks=8")
+    assert run.head == t_ts.LossHead(loss_chunks=8, kernel_ce=True)
+    assert build().head == t_ts.LossHead()
     with pytest.raises(ValueError, match="unknown attention"):
         select_attention("fast", 32, torch.device("cpu"))
     with pytest.raises(ValueError, match="model_cfg"):

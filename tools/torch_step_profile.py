@@ -8,9 +8,10 @@ Builds the run as `run_training` does (`build_run`; defaults: the single-card
 LLaMA-7B-width slice, chip_smoke.TRAIN_OVERRIDES), takes one warm-up step, then profiles
 `--steps` steps with torch.profiler (CPU + CUDA activities). Prints, per step:
 the wall time (host clock around synchronised steps), device busy time (sum
-of kernel times; the port runs one stream) and idle share, device time by
-kernel family (the port's flash kernels, cuBLAS GEMMs, other PyTorch kernels,
-copies), the fifteen costliest kernels, and one JSON line with the same numbers.
+of kernel times; the port runs one stream) and idle share, peak device memory
+(max_memory_allocated over the warm-up and profiled steps), device time by
+kernel family (the port's CE head and flash kernels, cuBLAS GEMMs, other PyTorch
+kernels, copies), the fifteen costliest kernels, and one JSON line with the same numbers.
 Prints the card's name and power limit beside them.
 """
 
@@ -29,6 +30,8 @@ sys.path.insert(0, ROOT)
 from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
 
 FAMILIES = (  # (family, substrings of kernel names), first match wins
+    ("ce_head", ("ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel",
+                 "ce_dw_kernel")),
     ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("copy", ("Memcpy", "Memset", "copy_")),
@@ -67,12 +70,14 @@ def main(argv=None) -> int:
         run.step(next(batches))
         torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     step()  # warm-up: kernel build / load, cuBLAS handles, allocator
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             step()
         wall = (time.perf_counter() - t0) / args.steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     kernels = {}  # device-side events only: an op's own row would count its kernels twice
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
@@ -89,7 +94,8 @@ def main(argv=None) -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     print(f"per step ({args.steps} steps profiled): wall {1e3 * wall:.2f} ms, device busy "
-          f"{busy:.2f} ms, idle share {1 - busy / (1e3 * wall):.4f}")
+          f"{busy:.2f} ms, idle share {1 - busy / (1e3 * wall):.4f}, max_memory_allocated "
+          f"{peak_gib:.2f} GiB")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:16s} {ms:9.3f} ms  ({ms / busy:.1%} of busy)")
     print("top kernels (ms per step):")
@@ -97,7 +103,7 @@ def main(argv=None) -> int:
         print(f"  {ms:9.3f}  {name[:110]}")
     print(json.dumps({"card": card, "steps": args.steps, "wall_ms": 1e3 * wall,
                       "busy_ms": busy, "idle_share": 1 - busy / (1e3 * wall),
-                      "family_ms": by_family}))
+                      "peak_gib": peak_gib, "family_ms": by_family}))
     return 0
 
 
