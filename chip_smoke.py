@@ -28,16 +28,31 @@ which raises on failure:
               the tokens without the last ones (dW). Times each kernel, the
               dh + dW pair, its plain version and, as yardsticks the port never
               calls, cuBLAS h @ W, g @ W^T and h^T @ g.
-4. trainer -- `run_training` on conf/llama_7b_pp4.yaml at LLaMA-7B width, cut
+4. prologue -- each fused prologue kernel (forward q/k/v, dhidden, dW)
+              against its plain PyTorch version on the same inputs (the same
+              rounding points in the inputs' dtype, fp32 math), element by
+              element: at the training step's layer shape (2048 tokens, width
+              4096, 32 q and 32 kv heads of 128, bf16) and in a small fp32 case
+              ragged to every tile (2 x 150 tokens, width 200, MQA 4:1,
+              positions from 37). The same check must reject planted faults:
+              forward and dhidden on weights whose last PLANT_CUT input rows
+              are zero, dW on the tokens without the last PLANT_CUT. Times each
+              kernel, its plain version and, as yardsticks the port never
+              calls, cuBLAS hidden @ [wq|wk|wv], [dq|dk|dv] @ [wq|wk|wv]^T and
+              hidden^T @ [dq|dk|dv].
+5. trainer -- `run_training` on conf/llama_7b_pp4.yaml at LLaMA-7B width, cut
               to 4 layers, seq 2048, 2 microbatches, 4 steps, attention=flash,
-              kernels.ce=pallas, loss_vocab_chunks=4: every loss finite,
-              exactly layers x microbatches x steps launches of each flash
-              kernel and microbatches x steps of each CE kernel. Then step 1
-              again on the same params and batch with flash and with exact
-              attention: per-token losses and gradients agree, and a planted
-              attention fault is rejected; and with the CE kernel head and the
-              dense head: step losses and gradients agree, and a planted CE
-              fault is rejected.
+              kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas:
+              every loss finite, exactly layers x microbatches x steps
+              launches of each flash and each prologue kernel and
+              microbatches x steps of each CE kernel. Then step 1 again on the
+              same params and batch (each time on the run's prologue) with
+              flash and with exact attention: per-token losses and gradients
+              agree, and a planted attention fault is rejected; with the CE
+              kernel head and the dense head: step losses and gradients agree,
+              and a planted CE fault is rejected; and with the prologue
+              kernels and the composed prologue: step losses and gradients
+              agree, and a planted prologue fault is rejected.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -70,12 +85,18 @@ TRAIN_OVERRIDES = [
     "max_seq_length=2048", "per_device_train_batch_size=1",
     "gradient_accumulation_steps=2", "max_steps=4", "total_steps=8", "warmup_steps=1",
     "attention=flash", "activation_checkpointing=false", "kernels.ce=pallas",
-    "loss_vocab_chunks=4",
+    "loss_vocab_chunks=4", "kernels.prologue=pallas",
 ]
 # the fused CE head: the step's shape (tokens of one microbatch, width,
 # vocab) and a small case ragged to every kernel tile (128 x 128 x 16)
 CE_SLICE = dict(n=2048, d=4096, v=32000)
 CE_SMALL = dict(n=300, d=200, v=1000, chunks=4)
+# the fused prologue: one layer's shape at the step (tokens of one
+# microbatch, width, q and kv heads) and a small case ragged to every tile
+# (128 tokens x 128 features, depth 16), with MQA and positions from 37
+PRO_SLICE = dict(b=1, s=2048, d=4096, h=32, kv=32, pos0=0)
+PRO_SMALL = dict(b=2, s=150, d=200, h=4, kv=1, pos0=37)
+PRO_EPS = 1e-6
 # bf16 outputs, held element by element to |got - ref| <= rtol * |ref| + atol:
 # rounding an fp32 result to bf16 (8 significant bits, to nearest) costs at
 # most 2^-8 of the element's own size; fp32 summation order and expf add
@@ -99,10 +120,11 @@ STEP_LOSS_TOL = 2e-3
 # relative, which the same cascade spreads to ~1e-5 on a loss of 11.2
 TOKEN_LOSS_TOL = 1e-3  # max over the step's 4096 tokens of |loss_flash - loss_exact|
 GRAD_REL_TOL = 1e-3    # ||g_flash - g_exact|| / ||g_exact|| over all parameters
-# the CE kernel head against the dense head, fp32 compute: the same loss up to
-# fp32 summation order (~1e-6 relative on a loss of 11.2); gradients within
-# GRAD_REL_TOL. Step 1 recomputed on the run's path must repeat the run's loss.
-CE_STEP_LOSS_FP32_TOL = 1e-4
+# the CE kernel head against the dense head, and the prologue kernels against
+# the composed prologue, fp32 compute: the same loss up to fp32 summation
+# order (~1e-6 relative on a loss of 11.2); gradients within GRAD_REL_TOL.
+# Step 1 recomputed on the run's path must repeat the run's loss.
+FP32_STEP_LOSS_TOL = 1e-4
 RUN_REPEAT_TOL = 1e-4
 
 
@@ -475,6 +497,156 @@ def phase_ce() -> dict:
     return rows
 
 
+def prologue_inputs(b, s, d, h, kv, pos0, dtype, seed) -> dict:
+    """One layer's prologue inputs on the card: x [n, d], the fp32 norm weight
+    1 + 0.1 randn, weights 0.02 randn in `dtype`, cos / sin of positions
+    pos0 .. pos0 + s - 1 in each of b rows, and random cotangents dq, dk, dv."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops.fused_prologue import KERNEL_HEAD_DIMS
+    from llama_pipeline_parallel_tpu_torch.ops.rope import rope_cos_sin
+
+    hd, n = KERNEL_HEAD_DIMS[0], b * s
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+
+    pos = (pos0 + torch.arange(s, device="cuda")).expand(b, s)
+    cos, sin = (t.reshape(n, hd).contiguous() for t in rope_cos_sin(pos, hd, dtype=dtype))
+    return dict(x=randn(n, d), norm_w=1 + 0.1 * torch.randn(d, generator=g, device="cuda"),
+                wq=randn(d, h * hd, scale=0.02), wk=randn(d, kv * hd, scale=0.02),
+                wv=randn(d, kv * hd, scale=0.02), cos=cos, sin=sin, dq=randn(n, h * hd),
+                dk=randn(n, kv * hd), dv=randn(n, kv * hd), hd=hd)
+
+
+def prologue_case(inp: dict, fp32: bool, plant: bool = False) -> dict:
+    """Run the three prologue kernels and hold each against its plain version
+    on the same inputs (the plain versions round where the kernels do).
+    Returns {kernel: max_abs_err}.
+
+    With `plant`, the same check must reject each kernel made wrong at the
+    edge only: forward and dhidden on weights whose last PLANT_CUT input rows
+    are zero, dW on the tokens without the last PLANT_CUT."""
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    x, nw, cos, sin, hd = inp["x"], inp["norm_w"], inp["cos"], inp["sin"], inp["hd"]
+    w = (inp["wq"], inp["wk"], inp["wv"])
+    dy = (inp["dq"], inp["dk"], inp["dv"])
+    out = fp._fwd_cuda(x, nw, *w, cos, sin, PRO_EPS, hd)
+    ref = fp._fwd_plain(x, nw, *w, cos, sin, PRO_EPS, hd)
+    dh = fp._dhidden_cuda(*dy, *w, cos, sin, hd)
+    ref_dh = fp._dhidden_plain(*dy, *w, cos, sin, hd)
+    dw = fp._dw_cuda(x, nw, *dy, cos, sin, PRO_EPS, hd)
+    ref_dw = fp._dw_plain(x, nw, *dy, cos, sin, PRO_EPS, hd)
+    tol = {name: tolerance(r, fp32) for name, r in
+           zip(("q", "k", "v", "dh", "dwq", "dwk", "dwv"), (*ref, ref_dh, *ref_dw))}
+    errs = {"prologue_fwd": max(check(f"prologue {name}", got, r, tol[name])
+                                for name, got, r in zip("qkv", out, ref)),
+            "prologue_dhidden": check("prologue dhidden", dh, ref_dh, tol["dh"]),
+            "prologue_dw": max(check(f"prologue {name}", got, r, tol[name]) for name, got, r
+                               in zip(("dwq", "dwk", "dwv"), dw, ref_dw))}
+    if plant:
+        def cut(t):
+            t = t.clone()
+            t[-PLANT_CUT:] = 0
+            return t
+
+        w_bad = [cut(t) for t in w]
+        for name, got, r in zip("qkv", fp._fwd_cuda(x, nw, *w_bad, cos, sin, PRO_EPS, hd), ref):
+            expect_rejected(f"prologue {name} (last weight rows zero)", got, r, tol[name])
+        expect_rejected("prologue dhidden (last weight rows zero)",
+                        fp._dhidden_cuda(*dy, *w_bad, cos, sin, hd), ref_dh, tol["dh"])
+        keep = slice(0, x.shape[0] - PLANT_CUT)
+        dw_bad = fp._dw_cuda(x[keep], nw, *(t[keep] for t in dy), cos[keep], sin[keep], PRO_EPS,
+                             hd)
+        for name, got, r in zip(("dwq", "dwk", "dwv"), dw_bad, ref_dw):
+            expect_rejected(f"prologue {name} (last tokens hidden)", got, r, tol[name])
+    return errs
+
+
+def prologue_bounds(n, d, width, hd, elem_bytes) -> dict:
+    """Least time of each prologue kernel on the card: the larger of its bytes
+    (each input read once, each output written once) over the memory rate and
+    its operations (one product of 2 n d width, width = the q, k and v widths
+    together) over the bf16 peak."""
+    ops = 2 * n * d * width
+    x, weights, rows = n * d * elem_bytes, d * width * elem_bytes, n * width * elem_bytes
+    trig = 2 * n * hd * elem_bytes                      # cos, sin
+    work = {  # (bytes moved, operations)
+        "prologue_fwd": (x + d * 4 + weights + trig + rows, ops),        # x nw W cos sin, q k v
+        "prologue_dhidden": (rows + weights + trig + n * d * 4, ops),    # dq dk dv W, dh fp32
+        "prologue_dw": (x + d * 4 + rows + trig + weights, ops),         # x nw dq dk dv, dW
+    }
+    out = {}
+    for name, (nbytes, n_ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, n_ops / PEAK_BF16_FLOPS
+        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+    return out
+
+
+def phase_prologue() -> dict:
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = PRO_SMALL
+    log(f"[prologue] small case fp32 {c['b']} x {c['s']} tokens d={c['d']} MQA "
+        f"{c['h']}:{c['kv']} positions from {c['pos0']} (ragged to every tile; tol {FP32_TOL})")
+    prologue_case(prologue_inputs(**c, dtype=torch.float32, seed=5), fp32=True)
+
+    c = PRO_SLICE
+    log(f"[prologue] slice shape {c['s']} tokens d={c['d']} heads {c['h']}:{c['kv']} bf16, vs "
+        f"the plain version (fp32 math, bf16 rounding points)")
+    inp = prologue_inputs(**c, dtype=torch.bfloat16, seed=6)
+    errs = prologue_case(inp, fp32=False, plant=True)
+    torch.cuda.empty_cache()
+
+    x, nw, cos, sin, hd = inp["x"], inp["norm_w"], inp["cos"], inp["sin"], inp["hd"]
+    w = (inp["wq"], inp["wk"], inp["wv"])
+    dy = (inp["dq"], inp["dk"], inp["dv"])
+    fwd = (x, nw, *w, cos, sin, PRO_EPS, hd)
+    dh = (*dy, *w, cos, sin, hd)
+    dw = (x, nw, *dy, cos, sin, PRO_EPS, hd)
+    timings = {
+        "prologue_fwd": (cuda_ms(lambda: fp._fwd_cuda(*fwd)), cuda_ms(lambda: fp._fwd_plain(*fwd))),
+        "prologue_dhidden": (cuda_ms(lambda: fp._dhidden_cuda(*dh)),
+                             cuda_ms(lambda: fp._dhidden_plain(*dh))),
+        "prologue_dw": (cuda_ms(lambda: fp._dw_cuda(*dw)), cuda_ms(lambda: fp._dw_plain(*dw))),
+    }
+    # yardsticks only: cuBLAS on the product each kernel computes
+    hidden = rms_norm(x, nw, PRO_EPS)
+    w_all, dy_all = torch.cat(w, dim=1), torch.cat(dy, dim=1)
+    library = {"prologue_fwd": cuda_ms(lambda: hidden @ w_all),
+               "prologue_dhidden": cuda_ms(lambda: dy_all @ w_all.T),
+               "prologue_dw": cuda_ms(lambda: hidden.T @ dy_all)}
+    del w_all, dy_all
+    torch.cuda.empty_cache()
+    log(f"[prologue] yardsticks (cuBLAS bf16): hidden @ [wq|wk|wv] "
+        f"{library['prologue_fwd']:.4f} ms, [dq|dk|dv] @ [wq|wk|wv]^T "
+        f"{library['prologue_dhidden']:.4f} ms, hidden^T @ [dq|dk|dv] "
+        f"{library['prologue_dw']:.4f} ms")
+    width = sum(t.shape[1] for t in w)
+    bound = prologue_bounds(x.shape[0], x.shape[1], width, hd, 2)
+    source = "llama_pipeline_parallel_tpu_torch/csrc/fused_prologue.cu"
+    replaces = {"prologue_fwd": "llama_pipeline_parallel_tpu/ops/pallas_prologue.py:117",
+                "prologue_dhidden": "llama_pipeline_parallel_tpu/ops/pallas_prologue.py:198",
+                "prologue_dw": "llama_pipeline_parallel_tpu/ops/pallas_prologue.py:215"}
+    rows = {}
+    for key in ("prologue_fwd", "prologue_dhidden", "prologue_dw"):
+        ms, plain_ms = timings[key]
+        rows[key] = {"name": key, "route": "cuda", "source": source,
+                     "replaces": replaces[key], "launches": None, "max_abs_err": errs[key],
+                     "ms": ms, "plain_ms": plain_ms, **bound[key],
+                     "library_ms": library[key]}
+        log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
+    return rows
+
+
 def phase_trainer() -> dict:
     import gc
 
@@ -482,6 +654,7 @@ def phase_trainer() -> dict:
 
     from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
     from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
     from llama_pipeline_parallel_tpu_torch.train import build_model_config, run_training
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
@@ -491,14 +664,16 @@ def phase_trainer() -> dict:
     layers = cfg["model"]["num_hidden_layers"]
     microbatches = cfg["gradient_accumulation_steps"] * cfg["max_steps"]
     expected = {**{key: layers * microbatches for key in fa.launch_counts},
-                **{key: microbatches for key in fc.launch_counts}}
+                **{key: microbatches for key in fc.launch_counts},
+                **{key: layers * microbatches for key in fp.launch_counts}}
     log(f"[trainer] {config} {' '.join(TRAIN_OVERRIDES)}")
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     fc.reset_launch_counts()
+    fp.reset_launch_counts()
     summary = run_training(cfg, device="cuda")
-    launches = {**fa.launch_counts, **fc.launch_counts}
+    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
     losses = summary["losses"]
     step_ms = 1e3 * statistics.median(summary["step_times"][1:])
     log(f"[trainer] losses {losses}")
@@ -509,9 +684,9 @@ def phase_trainer() -> dict:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected} (flash: "
-                             f"{layers} layers x microbatches x steps; CE: microbatches x "
-                             f"steps)")
+        raise AssertionError(f"launch counts {launches}, expected {expected} (flash and "
+                             f"prologue: {layers} layers x microbatches x steps; CE: "
+                             f"microbatches x steps)")
     # at init the logits are about normal with variance 0.02^2 * d (lm_head
     # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
     mcfg = build_model_config(cfg["model"])
@@ -527,12 +702,16 @@ def phase_trainer() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     ce_parity(config, out_dir, losses[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    prologue_parity(config, out_dir)
     return launches
 
 
 def attention_parity(config: str, out_dir: str) -> None:
     """Step 1 of the slice again, on the params and batch the trainer's run
-    started from (build_run, same seed), with flash and with exact attention:
+    started from (build_run, same seed), on the run's prologue, with flash and
+    with exact attention:
     in bf16 the step loss; in fp32 compute the per-token losses and the
     gradients, which attention decides (the mean loss at random init barely
     depends on it). A planted fault -- flash attention that hides the last
@@ -570,7 +749,7 @@ def attention_parity(config: str, out_dir: str) -> None:
                 logits = llama.forward(params, batch["input_ids"][rows],
                                        batch["attention_mask"][rows],
                                        batch["position_ids"][rows], cfg=mcfg,
-                                       attn_fn=attn_fn)
+                                       attn_fn=attn_fn, kernel_prologue=run.kernel_prologue)
                 tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                       targets[rows].reshape(-1).long(),
                                       ignore_index=llama.IGNORE_INDEX, reduction="none")
@@ -594,9 +773,7 @@ def attention_parity(config: str, out_dir: str) -> None:
     flash_grads = {k: g.clone() for k, g in flash_grads.items()}
     exact_tok, exact_grads = step_one(attention, fp32, grad=True)
     tok_diff = (flash_tok - exact_tok).abs().max().item()
-    sq_diff = sum((flash_grads[k] - g).square().sum() for k, g in exact_grads.items())
-    sq_ref = sum(g.square().sum() for g in exact_grads.values())
-    grad_rel = (sq_diff / sq_ref).sqrt().item()
+    grad_rel = rel_diff(flash_grads, exact_grads)
     del flash_grads, exact_grads
     log(f"[trainer] step 1 on the same params and batch, flash vs exact attention: bf16 "
         f"step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}; per-token max |diff| "
@@ -621,50 +798,38 @@ def attention_parity(config: str, out_dir: str) -> None:
         raise AssertionError(f"the per-token check passes a planted fault ({bad_diff})")
 
 
-def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
-    """Step 1 of the slice again, on the params and batch the trainer's run
-    started from, with the CE kernel head (the run's) and the dense head
-    (lm_head + cross-entropy on fp32 logits): in bf16 the step loss, which
-    must also repeat the run's first loss; in fp32 compute the step loss and
-    the gradients, where only summation order separates the heads. A planted
-    fault -- the kernel head on W without its last PLANT_CUT vocab columns --
-    must fail the fp32 check."""
-    import dataclasses
+def rel_diff(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over all the tensors of two gradient dicts."""
+    sq_diff = sum((a[k] - g).square().sum() for k, g in b.items())
+    return (sq_diff / sum(g.square().sum() for g in b.values())).sqrt().item()
 
+
+def first_step(config: str, out_dir: str):
+    """(run, step_one): a fresh build of the slice's run -- the params and the
+    first batch the trainer's run started from -- and step_one(mcfg, grad,
+    head=None, kernel_prologue=None) -> (step 1's mean loss, its gradients
+    with `grad`), on the loss head `head` ((hn, targets, mcfg) -> loss sum;
+    None: the run's) and the prologue `kernel_prologue` (None: the run's)."""
     import torch
 
     from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
-    from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
     from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
-        LossHead,
         head_loss_sum_count,
         shift_labels,
     )
     from llama_pipeline_parallel_tpu_torch.train import build_run
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
-    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/ce"]),
-                    "cuda")
-    if not run.head.kernel_ce:
-        raise AssertionError(f"the slice's run does not take the CE kernel head: {run.head}")
+    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}"]), "cuda")
     batch = next(run.batches())
     params = run.state.params
     targets = shift_labels(batch["labels"])
     count = (targets != llama.IGNORE_INDEX).sum()
     mb = targets.shape[0] // run.num_microbatches
 
-    def kernel_head(hn, tgt, mcfg):
-        return head_loss_sum_count(params, hn, tgt, mcfg, run.head)[0]
-
-    def dense_head(hn, tgt, mcfg):
-        return head_loss_sum_count(params, hn, tgt, mcfg, LossHead())[0]
-
-    def cut_head(hn, tgt, mcfg):
-        w = params["lm_head"].to(mcfg.dtype)[:, :-PLANT_CUT]
-        return kernel_ce_sum_count(hn, w, tgt, run.head.loss_chunks)[0]
-
-    def step_one(head, mcfg, grad: bool):
-        """Step 1's mean loss and, with `grad`, its gradients."""
+    def step_one(mcfg, grad: bool, head=None, kernel_prologue=None):
+        if kernel_prologue is None:
+            kernel_prologue = run.kernel_prologue
         for p in params.values():
             p.grad = None
         total = 0.0
@@ -674,35 +839,68 @@ def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
                 hn = llama.hidden_states(params, batch["input_ids"][rows],
                                          batch["attention_mask"][rows],
                                          batch["position_ids"][rows], cfg=mcfg,
-                                         attn_fn=run.attn_fn)
-                loss = head(hn, targets[rows], mcfg) / count
+                                         attn_fn=run.attn_fn, kernel_prologue=kernel_prologue)
+                if head is None:
+                    loss = head_loss_sum_count(params, hn, targets[rows], mcfg, run.head)[0]
+                else:
+                    loss = head(hn, targets[rows], mcfg)
+                loss = loss / count
                 if grad:
                     loss.backward()
             total += loss.item()
         grads = {k: p.grad.clone() for k, p in params.items()} if grad else None
         return total, grads
 
-    def rel(a, b) -> float:
-        sq_diff = sum((a[k] - g).square().sum() for k, g in b.items())
-        return (sq_diff / sum(g.square().sum() for g in b.values())).sqrt().item()
+    return run, step_one
+
+
+def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
+    """Step 1 of the slice again, on the params and batch the trainer's run
+    started from, on the run's prologue, with the CE kernel head (the run's)
+    and the dense head (lm_head + cross-entropy on fp32 logits): in bf16 the
+    step loss, which must also repeat the run's first loss; in fp32 compute
+    the step loss and the gradients, where only summation order separates the
+    heads. A planted fault -- the kernel head on W without its last PLANT_CUT
+    vocab columns -- must fail the fp32 check."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
+        LossHead,
+        head_loss_sum_count,
+    )
+
+    run, step_one = first_step(config, f"{out_dir}/ce")
+    if not run.head.kernel_ce:
+        raise AssertionError(f"the slice's run does not take the CE kernel head: {run.head}")
+    params = run.state.params
+
+    def dense_head(hn, tgt, mcfg):
+        return head_loss_sum_count(params, hn, tgt, mcfg, LossHead())[0]
+
+    def cut_head(hn, tgt, mcfg):
+        w = params["lm_head"].to(mcfg.dtype)[:, :-PLANT_CUT]
+        return kernel_ce_sum_count(hn, w, tgt, run.head.loss_chunks)[0]
 
     bf16 = run.model_cfg
-    kernel_bf16, _ = step_one(kernel_head, bf16, grad=False)
-    dense_bf16, _ = step_one(dense_head, bf16, grad=False)
+    kernel_bf16, _ = step_one(bf16, grad=False)
+    dense_bf16, _ = step_one(bf16, grad=False, head=dense_head)
     step_diff, run_diff = abs(kernel_bf16 - dense_bf16), abs(kernel_bf16 - run_loss)
     fp32 = dataclasses.replace(bf16, dtype=torch.float32)
-    kernel_loss, kernel_grads = step_one(kernel_head, fp32, grad=True)
-    dense_loss, dense_grads = step_one(dense_head, fp32, grad=True)
-    loss_diff, grad_rel = abs(kernel_loss - dense_loss), rel(kernel_grads, dense_grads)
+    kernel_loss, kernel_grads = step_one(fp32, grad=True)
+    dense_loss, dense_grads = step_one(fp32, grad=True, head=dense_head)
+    loss_diff, grad_rel = abs(kernel_loss - dense_loss), rel_diff(kernel_grads, dense_grads)
     del kernel_grads
     log(f"[trainer] step 1 on the same params and batch, CE kernel head vs dense head: "
         f"bf16 step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}); fp32 step loss "
-        f"|diff| {loss_diff:.3e} (tol {CE_STEP_LOSS_FP32_TOL}), gradient rel diff "
+        f"|diff| {loss_diff:.3e} (tol {FP32_STEP_LOSS_TOL}), gradient rel diff "
         f"{grad_rel:.3e} (tol {GRAD_REL_TOL}); this step's bf16 loss on the run's path vs "
         f"the run's first: {run_diff:.2e} (tol {RUN_REPEAT_TOL})")
     if not step_diff <= STEP_LOSS_TOL:
         raise AssertionError(f"CE kernel vs dense head step loss differ by {step_diff}")
-    if not loss_diff <= CE_STEP_LOSS_FP32_TOL:
+    if not loss_diff <= FP32_STEP_LOSS_TOL:
         raise AssertionError(f"CE kernel vs dense head fp32 step loss differ by {loss_diff}")
     if not grad_rel <= GRAD_REL_TOL:
         raise AssertionError(f"CE kernel vs dense head gradients differ by {grad_rel}")
@@ -710,12 +908,69 @@ def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
     if not run_diff <= RUN_REPEAT_TOL:
         raise AssertionError(f"step 1 recomputed gives loss {run_diff} off the run's")
 
-    bad_loss, bad_grads = step_one(cut_head, fp32, grad=True)
-    bad_diff, bad_rel = abs(bad_loss - dense_loss), rel(bad_grads, dense_grads)
+    bad_loss, bad_grads = step_one(fp32, grad=True, head=cut_head)
+    bad_diff, bad_rel = abs(bad_loss - dense_loss), rel_diff(bad_grads, dense_grads)
     log(f"[trainer] planted CE fault (last {PLANT_CUT} vocab columns hidden), fp32: step "
         f"loss |diff| {bad_diff:.3e}, gradient rel diff {bad_rel:.3e}")
-    if bad_diff <= CE_STEP_LOSS_FP32_TOL and bad_rel <= GRAD_REL_TOL:
+    if bad_diff <= FP32_STEP_LOSS_TOL and bad_rel <= GRAD_REL_TOL:
         raise AssertionError(f"the CE head check passes a planted fault ({bad_diff}, "
+                             f"{bad_rel})")
+
+
+def prologue_parity(config: str, out_dir: str) -> None:
+    """Step 1 of the slice again, on the params and batch the trainer's run
+    started from, with the prologue kernels (the run's) and the composed
+    prologue (rms_norm, the three matmuls, apply_rope), each with the run's
+    attention and loss head: in bf16 the step loss; in fp32 compute the step
+    loss and the gradients, where only summation order separates the two. A
+    planted fault -- the prologue kernels on wq without its last head's
+    columns -- must fail the fp32 check."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+
+    run, step_one = first_step(config, f"{out_dir}/prologue")
+    if not run.kernel_prologue:
+        raise AssertionError("the slice's run does not take the prologue kernels")
+    bf16 = run.model_cfg
+    step_diff = abs(step_one(bf16, grad=False)[0]
+                    - step_one(bf16, grad=False, kernel_prologue=False)[0])
+    fp32 = dataclasses.replace(bf16, dtype=torch.float32)
+    kernel_loss, kernel_grads = step_one(fp32, grad=True)
+    composed_loss, composed_grads = step_one(fp32, grad=True, kernel_prologue=False)
+    loss_diff = abs(kernel_loss - composed_loss)
+    grad_rel = rel_diff(kernel_grads, composed_grads)
+    del kernel_grads
+    log(f"[trainer] step 1 on the same params and batch, prologue kernels vs composed "
+        f"prologue: bf16 step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}); fp32 step "
+        f"loss |diff| {loss_diff:.3e} (tol {FP32_STEP_LOSS_TOL}), gradient rel diff "
+        f"{grad_rel:.3e} (tol {GRAD_REL_TOL})")
+    if not step_diff <= STEP_LOSS_TOL:
+        raise AssertionError(f"prologue kernels vs composed step loss differ by {step_diff}")
+    if not loss_diff <= FP32_STEP_LOSS_TOL:
+        raise AssertionError(f"prologue kernels vs composed fp32 step loss differ by "
+                             f"{loss_diff}")
+    if not grad_rel <= GRAD_REL_TOL:
+        raise AssertionError(f"prologue kernels vs composed gradients differ by {grad_rel}")
+
+    good = llama.fused_prologue
+
+    def cut_last_q_head(x, norm_w, wq, wk, wv, cos, sin, *, eps, head_dim):
+        wq = torch.cat([wq[:, :-head_dim], torch.zeros_like(wq[:, -head_dim:])], dim=1)
+        return good(x, norm_w, wq, wk, wv, cos, sin, eps=eps, head_dim=head_dim)
+
+    llama.fused_prologue = cut_last_q_head  # what decoder_layer calls
+    try:
+        bad_loss, bad_grads = step_one(fp32, grad=True)
+    finally:
+        llama.fused_prologue = good
+    bad_diff, bad_rel = abs(bad_loss - composed_loss), rel_diff(bad_grads, composed_grads)
+    log(f"[trainer] planted prologue fault (wq without its last head's columns), fp32: step "
+        f"loss |diff| {bad_diff:.3e}, gradient rel diff {bad_rel:.3e}")
+    if bad_diff <= FP32_STEP_LOSS_TOL and bad_rel <= GRAD_REL_TOL:
+        raise AssertionError(f"the prologue check passes a planted fault ({bad_diff}, "
                              f"{bad_rel})")
 
 
@@ -737,6 +992,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     rows.update(phase_ce())
+    rows.update(phase_prologue())
     launches = phase_trainer()
     for key, row in rows.items():
         row["launches"] = launches[key]

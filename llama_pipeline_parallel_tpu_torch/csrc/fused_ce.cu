@@ -38,13 +38,12 @@
 // What bounds these kernels on the card: every pass is a GEMM-sized product
 // (2 n d V operations; 0.54 TFLOP at n 2048, d 4096, V 32000) over far fewer
 // bytes, so the bound is the tensor-core rate. This first version does the
-// products with scalar fp32 FMAs: one tiled mainloop (128 x 128 block tile,
-// depth 16, fp32 copies in shared memory, 8 x 8 register micro-tile per
-// thread fed by float4 loads, the next depth tile's global loads in flight
-// during this tile's FMAs) shared by all four product kernels, which differ
-// only in operand layouts and epilogue. Tensor cores (wgmma), TMA and a
-// pipelined ring of tiles are the next step and change none of the above.
-// The product kernels are held to 128 registers a thread (two blocks per SM).
+// products with scalar fp32 FMAs: the tiled mainloop of simt_tile.cuh
+// (128 x 128 block tile, depth 16, 8 x 8 register micro-tile per thread)
+// shared by all four product kernels, which differ only in operand layouts
+// and epilogue. Tensor cores (wgmma), TMA and a pipelined ring of tiles are
+// the next step and change none of the above. The product kernels are held
+// to 128 registers a thread (two blocks per SM).
 //
 // Layouts: h [n, d], W [d, V] and g [n, vc] contiguous, all in one dtype
 // (fp32 or bf16); t int32 [n]; lse, tgt, s fp32 [n]; dh fp32 [n, d]; dW [d, V]
@@ -54,118 +53,13 @@
 // Each entry point returns a cudaError_t (0 = launched); it launches on the
 // stream it is given and neither allocates nor synchronises.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "simt_tile.cuh"
 
 namespace {
 
-constexpr int TILE = 128;        // rows and columns of a block's output tile
-constexpr int BK = 16;           // depth of one mainloop step
-constexpr int NT = 256;          // threads per block, seen as a 16 x 16 grid
-constexpr int LDT = TILE + 4;    // row stride of a [BK, TILE] operand tile in shared memory
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Offset of a thread's micro-tile row (or column) r in 0..7 inside the tile:
-// rows q * 4 .. q * 4 + 3 and 64 + q * 4 .. 64 + q * 4 + 3 for thread
-// coordinate q (ty for rows, tx for columns).
-__device__ __forceinline__ int micro(int q, int r) { return (r < 4 ? 0 : 64) + q * 4 + (r & 3); }
-
-// An operand X(r, k) of the product, r in [0, rows), k in [0, depth): stored
-// K-contiguous (X[r * ld + k]) or R-contiguous (X[k * ld + r]). Each thread
-// loads 8 elements of the [TILE, BK] tile at (r0, k0) into registers, as
-// fp32, zero past the edges; neighbouring threads read neighbouring addresses.
-template <bool K_CONTIG>
-__device__ __forceinline__ void tile_coords(int e, int& r, int& k) {
-  if (K_CONTIG) {
-    r = e * 16 + threadIdx.x / 16;
-    k = threadIdx.x % 16;
-  } else {
-    r = threadIdx.x % TILE;
-    k = e * 2 + threadIdx.x / TILE;
-  }
-}
-
-template <typename T, bool K_CONTIG>
-__device__ __forceinline__ void load_tile(float (&reg)[8], const T* __restrict__ x, size_t ld,
-                                          int r0, int k0, int rows, int depth) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    int r, k;
-    tile_coords<K_CONTIG>(e, r, k);
-    const int gr = r0 + r, gk = k0 + k;
-    float v = 0.f;
-    if (gr < rows && gk < depth)
-      v = to_f32(x[K_CONTIG ? (size_t)gr * ld + gk : (size_t)gk * ld + gr]);
-    reg[e] = v;
-  }
-}
-
-template <bool K_CONTIG>
-__device__ __forceinline__ void store_tile(float (*s)[LDT], const float (&reg)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    int r, k;
-    tile_coords<K_CONTIG>(e, r, k);
-    s[k][r] = reg[e];
-  }
-}
-
-// acc[r][c] = sum_k A(m0 + micro(ty, r), k) * B(n0 + micro(tx, c), k) over
-// k in [0, K): the one product every kernel below is built from. A has M
-// rows, B has N rows (the output's columns); elements past M, N or K count
-// as zero.
-template <typename T, bool A_KC, bool B_KC>
-__device__ __forceinline__ void tile_product(float (&acc)[8][8], const T* __restrict__ a,
-                                             size_t lda, const T* __restrict__ b, size_t ldb,
-                                             int m0, int n0, int M, int N, int K) {
-  __shared__ __align__(16) float a_s[BK][LDT];
-  __shared__ __align__(16) float b_s[BK][LDT];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  float ra[8], rb[8];
-  load_tile<T, A_KC>(ra, a, lda, m0, 0, M, K);
-  load_tile<T, B_KC>(rb, b, ldb, n0, 0, N, K);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_tile<A_KC>(a_s, ra);
-    store_tile<B_KC>(b_s, rb);
-    __syncthreads();
-    if (k0 + BK < K) {  // the next depth tile's loads fly while this one's FMAs run
-      load_tile<T, A_KC>(ra, a, lda, m0, k0 + BK, M, K);
-      load_tile<T, B_KC>(rb, b, ldb, n0, k0 + BK, N, K);
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&a_s[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&b_s[k][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();  // every read of this tile is done before the next store
-  }
-}
+using namespace lpt;
 
 // Reduce over the 16 threads that share a micro-tile row (ty): lanes
 // 0-15 or 16-31 of one warp.
@@ -193,8 +87,12 @@ ce_stats_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __r
                 float* __restrict__ part_t, int n, int d, int v) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  __shared__ __align__(16) TileSmem smem;
   float acc[8][8];
-  tile_product<T, true, false>(acc, h, d, w, v, m0, n0, n, v, d);  // logits = h W
+  zero(acc);
+  // logits = h W
+  tile_product(acc, smem, Dense<T, true>{h, (size_t)d}, Dense<T, false>{w, (size_t)v}, m0, n0,
+               n, v, d);
 
   const size_t part = (size_t)blockIdx.x * n;
 #pragma unroll
@@ -252,8 +150,12 @@ ce_grad_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __re
                int n, int d, int v, int c0, int vc) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  __shared__ __align__(16) TileSmem smem;
   float acc[8][8];
-  tile_product<T, true, false>(acc, h, d, w + c0, v, m0, n0, n, vc, d);  // the chunk's logits
+  zero(acc);
+  // the chunk's logits
+  tile_product(acc, smem, Dense<T, true>{h, (size_t)d}, Dense<T, false>{w + c0, (size_t)v}, m0,
+               n0, n, vc, d);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = m0 + micro(ty, r);
@@ -277,9 +179,12 @@ ce_dh_kernel(const T* __restrict__ g, const T* __restrict__ w, float* __restrict
              int d, int v, int c0, int vc, int accumulate) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  __shared__ __align__(16) TileSmem smem;
   float acc[8][8];
+  zero(acc);
   // A(i, k) = g[i, k]; B(j, k) = W[j, c0 + k]: both contiguous along k
-  tile_product<T, true, true>(acc, g, vc, w + c0, v, m0, n0, n, d, vc);
+  tile_product(acc, smem, Dense<T, true>{g, (size_t)vc}, Dense<T, true>{w + c0, (size_t)v}, m0,
+               n0, n, d, vc);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = m0 + micro(ty, r);
@@ -301,9 +206,12 @@ ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ g, T* __restrict__ d
              int v, int c0, int vc) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  __shared__ __align__(16) TileSmem smem;
   float acc[8][8];
+  zero(acc);
   // A(i, k) = h[k, i]; B(j, k) = g[k, j]: both contiguous along the output rows
-  tile_product<T, false, false>(acc, h, d, g, vc, m0, n0, d, vc, n);
+  tile_product(acc, smem, Dense<T, false>{h, (size_t)d}, Dense<T, false>{g, (size_t)vc}, m0, n0,
+               d, vc, n);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = m0 + micro(ty, r);
@@ -319,8 +227,6 @@ ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ g, T* __restrict__ d
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T>
 cudaError_t launch_fwd(const void* h, const void* w, const int* t, float* part_m, float* part_z,
@@ -363,14 +269,6 @@ cudaError_t launch_dw(const void* h, const void* g, void* dw, int n, int d, int 
 }
 
 }  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.
-#define LPT_DISPATCH(DTYPE, CALL)                              \
-  do {                                                         \
-    if ((DTYPE) == 0) return (int)CALL(float);                 \
-    if ((DTYPE) == 1) return (int)CALL(__nv_bfloat16);         \
-    return (int)cudaErrorInvalidValue;                         \
-  } while (0)
 
 extern "C" {
 

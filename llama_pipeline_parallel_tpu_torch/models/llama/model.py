@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
+from llama_pipeline_parallel_tpu_torch.ops.fused_prologue import fused_prologue
 from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 from llama_pipeline_parallel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -97,9 +98,11 @@ class LlamaForCausalLM(nn.Module):
         return dict(self.named_parameters())
 
     def forward(self, input_ids, attention_mask=None, position_ids=None, *,
-                attn_fn: AttnFn = attention, remat: bool = False) -> torch.Tensor:
+                attn_fn: AttnFn = attention, remat: bool = False,
+                kernel_prologue: bool = False) -> torch.Tensor:
         return forward(self.params(), input_ids, attention_mask, position_ids,
-                       cfg=self.cfg, attn_fn=attn_fn, remat=remat)
+                       cfg=self.cfg, attn_fn=attn_fn, remat=remat,
+                       kernel_prologue=kernel_prologue)
 
 
 # ---------------------------------------------------------------------------
@@ -119,17 +122,27 @@ def decoder_layer(
     sin: torch.Tensor,
     cfg: LlamaConfig,
     attn_fn: AttnFn = attention,
+    kernel_prologue: bool = False,
 ) -> torch.Tensor:
     """One transformer block; `layer` holds one layer's leaves under the
-    names without the `layers.` prefix (`attn.wq`, ..., `post_norm`)."""
+    names without the `layers.` prefix (`attn.wq`, ..., `post_norm`).
+
+    `kernel_prologue` (config `kernels.prologue: pallas`) runs rms_norm ->
+    q/k/v -> RoPE through the fused prologue kernels (ops/fused_prologue.py);
+    otherwise the composed ops run."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
-    hidden = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
-    q = (hidden @ layer["attn.wq"].to(dt)).view(b, s, -1, hd)
-    k = (hidden @ layer["attn.wk"].to(dt)).view(b, s, -1, hd)
-    v = (hidden @ layer["attn.wv"].to(dt)).view(b, s, -1, hd)
-    q, k = apply_rope(q, k, cos, sin)
+    if kernel_prologue:
+        q, k, v = fused_prologue(x, layer["input_norm"], layer["attn.wq"].to(dt),
+                                 layer["attn.wk"].to(dt), layer["attn.wv"].to(dt), cos, sin,
+                                 eps=cfg.rms_norm_eps, head_dim=hd)
+    else:
+        hidden = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
+        q = (hidden @ layer["attn.wq"].to(dt)).view(b, s, -1, hd)
+        k = (hidden @ layer["attn.wk"].to(dt)).view(b, s, -1, hd)
+        v = (hidden @ layer["attn.wv"].to(dt)).view(b, s, -1, hd)
+        q, k = apply_rope(q, k, cos, sin)
     attn_out = attn_fn(q, k, v, padding_mask, causal=True)
     x = x + attn_out.reshape(b, s, -1) @ layer["attn.wo"].to(dt)
     return mlp_block(layer, x, cfg)
@@ -153,6 +166,7 @@ def run_layers(
     cfg: LlamaConfig,
     attn_fn: AttnFn = attention,
     remat: bool = False,
+    kernel_prologue: bool = False,
 ) -> torch.Tensor:
     """Apply a stack of layers (leading layer axis on every leaf; names
     without the `layers.` prefix). `remat=True` recomputes each layer in the
@@ -165,9 +179,9 @@ def run_layers(
         layer = {name: leaves[i] for name, leaves in per_layer.items()}
         if remat:
             x = checkpoint(decoder_layer, layer, x, padding_mask, cos, sin, cfg,
-                           attn_fn, use_reentrant=False)
+                           attn_fn, kernel_prologue, use_reentrant=False)
         else:
-            x = decoder_layer(layer, x, padding_mask, cos, sin, cfg, attn_fn)
+            x = decoder_layer(layer, x, padding_mask, cos, sin, cfg, attn_fn, kernel_prologue)
     return x
 
 
@@ -189,6 +203,7 @@ def hidden_states(
     cfg: LlamaConfig,
     attn_fn: AttnFn = attention,
     remat: bool = False,
+    kernel_prologue: bool = False,
 ) -> torch.Tensor:
     """Single-device forward up to and including the final norm -> [b, s, d]
     in `cfg.dtype`: what the loss head takes.
@@ -202,7 +217,7 @@ def hidden_states(
     x = embed(params, input_ids, cfg)
     layers = {name[len("layers."):]: leaf for name, leaf in params.items()
               if name.startswith("layers.")}
-    x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat)
+    x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue)
     return final_norm(params, x, cfg)
 
 
@@ -215,11 +230,12 @@ def forward(
     cfg: LlamaConfig,
     attn_fn: AttnFn = attention,
     remat: bool = False,
+    kernel_prologue: bool = False,
 ) -> torch.Tensor:
     """Single-device full forward -> fp32 logits [b, s, V] (`hidden_states`,
     then `lm_head`)."""
     x = hidden_states(params, input_ids, attention_mask, position_ids, cfg=cfg,
-                      attn_fn=attn_fn, remat=remat)
+                      attn_fn=attn_fn, remat=remat, kernel_prologue=kernel_prologue)
     return lm_head(params, x, cfg)
 
 

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 into `<build dir>/<name>-<hash>.so` for Hopper (`sm_90a`) the first time a
-kernel of it is launched; the hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. A plain C
+kernel of it is launched; the hash covers the source, the headers beside it
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. A plain C
 interface keeps PyTorch's headers out of the compile: a source builds in
 seconds, not minutes.
 
@@ -49,9 +50,12 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     source = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return source, os.path.join(build_dir(), f"{name}-{digest[:16]}.so")
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return source, os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names: list[str]) -> dict[str, str]:

@@ -69,9 +69,12 @@ def shift_labels(labels: torch.Tensor) -> torch.Tensor:
 
 def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
                num_microbatches: int = 1, attn_fn: Callable = attention,
-               remat: bool = False, head: LossHead = LossHead()) -> dict:
+               remat: bool = False, head: LossHead = LossHead(),
+               kernel_prologue: bool = False) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
-    the params' device), updating `state` in place. Returns the metrics."""
+    the params' device), updating `state` in place. `kernel_prologue` runs
+    each layer's norm -> QKV -> RoPE on the fused prologue kernels
+    (`kernels.prologue: pallas`). Returns the metrics."""
     ids = batch["input_ids"]
     bsz = ids.shape[0]
     if bsz % num_microbatches:
@@ -90,7 +93,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
         hn = llama.hidden_states(params, ids[rows],
                                  None if mask is None else mask[rows],
                                  None if positions is None else positions[rows],
-                                 cfg=cfg, attn_fn=attn_fn, remat=remat)
+                                 cfg=cfg, attn_fn=attn_fn, remat=remat,
+                                 kernel_prologue=kernel_prologue)
         mb_loss = head_loss_sum_count(params, hn, targets[rows], cfg, head)[0]
         mb_loss = mb_loss / global_count
         mb_loss.backward()

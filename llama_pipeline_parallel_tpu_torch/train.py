@@ -198,9 +198,6 @@ def _check_supported(cfg: dict) -> None:
         raise NotImplementedError(
             f"this trainer runs on one device (pp=dp=tp=sp=1); got {layout}. "
             f"Pipeline, data, tensor and sequence parallelism come with later slices")
-    if _kernel_flags(cfg)[1]:
-        raise NotImplementedError("kernels.prologue=pallas: the prologue kernels are "
-                                  "not ported yet")
     asked = [key for key in _NOT_PORTED if cfg.get(key)]
     if asked:
         raise NotImplementedError(f"not ported yet: {asked}")
@@ -219,6 +216,7 @@ class Run:
     num_microbatches: int
     remat: bool
     head: LossHead
+    kernel_prologue: bool
     seq_length: int
     end_step: int
 
@@ -229,7 +227,8 @@ class Run:
     def step(self, batch: dict[str, torch.Tensor]) -> dict:
         return train_step(self.state, batch, self.model_cfg,
                           num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
-                          remat=self.remat, head=self.head)
+                          remat=self.remat, head=self.head,
+                          kernel_prologue=self.kernel_prologue)
 
 
 def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
@@ -243,6 +242,11 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
     seed = cfg.get("seed", 42)
     model_cfg = build_model_config(cfg["model"])
     head = _loss_head(cfg, model_cfg)
+    kernel_prologue = _kernel_flags(cfg)[1]
+    if head.kernel_ce or kernel_prologue:
+        logger.info("hand-written kernels enabled (ce=%s prologue=%s): %s", head.kernel_ce,
+                    kernel_prologue, "CUDA" if device.type == "cuda"
+                    else "their plain PyTorch versions on the CPU")
     dataset, collator = build_dataset_and_collator(cfg, model_cfg)
     micro_batch = cfg.get("per_device_train_batch_size", 1)
     num_microbatches = cfg.get("gradient_accumulation_steps", 1)
@@ -279,7 +283,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
                                         model_cfg=model_cfg, micro_batch=micro_batch),
                num_microbatches=num_microbatches,
                remat=cfg.get("activation_checkpointing", True), head=head,
-               seq_length=seq_length, end_step=end_step)
+               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step)
 
 
 def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:

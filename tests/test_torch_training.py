@@ -253,23 +253,26 @@ def test_optimizer_matches_optax_over_several_updates(ref):
 # the loss heads: dense (lm_head + CE), the vocab-chunked op
 # (loss_vocab_chunks=4), and the CE kernels (kernels.ce=pallas), which run
 # their plain versions on the CPU against the reference's Pallas kernels in
-# interpret mode
+# interpret mode; likewise the prologue kernels (kernels.prologue=pallas)
 HEADS = {"dense": dict(), "chunked": dict(loss_chunks=4),
          "kernel": dict(loss_chunks=4, kernel_ce=True)}
 
 
-@pytest.mark.parametrize("impl,head", [
-    pytest.param("exact", "dense", id="exact"),
-    pytest.param("flash", "dense", id="flash"),
-    pytest.param("exact", "chunked", id="exact-chunked"),
-    pytest.param("exact", "kernel", id="exact-kernel"),
-    pytest.param("flash", "kernel", id="flash-kernel"),
+@pytest.mark.parametrize("impl,head,prologue", [
+    pytest.param("exact", "dense", False, id="exact"),
+    pytest.param("flash", "dense", False, id="flash"),
+    pytest.param("exact", "chunked", False, id="exact-chunked"),
+    pytest.param("exact", "kernel", False, id="exact-kernel"),
+    pytest.param("flash", "kernel", False, id="flash-kernel"),
+    pytest.param("exact", "kernel", True, id="exact-kernel-prologue"),
+    pytest.param("flash", "kernel", True, id="flash-kernel-prologue"),
 ])
-def test_train_step_matches_reference(ref, impl, head):
+def test_train_step_matches_reference(ref, impl, head, prologue):
     """3 steps of the reference's jitted train step on a 1-device mesh
     (pp = dp = 1, 2 microbatches) against the port's train_step, from the
     same params (convert.py) and the same loader batches (right-padded rows,
-    so the valid-target count is not the row count), with each loss head."""
+    so the valid-target count is not the row count), with each loss head and
+    with the composed or the kernel prologue (`prologue`)."""
     cfg_j, cfg_t = ref.config.LlamaConfig.tiny(), TConfig.tiny()
     tree, params = _params(ref, seed=1)
     mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=1, dp=1))
@@ -284,7 +287,8 @@ def test_train_step_matches_reference(ref, impl, head):
         def ref_attn(q, k, v, padding_mask=None, *, causal=True):
             return ref.fa.flash_attention(q, k, v, None, causal=causal)
     step_fn = ref.ts.make_train_step(
-        mesh, cfg_j, ref.pl.PipelineConfig(num_stages=1, num_microbatches=2, **HEADS[head]),
+        mesh, cfg_j, ref.pl.PipelineConfig(num_stages=1, num_microbatches=2,
+                                           kernel_prologue=prologue, **HEADS[head]),
         tx, sched, stacked, attn_fn=ref_attn)
 
     leaves = {k: v.requires_grad_() for k, v in params.items()}
@@ -299,7 +303,7 @@ def test_train_step_matches_reference(ref, impl, head):
         state, want = step_fn(state, {k: jnp.asarray(v) for k, v in batch.items()})
         got = t_ts.train_step(t_state, {k: torch.from_numpy(v) for k, v in batch.items()},
                               cfg_t, num_microbatches=2, attn_fn=t_attn, remat=True,
-                              head=t_ts.LossHead(**HEADS[head]))
+                              head=t_ts.LossHead(**HEADS[head]), kernel_prologue=prologue)
         np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=1e-5)
         np.testing.assert_allclose(got["grad_norm"].item(), float(want["grad_norm"]), rtol=1e-4)
         np.testing.assert_allclose(got["lr"], float(want["lr"]), rtol=1e-6)
@@ -352,6 +356,29 @@ def test_cli_cpu_run_with_kernel_ce_head(tmp_path):
     assert got[-1]["loss"] < got[0]["loss"]
 
 
+def test_cli_cpu_run_with_kernel_prologue_and_ce_head(tmp_path):
+    """The CLI with `kernels.prologue=pallas kernels.ce=pallas
+    loss_vocab_chunks=4` on the CPU (both kernel families' plain versions)
+    gives the composed prologue and dense head's losses step by step, to fp32
+    summation order (rtol 1e-5, as the CE head alone)."""
+    args = ["mesh.pp=1", "mesh.dp=1", "dataset.pseudo_dataset_len=4", "logging_steps=4",
+            "max_steps=8"]
+    cmd = [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.cli", "--config",
+           "conf/tiny_smoke.yaml", "--device", "cpu", *args, f"output_dir={tmp_path}/k",
+           "kernels.prologue=pallas", "kernels.ce=pallas", "loss_vocab_chunks=4"]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "prologue=True" in res.stderr
+    got = [json.loads(x) for x in open(tmp_path / "k" / "metrics.jsonl")]
+    composed = run_training(t_config.load_config(
+        os.path.join(REPO, "conf", "tiny_smoke.yaml"), args + [f"output_dir={tmp_path}/c"]),
+        device="cpu")
+    assert [r["step"] for r in got] == [4, 8]
+    want = [np.mean(composed["losses"][:4]), np.mean(composed["losses"][4:])]
+    np.testing.assert_allclose([r["loss"] for r in got], want, rtol=1e-5)
+    assert got[-1]["loss"] < got[0]["loss"]
+
+
 def test_trainer_refuses_what_it_does_not_run(tmp_path):
     cfg = t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                [f"output_dir={tmp_path}"])
@@ -363,8 +390,8 @@ def test_trainer_refuses_what_it_does_not_run(tmp_path):
         return build_run(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                               one + list(overrides)), device="cpu")
 
-    with pytest.raises(NotImplementedError, match="prologue"):
-        build("kernels.prologue=pallas")
+    assert build("kernels.prologue=pallas").kernel_prologue
+    assert not build().kernel_prologue
     with pytest.raises(ValueError, match="unknown kernels"):
         build("kernels.attention=pallas")
     with pytest.raises(ValueError, match="'xla' or 'pallas'"):

@@ -10,8 +10,10 @@ LLaMA-7B-width slice, chip_smoke.TRAIN_OVERRIDES), takes one warm-up step, then 
 the wall time (host clock around synchronised steps), device busy time (sum
 of kernel times; the port runs one stream) and idle share, peak device memory
 (max_memory_allocated over the warm-up and profiled steps), device time by
-kernel family (the port's CE head and flash kernels, cuBLAS GEMMs, other PyTorch
-kernels, copies), the fifteen costliest kernels, and one JSON line with the same numbers.
+kernel family (the port's prologue, CE head and flash kernels, cuBLAS GEMMs, other
+PyTorch kernels, copies), the fifteen costliest kernels, and one JSON line with the same
+numbers. `kernels.prologue=xla` (or `kernels.ce=xla loss_vocab_chunks=1`) as an override
+profiles the step without those kernels.
 Prints the card's name and power limit beside them.
 """
 
@@ -30,6 +32,9 @@ sys.path.insert(0, ROOT)
 from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
 
 FAMILIES = (  # (family, substrings of kernel names), first match wins
+    # before flash_attention, whose "fwd_kernel" is also in "prologue_fwd_kernel"
+    ("prologue", ("prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
+                  "prologue_dw_kernel")),
     ("ce_head", ("ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel",
                  "ce_dw_kernel")),
     ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
