@@ -21,12 +21,20 @@ which raises on failure:
               against its plain PyTorch version on the same inputs, element
               by element: at the training step's head shape (2048 tokens,
               width 4096, vocab 32000, bf16) with 4 vocab chunks and with 1,
-              against the plain version in fp32, and in a small fp32 case
-              ragged to every tile; targets on chunk edges, in the last vocab
-              tile and ignored. The same check must reject planted faults: the
-              kernels on W without its last vocab columns (forward, dh) or on
-              the tokens without the last ones (dW). Times each kernel, the
-              dh + dW pair, its plain version and, as yardsticks the port never
+              against the plain version in fp32; and in small cases ragged to
+              every tile, 300 tokens, width 200: vocab 1000 (chunks of 250)
+              and vocab 1088 (chunks of 272), each in fp32 and bf16; targets
+              on chunk edges, in the last vocab tile and ignored. Each case
+              asserts which backward route it took (`tensor_core_counts`):
+              bf16 with width and chunk multiples of 8 the tensor cores,
+              the rest (fp32, and bf16 chunks of 250) the SIMT kernels. The
+              same check must reject planted faults: the kernels on W
+              without its last vocab columns (forward, dh) or on the tokens
+              without the last ones (dW), at the slice and in the small bf16
+              cases, on both routes. Counts the HGMMA and
+              UTMALDG instructions of each tensor-core kernel in the
+              library's SASS (cuobjdump). Times each kernel, the dh + dW
+              pair, its plain version and, as yardsticks the port never
               calls, cuBLAS h @ W, g @ W^T and h^T @ g.
 4. prologue -- each fused prologue kernel (forward q/k/v, dhidden, dW)
               against its plain PyTorch version on the same inputs (the same
@@ -45,7 +53,8 @@ which raises on failure:
               kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas:
               every loss finite, exactly layers x microbatches x steps
               launches of each flash and each prologue kernel and
-              microbatches x steps of each CE kernel. Then step 1 again on the
+              microbatches x steps of each CE kernel, every dh and dW call on
+              the tensor cores. Then step 1 again on the
               same params and batch (each time on the run's prologue) with
               flash and with exact attention: per-token losses and gradients
               agree, and a planted attention fault is rejected; with the CE
@@ -88,9 +97,16 @@ TRAIN_OVERRIDES = [
     "loss_vocab_chunks=4", "kernels.prologue=pallas",
 ]
 # the fused CE head: the step's shape (tokens of one microbatch, width,
-# vocab) and a small case ragged to every kernel tile (128 x 128 x 16)
+# vocab) and small cases ragged to every kernel tile (SIMT 128 x 128 x 16,
+# tensor cores 128 x 256 x 64): chunks of 250 (not a multiple of 8: bf16
+# too takes the SIMT backward) and of 272 (the bf16 backward takes the
+# tensor cores)
 CE_SLICE = dict(n=2048, d=4096, v=32000)
 CE_SMALL = dict(n=300, d=200, v=1000, chunks=4)
+CE_SMALL_TC = dict(n=300, d=200, v=1088, chunks=4)
+# the tensor-core kernels of the CE backward, by the TPU kernel each serves
+CE_TC_KERNELS = {"ce_dh": ("ce_grad_tc_kernel", "ce_dh_tc_kernel"),
+                 "ce_dw": ("ce_grad_tc_kernel", "ce_dw_tc_kernel")}
 # the fused prologue: one layer's shape at the step (tokens of one
 # microbatch, width, q and kv heads) and a small case ragged to every tile
 # (128 tokens x 128 features, depth 16), with MQA and positions from 37
@@ -380,22 +396,35 @@ def ce_inputs(n, d, v, dtype, seed, w_scale):
     return h, w, safe_t, valid.float() * 0.37
 
 
-def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, plant: bool = False) -> dict:
+def expect_route(fc, route: str, calls: int) -> None:
+    """The CE backward calls since the last reset took `route`: the tensor
+    cores counted every one of `calls` calls of dh and of dW, or none."""
+    on_tc = calls if route == fc.TENSOR_CORE else 0
+    if fc.tensor_core_counts != {"ce_dh": on_tc, "ce_dw": on_tc}:
+        raise AssertionError(f"tensor_core_counts {fc.tensor_core_counts}: the backward did not "
+                             f"take the {route} route {calls} time(s)")
+
+
+def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, route: str,
+            plant: bool = False) -> dict:
     """Run the three CE kernels and hold each against its plain version in
     fp32 on the same inputs (the backward ones given the same lse, with g
-    rounded to the inputs' dtype as the kernels round it). Returns
-    {kernel: max_abs_err}.
+    rounded to the inputs' dtype as the kernels round it); the backward must
+    take `route`. Returns {kernel: max_abs_err}.
 
     With `plant`, the same check must reject each kernel made wrong at the
     edge only: forward and dh on W without its last PLANT_CUT vocab columns
     (the tokens whose target lay there lose it), dW on the tokens without
-    the last PLANT_CUT."""
+    the last PLANT_CUT; the planted calls take `route` too."""
     from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
 
     hf, wf = h.float(), w.float()
     lse, tgt = fc._fwd_stats_cuda(h, w, safe_t, chunks)
     ref_lse, ref_tgt = fc._fwd_stats_plain(hf, wf, safe_t, chunks)
+    fc.reset_launch_counts()
     dh, dw = fc._backward_cuda(h, w, safe_t, ref_lse, svec, chunks)
+    expect_route(fc, route, 1)
+    log(f"  backward route: {route} (tensor_core_counts {fc.tensor_core_counts})")
     ref_dh = fc._dh_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
     ref_dw = fc._dw_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
     tol = {"dh": tolerance(ref_dh, fp32), "dw": tolerance(ref_dw, fp32)}
@@ -414,7 +443,35 @@ def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, plant: bool = False) ->
         expect_rejected("ce dW (last tokens hidden)",
                         fc._dw_cuda(h[keep], w, safe_t[keep], ref_lse[keep], svec[keep], chunks),
                         ref_dw, tol["dw"])
+        expect_route(fc, route, 2)  # and the cut dh and cut dW calls
     return errs
+
+
+def sass_counts() -> None:
+    """Log the HGMMA (wgmma) and UTMALDG (TMA load) instructions of each
+    tensor-core kernel in the fused CE library's SASS; fail if one has none.
+    Says so plainly where the toolkit has no cuobjdump."""
+    import shutil
+
+    from llama_pipeline_parallel_tpu_torch.ops import kernel_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log(f"[ce] SASS: cuobjdump is absent ({tool}); HGMMA / UTMALDG not counted")
+        return
+    sass = subprocess.run([tool, "-sass", kernel_build.library_path("fused_ce")],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    kernels = {k for pair in CE_TC_KERNELS.values() for k in pair}
+    counts = {}
+    for function in sass.split("Function : ")[1:]:
+        lines = function.splitlines()
+        name = next((k for k in kernels if k in lines[0]), None)
+        if name:
+            counts[name] = {op: sum(op in line for line in lines) for op in ("HGMMA", "UTMALDG")}
+    log(f"[ce] SASS of the fused_ce library (cuobjdump -sass): {counts}")
+    if set(counts) != kernels or not all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()):
+        raise AssertionError(f"the tensor-core CE kernels lack HGMMA or UTMALDG: {counts}")
 
 
 def ce_bounds(n, d, v, elem_bytes) -> dict:
@@ -446,11 +503,17 @@ def phase_ce() -> dict:
     from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    c = CE_SMALL
-    log(f"[ce] small case fp32 n={c['n']} d={c['d']} V={c['v']} chunks={c['chunks']} "
-        f"(ragged to every tile; tol {FP32_TOL})")
-    h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], torch.float32, 2, w_scale=0.3)
-    ce_case(h, w, safe_t, svec, c["chunks"], fp32=True)
+    sass_counts()
+    for c, dtype, route in ((CE_SMALL, torch.float32, fc.SIMT),
+                            (CE_SMALL, torch.bfloat16, fc.SIMT),
+                            (CE_SMALL_TC, torch.float32, fc.SIMT),
+                            (CE_SMALL_TC, torch.bfloat16, fc.TENSOR_CORE)):
+        fp32 = dtype == torch.float32
+        tol = f"tol {FP32_TOL}" if fp32 else "vs the plain version in fp32"
+        log(f"[ce] small case {'fp32' if fp32 else 'bf16'} n={c['n']} d={c['d']} V={c['v']} "
+            f"chunks={c['chunks']} (ragged to every tile; {tol})")
+        h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], dtype, 2, w_scale=0.3)
+        ce_case(h, w, safe_t, svec, c["chunks"], fp32=fp32, route=route, plant=not fp32)
 
     c = CE_SLICE
     for chunks in (1, 4):
@@ -458,7 +521,8 @@ def phase_ce() -> dict:
             f"chunk(s), vs the plain version in fp32")
         h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], torch.bfloat16, 3, w_scale=0.02)
         log(f"  ignored tokens: {int((svec == 0).sum())}")
-        errs = ce_case(h, w, safe_t, svec, chunks, fp32=False, plant=chunks == 4)
+        errs = ce_case(h, w, safe_t, svec, chunks, fp32=False, route=fc.TENSOR_CORE,
+                       plant=chunks == 4)
         torch.cuda.empty_cache()
 
     lse, _ = fc._fwd_stats_cuda(h, w, safe_t, chunks)
@@ -492,6 +556,8 @@ def phase_ce() -> dict:
                      "replaces": replaces[key], "launches": None, "max_abs_err": errs[key],
                      "ms": ms, "plain_ms": plain_ms, **bound[key],
                      "library_ms": library[key]}
+        if key in CE_TC_KERNELS:  # bf16 takes the tensor-core kernels
+            rows[key]["cuda_kernels"] = " + ".join(CE_TC_KERNELS[key]) + " (tensor cores)"
         log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
     return rows
@@ -674,19 +740,24 @@ def phase_trainer() -> dict:
     fp.reset_launch_counts()
     summary = run_training(cfg, device="cuda")
     launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+    tensor_core = dict(fc.tensor_core_counts)
     losses = summary["losses"]
     step_ms = 1e3 * statistics.median(summary["step_times"][1:])
     log(f"[trainer] losses {losses}")
     log(f"[trainer] step {step_ms:.1f} ms (median of steps 2-{len(losses)}), "
         f"{summary['tokens_per_step'] / step_ms * 1e3:.0f} tokens/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"kernel launches {launches} (expected {expected})")
+        f"kernel launches {launches} (expected {expected}), CE backward calls on the "
+        f"tensor cores {tensor_core}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected} (flash and "
                              f"prologue: {layers} layers x microbatches x steps; CE: "
                              f"microbatches x steps)")
+    if tensor_core != {"ce_dh": microbatches, "ce_dw": microbatches}:
+        raise AssertionError(f"CE backward calls on the tensor cores {tensor_core}, expected "
+                             f"{microbatches} each (the bf16 slice is on their grid)")
     # at init the logits are about normal with variance 0.02^2 * d (lm_head
     # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
     mcfg = build_model_config(cfg["model"])

@@ -4,6 +4,8 @@
 //   ce_stats_kernel + ce_lse_kernel  <- _fwd_kernel (pallas_call in _fwd_stats)
 //   ce_grad_kernel  + ce_dh_kernel   <- _dh_kernel  (first pallas_call in _backward)
 //   ce_grad_kernel  + ce_dw_kernel   <- _dw_kernel  (second pallas_call in _backward)
+//   in bf16 on the tensor cores: ce_grad_tc_kernel + ce_dh_tc_kernel and
+//   ce_grad_tc_kernel + ce_dw_tc_kernel, for the same two.
 //
 // What they compute is the TPU kernels' contract, not their block structure.
 // With h [n, d], W [d, V], targets t [n] (already made safe: 0 where ignored)
@@ -37,13 +39,24 @@
 //
 // What bounds these kernels on the card: every pass is a GEMM-sized product
 // (2 n d V operations; 0.54 TFLOP at n 2048, d 4096, V 32000) over far fewer
-// bytes, so the bound is the tensor-core rate. This first version does the
-// products with scalar fp32 FMAs: the tiled mainloop of simt_tile.cuh
-// (128 x 128 block tile, depth 16, 8 x 8 register micro-tile per thread)
-// shared by all four product kernels, which differ only in operand layouts
-// and epilogue. Tensor cores (wgmma), TMA and a pipelined ring of tiles are
-// the next step and change none of the above. The product kernels are held
-// to 128 registers a thread (two blocks per SM).
+// bytes, so the bound is the tensor-core rate: 1.09 ms for dh or dW alone
+// (recompute + product) and 1.63 ms for the pair at that shape, at 989
+// TFLOP/s bf16.
+// - bf16 backward (the training path): ce_grad_tc_kernel, ce_dh_tc_kernel
+//   and ce_dw_tc_kernel run the three products on the tensor cores, on the
+//   mainloop of tc_tile.cuh (wgmma m64nNk16, bf16 in, fp32 accumulate; TMA
+//   boxes through a 4-stage mbarrier ring; one producer and two consumer
+//   warpgroups; 128 x 256 block tiles). Each takes its operands in the order
+//   they lie in memory (wgmma's transpose flags), each tensor map covers the
+//   vocab chunk only, so TMA reads zeros past its edge. They need what TMA
+//   can address: d and vc multiples of 8 (16-byte row strides, a 16-byte
+//   aligned W + c0); the wrapper picks them by dtype and shape.
+// - fp32, bf16 off that grid, and the forward: scalar fp32 FMAs on the tiled
+//   mainloop of simt_tile.cuh (128 x 128 block tile, depth 16, 8 x 8
+//   register micro-tile per thread), shared by the SIMT product kernels,
+//   which differ only in operand layouts and epilogue; held to 128 registers
+//   a thread (two blocks per SM). fp32 stays here on purpose: wgmma on fp32
+//   is TF32 (10-bit mantissa).
 //
 // Layouts: h [n, d], W [d, V] and g [n, vc] contiguous, all in one dtype
 // (fp32 or bf16); t int32 [n]; lse, tgt, s fp32 [n]; dh fp32 [n, d]; dW [d, V]
@@ -56,6 +69,7 @@
 #include <math.h>
 
 #include "simt_tile.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -225,6 +239,140 @@ ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ g, T* __restrict__ d
 }
 
 // ---------------------------------------------------------------------------
+// Backward on the tensor cores (bf16), per vocab chunk [c0, c0 + vc): the
+// same three products and stores as above, on tc_tile.cuh's mainloop. The
+// epilogues read the wgmma accumulator layout: a thread owns rows row + 8h
+// and column pairs col + 8j + {0, 1}; d and vc are multiples of 8, so a pair
+// is in range whenever its first column is, and is stored as one 2-wide word.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+struct GradStore {  // g[i, j] = ((exp(l - lse[i]) - (c0 + j == t[i])) * s[i]) in bf16
+  const int* __restrict__ t;
+  const float* __restrict__ lse;
+  const float* __restrict__ s;
+  bf16* __restrict__ g;
+  int n, vc, c0;
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= n) continue;
+      const float l = lse[r], sc = s[r];
+      const int target = t[r] - c0;  // the chunk's column of the target, if it owns it
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int c = col + 8 * j;
+        if (c >= vc) continue;
+        const float g0 = (expf(acc[4 * j + 2 * h] - l) - (c == target ? 1.f : 0.f)) * sc;
+        const float g1 = (expf(acc[4 * j + 2 * h + 1] - l) - (c + 1 == target ? 1.f : 0.f)) * sc;
+        *reinterpret_cast<__nv_bfloat162*>(g + (size_t)r * vc + c) = __floats2bfloat162_rn(g0, g1);
+      }
+    }
+  }
+};
+
+struct DhStore {  // dh[i, j] (+)= acc in fp32
+  float* __restrict__ dh;
+  int n, d, accumulate;
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= n) continue;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int c = col + 8 * j;
+        if (c >= d) continue;
+        float2* out = reinterpret_cast<float2*>(dh + (size_t)r * d + c);
+        float2 val = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (accumulate) {
+          const float2 old = *out;
+          val.x += old.x;
+          val.y += old.y;
+        }
+        *out = val;
+      }
+    }
+  }
+};
+
+struct DwStore {  // dW[i, c0 + j] = acc rounded to bf16
+  bf16* __restrict__ dw;
+  int d, v, c0, vc;
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= d) continue;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int c = col + 8 * j;
+        if (c >= vc) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dw + (size_t)r * v + c0 + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+// The chunk's logits: A = h [n, d] (K-major), B(j, k) = W[k, c0 + j] (MN-major).
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_grad_tc_kernel(const __grid_constant__ CUtensorMap h_map,
+                  const __grid_constant__ CUtensorMap w_map, int n, int d, int vc, GradStore out) {
+  tc::tile_product<false, true>(h_map, w_map, n, vc, d, out);
+}
+
+// A = g [n, vc] (K-major), B(j, k) = W[j, c0 + k] (K-major).
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_dh_tc_kernel(const __grid_constant__ CUtensorMap g_map,
+                const __grid_constant__ CUtensorMap w_map, int n, int d, int vc, DhStore out) {
+  tc::tile_product<false, false>(g_map, w_map, n, d, vc, out);
+}
+
+// A(i, k) = h[k, i] (MN-major), B(j, k) = g[k, j] (MN-major).
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_dw_tc_kernel(const __grid_constant__ CUtensorMap h_map,
+                const __grid_constant__ CUtensorMap g_map, int n, int d, int vc, DwStore out) {
+  tc::tile_product<true, true>(h_map, g_map, d, vc, n, out);
+}
+
+cudaError_t launch_grad_tc(const void* h, const void* w, const int* t, const float* lse,
+                           const float* s, void* g, int n, int d, int v, int c0, int vc,
+                           cudaStream_t stream) {
+  CUtensorMap h_map, w_map;
+  cudaError_t err = tc::make_map(&h_map, h, d, n, d);
+  if (err == cudaSuccess) err = tc::make_map(&w_map, static_cast<const bf16*>(w) + c0, vc, d, v);
+  if (err != cudaSuccess) return err;
+  return tc::launch(ce_grad_tc_kernel, n, vc, stream, h_map, w_map, n, d, vc,
+                             GradStore{t, lse, s, static_cast<bf16*>(g), n, vc, c0});
+}
+
+cudaError_t launch_dh_tc(const void* g, const void* w, float* dh, int n, int d, int v, int c0,
+                         int vc, int accumulate, cudaStream_t stream) {
+  CUtensorMap g_map, w_map;
+  cudaError_t err = tc::make_map(&g_map, g, vc, n, vc);
+  if (err == cudaSuccess) err = tc::make_map(&w_map, static_cast<const bf16*>(w) + c0, vc, d, v);
+  if (err != cudaSuccess) return err;
+  return tc::launch(ce_dh_tc_kernel, n, d, stream, g_map, w_map, n, d, vc,
+                           DhStore{dh, n, d, accumulate});
+}
+
+cudaError_t launch_dw_tc(const void* h, const void* g, void* dw, int n, int d, int v, int c0,
+                         int vc, cudaStream_t stream) {
+  CUtensorMap h_map, g_map;
+  cudaError_t err = tc::make_map(&h_map, h, d, n, d);
+  if (err == cudaSuccess) err = tc::make_map(&g_map, g, vc, n, vc);
+  if (err != cudaSuccess) return err;
+  return tc::launch(ce_dw_tc_kernel, d, vc, stream, h_map, g_map, n, d, vc,
+                           DwStore{static_cast<bf16*>(dw), d, v, c0, vc});
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -305,6 +453,24 @@ int lpt_ce_dw(const void* h, const void* g, void* dw, int n, int d, int v, int c
 #define CALL(T) launch_dw<T>(h, g, dw, n, d, v, c0, vc, static_cast<cudaStream_t>(stream))
   LPT_DISPATCH(dtype, CALL);
 #undef CALL
+}
+
+// The bf16 backward on the tensor cores: the arguments of lpt_ce_grad,
+// lpt_ce_dh and lpt_ce_dw without the dtype. d, vc and V multiples of 8;
+// h, w, g 16-byte aligned.
+int lpt_ce_grad_tc(const void* h, const void* w, const int* t, const float* lse, const float* s,
+                   void* g, int n, int d, int v, int c0, int vc, void* stream) {
+  return launch_grad_tc(h, w, t, lse, s, g, n, d, v, c0, vc, static_cast<cudaStream_t>(stream));
+}
+
+int lpt_ce_dh_tc(const void* g, const void* w, float* dh, int n, int d, int v, int c0, int vc,
+                 int accumulate, void* stream) {
+  return launch_dh_tc(g, w, dh, n, d, v, c0, vc, accumulate, static_cast<cudaStream_t>(stream));
+}
+
+int lpt_ce_dw_tc(const void* h, const void* g, void* dw, int n, int d, int v, int c0, int vc,
+                 void* stream) {
+  return launch_dw_tc(h, g, dw, n, d, v, c0, vc, static_cast<cudaStream_t>(stream));
 }
 
 const char* lpt_ce_error_string(int err) {

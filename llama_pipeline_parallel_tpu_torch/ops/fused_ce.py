@@ -19,6 +19,13 @@ kernel or raises; it never falls back to the plain version.
 `launch_counts` counts calls of each TPU kernel's counterpart ("ce_fwd",
 "ce_dh", "ce_dw") over the process, one per call however many CUDA launches
 it takes: a run can show that its loss head went through the kernels.
+
+The backward has two routes, chosen by `backward_route` from the dtype and
+shape alone before any launch: bf16 with a width and a chunk width that are
+multiples of 8 (what TMA can address) runs on the tensor-core kernels, the
+rest (fp32 above all: wgmma on fp32 would be TF32) on the SIMT kernels.
+`tensor_core_counts` counts the calls of "ce_dh" and "ce_dw" that took the
+tensor cores; `reset_launch_counts` zeroes both dicts.
 """
 
 from __future__ import annotations
@@ -33,11 +40,24 @@ from llama_pipeline_parallel_tpu_torch.ops.cross_entropy import IGNORE_INDEX
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+tensor_core_counts = {"ce_dh": 0, "ce_dw": 0}
+
+TENSOR_CORE, SIMT = "tensor_core", "simt"
 
 
 def reset_launch_counts() -> None:
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, tensor_core_counts):
+        for key in counts:
+            counts[key] = 0
+
+
+def backward_route(dtype: torch.dtype, d: int, vc: int) -> str:
+    """The kernels that take a backward of width d and chunk width vc:
+    TENSOR_CORE for bf16 when d and vc are multiples of 8 (TMA's 16-byte row
+    strides, and W + c0 on a 16-byte boundary), else SIMT."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and vc % 8 == 0:
+        return TENSOR_CORE
+    return SIMT
 
 
 def _chunk_width(vocab: int, num_chunks: int) -> int:
@@ -119,8 +139,11 @@ def _lib() -> ctypes.CDLL:
     lib.lpt_ce_grad.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.lpt_ce_dh.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.lpt_ce_dw.argtypes = [p] * 3 + [i] * 6 + [p]
+    lib.lpt_ce_grad_tc.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.lpt_ce_dh_tc.argtypes = [p] * 3 + [i] * 6 + [p]
+    lib.lpt_ce_dw_tc.argtypes = [p] * 3 + [i] * 5 + [p]
     for fn in (lib.lpt_ce_fwd, lib.lpt_ce_grad, lib.lpt_ce_dh, lib.lpt_ce_dw,
-               lib.lpt_ce_vocab_tile):
+               lib.lpt_ce_grad_tc, lib.lpt_ce_dh_tc, lib.lpt_ce_dw_tc, lib.lpt_ce_vocab_tile):
         fn.restype = ctypes.c_int
     lib.lpt_ce_error_string.argtypes = [ctypes.c_int]
     lib.lpt_ce_error_string.restype = ctypes.c_char_p
@@ -186,28 +209,39 @@ def _fwd_stats_cuda(hN, w, safe_t, num_chunks):
 def _backward_cuda(hN, w, safe_t, lse, svec, num_chunks, *, want_dh=True, want_dw=True):
     """The backward kernels, chunk by chunk: (dh [n, d] fp32 or None,
     dW [d, V] in w's dtype or None). With both wanted, each chunk's g is
-    recomputed once and feeds both products."""
+    recomputed once and feeds both products. The route (tensor cores or
+    SIMT) is `backward_route`'s, fixed before the first launch."""
     vc = _check_kernel_inputs(hN, w, safe_t, num_chunks, lse, svec)
     (n, d), v = hN.shape, w.shape[1]
-    dtype = _KERNEL_DTYPES[hN.dtype]
-    lib = _lib()
+    tensor_cores = backward_route(hN.dtype, d, vc) == TENSOR_CORE
+    if tensor_cores and (hN.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("the tensor-core CE kernels read h and w by TMA, which needs "
+                         "16-byte aligned tensors")
     g = torch.empty((n, vc), dtype=hN.dtype, device=hN.device)
     dh = torch.empty((n, d), dtype=torch.float32, device=hN.device) if want_dh else None
     dw = torch.empty((d, v), dtype=w.dtype, device=w.device) if want_dw else None
+    lib = _lib()
+    if tensor_cores:
+        grad, dh_fn, dw_fn = lib.lpt_ce_grad_tc, lib.lpt_ce_dh_tc, lib.lpt_ce_dw_tc
+        dtype_arg = ()
+    else:
+        grad, dh_fn, dw_fn = lib.lpt_ce_grad, lib.lpt_ce_dh, lib.lpt_ce_dw
+        dtype_arg = (_KERNEL_DTYPES[hN.dtype],)
     with torch.cuda.device(hN.device):
         stream = torch.cuda.current_stream().cuda_stream
         for c0 in range(0, v, vc):
-            _check_launch(lib.lpt_ce_grad(
-                hN.data_ptr(), w.data_ptr(), safe_t.data_ptr(), lse.data_ptr(),
-                svec.data_ptr(), g.data_ptr(), n, d, v, c0, vc, dtype, stream), "gradient")
+            _check_launch(grad(hN.data_ptr(), w.data_ptr(), safe_t.data_ptr(), lse.data_ptr(),
+                               svec.data_ptr(), g.data_ptr(), n, d, v, c0, vc, *dtype_arg,
+                               stream), "gradient")
             if want_dh:
-                _check_launch(lib.lpt_ce_dh(g.data_ptr(), w.data_ptr(), dh.data_ptr(), n, d,
-                                            v, c0, vc, int(c0 > 0), dtype, stream), "dh")
+                _check_launch(dh_fn(g.data_ptr(), w.data_ptr(), dh.data_ptr(), n, d, v, c0, vc,
+                                    int(c0 > 0), *dtype_arg, stream), "dh")
             if want_dw:
-                _check_launch(lib.lpt_ce_dw(hN.data_ptr(), g.data_ptr(), dw.data_ptr(), n, d,
-                                            v, c0, vc, dtype, stream), "dW")
-    launch_counts["ce_dh"] += int(want_dh)
-    launch_counts["ce_dw"] += int(want_dw)
+                _check_launch(dw_fn(hN.data_ptr(), g.data_ptr(), dw.data_ptr(), n, d, v, c0, vc,
+                                    *dtype_arg, stream), "dW")
+    for key, wanted in (("ce_dh", want_dh), ("ce_dw", want_dw)):
+        launch_counts[key] += int(wanted)
+        tensor_core_counts[key] += int(wanted and tensor_cores)
     return dh, dw
 
 

@@ -58,6 +58,11 @@ def _target(name: str) -> tuple[str, str]:
     return source, os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def library_path(name: str) -> str:
+    """Where the library of `csrc/<name>.cu` is (or will be) built."""
+    return _target(name)[1]
+
+
 def build(names: list[str]) -> dict[str, str]:
     """Compile every named source that has no up-to-date library, one nvcc
     process each, started together. Returns {name: ptxas report} for the

@@ -13,6 +13,7 @@ step away: rtol 2^-7 plus an atol of 2^-7 x the gradient's rms for elements
 near zero.
 """
 
+import ctypes
 import importlib
 import types
 
@@ -48,15 +49,17 @@ def ref():
         pce=importlib.import_module("llama_pipeline_parallel_tpu.ops.pallas_ce"))
 
 
-def _inputs(num_chunks, seed=0):
-    """h [2, 32, 48], w [48, 256] fp32 and targets [2, 32] int32 with ignored
-    tokens, the last vocab column, and both sides of every chunk boundary."""
+def _inputs(num_chunks, seed=0, shape=(N_ROWS, SEQ, D, V)):
+    """h [2, 32, 48], w [48, 256] fp32 (or `shape` = rows, seq, d, V) and
+    targets [rows, seq] int32 with ignored tokens, the last vocab column, and
+    both sides of every chunk boundary."""
+    rows, seq, d, v = shape
     rng = np.random.RandomState(seed)
-    h = rng.randn(N_ROWS, SEQ, D).astype(np.float32)
-    w = (0.1 * rng.randn(D, V)).astype(np.float32)
-    t = rng.randint(0, V, size=(N_ROWS, SEQ)).astype(np.int32)
-    vc = V // num_chunks
-    edges = [V - 1, V - 2, 0, vc - 1, vc, 2 * vc - 1, 2 * vc, 3 * vc - 1, 3 * vc]
+    h = rng.randn(rows, seq, d).astype(np.float32)
+    w = (0.1 * rng.randn(d, v)).astype(np.float32)
+    t = rng.randint(0, v, size=(rows, seq)).astype(np.int32)
+    vc = v // num_chunks
+    edges = [v - 1, v - 2, 0, vc - 1, vc, 2 * vc - 1, 2 * vc, 3 * vc - 1, 3 * vc]
     t[0, :len(edges)] = edges
     t[0, -3:] = fc.IGNORE_INDEX
     t[1, :4] = fc.IGNORE_INDEX
@@ -109,6 +112,61 @@ def test_dh_dw_plain_match_pallas_kernels(ref, num_chunks, ct):
     np.testing.assert_allclose(fc._dh_plain(*args).numpy(),
                                np.asarray(want_dh).reshape(hN.shape), **FP32_GRAD)
     np.testing.assert_allclose(fc._dw_plain(*args).numpy(), np.asarray(want_dw), **FP32_GRAD)
+
+
+def test_dh_dw_plain_match_pallas_kernels_at_tensor_core_shape_bf16(ref):
+    """bf16 at the shape ragged to every tile of the tensor-core route (300
+    tokens, width 200, vocab 1088 in 4 chunks of 272, all multiples of 8):
+    the plain dh and dW against `_backward`'s two kernels on the same bf16
+    values and lse. Both sides round g to bf16 before the products; the
+    reference rounds dh and dW to bf16 at the end, the plain versions keep
+    fp32, so an element may land one bf16 step away."""
+    num_chunks = 4
+    h, w, t = _inputs(num_chunks, seed=5, shape=(2, 150, 200, 1088))
+    hN, safe_t, valid = _flat(h, t)
+    th, tw = (torch.from_numpy(x).to(torch.bfloat16) for x in (hN, w))
+    lse, _ = fc._fwd_stats_plain(th, tw, torch.from_numpy(safe_t), num_chunks)
+    jh, jw = (jnp.asarray(x, jnp.bfloat16) for x in (h, w))
+    want_dh, want_dw = ref.pce._backward(jh, jw, jnp.asarray(t), jnp.asarray(lse.numpy()),
+                                         jnp.asarray(valid), jnp.float32(0.37), num_chunks, None)
+    args = (th, tw, torch.from_numpy(safe_t), lse, torch.from_numpy(valid).float() * 0.37,
+            num_chunks)
+    assert fc.backward_route(th.dtype, hN.shape[1], w.shape[1] // num_chunks) == fc.TENSOR_CORE
+    _bf16_close(fc._dh_plain(*args), np.asarray(want_dh, np.float32).reshape(hN.shape), "dh")
+    _bf16_close(fc._dw_plain(*args), np.asarray(want_dw, np.float32), "dW")
+
+
+@pytest.mark.parametrize("dtype,d,vc,route", [
+    (torch.bfloat16, 4096, 8000, fc.TENSOR_CORE),   # the slice: V 32000 in 4 chunks
+    (torch.bfloat16, 4096, 4000, fc.TENSOR_CORE),   # 32000 in 8 chunks
+    (torch.bfloat16, 200, 272, fc.TENSOR_CORE),     # the ragged card case
+    (torch.float32, 4096, 8000, fc.SIMT),           # wgmma on fp32 would be TF32
+    (torch.float32, 200, 250, fc.SIMT),
+    (torch.bfloat16, 4100, 8000, fc.SIMT),          # d % 8 != 0: rows not 16-byte strided
+    (torch.bfloat16, 4096, 250, fc.SIMT),           # vc % 8 != 0: W + c0 off 16 bytes
+])
+def test_backward_route_by_dtype_and_shape(dtype, d, vc, route):
+    assert fc.backward_route(dtype, d, vc) == route
+
+
+@pytest.mark.parametrize("kernel", [
+    "ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel", "ce_dw_kernel",
+    "ce_grad_tc_kernel", "ce_dh_tc_kernel", "ce_dw_tc_kernel"])
+def test_step_profile_counts_every_ce_kernel_in_ce_head(kernel):
+    """tools/torch_step_profile.py files each CE kernel, SIMT or tensor-core,
+    under the `ce_head` family, by its name as the profiler shows it."""
+    from tools import torch_step_profile
+
+    name = f"void (anonymous namespace)::{kernel}<__nv_bfloat16>(CUtensorMap_st, int)"
+    assert torch_step_profile.family(name) == "ce_head"
+
+
+def test_reset_launch_counts_zeroes_tensor_core_counts():
+    fc.launch_counts["ce_dh"] += 2
+    fc.tensor_core_counts["ce_dw"] += 3
+    fc.reset_launch_counts()
+    assert fc.launch_counts == {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+    assert fc.tensor_core_counts == {"ce_dh": 0, "ce_dw": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -195,24 +253,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_match_plain_on_card(dtype):
+@pytest.mark.parametrize("dtype,v", [
+    pytest.param("float32", 1000, id="float32"),
+    pytest.param("bfloat16", 1000, id="bfloat16"),
+    pytest.param("float32", 1088, id="float32-aligned"),
+    pytest.param("bfloat16", 1088, id="bfloat16-aligned"),
+])
+def test_kernels_match_plain_on_card(dtype, v):
     """Each CUDA kernel against its plain version on a shape ragged to every
-    tile (300 tokens, width 200, vocab 1000 in 4 chunks of 250), with ignored
-    tokens and targets on the chunk edges and in the last vocab tile. fp32:
-    1e-4 absolute (fp32 summation order). bf16: the plain version on the same
-    bf16 values in fp32 with g rounded to bf16; the kernel's bf16 dW may be
-    one rounding (2^-8 relative) away."""
+    tile (300 tokens, width 200, vocab 1000 in 4 chunks of 250, or 1088 in
+    chunks of 272, which bf16 takes to the tensor-core backward), with
+    ignored tokens and targets on the chunk edges and in the last vocab tile.
+    fp32: 1e-4 absolute (fp32 summation order). bf16: the plain version on
+    the same bf16 values in fp32 with g rounded to bf16; the kernel's bf16 dW
+    may be one rounding (2^-8 relative) away."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(4)
-    n, d, v, chunks = 300, 200, 1000, 4
+    n, d, chunks = 300, 200, 4
+    vc = v // chunks
     tdt = getattr(torch, dtype)
     h = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to("cuda", tdt)
     w = torch.from_numpy((0.3 * rng.randn(d, v)).astype(np.float32)).to("cuda", tdt)
     t = rng.randint(0, v, size=n)
-    t[:9] = [v - 1, v - 2, 0, 249, 250, 499, 500, 749, 750]
+    t[:9] = [v - 1, v - 2, 0, vc - 1, vc, 2 * vc - 1, 2 * vc, 3 * vc - 1, 3 * vc]
     t[-6:] = fc.IGNORE_INDEX
     t = torch.from_numpy(t).cuda()
     valid = t != fc.IGNORE_INDEX
@@ -227,8 +292,54 @@ def test_kernels_match_plain_on_card(dtype):
     ref_dw = fc._dw_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=tdt)
     torch.cuda.synchronize()
     assert fc.launch_counts == {"ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+    on_tensor_cores = int(fc.backward_route(tdt, d, vc) == fc.TENSOR_CORE)
+    assert on_tensor_cores == int(dtype == "bfloat16" and v == 1088)
+    assert fc.tensor_core_counts == {"ce_dh": on_tensor_cores, "ce_dw": on_tensor_cores}
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
     torch.testing.assert_close(tgt, ref_tgt, rtol=0, atol=1e-4)
     torch.testing.assert_close(dh, ref_dh, rtol=0, atol=1e-4)
     rtol = 0 if dtype == "float32" else 2.0 ** -8
     torch.testing.assert_close(dw.float(), ref_dw, rtol=rtol, atol=1e-4)
+
+
+def _tc_matmul(a, b, m, n, k, a_mn, b_mn):
+    """The tensor-core mainloop alone (`lpt_tc_matmul` of the test library
+    `csrc/tc_matmul.cu`): fp32 [m, n] = A B^T."""
+    from llama_pipeline_parallel_tpu_torch.ops import kernel_build
+
+    lib = kernel_build.load("tc_matmul")
+    lib.lpt_tc_matmul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lpt_tc_matmul_error_string.restype = ctypes.c_char_p
+    c = torch.full((m, n), float("nan"), device="cuda")
+    err = lib.lpt_tc_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a_mn, b_mn,
+                            torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.lpt_tc_matmul_error_string(err).decode()
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_mn,b_mn", [
+    pytest.param(0, 1, id="K-MN-grad"),   # h @ W_c: h K-major, W_c MN-major
+    pytest.param(0, 0, id="K-K-dh"),      # g @ W_c^T: both K-major
+    pytest.param(1, 1, id="MN-MN-dw"),    # h^T @ g: both MN-major
+])
+@pytest.mark.parametrize("m,n,k", [(296, 272, 200), (1024, 1280, 1000)])
+def test_tensor_core_mainloop_matches_matmul_on_card(a_mn, b_mn, m, n, k):
+    """The bare tensor-core mainloop (TMA ring, wgmma, plain fp32 store) for
+    each operand layout pair the CE backward uses, against torch.matmul in
+    fp32 on the same bf16 values: ragged to every tile and depth (296 x 272
+    x 200; 128 x 256 block tiles), and 16 depth steps through the 4-stage
+    ring. Products of bf16 values are exact in fp32; only the summation
+    order differs: 1e-3 absolute on sums of up to 1000 products of unit
+    normals (~30 in size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(6)
+    A = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to("cuda", torch.bfloat16)
+    B = torch.from_numpy(rng.randn(n, k).astype(np.float32)).to("cuda", torch.bfloat16)
+    a = A.T.contiguous() if a_mn else A
+    b = B.T.contiguous() if b_mn else B
+    got = _tc_matmul(a, b, m, n, k, a_mn, b_mn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, A.float() @ B.float().T, rtol=0, atol=1e-3)

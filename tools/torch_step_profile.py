@@ -36,7 +36,7 @@ FAMILIES = (  # (family, substrings of kernel names), first match wins
     ("prologue", ("prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
                   "prologue_dw_kernel")),
     ("ce_head", ("ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel",
-                 "ce_dw_kernel")),
+                 "ce_dw_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel", "ce_dw_tc_kernel")),
     ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("copy", ("Memcpy", "Memset", "copy_")),
