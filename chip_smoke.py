@@ -23,28 +23,35 @@ which raises on failure:
               width 4096, vocab 32000, bf16) with 4 vocab chunks and with 1,
               against the plain version in fp32; and in small cases ragged to
               every tile, 300 tokens, width 200: vocab 1000 (chunks of 250)
-              and vocab 1088 (chunks of 272), each in fp32 and bf16; targets
-              on chunk edges, in the last vocab tile and ignored. Each case
-              asserts which backward route it took (`tensor_core_counts`):
-              bf16 with width and chunk multiples of 8 the tensor cores,
-              the rest (fp32, and bf16 chunks of 250) the SIMT kernels. The
-              same check must reject planted faults: the kernels on W
-              without its last vocab columns (forward, dh) or on the tokens
-              without the last ones (dW), at the slice and in the small bf16
-              cases, on both routes. Counts the HGMMA and
-              UTMALDG instructions of each tensor-core kernel in the
-              library's SASS (cuobjdump). Times each kernel, the dh + dW
-              pair, its plain version and, as yardsticks the port never
-              calls, cuBLAS h @ W, g @ W^T and h^T @ g.
+              and vocab 1088 (chunks of 272), each in fp32 and bf16, and
+              vocab 1004 (chunks of 251) in bf16; targets on chunk edges, in
+              the last vocab tile and ignored. Each case asserts which
+              forward and backward route it took (`tensor_core_counts`):
+              bf16 with width and vocab (forward) or chunk (backward)
+              multiples of 8 the tensor cores, the rest (fp32, bf16 vocab
+              1004, bf16 chunks of 250 or 251) the SIMT kernels. The same
+              check must reject planted faults: the kernels on W without its
+              last vocab columns (forward, dh) or on the tokens without the
+              last ones (dW), at the slice and in the small bf16 cases, on
+              every route. Counts the HGMMA and UTMALDG instructions of each
+              tensor-core product kernel in the library's SASS (cuobjdump).
+              Times each kernel, the dh + dW pair, its plain version and, as
+              yardsticks the port never calls, cuBLAS h @ W, g @ W^T and
+              h^T @ g.
 4. prologue -- each fused prologue kernel (forward q/k/v, dhidden, dW)
               against its plain PyTorch version on the same inputs (the same
               rounding points in the inputs' dtype, fp32 math), element by
               element: at the training step's layer shape (2048 tokens, width
-              4096, 32 q and 32 kv heads of 128, bf16) and in a small fp32 case
-              ragged to every tile (2 x 150 tokens, width 200, MQA 4:1,
-              positions from 37). The same check must reject planted faults:
-              forward and dhidden on weights whose last PLANT_CUT input rows
-              are zero, dW on the tokens without the last PLANT_CUT. Times each
+              4096, 32 q and 32 kv heads of 128, bf16) and in small cases
+              ragged to every tile (2 x 150 tokens, MQA 4:1, positions from
+              37): width 200 in fp32 and bf16, width 196 in bf16. Each case
+              asserts dhidden's route (`tensor_core_counts`): bf16 with a
+              width that is a multiple of 8 the tensor cores, fp32 and width
+              196 the SIMT kernel. The same check must reject planted faults
+              (in every bf16 case, on its route): forward and dhidden on
+              weights whose last PLANT_CUT input rows are zero, dW on the
+              tokens without the last PLANT_CUT. Counts HGMMA and UTMALDG in
+              the tensor-core dhidden's SASS. Times each
               kernel, its plain version and, as yardsticks the port never
               calls, cuBLAS hidden @ [wq|wk|wv], [dq|dk|dv] @ [wq|wk|wv]^T and
               hidden^T @ [dq|dk|dv].
@@ -53,8 +60,9 @@ which raises on failure:
               kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas:
               every loss finite, exactly layers x microbatches x steps
               launches of each flash and each prologue kernel and
-              microbatches x steps of each CE kernel, every dh and dW call on
-              the tensor cores. Then step 1 again on the
+              microbatches x steps of each CE kernel, every CE forward, dh and
+              dW call and every prologue dhidden call on the tensor cores.
+              Then step 1 again on the
               same params and batch (each time on the run's prologue) with
               flash and with exact attention: per-token losses and gradients
               agree, and a planted attention fault is rejected; with the CE
@@ -98,20 +106,32 @@ TRAIN_OVERRIDES = [
 ]
 # the fused CE head: the step's shape (tokens of one microbatch, width,
 # vocab) and small cases ragged to every kernel tile (SIMT 128 x 128 x 16,
-# tensor cores 128 x 256 x 64): chunks of 250 (not a multiple of 8: bf16
-# too takes the SIMT backward) and of 272 (the bf16 backward takes the
-# tensor cores)
+# tensor cores 128 x 256 x 64): vocab 1000 in chunks of 250 (bf16: the
+# tensor-core forward, the SIMT backward: 250 is not a multiple of 8), 1088
+# in chunks of 272 (bf16: tensor cores both ways) and 1004 in chunks of 251
+# (bf16: SIMT both ways)
 CE_SLICE = dict(n=2048, d=4096, v=32000)
 CE_SMALL = dict(n=300, d=200, v=1000, chunks=4)
 CE_SMALL_TC = dict(n=300, d=200, v=1088, chunks=4)
-# the tensor-core kernels of the CE backward, by the TPU kernel each serves
-CE_TC_KERNELS = {"ce_dh": ("ce_grad_tc_kernel", "ce_dh_tc_kernel"),
+CE_SMALL_SIMT = dict(n=300, d=200, v=1004, chunks=4)
+# the CUDA kernels of each bf16 CE pass on the tensor cores, by the TPU kernel
+# each serves
+CE_TC_KERNELS = {"ce_fwd": ("ce_stats_tc_kernel", "ce_lse_kernel"),
+                 "ce_dh": ("ce_grad_tc_kernel", "ce_dh_tc_kernel"),
                  "ce_dw": ("ce_grad_tc_kernel", "ce_dw_tc_kernel")}
+# the prologue's bf16 dhidden on the tensor cores
+PRO_TC_KERNELS = {"prologue_dhidden": ("prologue_unrope_kernel", "prologue_dhidden_tc_kernel")}
+# the kernels whose products run on wgmma fed by TMA, by library: each must
+# hold HGMMA and UTMALDG in its SASS
+TC_PRODUCT_KERNELS = {"fused_ce": ("ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
+                                   "ce_dw_tc_kernel"),
+                      "fused_prologue": ("prologue_dhidden_tc_kernel",)}
 # the fused prologue: one layer's shape at the step (tokens of one
 # microbatch, width, q and kv heads) and a small case ragged to every tile
 # (128 tokens x 128 features, depth 16), with MQA and positions from 37
 PRO_SLICE = dict(b=1, s=2048, d=4096, h=32, kv=32, pos0=0)
 PRO_SMALL = dict(b=2, s=150, d=200, h=4, kv=1, pos0=37)
+PRO_SMALL_SIMT = dict(PRO_SMALL, d=196)  # bf16 dhidden off the tensor cores' grid
 PRO_EPS = 1e-6
 # bf16 outputs, held element by element to |got - ref| <= rtol * |ref| + atol:
 # rounding an fp32 result to bf16 (8 significant bits, to nearest) costs at
@@ -396,35 +416,38 @@ def ce_inputs(n, d, v, dtype, seed, w_scale):
     return h, w, safe_t, valid.float() * 0.37
 
 
-def expect_route(fc, route: str, calls: int) -> None:
-    """The CE backward calls since the last reset took `route`: the tensor
-    cores counted every one of `calls` calls of dh and of dW, or none."""
-    on_tc = calls if route == fc.TENSOR_CORE else 0
-    if fc.tensor_core_counts != {"ce_dh": on_tc, "ce_dw": on_tc}:
-        raise AssertionError(f"tensor_core_counts {fc.tensor_core_counts}: the backward did not "
-                             f"take the {route} route {calls} time(s)")
+def expect_routes(module, routes: dict, calls: int) -> None:
+    """The calls since the last reset of `module`'s counts took `routes`
+    ({pass: route}): the tensor cores counted every one of `calls` calls of
+    each pass whose route is TENSOR_CORE, and none of the others."""
+    want = {key: calls if route == module.TENSOR_CORE else 0 for key, route in routes.items()}
+    if module.tensor_core_counts != want:
+        raise AssertionError(f"tensor_core_counts {module.tensor_core_counts}, expected {want}: "
+                             f"the calls did not take the routes {routes}")
 
 
-def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, route: str,
+def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, routes: tuple[str, str],
             plant: bool = False) -> dict:
     """Run the three CE kernels and hold each against its plain version in
     fp32 on the same inputs (the backward ones given the same lse, with g
-    rounded to the inputs' dtype as the kernels round it); the backward must
-    take `route`. Returns {kernel: max_abs_err}.
+    rounded to the inputs' dtype as the kernels round it); the forward must
+    take routes[0], the backward routes[1]. Returns {kernel: max_abs_err}.
 
     With `plant`, the same check must reject each kernel made wrong at the
     edge only: forward and dh on W without its last PLANT_CUT vocab columns
     (the tokens whose target lay there lose it), dW on the tokens without
-    the last PLANT_CUT; the planted calls take `route` too."""
+    the last PLANT_CUT; the planted calls take the same routes."""
     from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
 
+    route = dict(zip(("ce_fwd", "ce_dh", "ce_dw"), (routes[0], routes[1], routes[1])))
     hf, wf = h.float(), w.float()
+    fc.reset_launch_counts()
     lse, tgt = fc._fwd_stats_cuda(h, w, safe_t, chunks)
     ref_lse, ref_tgt = fc._fwd_stats_plain(hf, wf, safe_t, chunks)
-    fc.reset_launch_counts()
     dh, dw = fc._backward_cuda(h, w, safe_t, ref_lse, svec, chunks)
-    expect_route(fc, route, 1)
-    log(f"  backward route: {route} (tensor_core_counts {fc.tensor_core_counts})")
+    expect_routes(fc, route, 1)
+    log(f"  forward route: {routes[0]}, backward route: {routes[1]} (tensor_core_counts "
+        f"{fc.tensor_core_counts})")
     ref_dh = fc._dh_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
     ref_dw = fc._dw_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
     tol = {"dh": tolerance(ref_dh, fp32), "dw": tolerance(ref_dw, fp32)}
@@ -443,14 +466,14 @@ def ce_case(h, w, safe_t, svec, chunks: int, fp32: bool, route: str,
         expect_rejected("ce dW (last tokens hidden)",
                         fc._dw_cuda(h[keep], w, safe_t[keep], ref_lse[keep], svec[keep], chunks),
                         ref_dw, tol["dw"])
-        expect_route(fc, route, 2)  # and the cut dh and cut dW calls
+        expect_routes(fc, route, 2)  # and the cut forward, dh and dW calls
     return errs
 
 
-def sass_counts() -> None:
+def sass_counts(library: str) -> None:
     """Log the HGMMA (wgmma) and UTMALDG (TMA load) instructions of each
-    tensor-core kernel in the fused CE library's SASS; fail if one has none.
-    Says so plainly where the toolkit has no cuobjdump."""
+    tensor-core product kernel of `library` (TC_PRODUCT_KERNELS) in its SASS;
+    fail if one has none. Says so plainly where the toolkit has no cuobjdump."""
     import shutil
 
     from llama_pipeline_parallel_tpu_torch.ops import kernel_build
@@ -458,20 +481,21 @@ def sass_counts() -> None:
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     if not os.path.exists(tool):
-        log(f"[ce] SASS: cuobjdump is absent ({tool}); HGMMA / UTMALDG not counted")
+        log(f"[sass] cuobjdump is absent ({tool}); HGMMA / UTMALDG not counted")
         return
-    sass = subprocess.run([tool, "-sass", kernel_build.library_path("fused_ce")],
+    sass = subprocess.run([tool, "-sass", kernel_build.library_path(library)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    kernels = {k for pair in CE_TC_KERNELS.values() for k in pair}
+    kernels = set(TC_PRODUCT_KERNELS[library])
     counts = {}
     for function in sass.split("Function : ")[1:]:
         lines = function.splitlines()
         name = next((k for k in kernels if k in lines[0]), None)
         if name:
             counts[name] = {op: sum(op in line for line in lines) for op in ("HGMMA", "UTMALDG")}
-    log(f"[ce] SASS of the fused_ce library (cuobjdump -sass): {counts}")
+    log(f"[sass] {library} library (cuobjdump -sass): {counts}")
     if set(counts) != kernels or not all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()):
-        raise AssertionError(f"the tensor-core CE kernels lack HGMMA or UTMALDG: {counts}")
+        raise AssertionError(f"the tensor-core kernels of {library} lack HGMMA or UTMALDG: "
+                             f"{counts}")
 
 
 def ce_bounds(n, d, v, elem_bytes) -> dict:
@@ -503,17 +527,19 @@ def phase_ce() -> dict:
     from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    sass_counts()
-    for c, dtype, route in ((CE_SMALL, torch.float32, fc.SIMT),
-                            (CE_SMALL, torch.bfloat16, fc.SIMT),
-                            (CE_SMALL_TC, torch.float32, fc.SIMT),
-                            (CE_SMALL_TC, torch.bfloat16, fc.TENSOR_CORE)):
+    sass_counts("fused_ce")
+    tc, simt = fc.TENSOR_CORE, fc.SIMT
+    for c, dtype, routes in ((CE_SMALL, torch.float32, (simt, simt)),
+                             (CE_SMALL, torch.bfloat16, (tc, simt)),
+                             (CE_SMALL_TC, torch.float32, (simt, simt)),
+                             (CE_SMALL_TC, torch.bfloat16, (tc, tc)),
+                             (CE_SMALL_SIMT, torch.bfloat16, (simt, simt))):
         fp32 = dtype == torch.float32
         tol = f"tol {FP32_TOL}" if fp32 else "vs the plain version in fp32"
         log(f"[ce] small case {'fp32' if fp32 else 'bf16'} n={c['n']} d={c['d']} V={c['v']} "
             f"chunks={c['chunks']} (ragged to every tile; {tol})")
         h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], dtype, 2, w_scale=0.3)
-        ce_case(h, w, safe_t, svec, c["chunks"], fp32=fp32, route=route, plant=not fp32)
+        ce_case(h, w, safe_t, svec, c["chunks"], fp32=fp32, routes=routes, plant=not fp32)
 
     c = CE_SLICE
     for chunks in (1, 4):
@@ -521,7 +547,7 @@ def phase_ce() -> dict:
             f"chunk(s), vs the plain version in fp32")
         h, w, safe_t, svec = ce_inputs(c["n"], c["d"], c["v"], torch.bfloat16, 3, w_scale=0.02)
         log(f"  ignored tokens: {int((svec == 0).sum())}")
-        errs = ce_case(h, w, safe_t, svec, chunks, fp32=False, route=fc.TENSOR_CORE,
+        errs = ce_case(h, w, safe_t, svec, chunks, fp32=False, routes=(tc, tc),
                        plant=chunks == 4)
         torch.cuda.empty_cache()
 
@@ -556,8 +582,8 @@ def phase_ce() -> dict:
                      "replaces": replaces[key], "launches": None, "max_abs_err": errs[key],
                      "ms": ms, "plain_ms": plain_ms, **bound[key],
                      "library_ms": library[key]}
-        if key in CE_TC_KERNELS:  # bf16 takes the tensor-core kernels
-            rows[key]["cuda_kernels"] = " + ".join(CE_TC_KERNELS[key]) + " (tensor cores)"
+        # bf16 takes the tensor-core kernels
+        rows[key]["cuda_kernels"] = " + ".join(CE_TC_KERNELS[key]) + " (tensor cores)"
         log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
     return rows
@@ -586,22 +612,26 @@ def prologue_inputs(b, s, d, h, kv, pos0, dtype, seed) -> dict:
                 dk=randn(n, kv * hd), dv=randn(n, kv * hd), hd=hd)
 
 
-def prologue_case(inp: dict, fp32: bool, plant: bool = False) -> dict:
+def prologue_case(inp: dict, fp32: bool, route: str, plant: bool = False) -> dict:
     """Run the three prologue kernels and hold each against its plain version
-    on the same inputs (the plain versions round where the kernels do).
-    Returns {kernel: max_abs_err}.
+    on the same inputs (the plain versions round where the kernels do);
+    dhidden must take `route`. Returns {kernel: max_abs_err}.
 
     With `plant`, the same check must reject each kernel made wrong at the
     edge only: forward and dhidden on weights whose last PLANT_CUT input rows
-    are zero, dW on the tokens without the last PLANT_CUT."""
+    are zero, dW on the tokens without the last PLANT_CUT; the planted
+    dhidden takes `route` too."""
     from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
 
     x, nw, cos, sin, hd = inp["x"], inp["norm_w"], inp["cos"], inp["sin"], inp["hd"]
     w = (inp["wq"], inp["wk"], inp["wv"])
     dy = (inp["dq"], inp["dk"], inp["dv"])
+    fp.reset_launch_counts()
     out = fp._fwd_cuda(x, nw, *w, cos, sin, PRO_EPS, hd)
     ref = fp._fwd_plain(x, nw, *w, cos, sin, PRO_EPS, hd)
     dh = fp._dhidden_cuda(*dy, *w, cos, sin, hd)
+    expect_routes(fp, {"prologue_dhidden": route}, 1)
+    log(f"  dhidden route: {route} (tensor_core_counts {fp.tensor_core_counts})")
     ref_dh = fp._dhidden_plain(*dy, *w, cos, sin, hd)
     dw = fp._dw_cuda(x, nw, *dy, cos, sin, PRO_EPS, hd)
     ref_dw = fp._dw_plain(x, nw, *dy, cos, sin, PRO_EPS, hd)
@@ -623,6 +653,7 @@ def prologue_case(inp: dict, fp32: bool, plant: bool = False) -> dict:
             expect_rejected(f"prologue {name} (last weight rows zero)", got, r, tol[name])
         expect_rejected("prologue dhidden (last weight rows zero)",
                         fp._dhidden_cuda(*dy, *w_bad, cos, sin, hd), ref_dh, tol["dh"])
+        expect_routes(fp, {"prologue_dhidden": route}, 2)
         keep = slice(0, x.shape[0] - PLANT_CUT)
         dw_bad = fp._dw_cuda(x[keep], nw, *(t[keep] for t in dy), cos[keep], sin[keep], PRO_EPS,
                              hd)
@@ -659,16 +690,24 @@ def phase_prologue() -> dict:
     from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    c = PRO_SMALL
-    log(f"[prologue] small case fp32 {c['b']} x {c['s']} tokens d={c['d']} MQA "
-        f"{c['h']}:{c['kv']} positions from {c['pos0']} (ragged to every tile; tol {FP32_TOL})")
-    prologue_case(prologue_inputs(**c, dtype=torch.float32, seed=5), fp32=True)
+    sass_counts("fused_prologue")
+    tc, simt = fp.TENSOR_CORE, fp.SIMT
+    for c, dtype, route in ((PRO_SMALL, torch.float32, simt),
+                            (PRO_SMALL, torch.bfloat16, tc),
+                            (PRO_SMALL_SIMT, torch.bfloat16, simt)):
+        fp32 = dtype == torch.float32
+        tol = f"tol {FP32_TOL}" if fp32 else "vs the plain version (fp32 math, bf16 rounding points)"
+        log(f"[prologue] small case {'fp32' if fp32 else 'bf16'} {c['b']} x {c['s']} tokens "
+            f"d={c['d']} MQA {c['h']}:{c['kv']} positions from {c['pos0']} (ragged to every "
+            f"tile; {tol})")
+        prologue_case(prologue_inputs(**c, dtype=dtype, seed=5), fp32=fp32, route=route,
+                      plant=not fp32)
 
     c = PRO_SLICE
     log(f"[prologue] slice shape {c['s']} tokens d={c['d']} heads {c['h']}:{c['kv']} bf16, vs "
         f"the plain version (fp32 math, bf16 rounding points)")
     inp = prologue_inputs(**c, dtype=torch.bfloat16, seed=6)
-    errs = prologue_case(inp, fp32=False, plant=True)
+    errs = prologue_case(inp, fp32=False, route=tc, plant=True)
     torch.cuda.empty_cache()
 
     x, nw, cos, sin, hd = inp["x"], inp["norm_w"], inp["cos"], inp["sin"], inp["hd"]
@@ -708,6 +747,8 @@ def phase_prologue() -> dict:
                      "replaces": replaces[key], "launches": None, "max_abs_err": errs[key],
                      "ms": ms, "plain_ms": plain_ms, **bound[key],
                      "library_ms": library[key]}
+        if key in PRO_TC_KERNELS:  # bf16 takes the tensor-core kernels
+            rows[key]["cuda_kernels"] = " + ".join(PRO_TC_KERNELS[key]) + " (tensor cores)"
         log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
     return rows
@@ -740,24 +781,26 @@ def phase_trainer() -> dict:
     fp.reset_launch_counts()
     summary = run_training(cfg, device="cuda")
     launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
-    tensor_core = dict(fc.tensor_core_counts)
+    tensor_core = {**fc.tensor_core_counts, **fp.tensor_core_counts}
     losses = summary["losses"]
     step_ms = 1e3 * statistics.median(summary["step_times"][1:])
     log(f"[trainer] losses {losses}")
     log(f"[trainer] step {step_ms:.1f} ms (median of steps 2-{len(losses)}), "
         f"{summary['tokens_per_step'] / step_ms * 1e3:.0f} tokens/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"kernel launches {launches} (expected {expected}), CE backward calls on the "
-        f"tensor cores {tensor_core}")
+        f"kernel launches {launches} (expected {expected}), calls on the tensor cores "
+        f"{tensor_core}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected} (flash and "
                              f"prologue: {layers} layers x microbatches x steps; CE: "
                              f"microbatches x steps)")
-    if tensor_core != {"ce_dh": microbatches, "ce_dw": microbatches}:
-        raise AssertionError(f"CE backward calls on the tensor cores {tensor_core}, expected "
-                             f"{microbatches} each (the bf16 slice is on their grid)")
+    want_tc = {**{key: microbatches for key in fc.tensor_core_counts},
+               **{key: layers * microbatches for key in fp.tensor_core_counts}}
+    if tensor_core != want_tc:
+        raise AssertionError(f"calls on the tensor cores {tensor_core}, expected {want_tc} "
+                             f"(the bf16 slice is on their grid)")
     # at init the logits are about normal with variance 0.02^2 * d (lm_head
     # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
     mcfg = build_model_config(cfg["model"])

@@ -4,8 +4,9 @@
 //   ce_stats_kernel + ce_lse_kernel  <- _fwd_kernel (pallas_call in _fwd_stats)
 //   ce_grad_kernel  + ce_dh_kernel   <- _dh_kernel  (first pallas_call in _backward)
 //   ce_grad_kernel  + ce_dw_kernel   <- _dw_kernel  (second pallas_call in _backward)
-//   in bf16 on the tensor cores: ce_grad_tc_kernel + ce_dh_tc_kernel and
-//   ce_grad_tc_kernel + ce_dw_tc_kernel, for the same two.
+//   in bf16 on the tensor cores: ce_stats_tc_kernel + ce_lse_kernel,
+//   ce_grad_tc_kernel + ce_dh_tc_kernel and ce_grad_tc_kernel +
+//   ce_dw_tc_kernel, for the same three.
 //
 // What they compute is the TPU kernels' contract, not their block structure.
 // With h [n, d], W [d, V], targets t [n] (already made safe: 0 where ignored)
@@ -21,12 +22,14 @@
 // [d, V / chunks] fp32 dW accumulator in VMEM across a sequential grid axis;
 // at d = 4096 one 64-row dh block is 1 MB, far over the 227 KB of shared
 // memory a Hopper block has, and blocks run in no order. So here:
-// - forward: one block per 128 x 128 (token, vocab) tile computes its logits
-//   and reduces each row to a partial (max, sum of exps) and, for the one tile
-//   that holds the row's target column, the target logit; a second small
-//   kernel merges the partials of a row with the online-lse rule,
+// - forward: one block per (token, vocab) tile (128 x 128 on the SIMT
+//   route, 128 x 256 on the tensor cores) computes its logits and reduces
+//   each row to a partial (max, sum of exps) and, for the one tile that holds
+//   the row's target column, the target logit; a second small kernel merges
+//   the partials of a row with the online-lse rule,
 //   lse = M + log sum_j z_j exp(m_j - M). The grid covers the whole vocab
-//   (4000 blocks at n 2048, V 32000), not one block per token block (32).
+//   (2000 tensor-core blocks at n 2048, V 32000), not one block per token
+//   block (16).
 // - backward, per vocab chunk [c0, c0 + vc) of `loss_vocab_chunks`:
 //   ce_grad_kernel recomputes the chunk's logits once and writes g to an
 //   [n, vc] scratch in the compute dtype; ce_dh_kernel adds g W_c^T into an
@@ -42,16 +45,18 @@
 // bytes, so the bound is the tensor-core rate: 1.09 ms for dh or dW alone
 // (recompute + product) and 1.63 ms for the pair at that shape, at 989
 // TFLOP/s bf16.
-// - bf16 backward (the training path): ce_grad_tc_kernel, ce_dh_tc_kernel
-//   and ce_dw_tc_kernel run the three products on the tensor cores, on the
-//   mainloop of tc_tile.cuh (wgmma m64nNk16, bf16 in, fp32 accumulate; TMA
-//   boxes through a 4-stage mbarrier ring; one producer and two consumer
-//   warpgroups; 128 x 256 block tiles). Each takes its operands in the order
-//   they lie in memory (wgmma's transpose flags), each tensor map covers the
-//   vocab chunk only, so TMA reads zeros past its edge. They need what TMA
-//   can address: d and vc multiples of 8 (16-byte row strides, a 16-byte
-//   aligned W + c0); the wrapper picks them by dtype and shape.
-// - fp32, bf16 off that grid, and the forward: scalar fp32 FMAs on the tiled
+// - bf16 (the training path): ce_stats_tc_kernel (forward), and
+//   ce_grad_tc_kernel, ce_dh_tc_kernel and ce_dw_tc_kernel (backward) run
+//   their products on the tensor cores, on the mainloop of tc_tile.cuh (wgmma
+//   m64nNk16, bf16 in, fp32 accumulate; TMA boxes through a 4-stage mbarrier
+//   ring; one producer and two consumer warpgroups; 128 x 256 block tiles).
+//   Each takes its operands in the order they lie in memory (wgmma's
+//   transpose flags); each tensor map covers the whole vocab (forward) or the
+//   vocab chunk (backward), so TMA reads zeros past its edge. They need what
+//   TMA can address: d and V (forward) or d and vc (backward) multiples of 8
+//   (16-byte row strides, a 16-byte aligned W + c0); the wrapper picks the
+//   route by dtype and shape, separately for the forward and the backward.
+// - fp32 and bf16 off that grid: scalar fp32 FMAs on the tiled
 //   mainloop of simt_tile.cuh (128 x 128 block tile, depth 16, 8 x 8
 //   register micro-tile per thread), shared by the SIMT product kernels,
 //   which differ only in operand layouts and epilogue; held to 128 registers
@@ -135,10 +140,12 @@ ce_stats_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __r
 }
 
 // One thread per token: lse = M + log sum_j z_j exp(m_j - M), M = max_j m_j.
+// `tile` is the vocab width of one partial (TILE, or tc::BN on the tensor cores).
 __global__ void __launch_bounds__(NT)
 ce_lse_kernel(const float* __restrict__ part_m, const float* __restrict__ part_z,
               const float* __restrict__ part_t, const int* __restrict__ t,
-              float* __restrict__ lse, float* __restrict__ tgt, int n, int v, int n_tiles) {
+              float* __restrict__ lse, float* __restrict__ tgt, int n, int v, int n_tiles,
+              int tile) {
   const int row = blockIdx.x * NT + threadIdx.x;
   if (row >= n) return;
   float mx = -INFINITY;
@@ -149,7 +156,7 @@ ce_lse_kernel(const float* __restrict__ part_m, const float* __restrict__ part_z
   lse[row] = mx + logf(z);
   const int target = t[row];
   // a target no tile holds picks nothing (the TPU kernel's zero-initialised row)
-  tgt[row] = (target >= 0 && target < v) ? part_t[(size_t)(target / TILE) * n + row] : 0.f;
+  tgt[row] = (target >= 0 && target < v) ? part_t[(size_t)(target / tile) * n + row] : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -239,14 +246,61 @@ ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ g, T* __restrict__ d
 }
 
 // ---------------------------------------------------------------------------
-// Backward on the tensor cores (bf16), per vocab chunk [c0, c0 + vc): the
-// same three products and stores as above, on tc_tile.cuh's mainloop. The
-// epilogues read the wgmma accumulator layout: a thread owns rows row + 8h
-// and column pairs col + 8j + {0, 1}; d and vc are multiples of 8, so a pair
-// is in range whenever its first column is, and is stored as one 2-wide word.
+// On the tensor cores (bf16): the forward over the whole vocab, and the
+// backward per vocab chunk [c0, c0 + vc), with the same products and stores
+// as above on tc_tile.cuh's mainloop. The epilogues read the wgmma
+// accumulator layout: a thread owns rows row + 8h and column pairs
+// col + 8j + {0, 1}; d, V and vc are multiples of 8, so a pair is in range
+// whenever its first column is, and is stored as one 2-wide word.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+
+// The forward's partials of one 256-column vocab tile (part_* as for
+// ce_stats_kernel, one row of n per tile). A row's 256 columns lie in the 4
+// lanes of one quad (lane % 4), 64 each: each lane reduces its own, then
+// two shuffles (xor 1, 2) combine the quad. Columns >= V (TMA's zeros, which
+// would raise the max and add exp(-max) terms) are left out of both sums;
+// every tile holds column n0 < V, so the quad's max is finite.
+struct StatsStore {
+  const int* __restrict__ t;
+  float* __restrict__ part_m;
+  float* __restrict__ part_z;
+  float* __restrict__ part_t;
+  int n, v;
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
+    const size_t part = (size_t)(col / tc::BN) * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j)
+        if (col + 8 * j < v) mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float z = 0.f;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j)
+        if (col + 8 * j < v)
+          z += expf(acc[4 * j + 2 * h] - mx) + expf(acc[4 * j + 2 * h + 1] - mx);
+      z += __shfl_xor_sync(0xffffffffu, z, 1);
+      z += __shfl_xor_sync(0xffffffffu, z, 2);
+      if (r >= n) continue;  // after the shuffles, which every lane joins
+      const int target = t[r];
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col + 8 * j + e == target) part_t[part + r] = acc[4 * j + 2 * h + e];
+      if (threadIdx.x % 4 == 0) {
+        part_m[part + r] = mx;
+        part_z[part + r] = z;
+      }
+    }
+  }
+};
 
 struct GradStore {  // g[i, j] = ((exp(l - lse[i]) - (c0 + j == t[i])) * s[i]) in bf16
   const int* __restrict__ t;
@@ -274,32 +328,6 @@ struct GradStore {  // g[i, j] = ((exp(l - lse[i]) - (c0 + j == t[i])) * s[i]) i
   }
 };
 
-struct DhStore {  // dh[i, j] (+)= acc in fp32
-  float* __restrict__ dh;
-  int n, d, accumulate;
-  template <int NA>
-  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      if (r >= n) continue;
-#pragma unroll
-      for (int j = 0; j < NA / 4; ++j) {
-        const int c = col + 8 * j;
-        if (c >= d) continue;
-        float2* out = reinterpret_cast<float2*>(dh + (size_t)r * d + c);
-        float2 val = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-        if (accumulate) {
-          const float2 old = *out;
-          val.x += old.x;
-          val.y += old.y;
-        }
-        *out = val;
-      }
-    }
-  }
-};
-
 struct DwStore {  // dW[i, c0 + j] = acc rounded to bf16
   bf16* __restrict__ dw;
   int d, v, c0, vc;
@@ -320,6 +348,14 @@ struct DwStore {  // dW[i, c0 + j] = acc rounded to bf16
   }
 };
 
+// The logits over the whole vocab: A = h [n, d] (K-major), B(j, k) = W[k, j] (MN-major).
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_stats_tc_kernel(const __grid_constant__ CUtensorMap h_map,
+                   const __grid_constant__ CUtensorMap w_map, int n, int d, int v,
+                   StatsStore out) {
+  tc::tile_product<false, true>(h_map, w_map, n, v, d, out);
+}
+
 // The chunk's logits: A = h [n, d] (K-major), B(j, k) = W[k, c0 + j] (MN-major).
 __global__ void __launch_bounds__(tc::THREADS, 1)
 ce_grad_tc_kernel(const __grid_constant__ CUtensorMap h_map,
@@ -330,7 +366,8 @@ ce_grad_tc_kernel(const __grid_constant__ CUtensorMap h_map,
 // A = g [n, vc] (K-major), B(j, k) = W[j, c0 + k] (K-major).
 __global__ void __launch_bounds__(tc::THREADS, 1)
 ce_dh_tc_kernel(const __grid_constant__ CUtensorMap g_map,
-                const __grid_constant__ CUtensorMap w_map, int n, int d, int vc, DhStore out) {
+                const __grid_constant__ CUtensorMap w_map, int n, int d, int vc,
+                tc::DhStore out) {
   tc::tile_product<false, false>(g_map, w_map, n, d, vc, out);
 }
 
@@ -339,6 +376,21 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 ce_dw_tc_kernel(const __grid_constant__ CUtensorMap h_map,
                 const __grid_constant__ CUtensorMap g_map, int n, int d, int vc, DwStore out) {
   tc::tile_product<true, true>(h_map, g_map, d, vc, n, out);
+}
+
+cudaError_t launch_fwd_tc(const void* h, const void* w, const int* t, float* part_m,
+                          float* part_z, float* part_t, float* lse, float* tgt, int n, int d,
+                          int v, cudaStream_t stream) {
+  CUtensorMap h_map, w_map;
+  cudaError_t err = tc::make_map(&h_map, h, d, n, d);
+  if (err == cudaSuccess) err = tc::make_map(&w_map, w, v, d, v);
+  if (err == cudaSuccess)
+    err = tc::launch(ce_stats_tc_kernel, n, v, stream, h_map, w_map, n, d, v,
+                     StatsStore{t, part_m, part_z, part_t, n, v});
+  if (err != cudaSuccess) return err;
+  ce_lse_kernel<<<cdiv(n, NT), NT, 0, stream>>>(part_m, part_z, part_t, t, lse, tgt, n, v,
+                                                cdiv(v, tc::BN), tc::BN);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_grad_tc(const void* h, const void* w, const int* t, const float* lse,
@@ -359,7 +411,7 @@ cudaError_t launch_dh_tc(const void* g, const void* w, float* dh, int n, int d, 
   if (err == cudaSuccess) err = tc::make_map(&w_map, static_cast<const bf16*>(w) + c0, vc, d, v);
   if (err != cudaSuccess) return err;
   return tc::launch(ce_dh_tc_kernel, n, d, stream, g_map, w_map, n, d, vc,
-                           DhStore{dh, n, d, accumulate});
+                           tc::DhStore{dh, n, d, accumulate});
 }
 
 cudaError_t launch_dw_tc(const void* h, const void* g, void* dw, int n, int d, int v, int c0,
@@ -386,7 +438,7 @@ cudaError_t launch_fwd(const void* h, const void* w, const int* t, float* part_m
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ce_lse_kernel<<<cdiv(n, NT), NT, 0, stream>>>(part_m, part_z, part_t, t, lse, tgt, n, v,
-                                                n_tiles);
+                                                n_tiles, TILE);
   return cudaGetLastError();
 }
 
@@ -420,8 +472,10 @@ cudaError_t launch_dw(const void* h, const void* g, void* dw, int n, int d, int 
 
 extern "C" {
 
-// Columns of one vocab tile of the forward: part_* hold cdiv(v, it) rows.
+// Columns of one vocab tile of the forward: part_* hold cdiv(v, it) rows
+// (lpt_ce_fwd; lpt_ce_fwd_tc's tiles are lpt_ce_vocab_tile_tc() wide).
 int lpt_ce_vocab_tile() { return TILE; }
+int lpt_ce_vocab_tile_tc() { return tc::BN; }
 
 int lpt_ce_fwd(const void* h, const void* w, const int* t, float* part_m, float* part_z,
                float* part_t, float* lse, float* tgt, int n, int d, int v, int dtype,
@@ -455,9 +509,15 @@ int lpt_ce_dw(const void* h, const void* g, void* dw, int n, int d, int v, int c
 #undef CALL
 }
 
-// The bf16 backward on the tensor cores: the arguments of lpt_ce_grad,
-// lpt_ce_dh and lpt_ce_dw without the dtype. d, vc and V multiples of 8;
-// h, w, g 16-byte aligned.
+// bf16 on the tensor cores: the arguments of lpt_ce_fwd, lpt_ce_grad,
+// lpt_ce_dh and lpt_ce_dw without the dtype. d, V and vc multiples of 8; h,
+// w, g 16-byte aligned.
+int lpt_ce_fwd_tc(const void* h, const void* w, const int* t, float* part_m, float* part_z,
+                  float* part_t, float* lse, float* tgt, int n, int d, int v, void* stream) {
+  return launch_fwd_tc(h, w, t, part_m, part_z, part_t, lse, tgt, n, d, v,
+                       static_cast<cudaStream_t>(stream));
+}
+
 int lpt_ce_grad_tc(const void* h, const void* w, const int* t, const float* lse, const float* s,
                    void* g, int n, int d, int v, int c0, int vc, void* stream) {
   return launch_grad_tc(h, w, t, lse, s, g, n, d, v, c0, vc, static_cast<cudaStream_t>(stream));

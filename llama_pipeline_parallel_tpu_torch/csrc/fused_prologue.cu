@@ -3,6 +3,7 @@
 // Replaces the Pallas TPU kernels of llama_pipeline_parallel_tpu/ops/pallas_prologue.py:
 //   prologue_rstd_kernel + prologue_fwd_kernel  <- _fwd_kernel (pallas_call in _fwd)
 //   prologue_dhidden_kernel                     <- _dhidden_kernel (first pallas_call in _bwd)
+//     in bf16 on the tensor cores: prologue_unrope_kernel + prologue_dhidden_tc_kernel
 //   prologue_rstd_kernel + prologue_dw_kernel   <- _dw_kernel (second pallas_call in _bwd)
 //
 // What they compute is the TPU kernels' contract, not their block structure.
@@ -52,13 +53,27 @@
 // skipped); the projection widths are whole heads. GQA and MQA only narrow
 // wk and wv.
 //
+// bf16 dhidden on the tensor cores (the training path): TMA cannot
+// un-rotate a tile as it loads it, but the un-rotation is elementwise, so
+// prologue_unrope_kernel first writes unrope(dq) | unrope(dk) into a bf16
+// scratch [n, (hq + hkv) hd] (16-byte loads and stores, 8 columns a thread,
+// rounding at exactly Cotangent's points: the products see the operands the
+// SIMT kernel sees). Then prologue_dhidden_tc_kernel runs once per
+// projection on tc_tile.cuh's mainloop (wgmma fed by a TMA ring, 128 x 256
+// tiles): A the scratch's q columns, its k columns, then dv, each K-major
+// [n, width]; B wq, wk, wv as [d, width], K-major. The first launch writes
+// the fp32 dhidden, the next two add to it (tc::DhStore). It needs d a
+// multiple of 8 and 16-byte aligned operands; the wrapper picks the route by
+// dtype and width. fp32 (wgmma on fp32 would be TF32) and bf16 off that grid
+// stay on prologue_dhidden_kernel.
+//
 // What bounds these kernels on the card: each is 2 n d (hq + 2 hkv) hd
 // operations (0.21 TFLOP at n 2048, d 4096, 32 + 2 x 32 heads of 128) over
 // ~0.17-0.19 GB, so the bound is the tensor-core rate (0.21 ms), not the
-// memory (<= 0.06 ms). This first version does the products with scalar
-// fp32 FMAs, like the CE kernels; tensor cores (wgmma), TMA and a pipelined
-// ring of tiles are the next step and change none of the above. The product
-// kernels are held to 128 registers a thread (two blocks per SM).
+// memory (<= 0.06 ms). The SIMT kernels do the products with scalar fp32
+// FMAs and are held to 128 registers a thread (two blocks per SM); the
+// tensor-core dhidden adds the un-rotation pass (memory-bound: 64 MiB moved,
+// ~0.02 ms at 3.35 TB/s) to three products at the wgmma rate.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC.
 // Each entry point returns a cudaError_t (0 = launched); it launches on the
@@ -67,6 +82,7 @@
 #include <math.h>
 
 #include "simt_tile.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -255,6 +271,86 @@ prologue_dw_kernel(const T* __restrict__ x, const float* __restrict__ nw,
 }
 
 // ---------------------------------------------------------------------------
+// dhidden on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int VEC = 8;  // bf16 columns of one 16-byte vector
+
+// out [n, (hq + hkv) hd] = unrope(dq) | unrope(dk), rounded as Cotangent
+// rounds: round(round(y[j] cos[j]) +- round(y[pj] sin[pj])), pj = j -+ 64 in
+// the same head. One thread per 8 columns; a vector never straddles a head
+// or the two halves of one (HALF is a multiple of VEC).
+__global__ void __launch_bounds__(NT)
+prologue_unrope_kernel(const bf16* __restrict__ dq, const bf16* __restrict__ dk,
+                       const bf16* __restrict__ cos, const bf16* __restrict__ sin,
+                       bf16* __restrict__ out, int n, int hq, int hkv) {
+  const int width_q = hq * HD, width = (hq + hkv) * HD, vecs = width / VEC;
+  const size_t i = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (i >= (size_t)n * vecs) return;
+  const int t = (int)(i / vecs), c = (int)(i % vecs) * VEC;
+  const bf16* y = c < width_q ? dq + (size_t)t * width_q + c
+                              : dk + (size_t)t * (hkv * HD) + (c - width_q);
+  const int j = c % HD;
+  const bool low = j < HALF;
+  const int pj = low ? j + HALF : j - HALF;
+  const uint4 yv = *reinterpret_cast<const uint4*>(y);
+  const uint4 pv = *reinterpret_cast<const uint4*>(y - j + pj);
+  const uint4 cv = *reinterpret_cast<const uint4*>(cos + (size_t)t * HD + j);
+  const uint4 sv = *reinterpret_cast<const uint4*>(sin + (size_t)t * HD + pj);
+  const bf16* ye = reinterpret_cast<const bf16*>(&yv);
+  const bf16* pe = reinterpret_cast<const bf16*>(&pv);
+  const bf16* ce = reinterpret_cast<const bf16*>(&cv);
+  const bf16* se = reinterpret_cast<const bf16*>(&sv);
+  uint4 ov;
+  bf16* oe = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const float yc = round_to<bf16>(to_f32(ye[e]) * to_f32(ce[e]));
+    const float ys = round_to<bf16>(to_f32(pe[e]) * to_f32(se[e]));
+    oe[e] = from_f32<bf16>(low ? yc + ys : yc - ys);
+  }
+  *reinterpret_cast<uint4*>(out + (size_t)t * width + c) = ov;
+}
+
+// dhidden (+)= A W^T for one projection: A [n, width] (K-major: a column
+// slice of the un-rotated scratch, or dv), B(f, c) = W[f, c] (K-major).
+__global__ void __launch_bounds__(tc::THREADS, 1)
+prologue_dhidden_tc_kernel(const __grid_constant__ CUtensorMap a_map,
+                           const __grid_constant__ CUtensorMap w_map, int n, int d, int width,
+                           tc::DhStore out) {
+  tc::tile_product<false, false>(a_map, w_map, n, d, width, out);
+}
+
+cudaError_t launch_dhidden_tc(const void* dq, const void* dk, const void* dv, const void* wq,
+                              const void* wk, const void* wv, const void* cos, const void* sin,
+                              void* scratch, float* dh, int n, int d, int hq, int hkv,
+                              cudaStream_t stream) {
+  const int width_q = hq * HD, width_kv = hkv * HD, width = width_q + width_kv;
+  const size_t vecs = (size_t)n * (width / VEC);
+  bf16* scr = static_cast<bf16*>(scratch);
+  prologue_unrope_kernel<<<(unsigned)((vecs + NT - 1) / NT), NT, 0, stream>>>(
+      static_cast<const bf16*>(dq), static_cast<const bf16*>(dk), static_cast<const bf16*>(cos),
+      static_cast<const bf16*>(sin), scr, n, hq, hkv);
+  cudaError_t err = cudaGetLastError();
+  // the three products: (scratch q columns, wq), (scratch k columns, wk), (dv, wv)
+  const void* as[3] = {scr, scr + width_q, dv};
+  const size_t lds[3] = {(size_t)width, (size_t)width, (size_t)width_kv};
+  const void* ws[3] = {wq, wk, wv};
+  const int widths[3] = {width_q, width_kv, width_kv};
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i) {
+    CUtensorMap a_map, w_map;
+    err = tc::make_map(&a_map, as[i], widths[i], n, lds[i]);
+    if (err == cudaSuccess) err = tc::make_map(&w_map, ws[i], widths[i], d, widths[i]);
+    if (err == cudaSuccess)
+      err = tc::launch(prologue_dhidden_tc_kernel, n, d, stream, a_map, w_map, n, d, widths[i],
+                       tc::DhStore{dh, n, d, i > 0});
+  }
+  return err;
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -338,6 +434,17 @@ int lpt_prologue_dhidden(const void* dq, const void* dk, const void* dv, const v
                     static_cast<cudaStream_t>(stream))
   LPT_DISPATCH(dtype, CALL);
 #undef CALL
+}
+
+// The bf16 dhidden on the tensor cores: lpt_prologue_dhidden's arguments
+// without the dtype, with a bf16 scratch [n, (hq + hkv) hd]; d a multiple of
+// 8, every pointer 16-byte aligned.
+int lpt_prologue_dhidden_tc(const void* dq, const void* dk, const void* dv, const void* wq,
+                            const void* wk, const void* wv, const void* cos, const void* sin,
+                            void* scratch, float* dh, int n, int d, int hq, int hkv,
+                            void* stream) {
+  return launch_dhidden_tc(dq, dk, dv, wq, wk, wv, cos, sin, scratch, dh, n, d, hq, hkv,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // x, nw, rstd (scratch), dq, dk, dv, cos, sin as above -> dwq [d, hq hd],

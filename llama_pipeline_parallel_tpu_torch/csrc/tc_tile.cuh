@@ -1,6 +1,7 @@
 // The Hopper tensor-core tile product for bf16 operands: wgmma fed by TMA
 // through a ring of shared-memory stages guarded by mbarriers, one producer
-// warpgroup and two consumer warpgroups. fused_ce.cu's backward kernels use it;
+// warpgroup and two consumer warpgroups. fused_ce.cu's bf16 kernels (forward
+// statistics, gradient, dh, dW) and fused_prologue.cu's bf16 dhidden use it;
 // tc_matmul.cu wraps it bare, with a plain store, for the layout tests.
 //
 // One block computes a BM x BN = 128 x 256 output tile
@@ -22,8 +23,8 @@
 // full[s] completes when the TMA bytes of stage s have landed, empty[s] when
 // both consumer warpgroups have released it.
 //
-// Why this shape: every product of the CE backward is bound by the tensor
-// cores (hundreds of operations per byte), so the design keeps them fed: TMA
+// Why this shape: every product it serves is bound by the tensor cores
+// (hundreds of operations per byte), so the design keeps them fed: TMA
 // moves tiles without registers or instructions of the consumers, the ring
 // keeps 3 stages of loads in flight behind the one being multiplied, and a
 // 128 x 256 tile does 85 operations per byte it brings into shared memory
@@ -279,6 +280,40 @@ __device__ __forceinline__ void tile_product(const CUtensorMap& map_a, const CUt
     epi(acc, m0 + 64 * wg + 16 * warp + lane / 4, n0 + 2 * (lane % 4));
   }
 }
+
+// ---------------------------------------------------------------------------
+// An epilogue both sources share
+// ---------------------------------------------------------------------------
+
+// out[i, j] (+)= acc in fp32 over an M x N output (N a multiple of 2: each
+// column pair is one 8-byte word): the first of several products into one
+// output writes it, the later ones add (CE vocab chunks, the prologue's
+// q, k and v projections).
+struct DhStore {
+  float* __restrict__ out;
+  int m, n, accumulate;
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= m) continue;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int c = col + 8 * j;
+        if (c >= n) continue;
+        float2* p = reinterpret_cast<float2*>(out + (size_t)r * n + c);
+        float2 val = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (accumulate) {
+          const float2 old = *p;
+          val.x += old.x;
+          val.y += old.y;
+        }
+        *p = val;
+      }
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Host side

@@ -20,12 +20,14 @@ kernel or raises; it never falls back to the plain version.
 "ce_dh", "ce_dw") over the process, one per call however many CUDA launches
 it takes: a run can show that its loss head went through the kernels.
 
-The backward has two routes, chosen by `backward_route` from the dtype and
-shape alone before any launch: bf16 with a width and a chunk width that are
-multiples of 8 (what TMA can address) runs on the tensor-core kernels, the
-rest (fp32 above all: wgmma on fp32 would be TF32) on the SIMT kernels.
-`tensor_core_counts` counts the calls of "ce_dh" and "ce_dw" that took the
-tensor cores; `reset_launch_counts` zeroes both dicts.
+The forward and the backward each have two routes, chosen by
+`forward_route` and `backward_route` from the dtype and shape alone before
+any launch: bf16 with a width and a vocab (forward) or chunk width
+(backward) that are multiples of 8 (what TMA can address) runs on the
+tensor-core kernels, the rest (fp32 above all: wgmma on fp32 would be TF32)
+on the SIMT kernels. `tensor_core_counts` counts the calls of "ce_fwd",
+"ce_dh" and "ce_dw" that took the tensor cores; `reset_launch_counts`
+zeroes both dicts.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from llama_pipeline_parallel_tpu_torch.ops.cross_entropy import IGNORE_INDEX
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
-tensor_core_counts = {"ce_dh": 0, "ce_dw": 0}
+tensor_core_counts = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
 
 TENSOR_CORE, SIMT = "tensor_core", "simt"
 
@@ -51,13 +53,24 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
+def _route(dtype: torch.dtype, *widths: int) -> str:
+    if dtype == torch.bfloat16 and all(w % 8 == 0 for w in widths):
+        return TENSOR_CORE
+    return SIMT
+
+
+def forward_route(dtype: torch.dtype, d: int, v: int) -> str:
+    """The kernels that take a forward of width d over a vocab of v:
+    TENSOR_CORE for bf16 when d and v are multiples of 8 (TMA's 16-byte row
+    strides of h and W), else SIMT."""
+    return _route(dtype, d, v)
+
+
 def backward_route(dtype: torch.dtype, d: int, vc: int) -> str:
     """The kernels that take a backward of width d and chunk width vc:
     TENSOR_CORE for bf16 when d and vc are multiples of 8 (TMA's 16-byte row
     strides, and W + c0 on a 16-byte boundary), else SIMT."""
-    if dtype == torch.bfloat16 and d % 8 == 0 and vc % 8 == 0:
-        return TENSOR_CORE
-    return SIMT
+    return _route(dtype, d, vc)
 
 
 def _chunk_width(vocab: int, num_chunks: int) -> int:
@@ -136,14 +149,16 @@ def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("fused_ce")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lpt_ce_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.lpt_ce_fwd_tc.argtypes = [p] * 8 + [i] * 3 + [p]
     lib.lpt_ce_grad.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.lpt_ce_dh.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.lpt_ce_dw.argtypes = [p] * 3 + [i] * 6 + [p]
     lib.lpt_ce_grad_tc.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.lpt_ce_dh_tc.argtypes = [p] * 3 + [i] * 6 + [p]
     lib.lpt_ce_dw_tc.argtypes = [p] * 3 + [i] * 5 + [p]
-    for fn in (lib.lpt_ce_fwd, lib.lpt_ce_grad, lib.lpt_ce_dh, lib.lpt_ce_dw,
-               lib.lpt_ce_grad_tc, lib.lpt_ce_dh_tc, lib.lpt_ce_dw_tc, lib.lpt_ce_vocab_tile):
+    for fn in (lib.lpt_ce_fwd, lib.lpt_ce_grad, lib.lpt_ce_dh, lib.lpt_ce_dw, lib.lpt_ce_fwd_tc,
+               lib.lpt_ce_grad_tc, lib.lpt_ce_dh_tc, lib.lpt_ce_dw_tc, lib.lpt_ce_vocab_tile,
+               lib.lpt_ce_vocab_tile_tc):
         fn.restype = ctypes.c_int
     lib.lpt_ce_error_string.argtypes = [ctypes.c_int]
     lib.lpt_ce_error_string.restype = ctypes.c_char_p
@@ -185,24 +200,38 @@ def _check_kernel_inputs(hN, w, safe_t, num_chunks, lse=None, svec=None) -> int:
     return _chunk_width(w.shape[1], num_chunks)
 
 
+def _check_tma_aligned(*tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the tensor-core CE kernels read h and w by TMA, which needs "
+                         "16-byte aligned tensors")
+
+
 def _fwd_stats_cuda(hN, w, safe_t, num_chunks):
     """The forward kernels: (lse, tgt) [n] fp32. The chunk count does not
     change what they compute (the grid tiles the whole vocab); it is checked
-    like the TPU kernel's."""
+    like the TPU kernel's. The route (tensor cores or SIMT) is
+    `forward_route`'s, fixed before the launch."""
     _check_kernel_inputs(hN, w, safe_t, num_chunks)
     (n, d), v = hN.shape, w.shape[1]
+    tensor_cores = forward_route(hN.dtype, d, v) == TENSOR_CORE
+    if tensor_cores:
+        _check_tma_aligned(hN, w)
     lib = _lib()
-    tiles = -(-v // lib.lpt_ce_vocab_tile())
-    part = torch.empty((3, tiles, n), dtype=torch.float32, device=hN.device)
+    tile = lib.lpt_ce_vocab_tile_tc() if tensor_cores else lib.lpt_ce_vocab_tile()
+    part = torch.empty((3, -(-v // tile), n), dtype=torch.float32, device=hN.device)
     lse = torch.empty((n,), dtype=torch.float32, device=hN.device)
     tgt = torch.empty((n,), dtype=torch.float32, device=hN.device)
+    args = (hN.data_ptr(), w.data_ptr(), safe_t.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), part[2].data_ptr(), lse.data_ptr(), tgt.data_ptr(), n, d, v)
     with torch.cuda.device(hN.device):
-        err = lib.lpt_ce_fwd(
-            hN.data_ptr(), w.data_ptr(), safe_t.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), part[2].data_ptr(), lse.data_ptr(), tgt.data_ptr(), n, d,
-            v, _KERNEL_DTYPES[hN.dtype], torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            err = lib.lpt_ce_fwd_tc(*args, stream)
+        else:
+            err = lib.lpt_ce_fwd(*args, _KERNEL_DTYPES[hN.dtype], stream)
     _check_launch(err, "forward")
     launch_counts["ce_fwd"] += 1
+    tensor_core_counts["ce_fwd"] += int(tensor_cores)
     return lse, tgt
 
 
@@ -214,9 +243,8 @@ def _backward_cuda(hN, w, safe_t, lse, svec, num_chunks, *, want_dh=True, want_d
     vc = _check_kernel_inputs(hN, w, safe_t, num_chunks, lse, svec)
     (n, d), v = hN.shape, w.shape[1]
     tensor_cores = backward_route(hN.dtype, d, vc) == TENSOR_CORE
-    if tensor_cores and (hN.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("the tensor-core CE kernels read h and w by TMA, which needs "
-                         "16-byte aligned tensors")
+    if tensor_cores:
+        _check_tma_aligned(hN, w)
     g = torch.empty((n, vc), dtype=hN.dtype, device=hN.device)
     dh = torch.empty((n, d), dtype=torch.float32, device=hN.device) if want_dh else None
     dw = torch.empty((d, v), dtype=w.dtype, device=w.device) if want_dw else None

@@ -23,6 +23,13 @@ launches its kernel or raises; it never falls back to the plain version.
 ("prologue_fwd", "prologue_dhidden", "prologue_dw") over the process, one
 per call however many CUDA launches it takes: a run can show that its
 decoder layers went through the kernels.
+
+dhidden has two routes, chosen by `dhidden_route` from the dtype and width
+alone before any launch: bf16 with a width that is a multiple of 8 runs on
+the tensor cores (an un-rotation pass into a bf16 scratch, then one wgmma
+product per projection), the rest (fp32 above all: wgmma on fp32 would be
+TF32) on the SIMT kernel. `tensor_core_counts` counts the dhidden calls
+that took the tensor cores; `reset_launch_counts` zeroes both dicts.
 """
 
 from __future__ import annotations
@@ -32,17 +39,28 @@ import functools
 
 import torch
 
+from llama_pipeline_parallel_tpu_torch.ops.fused_ce import SIMT, TENSOR_CORE
 from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 
 KERNEL_HEAD_DIMS = (128,)  # head_dim the kernels take: every LLaMA preset's
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"prologue_fwd": 0, "prologue_dhidden": 0, "prologue_dw": 0}
+tensor_core_counts = {"prologue_dhidden": 0}
 
 
 def reset_launch_counts() -> None:
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, tensor_core_counts):
+        for key in counts:
+            counts[key] = 0
+
+
+def dhidden_route(dtype: torch.dtype, d: int) -> str:
+    """The kernels that take a dhidden of width d: TENSOR_CORE for bf16 when
+    d is a multiple of 8 (the epilogue stores column pairs of the fp32 dhidden
+    as one word; the projection widths are whole heads, so TMA's 16-byte row
+    strides hold), else SIMT."""
+    return TENSOR_CORE if dtype == torch.bfloat16 and d % 8 == 0 else SIMT
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +146,10 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.lpt_prologue_fwd.argtypes = [p] * 11 + [i] * 4 + [f, i, p]
     lib.lpt_prologue_dhidden.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.lpt_prologue_dhidden_tc.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.lpt_prologue_dw.argtypes = [p] * 11 + [i] * 4 + [f, i, p]
-    for fn in (lib.lpt_prologue_fwd, lib.lpt_prologue_dhidden, lib.lpt_prologue_dw,
-               lib.lpt_prologue_head_dim):
+    for fn in (lib.lpt_prologue_fwd, lib.lpt_prologue_dhidden, lib.lpt_prologue_dhidden_tc,
+               lib.lpt_prologue_dw, lib.lpt_prologue_head_dim):
         fn.restype = ctypes.c_int
     lib.lpt_prologue_error_string.argtypes = [ctypes.c_int]
     lib.lpt_prologue_error_string.restype = ctypes.c_char_p
@@ -210,19 +229,30 @@ def _fwd_cuda(xN, norm_w, wq, wk, wv, cosN, sinN, eps, head_dim):
 
 
 def _dhidden_cuda(dqN, dkN, dvN, wq, wk, wv, cosN, sinN, head_dim):
-    """The dhidden kernel: [n, d] fp32."""
-    hq, hkv = _check_kernel_inputs(
-        dict(dq=dqN, dk=dkN, dv=dvN, wq=wq, wk=wk, wv=wv, cos=cosN, sin=sinN), wq.shape[0],
-        dqN.shape[-1], dkN.shape[-1], head_dim)
+    """The dhidden kernels: [n, d] fp32. The route (tensor cores or SIMT)
+    is `dhidden_route`'s, fixed before the first launch; the tensor-core
+    route's un-rotated scratch is freed after the call."""
+    tensors = dict(dq=dqN, dk=dkN, dv=dvN, wq=wq, wk=wk, wv=wv, cos=cosN, sin=sinN)
+    hq, hkv = _check_kernel_inputs(tensors, wq.shape[0], dqN.shape[-1], dkN.shape[-1], head_dim)
     n, d = dqN.shape[0], wq.shape[0]
+    tensor_cores = dhidden_route(dqN.dtype, d) == TENSOR_CORE
+    if tensor_cores and any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError("the tensor-core dhidden reads its operands by TMA and 16-byte "
+                         "vectors, which need 16-byte aligned tensors")
     dh = torch.empty((n, d), dtype=torch.float32, device=dqN.device)
+    ptrs = [t.data_ptr() for t in tensors.values()]
     with torch.cuda.device(dqN.device):
-        err = _lib().lpt_prologue_dhidden(
-            dqN.data_ptr(), dkN.data_ptr(), dvN.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-            wv.data_ptr(), cosN.data_ptr(), sinN.data_ptr(), dh.data_ptr(), n, d, hq, hkv,
-            _KERNEL_DTYPES[dqN.dtype], torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            scratch = torch.empty((n, (hq + hkv) * head_dim), dtype=dqN.dtype, device=dqN.device)
+            err = _lib().lpt_prologue_dhidden_tc(*ptrs, scratch.data_ptr(), dh.data_ptr(), n, d,
+                                                 hq, hkv, stream)
+        else:
+            err = _lib().lpt_prologue_dhidden(*ptrs, dh.data_ptr(), n, d, hq, hkv,
+                                              _KERNEL_DTYPES[dqN.dtype], stream)
     _check_launch(err, "dhidden")
     launch_counts["prologue_dhidden"] += 1
+    tensor_core_counts["prologue_dhidden"] += int(tensor_cores)
     return dh
 
 

@@ -149,9 +149,21 @@ def test_backward_route_by_dtype_and_shape(dtype, d, vc, route):
     assert fc.backward_route(dtype, d, vc) == route
 
 
+@pytest.mark.parametrize("dtype,d,v,route", [
+    (torch.bfloat16, 4096, 32000, fc.TENSOR_CORE),  # the slice's head
+    (torch.bfloat16, 200, 1000, fc.TENSOR_CORE),    # the ragged card case (backward: SIMT)
+    (torch.bfloat16, 200, 1088, fc.TENSOR_CORE),
+    (torch.float32, 4096, 32000, fc.SIMT),          # wgmma on fp32 would be TF32
+    (torch.bfloat16, 200, 1004, fc.SIMT),           # V % 8 != 0: W's rows not 16-byte strided
+    (torch.bfloat16, 4100, 32000, fc.SIMT),         # d % 8 != 0: h's rows not 16-byte strided
+])
+def test_forward_route_by_dtype_and_shape(dtype, d, v, route):
+    assert fc.forward_route(dtype, d, v) == route
+
+
 @pytest.mark.parametrize("kernel", [
     "ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel", "ce_dw_kernel",
-    "ce_grad_tc_kernel", "ce_dh_tc_kernel", "ce_dw_tc_kernel"])
+    "ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel", "ce_dw_tc_kernel"])
 def test_step_profile_counts_every_ce_kernel_in_ce_head(kernel):
     """tools/torch_step_profile.py files each CE kernel, SIMT or tensor-core,
     under the `ce_head` family, by its name as the profiler shows it."""
@@ -164,9 +176,10 @@ def test_step_profile_counts_every_ce_kernel_in_ce_head(kernel):
 def test_reset_launch_counts_zeroes_tensor_core_counts():
     fc.launch_counts["ce_dh"] += 2
     fc.tensor_core_counts["ce_dw"] += 3
+    fc.tensor_core_counts["ce_fwd"] += 1
     fc.reset_launch_counts()
     assert fc.launch_counts == {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
-    assert fc.tensor_core_counts == {"ce_dh": 0, "ce_dw": 0}
+    assert fc.tensor_core_counts == {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +271,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     pytest.param("bfloat16", 1000, id="bfloat16"),
     pytest.param("float32", 1088, id="float32-aligned"),
     pytest.param("bfloat16", 1088, id="bfloat16-aligned"),
+    pytest.param("bfloat16", 1004, id="bfloat16-v1004"),
 ])
 def test_kernels_match_plain_on_card(dtype, v):
     """Each CUDA kernel against its plain version on a shape ragged to every
-    tile (300 tokens, width 200, vocab 1000 in 4 chunks of 250, or 1088 in
-    chunks of 272, which bf16 takes to the tensor-core backward), with
-    ignored tokens and targets on the chunk edges and in the last vocab tile.
+    tile (300 tokens, width 200, vocab 1000 in 4 chunks of 250, 1088 in
+    chunks of 272, or 1004 in chunks of 251), with ignored tokens and
+    targets on the chunk edges and in the last vocab tile. Each call's route
+    is asserted: bf16 takes the tensor-core forward where V is a multiple of
+    8 (1000, 1088) and the tensor-core backward where the chunk is (272);
+    fp32 and the rest take the SIMT kernels.
     fp32: 1e-4 absolute (fp32 summation order). bf16: the plain version on
     the same bf16 values in fp32 with g rounded to bf16; the kernel's bf16 dW
     may be one rounding (2^-8 relative) away."""
@@ -292,14 +309,37 @@ def test_kernels_match_plain_on_card(dtype, v):
     ref_dw = fc._dw_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=tdt)
     torch.cuda.synchronize()
     assert fc.launch_counts == {"ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
-    on_tensor_cores = int(fc.backward_route(tdt, d, vc) == fc.TENSOR_CORE)
-    assert on_tensor_cores == int(dtype == "bfloat16" and v == 1088)
-    assert fc.tensor_core_counts == {"ce_dh": on_tensor_cores, "ce_dw": on_tensor_cores}
+    fwd_tc = int(fc.forward_route(tdt, d, v) == fc.TENSOR_CORE)
+    bwd_tc = int(fc.backward_route(tdt, d, vc) == fc.TENSOR_CORE)
+    assert fwd_tc == int(dtype == "bfloat16" and v in (1000, 1088))
+    assert bwd_tc == int(dtype == "bfloat16" and v == 1088)
+    assert fc.tensor_core_counts == {"ce_fwd": fwd_tc, "ce_dh": bwd_tc, "ce_dw": bwd_tc}
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
     torch.testing.assert_close(tgt, ref_tgt, rtol=0, atol=1e-4)
     torch.testing.assert_close(dh, ref_dh, rtol=0, atol=1e-4)
     rtol = 0 if dtype == "float32" else 2.0 ** -8
     torch.testing.assert_close(dw.float(), ref_dw, rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tensor_core_routes_refuse_misaligned_operands_on_card():
+    """On the tensor-core routes h and w must be 16-byte aligned (TMA): a
+    view one element off the allocation's start is refused before any
+    launch, forward and backward; nothing falls back to SIMT."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    n, d, v, chunks = 64, 64, 256, 1
+    h = torch.randn(n * d + 1, device="cuda").to(torch.bfloat16)[1:].view(n, d)
+    w = torch.randn(d, v, device="cuda").to(torch.bfloat16)
+    safe_t = torch.zeros(n, dtype=torch.int32, device="cuda")
+    lse = torch.zeros(n, device="cuda")
+    assert fc.forward_route(h.dtype, d, v) == fc.backward_route(h.dtype, d, v) == fc.TENSOR_CORE
+    fc.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fc._fwd_stats_cuda(h, w, safe_t, chunks)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fc._backward_cuda(h, w, safe_t, lse, lse, chunks)
+    assert fc.launch_counts == {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
 
 
 def _tc_matmul(a, b, m, n, k, a_mn, b_mn):

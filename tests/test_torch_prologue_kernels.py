@@ -148,6 +148,54 @@ def test_backward_matches_pallas_bwd(ref, dtype, heads):
         _close(g, w, dtype, FP32_GRAD, name)
 
 
+@pytest.mark.parametrize("heads", sorted(HEADS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unrope_plain_matches_pallas_unrope_block(ref, dtype, heads):
+    """`_unrope_plain` -- the oracle of the tensor-core route's un-rotation
+    pass -- against the reference's `_unrope_block` on the same cotangents
+    and cos / sin (fp32: the forward's pins; bf16: one step, as above)."""
+    inp = _inputs(heads, seed=5)
+    j, t = (_flat(a) for a in _as(inp, dtype))
+    for name in ("dq", "dk"):
+        want = ref.pp._unrope_block(j[name], j["cos"], j["sin"], HD)
+        got = fp._unrope_plain(t[name], t["cos"], t["sin"], HD)
+        assert tuple(got.shape) == tuple(want.shape)
+        _close(got, want, dtype, FP32_FWD, name)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 4096, fp.TENSOR_CORE),  # the slice's layers
+    (torch.bfloat16, 200, fp.TENSOR_CORE),   # the ragged card case
+    (torch.float32, 4096, fp.SIMT),          # wgmma on fp32 would be TF32
+    (torch.float32, 200, fp.SIMT),
+    (torch.bfloat16, 196, fp.SIMT),          # d % 8 != 0
+    (torch.bfloat16, 4100, fp.SIMT),
+])
+def test_dhidden_route_by_dtype_and_shape(dtype, d, route):
+    assert fp.dhidden_route(dtype, d) == route
+
+
+def test_reset_launch_counts_zeroes_tensor_core_counts():
+    fp.launch_counts["prologue_dw"] += 2
+    fp.tensor_core_counts["prologue_dhidden"] += 3
+    fp.reset_launch_counts()
+    assert fp.launch_counts == {"prologue_fwd": 0, "prologue_dhidden": 0, "prologue_dw": 0}
+    assert fp.tensor_core_counts == {"prologue_dhidden": 0}
+
+
+@pytest.mark.parametrize("kernel", [
+    "prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
+    "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel"])
+def test_step_profile_counts_every_prologue_kernel_in_prologue(kernel):
+    """tools/torch_step_profile.py files each prologue kernel, SIMT or
+    tensor-core, under the `prologue` family, by its name as the profiler
+    shows it."""
+    from tools import torch_step_profile
+
+    name = f"void (anonymous namespace)::{kernel}<__nv_bfloat16>(CUtensorMap_st, int)"
+    assert torch_step_profile.family(name) == "prologue"
+
+
 def test_dhidden_and_dw_plain_are_the_backward_products():
     """dhidden and dW of the plain versions are the transposed products of
     the un-rotated cotangents, written out with rotate_half on q and k (fp32)."""
@@ -304,12 +352,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_kernels_match_plain_on_card(dtype):
+@pytest.mark.parametrize("dtype,d", [
+    pytest.param("float32", 200, id="float32"),
+    pytest.param("bfloat16", 200, id="bfloat16"),
+    pytest.param("bfloat16", 196, id="bfloat16-d196"),
+])
+def test_kernels_match_plain_on_card(dtype, d):
     """Each CUDA kernel against its plain version on a shape ragged to every
-    tile (2 x 150 tokens, width 200, MQA 4:1, head_dim 128, positions from
-    37). fp32: 1e-4 absolute (fp32 summation order). bf16: dhidden (fp32 out)
-    differs by summation order only, dW by its one rounding (2^-8 relative).
+    tile (2 x 150 tokens, width 200 or 196, MQA 4:1, head_dim 128, positions
+    from 37). dhidden's route is asserted: bf16 at width 200 on the tensor
+    cores, width 196 and fp32 on the SIMT kernel. fp32: 1e-4 absolute (fp32
+    summation order). bf16: dhidden (fp32 out) differs by summation order
+    only (both routes un-rotate at the same rounding points), dW by its one
+    rounding (2^-8 relative).
     q, k and v round at intermediate points (the projection, each RoPE
     product, the sum) from the same row statistic on both sides; where fp32
     summation order puts a projection next to a rounding midpoint, the two
@@ -320,7 +375,7 @@ def test_kernels_match_plain_on_card(dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     from llama_pipeline_parallel_tpu_torch.ops.rope import rope_cos_sin
 
-    hd, n, d, h, kv = fp.KERNEL_HEAD_DIMS[0], 300, 200, 4, 1
+    hd, n, h, kv = fp.KERNEL_HEAD_DIMS[0], 300, 4, 1
     tdt = getattr(torch, dtype)
     rng = np.random.RandomState(7)
 
@@ -342,6 +397,9 @@ def test_kernels_match_plain_on_card(dtype):
             *fp._dw_plain(x, nw, dq, dk, dv, cos, sin, EPS, hd)]
     torch.cuda.synchronize()
     assert fp.launch_counts == {"prologue_fwd": 1, "prologue_dhidden": 1, "prologue_dw": 1}
+    on_tensor_cores = int(dtype == "bfloat16" and d == 200)
+    assert on_tensor_cores == int(fp.dhidden_route(tdt, d) == fp.TENSOR_CORE)
+    assert fp.tensor_core_counts == {"prologue_dhidden": on_tensor_cores}
     for name, g, w in zip(("q", "k", "v", "dhidden", "dwq", "dwk", "dwv"), got, want):
         if dtype == "float32" or name == "dhidden":
             tol = dict(rtol=0, atol=1e-4)
@@ -350,3 +408,26 @@ def test_kernels_match_plain_on_card(dtype):
         else:
             tol = dict(rtol=2.0 ** -7, atol=2.0 ** -7 * w.float().abs().max().item())
         torch.testing.assert_close(g.float(), w.float(), msg=name, **tol)
+
+
+@pytest.mark.cuda
+def test_tensor_core_dhidden_refuses_misaligned_operands_on_card():
+    """On the tensor-core route every operand of dhidden must be 16-byte
+    aligned (TMA and the un-rotation's 16-byte vectors): a dq one element off
+    its allocation's start is refused before any launch; nothing falls back
+    to SIMT."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    hd, n, d = fp.KERNEL_HEAD_DIMS[0], 16, 64
+
+    def arr(*shape):
+        return torch.randn(*shape, device="cuda").to(torch.bfloat16)
+
+    dq = arr(n * hd + 1)[1:].view(n, hd)
+    dk, dv, cos, sin = arr(n, hd), arr(n, hd), arr(n, hd), arr(n, hd)
+    w = arr(d, hd)
+    assert fp.dhidden_route(dq.dtype, d) == fp.TENSOR_CORE
+    fp.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fp._dhidden_cuda(dq, dk, dv, w, w, w, cos, sin, hd)
+    assert fp.launch_counts["prologue_dhidden"] == 0

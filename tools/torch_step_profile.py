@@ -11,8 +11,9 @@ the wall time (host clock around synchronised steps), device busy time (sum
 of kernel times; the port runs one stream) and idle share, peak device memory
 (max_memory_allocated over the warm-up and profiled steps), device time by
 kernel family (the port's prologue, CE head and flash kernels, cuBLAS GEMMs, other
-PyTorch kernels, copies), the fifteen costliest kernels, and one JSON line with the same
-numbers. `kernels.prologue=xla` (or `kernels.ce=xla loss_vocab_chunks=1`) as an override
+PyTorch kernels, copies), the fifteen costliest kernels, each of the port's
+hand-written kernels with its launches, and one JSON line with the same numbers.
+`kernels.prologue=xla` (or `kernels.ce=xla loss_vocab_chunks=1`) as an override
 profiles the step without those kernels.
 Prints the card's name and power limit beside them.
 """
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -34,13 +36,17 @@ from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
 FAMILIES = (  # (family, substrings of kernel names), first match wins
     # before flash_attention, whose "fwd_kernel" is also in "prologue_fwd_kernel"
     ("prologue", ("prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
-                  "prologue_dw_kernel")),
+                  "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel")),
     ("ce_head", ("ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel",
-                 "ce_dw_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel", "ce_dw_tc_kernel")),
+                 "ce_dw_kernel", "ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
+                 "ce_dw_tc_kernel")),
     ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("copy", ("Memcpy", "Memset", "copy_")),
 )
+
+
+PORT_FAMILIES = ("prologue", "ce_head", "flash_attention")  # the hand-written kernels
 
 
 def family(name: str) -> str:
@@ -83,10 +89,11 @@ def main(argv=None) -> int:
             step()
         wall = (time.perf_counter() - t0) / args.steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    kernels = {}  # device-side events only: an op's own row would count its kernels twice
+    kernels, launches = {}, {}  # device-side events only: an op's own row would count its kernels twice
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total / 1e3 / args.steps
+            launches[evt.key] = launches.get(evt.key, 0) + evt.count / args.steps
     if not kernels:
         print("torch_step_profile: the trace holds no device time", file=sys.stderr)
         return 1
@@ -106,6 +113,12 @@ def main(argv=None) -> int:
     print("top kernels (ms per step):")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f}  {name[:110]}")
+    print("the port's kernels (ms per step, launches per step, ms per launch):")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        if family(name) in PORT_FAMILIES:
+            short = re.search(r"::(\w+)[<(]", name)
+            print(f"  {ms:9.3f}  {launches[name]:5.0f}  {ms / launches[name]:8.4f}  "
+                  f"{short.group(1) if short else name[:60]}")
     print(json.dumps({"card": card, "steps": args.steps, "wall_ms": 1e3 * wall,
                       "busy_ms": busy, "idle_share": 1 - busy / (1e3 * wall),
                       "peak_gib": peak_gib, "family_ms": by_family}))
