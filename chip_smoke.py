@@ -15,8 +15,10 @@ which raises on failure:
               a small fp32 case with GQA, segment ids and offsets (with rows
               that see no key). TF32 is off. At the step's shape the same
               check must also reject planted faults confined to the last
-              tiles. Times each kernel, its plain version and, as a yardstick
-              the port never calls, F.scaled_dot_product_attention.
+              tiles. Times each kernel, its plain version and, as yardsticks
+              the port never calls, F.scaled_dot_product_attention's forward
+              and its backward alone (dq, dk, dv in one call: the yardstick
+              of both backward kernels).
 3. ce      -- each fused CE kernel (forward lse + target logit, dh, dW)
               against its plain PyTorch version on the same inputs, element
               by element: at the training step's head shape (2048 tokens,
@@ -44,14 +46,16 @@ which raises on failure:
               element: at the training step's layer shape (2048 tokens, width
               4096, 32 q and 32 kv heads of 128, bf16) and in small cases
               ragged to every tile (2 x 150 tokens, MQA 4:1, positions from
-              37): width 200 in fp32 and bf16, width 196 in bf16. Each case
-              asserts dhidden's route (`tensor_core_counts`): bf16 with a
-              width that is a multiple of 8 the tensor cores, fp32 and width
-              196 the SIMT kernel. The same check must reject planted faults
-              (in every bf16 case, on its route): forward and dhidden on
-              weights whose last PLANT_CUT input rows are zero, dW on the
-              tokens without the last PLANT_CUT. Counts HGMMA and UTMALDG in
-              the tensor-core dhidden's SASS. Times each
+              37): width 200 in fp32 and bf16, width 196 in bf16 (bf16 q, k,
+              v bit for bit up to rounding flips: see FLIP_RTOL). Each case
+              asserts the route of the forward, dhidden and dW
+              (`tensor_core_counts`): bf16 with a width that is a multiple of
+              8 the tensor cores, fp32 and width 196 the SIMT kernels. The
+              same check must reject planted faults (in every bf16 case, on
+              its route): forward and dhidden on weights whose last
+              PLANT_CUT input rows are zero, dW on the tokens without the
+              last PLANT_CUT. Counts HGMMA and UTMALDG in the SASS of each
+              tensor-core product kernel (forward, dhidden, dW). Times each
               kernel, its plain version and, as yardsticks the port never
               calls, cuBLAS hidden @ [wq|wk|wv], [dq|dk|dv] @ [wq|wk|wv]^T and
               hidden^T @ [dq|dk|dv].
@@ -61,7 +65,8 @@ which raises on failure:
               every loss finite, exactly layers x microbatches x steps
               launches of each flash and each prologue kernel and
               microbatches x steps of each CE kernel, every CE forward, dh and
-              dW call and every prologue dhidden call on the tensor cores.
+              dW call and every prologue forward, dhidden and dW call on the
+              tensor cores.
               Then step 1 again on the
               same params and batch (each time on the run's prologue) with
               flash and with exact attention: per-token losses and gradients
@@ -119,19 +124,24 @@ CE_SMALL_SIMT = dict(n=300, d=200, v=1004, chunks=4)
 CE_TC_KERNELS = {"ce_fwd": ("ce_stats_tc_kernel", "ce_lse_kernel"),
                  "ce_dh": ("ce_grad_tc_kernel", "ce_dh_tc_kernel"),
                  "ce_dw": ("ce_grad_tc_kernel", "ce_dw_tc_kernel")}
-# the prologue's bf16 dhidden on the tensor cores
-PRO_TC_KERNELS = {"prologue_dhidden": ("prologue_unrope_kernel", "prologue_dhidden_tc_kernel")}
+# the CUDA kernels of each bf16 prologue pass on the tensor cores, by the TPU
+# kernel each serves
+PRO_TC_KERNELS = {"prologue_fwd": ("prologue_norm_kernel", "prologue_fwd_tc_kernel"),
+                  "prologue_dhidden": ("prologue_unrope_kernel", "prologue_dhidden_tc_kernel"),
+                  "prologue_dw": ("prologue_norm_kernel", "prologue_unrope_kernel",
+                                  "prologue_dw_tc_kernel")}
 # the kernels whose products run on wgmma fed by TMA, by library: each must
 # hold HGMMA and UTMALDG in its SASS
 TC_PRODUCT_KERNELS = {"fused_ce": ("ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
                                    "ce_dw_tc_kernel"),
-                      "fused_prologue": ("prologue_dhidden_tc_kernel",)}
+                      "fused_prologue": ("prologue_fwd_tc_kernel", "prologue_dhidden_tc_kernel",
+                                         "prologue_dw_tc_kernel")}
 # the fused prologue: one layer's shape at the step (tokens of one
 # microbatch, width, q and kv heads) and a small case ragged to every tile
 # (128 tokens x 128 features, depth 16), with MQA and positions from 37
 PRO_SLICE = dict(b=1, s=2048, d=4096, h=32, kv=32, pos0=0)
 PRO_SMALL = dict(b=2, s=150, d=200, h=4, kv=1, pos0=37)
-PRO_SMALL_SIMT = dict(PRO_SMALL, d=196)  # bf16 dhidden off the tensor cores' grid
+PRO_SMALL_SIMT = dict(PRO_SMALL, d=196)  # bf16 off the tensor cores' grid
 PRO_EPS = 1e-6
 # bf16 outputs, held element by element to |got - ref| <= rtol * |ref| + atol:
 # rounding an fp32 result to bf16 (8 significant bits, to nearest) costs at
@@ -141,6 +151,20 @@ BF16_RTOL = 2.0 ** -8
 # fp32 against fp32 (absolute): products of O(1) values over <= 2048 terms,
 # in another summation order, and expf / logf against torch's
 FP32_TOL = 1e-4
+# bf16 q, k, v against the plain forward. Both round each projection to bf16
+# before RoPE, but the kernel sums the fp32 product in another order (the
+# tensor cores' own accumulation), so a projection whose fp32 value lies next
+# to a rounding midpoint may round the other way: a whole bf16 step (up to
+# 2^-7 of the element), which RoPE then carries into its output; near zero,
+# where the sum cancels, both sums are off by more than a step. So q, k, v
+# are not held to the 2^-8 rule but, bit for bit, to the plain forward of a
+# projection moved by at most FLIP_RTOL x |p| + FLIP_ATOL x rms(p) from the
+# plain fp32 value p (each element's RoPE is monotone in its own and its
+# partner projection, so its output must lie between those of the bounds'
+# four corners). At most FLIP_SHARE of the elements may differ at all.
+FLIP_RTOL = 2.0 ** -10
+FLIP_ATOL = 2.0 ** -10
+FLIP_SHARE = 1e-2
 # planted faults: how many keys (or queries) the kernels are made to miss
 PLANT_CUT = 64
 # the trainer, step 1 again on the same params and batch. In bf16 (the
@@ -374,8 +398,13 @@ def phase_kernels() -> dict:
         torch.autograd.grad(o, (qg, kg, vg), do)
 
     sdpa_both = cuda_ms(sdpa_fwd_bwd)
+    # its backward alone (dq, dk and dv in one call), the forward run once outside the timing
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+    del o
     log(f"[kernels] yardstick F.scaled_dot_product_attention: fwd {sdpa_fwd:.4f} ms, "
-        f"fwd+bwd {sdpa_both:.4f} ms")
+        f"bwd {sdpa_bwd:.4f} ms, fwd+bwd {sdpa_both:.4f} ms")
+    library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
 
     bound = bounds(c["b"], c["h"], c["s"], c["hd"], 2)
     source = "llama_pipeline_parallel_tpu_torch/csrc/flash_attention.cu"
@@ -389,7 +418,7 @@ def phase_kernels() -> dict:
         rows[key] = {"name": names[key], "route": "cuda", "source": source,
                      "replaces": replaces[key], "launches": None,
                      "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
-                     **bound[key], "library_ms": sdpa_fwd if key == "fwd" else None}
+                     **bound[key], "library_ms": library[key]}
         log(f"  {names[key]}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
     return rows
@@ -612,33 +641,101 @@ def prologue_inputs(b, s, d, h, kv, pos0, dtype, seed) -> dict:
                 dk=randn(n, kv * hd), dv=randn(n, kv * hd), hd=hd)
 
 
+def projection_bounds(p32, dtype):
+    """(lo, hi) as fp32: the roundings to `dtype` of p32 moved down and up
+    by FLIP_RTOL x |p32| + FLIP_ATOL x rms(p32)."""
+    slack = FLIP_RTOL * p32.abs() + FLIP_ATOL * p32.square().mean().sqrt()
+    return (p32 - slack).to(dtype).float(), (p32 + slack).to(dtype).float()
+
+
+def rope_of(pa, pb, cos, sin, hd, dtype):
+    """The plain RoPE of q or k (`fused_prologue._rope_plain`: each product
+    and the sum rounded to `dtype`), each column's own projection taken from
+    pa and its rotate_half partner's from pb."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops.fused_prologue import _rnd
+
+    n, half = pa.shape[0], hd // 2
+    a3, b3 = pa.reshape(n, -1, hd), pb.reshape(n, -1, hd)
+    rot = torch.cat([-b3[..., half:], b3[..., :half]], dim=-1)
+    out = _rnd(a3 * cos.float()[:, None], dtype) + _rnd(rot * sin.float()[:, None], dtype)
+    return _rnd(out, dtype).reshape(n, -1)
+
+
+def forward_flips(inp: dict, out) -> dict:
+    """{q, k, v: (elements outside the bounds' outputs, share of elements off
+    the plain version, max |got - plain|)} for bf16 outputs (see FLIP_RTOL)."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    x, cos, sin, hd = inp["x"], inp["cos"], inp["sin"], inp["hd"]
+    hidden = fp._hidden_plain(x, inp["norm_w"], PRO_EPS)
+    res = {}
+    for name, got in zip("qkv", out):
+        p32 = hidden @ inp[f"w{name}"].float()
+        plain = p32.to(x.dtype).float()
+        lo, hi = projection_bounds(p32, x.dtype)
+        if name != "v":
+            plain = rope_of(plain, plain, cos, sin, hd, x.dtype)
+            corners = [rope_of(a, b, cos, sin, hd, x.dtype) for a in (lo, hi) for b in (lo, hi)]
+            lo = torch.stack(corners).amin(dim=0)
+            hi = torch.stack(corners).amax(dim=0)
+            del corners
+        g = got.float()
+        res[name] = (int(((g < lo) | (g > hi)).sum()), (g != plain).float().mean().item(),
+                     (g - plain).abs().max().item())
+    return res
+
+
+def check_forward_flips(inp: dict, out) -> float:
+    """Hold bf16 q, k, v to the plain forward up to rounding flips. Returns
+    the max |got - plain|."""
+    worst = 0.0
+    for name, (off, share, err) in forward_flips(inp, out).items():
+        log(f"  prologue {name}: {off} elements outside the rounding bounds, {share:.2e} of "
+            f"the elements off the plain version (limit {FLIP_SHARE}), max_abs_err {err:.3e}")
+        if off or not share <= FLIP_SHARE:
+            raise AssertionError(f"prologue {name}: {off} elements outside the rounding bounds "
+                                 f"of the plain forward, {share} of them off it")
+        worst = max(worst, err)
+    return worst
+
+
 def prologue_case(inp: dict, fp32: bool, route: str, plant: bool = False) -> dict:
     """Run the three prologue kernels and hold each against its plain version
-    on the same inputs (the plain versions round where the kernels do);
-    dhidden must take `route`. Returns {kernel: max_abs_err}.
+    on the same inputs (the plain versions round where the kernels do); the
+    forward, dhidden and dW must each take `route`. Returns {kernel:
+    max_abs_err}.
 
     With `plant`, the same check must reject each kernel made wrong at the
     edge only: forward and dhidden on weights whose last PLANT_CUT input rows
-    are zero, dW on the tokens without the last PLANT_CUT; the planted
-    dhidden takes `route` too."""
+    are zero, dW on the tokens without the last PLANT_CUT; the planted calls
+    take `route` too."""
     from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
 
     x, nw, cos, sin, hd = inp["x"], inp["norm_w"], inp["cos"], inp["sin"], inp["hd"]
     w = (inp["wq"], inp["wk"], inp["wv"])
     dy = (inp["dq"], inp["dk"], inp["dv"])
+    routes = {key: route for key in fp.launch_counts}
     fp.reset_launch_counts()
     out = fp._fwd_cuda(x, nw, *w, cos, sin, PRO_EPS, hd)
-    ref = fp._fwd_plain(x, nw, *w, cos, sin, PRO_EPS, hd)
     dh = fp._dhidden_cuda(*dy, *w, cos, sin, hd)
-    expect_routes(fp, {"prologue_dhidden": route}, 1)
-    log(f"  dhidden route: {route} (tensor_core_counts {fp.tensor_core_counts})")
     ref_dh = fp._dhidden_plain(*dy, *w, cos, sin, hd)
     dw = fp._dw_cuda(x, nw, *dy, cos, sin, PRO_EPS, hd)
+    expect_routes(fp, routes, 1)
+    log(f"  forward, dhidden and dW route: {route} (tensor_core_counts "
+        f"{fp.tensor_core_counts})")
     ref_dw = fp._dw_plain(x, nw, *dy, cos, sin, PRO_EPS, hd)
     tol = {name: tolerance(r, fp32) for name, r in
-           zip(("q", "k", "v", "dh", "dwq", "dwk", "dwv"), (*ref, ref_dh, *ref_dw))}
-    errs = {"prologue_fwd": max(check(f"prologue {name}", got, r, tol[name])
-                                for name, got, r in zip("qkv", out, ref)),
+           zip(("dh", "dwq", "dwk", "dwv"), (ref_dh, *ref_dw))}
+    if fp32:
+        fwd_err = max(check(f"prologue {name}", got, r, (0.0, FP32_TOL)) for name, got, r
+                      in zip("qkv", out, fp._fwd_plain(x, nw, *w, cos, sin, PRO_EPS, hd)))
+    else:
+        fwd_err = check_forward_flips(inp, out)
+    errs = {"prologue_fwd": fwd_err,
             "prologue_dhidden": check("prologue dhidden", dh, ref_dh, tol["dh"]),
             "prologue_dw": max(check(f"prologue {name}", got, r, tol[name]) for name, got, r
                                in zip(("dwq", "dwk", "dwv"), dw, ref_dw))}
@@ -649,16 +746,21 @@ def prologue_case(inp: dict, fp32: bool, route: str, plant: bool = False) -> dic
             return t
 
         w_bad = [cut(t) for t in w]
-        for name, got, r in zip("qkv", fp._fwd_cuda(x, nw, *w_bad, cos, sin, PRO_EPS, hd), ref):
-            expect_rejected(f"prologue {name} (last weight rows zero)", got, r, tol[name])
+        bad = forward_flips(inp, fp._fwd_cuda(x, nw, *w_bad, cos, sin, PRO_EPS, hd))
+        for name, (off, share, err) in bad.items():
+            log(f"  planted prologue {name} (last weight rows zero): {off} elements outside the "
+                f"rounding bounds, {share:.2e} off the plain version (must exceed 0 or "
+                f"{FLIP_SHARE})")
+            if not off and share <= FLIP_SHARE:
+                raise AssertionError(f"the check of prologue {name} passes a planted fault")
         expect_rejected("prologue dhidden (last weight rows zero)",
                         fp._dhidden_cuda(*dy, *w_bad, cos, sin, hd), ref_dh, tol["dh"])
-        expect_routes(fp, {"prologue_dhidden": route}, 2)
         keep = slice(0, x.shape[0] - PLANT_CUT)
         dw_bad = fp._dw_cuda(x[keep], nw, *(t[keep] for t in dy), cos[keep], sin[keep], PRO_EPS,
                              hd)
         for name, got, r in zip(("dwq", "dwk", "dwv"), dw_bad, ref_dw):
             expect_rejected(f"prologue {name} (last tokens hidden)", got, r, tol[name])
+        expect_routes(fp, routes, 2)  # and the planted forward, dhidden and dW calls
     return errs
 
 

@@ -328,26 +328,6 @@ struct GradStore {  // g[i, j] = ((exp(l - lse[i]) - (c0 + j == t[i])) * s[i]) i
   }
 };
 
-struct DwStore {  // dW[i, c0 + j] = acc rounded to bf16
-  bf16* __restrict__ dw;
-  int d, v, c0, vc;
-  template <int NA>
-  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      if (r >= d) continue;
-#pragma unroll
-      for (int j = 0; j < NA / 4; ++j) {
-        const int c = col + 8 * j;
-        if (c >= vc) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dw + (size_t)r * v + c0 + c) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      }
-    }
-  }
-};
-
 // The logits over the whole vocab: A = h [n, d] (K-major), B(j, k) = W[k, j] (MN-major).
 __global__ void __launch_bounds__(tc::THREADS, 1)
 ce_stats_tc_kernel(const __grid_constant__ CUtensorMap h_map,
@@ -374,7 +354,8 @@ ce_dh_tc_kernel(const __grid_constant__ CUtensorMap g_map,
 // A(i, k) = h[k, i] (MN-major), B(j, k) = g[k, j] (MN-major).
 __global__ void __launch_bounds__(tc::THREADS, 1)
 ce_dw_tc_kernel(const __grid_constant__ CUtensorMap h_map,
-                const __grid_constant__ CUtensorMap g_map, int n, int d, int vc, DwStore out) {
+                const __grid_constant__ CUtensorMap g_map, int n, int d, int vc,
+                tc::BfStore out) {
   tc::tile_product<true, true>(h_map, g_map, d, vc, n, out);
 }
 
@@ -421,7 +402,7 @@ cudaError_t launch_dw_tc(const void* h, const void* g, void* dw, int n, int d, i
   if (err == cudaSuccess) err = tc::make_map(&g_map, g, vc, n, vc);
   if (err != cudaSuccess) return err;
   return tc::launch(ce_dw_tc_kernel, d, vc, stream, h_map, g_map, n, d, vc,
-                           DwStore{static_cast<bf16*>(dw), d, v, c0, vc});
+                           tc::BfStore{static_cast<bf16*>(dw), d, v, c0, vc});
 }
 
 // ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 // The Hopper tensor-core tile product for bf16 operands: wgmma fed by TMA
 // through a ring of shared-memory stages guarded by mbarriers, one producer
 // warpgroup and two consumer warpgroups. fused_ce.cu's bf16 kernels (forward
-// statistics, gradient, dh, dW) and fused_prologue.cu's bf16 dhidden use it;
-// tc_matmul.cu wraps it bare, with a plain store, for the layout tests.
+// statistics, gradient, dh, dW) and fused_prologue.cu's bf16 forward,
+// dhidden and dW use it; tc_matmul.cu wraps it bare, with a plain store, for
+// the layout tests.
 //
 // One block computes a BM x BN = 128 x 256 output tile
 //   acc(i, j) = sum_k A(m0 + i, k) * B(n0 + j, k),   k in [0, K),
@@ -210,18 +211,20 @@ template <bool TA, bool TB> struct Wgmma {
 // The block's tile product
 // ---------------------------------------------------------------------------
 
-// Launched with THREADS threads, SMEM_BYTES of dynamic shared memory and a
-// grid of (cdiv(M, BM), cdiv(N, BN)) blocks. A is M x K, B is N x K;
-// A_MN / B_MN: the operand is MN-major. Calls epi(acc, row, col) in the
-// consumer threads (see the accumulator layout above).
+// The output tile at row m0, column n0 (multiples of BM and BN), in a block
+// of THREADS threads with SMEM_BYTES of dynamic shared memory. A is M x K,
+// B is N x K; A_MN / B_MN: the operand is MN-major. Calls epi(acc, row, col)
+// in the consumer threads (see the accumulator layout above). A kernel that
+// serves several products in one grid picks its maps, its N and its tile
+// origin per block and calls this form.
 template <bool A_MN, bool B_MN, class Epilogue>
-__device__ __forceinline__ void tile_product(const CUtensorMap& map_a, const CUtensorMap& map_b,
-                                             int M, int N, int K, const Epilogue& epi) {
+__device__ __forceinline__ void tile_product_at(const CUtensorMap& map_a,
+                                                const CUtensorMap& map_b, int m0, int n0, int M,
+                                                int N, int K, const Epilogue& epi) {
   extern __shared__ __align__(1024) uint8_t tc_smem[];
   const uint32_t ring = (smem_addr(tc_smem) + 1023u) & ~1023u;
   const uint32_t full = ring + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
   const int wg = threadIdx.x / 128;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int steps = (K + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -281,6 +284,14 @@ __device__ __forceinline__ void tile_product(const CUtensorMap& map_a, const CUt
   }
 }
 
+// The tile of a grid of (cdiv(M, BM), cdiv(N, BN)) blocks that one product
+// covers: row tile blockIdx.x, column tile blockIdx.y.
+template <bool A_MN, bool B_MN, class Epilogue>
+__device__ __forceinline__ void tile_product(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                             int M, int N, int K, const Epilogue& epi) {
+  tile_product_at<A_MN, B_MN>(map_a, map_b, blockIdx.x * BM, blockIdx.y * BN, M, N, K, epi);
+}
+
 // ---------------------------------------------------------------------------
 // An epilogue both sources share
 // ---------------------------------------------------------------------------
@@ -310,6 +321,30 @@ struct DhStore {
           val.y += old.y;
         }
         *p = val;
+      }
+    }
+  }
+};
+
+// out[i, c0 + j] = acc rounded to bf16 over an M x N output whose rows are
+// ld elements apart (N, c0 and ld even: each column pair is one 4-byte
+// word): the CE head's dW (a vocab chunk of dW) and the prologue's q, k, v
+// and dwq, dwk, dwv.
+struct BfStore {
+  __nv_bfloat16* __restrict__ out;
+  int m, ld, c0, n;
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], int row, int col) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= m) continue;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int c = col + 8 * j;
+        if (c >= n) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * ld + c0 + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   }
@@ -359,14 +394,22 @@ inline cudaError_t make_map(CUtensorMap* map, const void* p, int cols, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Launch a kernel built on tile_product over an M x N output.
+// Launch a kernel built on tile_product_at over a grid of (row_tiles,
+// col_tiles) blocks.
 template <class... Params, class... Args>
-cudaError_t launch(void (*kernel)(Params...), int M, int N, cudaStream_t stream, Args... args) {
+cudaError_t launch_tiles(void (*kernel)(Params...), int row_tiles, int col_tiles,
+                         cudaStream_t stream, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(cdiv(M, BM), cdiv(N, BN)), THREADS, SMEM_BYTES, stream>>>(args...);
+  kernel<<<dim3(row_tiles, col_tiles), THREADS, SMEM_BYTES, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Launch a kernel built on tile_product over an M x N output.
+template <class... Params, class... Args>
+cudaError_t launch(void (*kernel)(Params...), int M, int N, cudaStream_t stream, Args... args) {
+  return launch_tiles(kernel, cdiv(M, BM), cdiv(N, BN), stream, args...);
 }
 
 }  // namespace tc

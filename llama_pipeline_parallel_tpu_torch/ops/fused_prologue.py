@@ -6,10 +6,10 @@ three Pallas TPU kernels become the kernels of `csrc/fused_prologue.cu` (see
 that file for the design and what bounds it): the forward (norm, the three
 projections, RoPE on q and k), dhidden (un-RoPE, then the three transposed
 projections summed in fp32) and dW (the normed hidden recomputed, then its
-products with the un-rotated cotangents). The normed hidden and the pre-RoPE
-q, k and their cotangents never reach device memory. The norm backward
-stays outside the kernels: the autograd of ops/rmsnorm.py on dhidden, as
-the reference takes `jax.vjp` of its rms_norm.
+products with the un-rotated cotangents). The normed hidden is never kept
+for the backward (the dW kernels recompute it). The norm backward stays
+outside the kernels: the autograd of ops/rmsnorm.py on dhidden, as the
+reference takes `jax.vjp` of its rms_norm.
 
 Each kernel also has a plain PyTorch version here (`_fwd_plain`,
 `_dhidden_plain`, `_dw_plain`): the TPU kernels' arithmetic in fp32 math
@@ -24,12 +24,15 @@ launches its kernel or raises; it never falls back to the plain version.
 per call however many CUDA launches it takes: a run can show that its
 decoder layers went through the kernels.
 
-dhidden has two routes, chosen by `dhidden_route` from the dtype and width
-alone before any launch: bf16 with a width that is a multiple of 8 runs on
-the tensor cores (an un-rotation pass into a bf16 scratch, then one wgmma
-product per projection), the rest (fp32 above all: wgmma on fp32 would be
-TF32) on the SIMT kernel. `tensor_core_counts` counts the dhidden calls
-that took the tensor cores; `reset_launch_counts` zeroes both dicts.
+Each pass has two routes, chosen by `fwd_route`, `dhidden_route` and
+`dw_route` from the dtype and width alone before any launch: bf16 with a
+width that is a multiple of 8 runs on the tensor cores (elementwise passes
+write the normed hidden and the un-rotated cotangents to call-lived bf16
+scratches, then wgmma products read them by TMA), the rest (fp32 above all:
+wgmma on fp32 would be TF32) on the SIMT kernels. The tensor-core route
+refuses operands that are not 16-byte aligned; it never falls back.
+`tensor_core_counts` counts the calls of each pass that took the tensor
+cores; `reset_launch_counts` zeroes both dicts.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ KERNEL_HEAD_DIMS = (128,)  # head_dim the kernels take: every LLaMA preset's
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"prologue_fwd": 0, "prologue_dhidden": 0, "prologue_dw": 0}
-tensor_core_counts = {"prologue_dhidden": 0}
+tensor_core_counts = {"prologue_fwd": 0, "prologue_dhidden": 0, "prologue_dw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -55,12 +58,31 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
+def _route(dtype: torch.dtype, d: int) -> str:
+    return TENSOR_CORE if dtype == torch.bfloat16 and d % 8 == 0 else SIMT
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The kernels that take a forward of width d: TENSOR_CORE for bf16 when
+    d is a multiple of 8 (the norm pass's 16-byte vectors and TMA's 16-byte
+    row strides of x and the normed hidden; the projection widths are whole
+    heads), else SIMT."""
+    return _route(dtype, d)
+
+
 def dhidden_route(dtype: torch.dtype, d: int) -> str:
     """The kernels that take a dhidden of width d: TENSOR_CORE for bf16 when
     d is a multiple of 8 (the epilogue stores column pairs of the fp32 dhidden
     as one word; the projection widths are whole heads, so TMA's 16-byte row
     strides hold), else SIMT."""
-    return TENSOR_CORE if dtype == torch.bfloat16 and d % 8 == 0 else SIMT
+    return _route(dtype, d)
+
+
+def dw_route(dtype: torch.dtype, d: int) -> str:
+    """The kernels that take a dW of width d: TENSOR_CORE for bf16 when d is
+    a multiple of 8 (as `fwd_route`: the normed hidden is the products' A
+    operand), else SIMT."""
+    return _route(dtype, d)
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +167,14 @@ def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("fused_prologue")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.lpt_prologue_fwd.argtypes = [p] * 11 + [i] * 4 + [f, i, p]
+    lib.lpt_prologue_fwd_tc.argtypes = [p] * 11 + [i] * 4 + [f, p]
     lib.lpt_prologue_dhidden.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.lpt_prologue_dhidden_tc.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.lpt_prologue_dw.argtypes = [p] * 11 + [i] * 4 + [f, i, p]
-    for fn in (lib.lpt_prologue_fwd, lib.lpt_prologue_dhidden, lib.lpt_prologue_dhidden_tc,
-               lib.lpt_prologue_dw, lib.lpt_prologue_head_dim):
+    lib.lpt_prologue_dw_tc.argtypes = [p] * 12 + [i] * 4 + [f, p]
+    for fn in (lib.lpt_prologue_fwd, lib.lpt_prologue_fwd_tc, lib.lpt_prologue_dhidden,
+               lib.lpt_prologue_dhidden_tc, lib.lpt_prologue_dw, lib.lpt_prologue_dw_tc,
+               lib.lpt_prologue_head_dim):
         fn.restype = ctypes.c_int
     lib.lpt_prologue_error_string.argtypes = [ctypes.c_int]
     lib.lpt_prologue_error_string.restype = ctypes.c_char_p
@@ -198,6 +223,12 @@ def _check_kernel_inputs(tensors: dict, d: int, width_q: int, width_kv: int,
     return width_q // head_dim, width_kv // head_dim
 
 
+def _check_aligned(tensors, what: str) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the tensor-core {what} reads its operands by TMA and 16-byte "
+                         f"vectors, which need 16-byte aligned tensors")
+
+
 def _norm_weight(norm_w, xN) -> torch.Tensor:
     """The norm weight as the kernels take it: fp32 [d] on x's device."""
     if norm_w.device != xN.device or tuple(norm_w.shape) != (xN.shape[1],) \
@@ -208,23 +239,35 @@ def _norm_weight(norm_w, xN) -> torch.Tensor:
 
 
 def _fwd_cuda(xN, norm_w, wq, wk, wv, cosN, sinN, eps, head_dim):
-    """The forward kernels: (q, k, v) in x's dtype."""
-    hq, hkv = _check_kernel_inputs(dict(x=xN, wq=wq, wk=wk, wv=wv, cos=cosN, sin=sinN),
-                                   xN.shape[-1], wq.shape[-1], wk.shape[-1], head_dim)
+    """The forward kernels: (q, k, v) in x's dtype. The route (tensor cores
+    or SIMT) is `fwd_route`'s, fixed before the first launch; the tensor-core
+    route's normed-hidden scratch is freed after the call."""
+    tensors = dict(x=xN, wq=wq, wk=wk, wv=wv, cos=cosN, sin=sinN)
+    hq, hkv = _check_kernel_inputs(tensors, xN.shape[-1], wq.shape[-1], wk.shape[-1], head_dim)
     n, d = xN.shape
     nw = _norm_weight(norm_w, xN)
-    rstd = torch.empty((n,), dtype=torch.float32, device=xN.device)
+    tensor_cores = fwd_route(xN.dtype, d) == TENSOR_CORE
+    if tensor_cores:
+        _check_aligned([nw, *tensors.values()], "forward")
     q = torch.empty((n, hq * head_dim), dtype=xN.dtype, device=xN.device)
     k = torch.empty((n, hkv * head_dim), dtype=xN.dtype, device=xN.device)
     v = torch.empty_like(k)
+    ins = [xN.data_ptr(), nw.data_ptr()]
+    rest = [wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), cosN.data_ptr(), sinN.data_ptr()]
+    outs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     with torch.cuda.device(xN.device):
-        err = _lib().lpt_prologue_fwd(
-            xN.data_ptr(), nw.data_ptr(), rstd.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-            wv.data_ptr(), cosN.data_ptr(), sinN.data_ptr(), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), n, d, hq, hkv, eps, _KERNEL_DTYPES[xN.dtype],
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            hidden = torch.empty((n, d), dtype=xN.dtype, device=xN.device)
+            err = _lib().lpt_prologue_fwd_tc(*ins, *rest, hidden.data_ptr(), *outs, n, d, hq,
+                                             hkv, eps, stream)
+        else:
+            rstd = torch.empty((n,), dtype=torch.float32, device=xN.device)
+            err = _lib().lpt_prologue_fwd(*ins, rstd.data_ptr(), *rest, *outs, n, d, hq, hkv, eps,
+                                          _KERNEL_DTYPES[xN.dtype], stream)
     _check_launch(err, "forward")
     launch_counts["prologue_fwd"] += 1
+    tensor_core_counts["prologue_fwd"] += int(tensor_cores)
     return q, k, v
 
 
@@ -236,9 +279,8 @@ def _dhidden_cuda(dqN, dkN, dvN, wq, wk, wv, cosN, sinN, head_dim):
     hq, hkv = _check_kernel_inputs(tensors, wq.shape[0], dqN.shape[-1], dkN.shape[-1], head_dim)
     n, d = dqN.shape[0], wq.shape[0]
     tensor_cores = dhidden_route(dqN.dtype, d) == TENSOR_CORE
-    if tensor_cores and any(t.data_ptr() % 16 for t in tensors.values()):
-        raise ValueError("the tensor-core dhidden reads its operands by TMA and 16-byte "
-                         "vectors, which need 16-byte aligned tensors")
+    if tensor_cores:
+        _check_aligned(tensors.values(), "dhidden")
     dh = torch.empty((n, d), dtype=torch.float32, device=dqN.device)
     ptrs = [t.data_ptr() for t in tensors.values()]
     with torch.cuda.device(dqN.device):
@@ -257,23 +299,37 @@ def _dhidden_cuda(dqN, dkN, dvN, wq, wk, wv, cosN, sinN, head_dim):
 
 
 def _dw_cuda(xN, norm_w, dqN, dkN, dvN, cosN, sinN, eps, head_dim):
-    """The dW kernels: (dwq, dwk, dwv) in x's dtype."""
-    hq, hkv = _check_kernel_inputs(dict(x=xN, dq=dqN, dk=dkN, dv=dvN, cos=cosN, sin=sinN),
-                                   xN.shape[-1], dqN.shape[-1], dkN.shape[-1], head_dim)
+    """The dW kernels: (dwq, dwk, dwv) in x's dtype. The route (tensor cores
+    or SIMT) is `dw_route`'s, fixed before the first launch; the tensor-core
+    route's scratches (the normed hidden, the un-rotated cotangents) are
+    freed after the call."""
+    tensors = dict(x=xN, dq=dqN, dk=dkN, dv=dvN, cos=cosN, sin=sinN)
+    hq, hkv = _check_kernel_inputs(tensors, xN.shape[-1], dqN.shape[-1], dkN.shape[-1], head_dim)
     n, d = xN.shape
     nw = _norm_weight(norm_w, xN)
-    rstd = torch.empty((n,), dtype=torch.float32, device=xN.device)
+    tensor_cores = dw_route(xN.dtype, d) == TENSOR_CORE
+    if tensor_cores:
+        _check_aligned([nw, *tensors.values()], "dW")
     dwq = torch.empty((d, hq * head_dim), dtype=xN.dtype, device=xN.device)
     dwk = torch.empty((d, hkv * head_dim), dtype=xN.dtype, device=xN.device)
     dwv = torch.empty_like(dwk)
+    ins = [xN.data_ptr(), nw.data_ptr()]
+    rest = [dqN.data_ptr(), dkN.data_ptr(), dvN.data_ptr(), cosN.data_ptr(), sinN.data_ptr()]
+    outs = [dwq.data_ptr(), dwk.data_ptr(), dwv.data_ptr()]
     with torch.cuda.device(xN.device):
-        err = _lib().lpt_prologue_dw(
-            xN.data_ptr(), nw.data_ptr(), rstd.data_ptr(), dqN.data_ptr(), dkN.data_ptr(),
-            dvN.data_ptr(), cosN.data_ptr(), sinN.data_ptr(), dwq.data_ptr(), dwk.data_ptr(),
-            dwv.data_ptr(), n, d, hq, hkv, eps, _KERNEL_DTYPES[xN.dtype],
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            hidden = torch.empty((n, d), dtype=xN.dtype, device=xN.device)
+            scratch = torch.empty((n, (hq + hkv) * head_dim), dtype=xN.dtype, device=xN.device)
+            err = _lib().lpt_prologue_dw_tc(*ins, *rest, hidden.data_ptr(), scratch.data_ptr(),
+                                            *outs, n, d, hq, hkv, eps, stream)
+        else:
+            rstd = torch.empty((n,), dtype=torch.float32, device=xN.device)
+            err = _lib().lpt_prologue_dw(*ins, rstd.data_ptr(), *rest, *outs, n, d, hq, hkv, eps,
+                                         _KERNEL_DTYPES[xN.dtype], stream)
     _check_launch(err, "dW")
     launch_counts["prologue_dw"] += 1
+    tensor_core_counts["prologue_dw"] += int(tensor_cores)
     return dwq, dwk, dwv
 
 

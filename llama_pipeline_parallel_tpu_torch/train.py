@@ -5,12 +5,16 @@ The counterpart of llama_pipeline_parallel_tpu/train.py for a single device
 the same seed, the same schedule-total rules and the same metrics line keys
 where they apply. Checkpointing, resume, evaluation, the observatories,
 fault injection and preemption handling are not ported yet; a config that
-asks for a layout or feature this trainer does not have is refused.
+asks for a layout or feature this trainer does not have is refused, naming
+its key, and keys that mean nothing on one device (the pipeline schedule)
+are logged once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 import time
 from typing import Any, Iterator
 
@@ -61,6 +65,22 @@ _PRESETS = {
 # config keys that name features of the JAX trainer this one does not have yet
 _NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "model_name_or_path",
                "eval_dataset", "fault_plan", "profile_steps")
+# keys of the JAX trainer whose value, other than the default given here,
+# asks for something this trainer does not do
+_NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": 1, "eval_steps": 0,
+                              "async_save": False, "save_total_limit": None}
+# blocks of the JAX trainer (host offload tiers, the observatories) that ask
+# for their feature when any of their values is set
+_NOT_PORTED_BLOCKS = ("offload", "numerics", "timeline", "profiler", "memory")
+# keys that order the pipeline's stages, with their defaults: with one stage
+# (pp = 1) the microbatches run in order whatever they say
+_ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None}
+PIPELINE_SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver", "gpipe")
+# the JAX trainer's activation-checkpointing policies (jax.checkpoint policy
+# names); torch.utils.checkpoint here keeps nothing, which is nothing_saveable
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable", "dots_saveable", "checkpoint_dots",
+                  "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims")
+_CHECKPOINT_DIR = re.compile(r"^checkpoint-(\d+)$")
 
 
 def build_model_config(node: dict) -> LlamaConfig:
@@ -191,16 +211,74 @@ def _loss_head(cfg: dict, model_cfg: LlamaConfig) -> LossHead:
     return LossHead(loss_chunks=chunks, kernel_ce=_kernel_flags(cfg)[0])
 
 
+def _remat(cfg: dict) -> bool:
+    """`activation_checkpointing` with its `remat_policy`: a name outside the
+    JAX trainer's policies is refused, and so is a policy that saves
+    something while checkpointing is on (torch.utils.checkpoint keeps
+    nothing here)."""
+    remat = bool(cfg.get("activation_checkpointing", True))
+    policy = cfg.get("remat_policy", "nothing_saveable")
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; choose one of {REMAT_POLICIES}")
+    if policy != "nothing_saveable":
+        if remat:
+            raise NotImplementedError(
+                f"remat_policy={policy!r} is not ported yet: activation checkpointing here "
+                f"saves nothing ('nothing_saveable')")
+        logger.info("remat_policy=%r has no effect: activation_checkpointing is off", policy)
+    return remat
+
+
+def _checkpoints_to_resume(cfg: dict) -> list[str]:
+    """The checkpoint-N directories in output_dir the JAX trainer would
+    resume from (`resume`, true by default)."""
+    out = cfg.get("output_dir")
+    if not cfg.get("resume", True) or not out or not os.path.isdir(out):
+        return []
+    return sorted(e for e in os.listdir(out) if _CHECKPOINT_DIR.match(e))
+
+
 def _check_supported(cfg: dict) -> None:
+    """Refuse what this trainer does not run, naming the keys; log once the
+    keys that have no effect on one device."""
     mesh = cfg.get("mesh") or {}
     layout = {ax: int(mesh.get(ax, 1)) for ax in ("pp", "dp", "tp", "sp")}
     if any(n != 1 for n in layout.values()):
         raise NotImplementedError(
             f"this trainer runs on one device (pp=dp=tp=sp=1); got {layout}. "
             f"Pipeline, data, tensor and sequence parallelism come with later slices")
+    schedule = cfg.get("pipeline_schedule") or "1f1b"
+    if schedule not in PIPELINE_SCHEDULES:
+        raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
+                         f"{PIPELINE_SCHEDULES}")
     asked = [key for key in _NOT_PORTED if cfg.get(key)]
+    asked += [key for key, default in _NOT_PORTED_UNLESS_DEFAULT.items()
+              if cfg.get(key) is not None and cfg.get(key) != default]
+    asked += [key for key in _NOT_PORTED_BLOCKS if _block_asks(cfg.get(key))]
     if asked:
         raise NotImplementedError(f"not ported yet: {asked}")
+    found = _checkpoints_to_resume(cfg)
+    if found:
+        raise NotImplementedError(
+            f"output_dir {cfg['output_dir']} holds {found}, which resume (true by default) "
+            f"would restore, and resume is not ported yet: pass resume=false to start "
+            f"from step 0, or another output_dir")
+    moot = [key for key, default in _ONE_STAGE_KEYS.items()
+            if cfg.get(key) is not None and cfg.get(key) != default]
+    if moot:
+        logger.warning("%s: no effect on one device (one pipeline stage runs its "
+                       "microbatches in order)", moot)
+    if cfg.get("resume", True):
+        logger.info("resume is not ported yet; output_dir holds no checkpoint, so the run "
+                    "starts at step 0")
+
+
+def _block_asks(node: Any) -> bool:
+    """Whether a config block asks for its feature: any value set, unless
+    it says `enabled: false`."""
+    if not isinstance(node, dict):
+        return bool(node)
+    return node.get("enabled", True) is not False and any(bool(v) for v in node.values())
 
 
 @dataclasses.dataclass
@@ -239,6 +317,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
         raise RuntimeError("device=cuda but torch.cuda.is_available() is false; pass "
                            "device='cpu' (--device cpu) to run on the CPU")
     _check_supported(cfg)
+    remat = _remat(cfg)
     seed = cfg.get("seed", 42)
     model_cfg = build_model_config(cfg["model"])
     head = _loss_head(cfg, model_cfg)
@@ -282,7 +361,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
                attn_fn=select_attention(cfg.get("attention", "auto"), seq_length, device,
                                         model_cfg=model_cfg, micro_batch=micro_batch),
                num_microbatches=num_microbatches,
-               remat=cfg.get("activation_checkpointing", True), head=head,
+               remat=remat, head=head,
                kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step)
 
 

@@ -175,17 +175,32 @@ def test_dhidden_route_by_dtype_and_shape(dtype, d, route):
     assert fp.dhidden_route(dtype, d) == route
 
 
+@pytest.mark.parametrize("which", ["fwd", "dw"])
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 4096, fp.TENSOR_CORE),  # the slice's layers
+    (torch.bfloat16, 200, fp.TENSOR_CORE),   # the ragged card case
+    (torch.float32, 4096, fp.SIMT),          # wgmma on fp32 would be TF32
+    (torch.float32, 200, fp.SIMT),
+    (torch.bfloat16, 196, fp.SIMT),          # d % 8 != 0: no 16-byte rows of the normed hidden
+    (torch.bfloat16, 4100, fp.SIMT),
+])
+def test_fwd_and_dw_route_by_dtype_and_shape(which, dtype, d, route):
+    assert getattr(fp, f"{which}_route")(dtype, d) == route
+
+
 def test_reset_launch_counts_zeroes_tensor_core_counts():
     fp.launch_counts["prologue_dw"] += 2
-    fp.tensor_core_counts["prologue_dhidden"] += 3
+    for key in ("prologue_fwd", "prologue_dhidden", "prologue_dw"):
+        fp.tensor_core_counts[key] += 3
     fp.reset_launch_counts()
     assert fp.launch_counts == {"prologue_fwd": 0, "prologue_dhidden": 0, "prologue_dw": 0}
-    assert fp.tensor_core_counts == {"prologue_dhidden": 0}
+    assert fp.tensor_core_counts == {"prologue_fwd": 0, "prologue_dhidden": 0, "prologue_dw": 0}
 
 
 @pytest.mark.parametrize("kernel", [
     "prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
-    "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel"])
+    "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel",
+    "prologue_norm_kernel", "prologue_fwd_tc_kernel", "prologue_dw_tc_kernel"])
 def test_step_profile_counts_every_prologue_kernel_in_prologue(kernel):
     """tools/torch_step_profile.py files each prologue kernel, SIMT or
     tensor-core, under the `prologue` family, by its name as the profiler
@@ -360,11 +375,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 def test_kernels_match_plain_on_card(dtype, d):
     """Each CUDA kernel against its plain version on a shape ragged to every
     tile (2 x 150 tokens, width 200 or 196, MQA 4:1, head_dim 128, positions
-    from 37). dhidden's route is asserted: bf16 at width 200 on the tensor
-    cores, width 196 and fp32 on the SIMT kernel. fp32: 1e-4 absolute (fp32
-    summation order). bf16: dhidden (fp32 out) differs by summation order
-    only (both routes un-rotate at the same rounding points), dW by its one
-    rounding (2^-8 relative).
+    from 37). The route of the forward, dhidden and dW is asserted: bf16 at
+    width 200 on the tensor cores, width 196 and fp32 on the SIMT kernels.
+    fp32: 1e-4 absolute (fp32 summation order). bf16: dhidden (fp32 out)
+    differs by summation order only (both routes norm and un-rotate at the
+    same rounding points), dW by its one rounding (2^-8 relative).
     q, k and v round at intermediate points (the projection, each RoPE
     product, the sum) from the same row statistic on both sides; where fp32
     summation order puts a projection next to a rounding midpoint, the two
@@ -398,8 +413,9 @@ def test_kernels_match_plain_on_card(dtype, d):
     torch.cuda.synchronize()
     assert fp.launch_counts == {"prologue_fwd": 1, "prologue_dhidden": 1, "prologue_dw": 1}
     on_tensor_cores = int(dtype == "bfloat16" and d == 200)
-    assert on_tensor_cores == int(fp.dhidden_route(tdt, d) == fp.TENSOR_CORE)
-    assert fp.tensor_core_counts == {"prologue_dhidden": on_tensor_cores}
+    for route in (fp.fwd_route, fp.dhidden_route, fp.dw_route):
+        assert on_tensor_cores == int(route(tdt, d) == fp.TENSOR_CORE)
+    assert fp.tensor_core_counts == {key: on_tensor_cores for key in fp.launch_counts}
     for name, g, w in zip(("q", "k", "v", "dhidden", "dwq", "dwk", "dwv"), got, want):
         if dtype == "float32" or name == "dhidden":
             tol = dict(rtol=0, atol=1e-4)
@@ -431,3 +447,30 @@ def test_tensor_core_dhidden_refuses_misaligned_operands_on_card():
     with pytest.raises(ValueError, match="16-byte aligned"):
         fp._dhidden_cuda(dq, dk, dv, w, w, w, cos, sin, hd)
     assert fp.launch_counts["prologue_dhidden"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fwd", "dw"])
+def test_tensor_core_fwd_and_dw_refuse_misaligned_operands_on_card(which):
+    """On the tensor-core route the forward and dW read x (the norm pass's
+    16-byte vectors) and every other operand by TMA or 16-byte vectors: an x
+    one element off its allocation's start is refused before any launch;
+    nothing falls back to SIMT."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    hd, n, d = fp.KERNEL_HEAD_DIMS[0], 16, 64
+
+    def arr(*shape):
+        return torch.randn(*shape, device="cuda").to(torch.bfloat16)
+
+    x = arr(n * d + 1)[1:].view(n, d)
+    nw = torch.ones(d, device="cuda")
+    w, dy, cos, sin = arr(d, hd), arr(n, hd), arr(n, hd), arr(n, hd)
+    assert getattr(fp, f"{which}_route")(x.dtype, d) == fp.TENSOR_CORE
+    fp.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if which == "fwd":
+            fp._fwd_cuda(x, nw, w, w, w, cos, sin, EPS, hd)
+        else:
+            fp._dw_cuda(x, nw, dy, dy, dy, cos, sin, EPS, hd)
+    assert fp.launch_counts[f"prologue_{which}"] == 0

@@ -8,6 +8,7 @@ tolerances stated per check.
 import dataclasses
 import importlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -406,6 +407,141 @@ def test_trainer_refuses_what_it_does_not_run(tmp_path):
     with pytest.raises(ValueError, match="model_cfg"):
         select_attention("auto", 4096, torch.device("cuda"))
     assert select_attention("auto", 4096, torch.device("cpu")) is t_llama.attention
+
+
+def _build_tiny(tmp_path, *overrides):
+    """build_run of tiny_smoke on one CPU device, with `overrides`."""
+    return build_run(t_config.load_config(
+        os.path.join(REPO, "conf", "tiny_smoke.yaml"),
+        ["mesh.pp=1", "mesh.dp=1", f"output_dir={tmp_path}", *overrides]), device="cpu")
+
+
+_REFUSED_KEYS = [
+    ("remat_policy=dots_with_no_batch_dims_saveable", NotImplementedError, "remat_policy"),
+    ("remat_policy=everything_saveable", NotImplementedError, "remat_policy"),
+    ("remat_policy=nothing_savable", ValueError, "unknown remat_policy"),
+    ("offload={wgrad_stash: true}", NotImplementedError, "'offload'"),
+    ("gradient_accumulation_chunks=2", NotImplementedError, "gradient_accumulation_chunks"),
+    ("pipeline_schedule=zb2", ValueError, "unknown pipeline_schedule"),
+    ("eval_steps=10", NotImplementedError, "eval_steps"),
+    ("numerics={enabled: true}", NotImplementedError, "numerics"),
+    ("timeline={enabled: true}", NotImplementedError, "timeline"),
+    ("profiler={at_step: [3]}", NotImplementedError, "profiler"),
+    ("memory={enabled: true}", NotImplementedError, "memory"),
+    ("async_save=true", NotImplementedError, "async_save"),
+    ("save_total_limit=3", NotImplementedError, "save_total_limit"),
+]
+
+
+@pytest.mark.parametrize("override,error,match", _REFUSED_KEYS,
+                         ids=[case[0] for case in _REFUSED_KEYS])
+def test_trainer_refuses_keys_it_does_not_run(tmp_path, override, error, match):
+    """A key of the JAX trainer whose value asks for what this trainer does
+    not do is refused by name (tiny_smoke checkpoints activations, so a
+    saving remat_policy would change what is kept); a name outside the JAX
+    trainer's remat policies or schedules is refused as unknown."""
+    with pytest.raises(error, match=match):
+        _build_tiny(tmp_path, override)
+
+
+@pytest.mark.parametrize("overrides,logged", [
+    (["remat_policy=nothing_saveable"], None),
+    (["remat_policy=dots_saveable", "activation_checkpointing=false"], None),
+    (["pipeline_schedule=zb1", "virtual_stages=2"], "virtual_stages"),
+    (["pipeline_schedule=solver", "schedule_file=unit_schedule.json"], "schedule_file"),
+    (["offload={wgrad_stash: false, activations: false}"], None),
+    (["numerics={enabled: false}", "eval_steps=0", "async_save=false"], None),
+])
+def test_trainer_takes_keys_without_effect_on_one_device(tmp_path, overrides, logged):
+    """The default of each refused key, a remat policy with checkpointing off,
+    and the pipeline's schedule keys (one stage runs its microbatches in
+    order) build; the schedule keys are named in one warning."""
+    from llama_pipeline_parallel_tpu_torch import train as t_train
+
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append
+    t_train.logger.addHandler(handler)
+    try:
+        run = _build_tiny(tmp_path, *overrides)
+    finally:
+        t_train.logger.removeHandler(handler)
+    assert run.remat == ("activation_checkpointing=false" not in overrides)
+    warned = [r.getMessage() for r in records]
+    if logged:
+        assert len(warned) == 1 and logged in warned[0] and "pipeline_schedule" in warned[0]
+    else:
+        assert warned == []
+
+
+def test_remat_policy_nothing_saveable_trains(tmp_path):
+    """remat_policy: nothing_saveable (what torch.utils.checkpoint does here)
+    trains as the default does: the same losses, step by step."""
+    args = ["mesh.pp=1", "mesh.dp=1", "max_steps=2", "total_steps=4", "warmup_steps=1",
+            "dataset.pseudo_dataset_len=4"]
+    path = os.path.join(REPO, "conf", "tiny_smoke.yaml")
+    named = run_training(t_config.load_config(path, args + [
+        f"output_dir={tmp_path}/named", "remat_policy=nothing_saveable"]), device="cpu")
+    default = run_training(t_config.load_config(path, args + [f"output_dir={tmp_path}/d"]),
+                           device="cpu")
+    assert named["losses"] == default["losses"] and len(named["losses"]) == 2
+
+
+@pytest.mark.parametrize("entries,resume,refused", [
+    (["checkpoint-4"], None, True),
+    (["checkpoint-4", "checkpoint-8"], "true", True),
+    (["checkpoint-4"], "false", False),
+    ([], None, False),
+    (["checkpoint-4.corrupt", "metrics.jsonl"], None, False),
+])
+def test_trainer_refuses_to_skip_a_checkpoint_it_would_resume(tmp_path, entries, resume,
+                                                              refused):
+    """The JAX trainer resumes from output_dir's checkpoint-N by default; this
+    one cannot yet, so it refuses rather than start at step 0 over them. With
+    resume=false, or nothing to resume, it builds."""
+    for entry in entries:
+        (tmp_path / entry).mkdir()
+    overrides = [] if resume is None else [f"resume={resume}"]
+    if refused:
+        with pytest.raises(NotImplementedError, match="checkpoint-4"):
+            _build_tiny(tmp_path, *overrides)
+    else:
+        _build_tiny(tmp_path, *overrides)
+
+
+# what the trainer refuses in each shipped config with the mesh cut to one
+# card (None: it builds)
+_ONE_CARD_REFUSALS = {
+    "codellama_34b_16k.yaml": "optimizer_offload",
+    "llama2_70b_pp4_tp4_dp2.yaml": "remat_policy",
+    "llama_13b_pp4_dp2.yaml": None,
+    "llama_65b_pp8_tp2_dp2.yaml": "optimizer_offload",
+    "llama_65b_pp8_v2_tp2_dp2.yaml": "optimizer_offload",
+    "llama_65b_pp8_zb1_offload_tp2_dp2.yaml": "'offload'",
+    "llama_65b_pp8_zb1_tp2_dp2.yaml": "optimizer_offload",
+    "llama_7b_flan_packed.yaml": "async_save",
+    "llama_7b_pp4.yaml": None,
+    "tiny_smoke.yaml": None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(os.path.join(REPO, "conf"))
+                                        if f.endswith(".yaml")))
+def test_shipped_configs_build_on_one_card_or_name_the_refused_key(tmp_path, name):
+    """Every shipped config, with the mesh cut to one device (and the model,
+    data and batch cut to the tiny preset's size), builds or is refused with
+    a message that names the key it cannot honour."""
+    cfg = t_config.load_config(os.path.join(REPO, "conf", name), [
+        "mesh.pp=1", "mesh.dp=1", "mesh.tp=1", "mesh.sp=1", "model={preset: tiny}",
+        "dataset={synthetic: true, seq_length: 32, pseudo_dataset_len: 8}",
+        "per_device_train_batch_size=1", "gradient_accumulation_steps=2",
+        f"output_dir={tmp_path}"])
+    key = _ONE_CARD_REFUSALS[name]
+    if key is None:
+        assert build_run(cfg, device="cpu").model_cfg.num_hidden_layers > 0
+    else:
+        with pytest.raises((NotImplementedError, ValueError), match=key):
+            build_run(cfg, device="cpu")
 
 
 @pytest.mark.cuda

@@ -36,7 +36,8 @@ from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
 FAMILIES = (  # (family, substrings of kernel names), first match wins
     # before flash_attention, whose "fwd_kernel" is also in "prologue_fwd_kernel"
     ("prologue", ("prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
-                  "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel")),
+                  "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel",
+                  "prologue_norm_kernel", "prologue_fwd_tc_kernel", "prologue_dw_tc_kernel")),
     ("ce_head", ("ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel",
                  "ce_dw_kernel", "ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
                  "ce_dw_tc_kernel")),
