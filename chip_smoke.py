@@ -11,14 +11,21 @@ which raises on failure:
 2. kernels -- each flash attention kernel (forward out + lse, dq, dk/dv)
               against its plain PyTorch version on the same inputs, element
               by element: at the training step's shape (b=1, h=32, s=2048,
-              hd=128, bf16, causal) against the plain version in fp32, and in
-              a small fp32 case with GQA, segment ids and offsets (with rows
-              that see no key). TF32 is off. At the step's shape the same
-              check must also reject planted faults confined to the last
-              tiles. Times each kernel, its plain version and, as yardsticks
-              the port never calls, F.scaled_dot_product_attention's forward
-              and its backward alone (dq, dk, dv in one call: the yardstick
-              of both backward kernels).
+              hd=128, bf16, causal) against the plain version in fp32, in a
+              small fp32 case with GQA, segment ids and offsets (with rows
+              that see no key), and in a small bf16 case ragged to every
+              tile with sq != skv, GQA, segment ids (a pad tail: rows that
+              see no key) and offsets. TF32 is off. Each case asserts the
+              route of the forward and dk/dv (`tensor_core_counts`): bf16 the
+              tensor cores, fp32 the SIMT kernels; dq is SIMT in both. At the
+              step's shape and in the small bf16 case the same check must
+              also reject planted faults confined to the last tiles, on the
+              same route. Counts HGMMA and UTMALDG in the SASS of the two
+              tensor-core kernels. Times each kernel, its plain version and,
+              as yardsticks the port never calls,
+              F.scaled_dot_product_attention's forward and its backward
+              alone (dq, dk, dv in one call: the yardstick of both backward
+              kernels).
 3. ce      -- each fused CE kernel (forward lse + target logit, dh, dW)
               against its plain PyTorch version on the same inputs, element
               by element: at the training step's head shape (2048 tokens,
@@ -64,9 +71,10 @@ which raises on failure:
               kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas:
               every loss finite, exactly layers x microbatches x steps
               launches of each flash and each prologue kernel and
-              microbatches x steps of each CE kernel, every CE forward, dh and
-              dW call and every prologue forward, dhidden and dW call on the
-              tensor cores.
+              microbatches x steps of each CE kernel, every flash forward and
+              dk/dv call, every CE forward, dh and dW call and every prologue
+              forward, dhidden and dW call on the tensor cores (flash dq on
+              its SIMT kernel).
               Then step 1 again on the
               same params and batch (each time on the run's prologue) with
               flash and with exact attention: per-token losses and gradients
@@ -102,6 +110,11 @@ PEAK_BYTES_PER_S = 3.35e12
 
 SLICE = dict(b=1, h=32, h_kv=32, s=2048, hd=128)
 SMALL = dict(b=2, h=8, h_kv=2, s=256, hd=128, q_offset=64, kv_offset=128)
+# bf16 on the tensor cores, ragged to every tile (q and kv tiles of 32, 64
+# and 128 rows), sq != skv (a ring-attention slab), GQA 4:1, offsets, and
+# segment ids of the global positions: batch row 0 ends in a pad tail (rows
+# that see no key), row 1 has none, so the last keys and queries matter
+SMALL_TC = dict(b=2, h=8, h_kv=2, sq=300, skv=333, hd=128, q_offset=100, kv_offset=37)
 TRAIN_OVERRIDES = [
     "mesh.pp=1", "mesh.dp=1", "model.num_hidden_layers=4", "dataset.seq_length=2048",
     "max_seq_length=2048", "per_device_train_batch_size=1",
@@ -132,7 +145,8 @@ PRO_TC_KERNELS = {"prologue_fwd": ("prologue_norm_kernel", "prologue_fwd_tc_kern
                                   "prologue_dw_tc_kernel")}
 # the kernels whose products run on wgmma fed by TMA, by library: each must
 # hold HGMMA and UTMALDG in its SASS
-TC_PRODUCT_KERNELS = {"fused_ce": ("ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
+TC_PRODUCT_KERNELS = {"flash_attention": ("fwd_tc_kernel", "bwd_dkv_tc_kernel"),
+                      "fused_ce": ("ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
                                    "ce_dw_tc_kernel"),
                       "fused_prologue": ("prologue_fwd_tc_kernel", "prologue_dhidden_tc_kernel",
                                          "prologue_dw_tc_kernel")}
@@ -264,7 +278,7 @@ def phase_build() -> None:
     log(f"[build] card: {card_line()}")
 
 
-def make_inputs(b, h, h_kv, s, hd, dtype, seed):
+def make_inputs(b, h, h_kv, sq, skv, hd, dtype, seed):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -272,19 +286,23 @@ def make_inputs(b, h, h_kv, s, hd, dtype, seed):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
-    return (randn(b, h, s, hd), randn(b, h_kv, s, hd), randn(b, h_kv, s, hd),
-            randn(b, h, s, hd))
+    return (randn(b, h, sq, hd), randn(b, h_kv, skv, hd), randn(b, h_kv, skv, hd),
+            randn(b, h, sq, hd))
 
 
-def kernel_case(fa, q, k, v, do, kw, fp32: bool, plant: bool = False) -> dict:
+def kernel_case(fa, q, k, v, do, kw, fp32: bool, route: str, plant: bool = False) -> dict:
     """Run the three kernels on (q, k, v, do) and hold each against its plain
     version in fp32 on the same inputs (the bwd ones given the same lse and
-    delta). Returns {kernel: max_abs_err}.
+    delta); the forward and dk/dv must take `route` (dq has one route, SIMT).
+    Returns {kernel: max_abs_err}.
 
     With `plant`, the same check must reject each kernel made wrong in the last
-    tiles only: forward and dq run on K/V without the last PLANT_CUT keys (the
-    last q block loses its diagonal tile), dk/dv on q, dO, lse and delta
+    tiles only, on the same route: forward and dq run on K/V (and their
+    segment ids) without the last PLANT_CUT keys (the last q block loses its
+    diagonal tile), dk/dv on q, dO, lse, delta (and their segment ids)
     without the last PLANT_CUT queries (the last kv tile gets nothing)."""
+    routes = {"fwd": route, "dkv": route}
+    fa.reset_launch_counts()
     group = q.shape[1] // k.shape[1]
     k_full = k.repeat_interleave(group, dim=1).contiguous()
     v_full = v.repeat_interleave(group, dim=1).contiguous()
@@ -298,6 +316,9 @@ def kernel_case(fa, q, k, v, do, kw, fp32: bool, plant: bool = False) -> dict:
     dk, dv = fa._bwd_dkv_cuda(q, k_full, v_full, delta, ref_lse, do, **kw)
     ref_dq = fa._bwd_dq_plain(q32, kf32, vf32, delta, ref_lse, do32, **kw)
     ref_dk, ref_dv = fa._bwd_dkv_plain(q32, kf32, vf32, delta, ref_lse, do32, **kw)
+    expect_routes(fa, routes, 1)
+    log(f"  forward and dk/dv route: {route}, dq: simt (tensor_core_counts "
+        f"{fa.tensor_core_counts})")
 
     tol = {name: tolerance(ref, fp32) for name, ref in
            (("out", ref_out), ("dq", ref_dq), ("dk", ref_dk), ("dv", ref_dv))}
@@ -313,14 +334,20 @@ def kernel_case(fa, q, k, v, do, kw, fp32: bool, plant: bool = False) -> dict:
         def cut(t):
             return t[:, :, :-PLANT_CUT].contiguous()
 
+        def cut_ids(key):
+            ids = kw[key]
+            return dict(kw, **{key: None if ids is None else ids[:, :-PLANT_CUT].contiguous()})
+
+        kw_keys, kw_queries = cut_ids("segments_kv"), cut_ids("segments_q")
         expect_rejected("fwd out (last keys hidden)",
-                        fa._fwd_cuda(q, cut(k), cut(v), **kw)[0], ref_out, tol["out"])
+                        fa._fwd_cuda(q, cut(k), cut(v), **kw_keys)[0], ref_out, tol["out"])
         expect_rejected("dq (last keys hidden)", fa._bwd_dq_cuda(
-            q, cut(k_full), cut(v_full), delta, ref_lse, do, **kw), ref_dq, tol["dq"])
+            q, cut(k_full), cut(v_full), delta, ref_lse, do, **kw_keys), ref_dq, tol["dq"])
         dk_bad, dv_bad = fa._bwd_dkv_cuda(cut(q), k_full, v_full, cut(delta), cut(ref_lse),
-                                          cut(do), **kw)
+                                          cut(do), **kw_queries)
         expect_rejected("dk (last queries hidden)", dk_bad, ref_dk, tol["dk"])
         expect_rejected("dv (last queries hidden)", dv_bad, ref_dv, tol["dv"])
+        expect_routes(fa, routes, 2)
     return errs
 
 
@@ -358,25 +385,43 @@ def phase_kernels() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     log("[kernels] TF32 off (torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False)")
+    sass_counts("flash_attention")
 
     c = SMALL
     log(f"[kernels] small case fp32 GQA {c['h']}:{c['h_kv']} s={c['s']} segments, "
         f"q_offset={c['q_offset']} kv_offset={c['kv_offset']} (tol {FP32_TOL})")
-    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["hd"], torch.float32, 1)
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["s"], c["hd"],
+                              torch.float32, 1)
     seg = torch.zeros((c["b"], c["s"]), dtype=torch.int32, device="cuda")
     seg[0, :100], seg[0, 100:200] = 1, 2           # two segments, then a pad tail
     seg[1, :30], seg[1, 30:160], seg[1, 160:] = 3, 4, 5
     kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=c["q_offset"],
               kv_offset=c["kv_offset"], segments_q=seg, segments_kv=seg)
-    kernel_case(fa, q, k, v, do, kw, fp32=True)
+    kernel_case(fa, q, k, v, do, kw, fp32=True, route=fa.SIMT)
+
+    c = SMALL_TC
+    log(f"[kernels] small case bf16 GQA {c['h']}:{c['h_kv']} sq={c['sq']} skv={c['skv']} "
+        f"segments, q_offset={c['q_offset']} kv_offset={c['kv_offset']} vs the plain "
+        f"version in fp32")
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["sq"], c["skv"], c["hd"],
+                              torch.bfloat16, 2)
+    seg = torch.zeros((c["b"], c["q_offset"] + c["sq"]), dtype=torch.int32, device="cuda")
+    seg[0, :180], seg[0, 180:340] = 1, 2           # by global position: a pad tail from 340
+    seg[1, :250], seg[1, 250:] = 3, 4
+    kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=c["q_offset"],
+              kv_offset=c["kv_offset"],
+              segments_q=seg[:, c["q_offset"]:].contiguous(),
+              segments_kv=seg[:, c["kv_offset"]:c["kv_offset"] + c["skv"]].contiguous())
+    kernel_case(fa, q, k, v, do, kw, fp32=False, route=fa.TENSOR_CORE, plant=True)
 
     c = SLICE
     log(f"[kernels] slice shape b={c['b']} h={c['h']} s={c['s']} hd={c['hd']} bf16 causal "
         f"vs the plain version in fp32")
-    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["hd"], torch.bfloat16, 0)
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["s"], c["hd"],
+                              torch.bfloat16, 0)
     kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=0, kv_offset=0,
               segments_q=None, segments_kv=None)
-    errs = kernel_case(fa, q, k, v, do, kw, fp32=False, plant=True)
+    errs = kernel_case(fa, q, k, v, do, kw, fp32=False, route=fa.TENSOR_CORE, plant=True)
 
     out, lse = fa._fwd_cuda(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
@@ -883,7 +928,7 @@ def phase_trainer() -> dict:
     fp.reset_launch_counts()
     summary = run_training(cfg, device="cuda")
     launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
-    tensor_core = {**fc.tensor_core_counts, **fp.tensor_core_counts}
+    tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts}
     losses = summary["losses"]
     step_ms = 1e3 * statistics.median(summary["step_times"][1:])
     log(f"[trainer] losses {losses}")
@@ -898,11 +943,13 @@ def phase_trainer() -> dict:
         raise AssertionError(f"launch counts {launches}, expected {expected} (flash and "
                              f"prologue: {layers} layers x microbatches x steps; CE: "
                              f"microbatches x steps)")
-    want_tc = {**{key: microbatches for key in fc.tensor_core_counts},
+    want_tc = {**{key: layers * microbatches for key in fa.tensor_core_counts},
+               **{key: microbatches for key in fc.tensor_core_counts},
                **{key: layers * microbatches for key in fp.tensor_core_counts}}
     if tensor_core != want_tc:
         raise AssertionError(f"calls on the tensor cores {tensor_core}, expected {want_tc} "
-                             f"(the bf16 slice is on their grid)")
+                             f"(the bf16 slice is on their grid; flash dq has no tensor-core "
+                             f"route, so its {launches['dq']} launches are SIMT)")
     # at init the logits are about normal with variance 0.02^2 * d (lm_head
     # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
     mcfg = build_model_config(cfg["model"])

@@ -1,9 +1,10 @@
 // Flash attention (FlashAttention-2 schedule) for Hopper: forward, dq and dk/dv.
 //
 // Replaces the Pallas TPU kernels of llama_pipeline_parallel_tpu/ops/flash_attention.py:
-//   fwd_kernel     <- _fwd_kernel      (pallas_call in _fwd)
-//   bwd_dq_kernel  <- _bwd_dq_kernel   (first pallas_call in _bwd)
-//   bwd_dkv_kernel <- _bwd_dkv_kernel  (second pallas_call in _bwd)
+//   fwd_tc_kernel (bf16), fwd_kernel (fp32)   <- _fwd_kernel     (pallas_call in _fwd)
+//   bwd_dq_kernel (bf16 and fp32)             <- _bwd_dq_kernel  (first pallas_call in _bwd)
+//   bwd_dkv_tc_kernel (bf16), bwd_dkv_kernel (fp32)
+//                                             <- _bwd_dkv_kernel (second pallas_call in _bwd)
 //
 // What they compute is the TPU kernels' contract, not their block structure.
 // The TPU walks a sequential grid axis and carries the softmax state in VMEM
@@ -12,7 +13,7 @@
 // owns one (batch, head, kv tile) and loops over the q tiles (dk/dv). Every
 // output element is written by exactly one block, so no atomics are needed.
 //
-// Semantics kept from the reference:
+// Semantics kept from the reference (both routes):
 // - causal masking on global positions (q_offset / kv_offset), and tiles
 //   that the causal predicate masks completely are skipped;
 // - optional segment ids (0 = pad): a score survives only where the q row and
@@ -26,12 +27,28 @@
 // What bounds these kernels on the card: at the shapes of the training step
 // (head_dim 128, sequence 2048) attention is compute-bound (about 2 * hd
 // operations per loaded byte per tile pair), so the bound is the tensor-core
-// rate. This first version does its products with scalar fp32 FMAs out of
-// shared memory, far below that rate: each thread owns a 4 x (N / 16)
-// register micro-tile, so every shared-memory load feeds 2 to 4 FMAs, and the
-// tiles are stored with one float of row padding so that the loads of a warp
-// fall on distinct banks. Tensor cores (wgmma), TMA and pipelined loads are the
-// next step and change none of the semantics above.
+// rate. Two routes:
+// - bf16 (the training path), forward and dk/dv: wgmma fed by TMA (the PTX
+//   wrappers of tc_tile.cuh). One producer warpgroup gives its registers
+//   away (setmaxnreg) and TMA-loads 64 x 64 boxes in the 128-byte swizzle
+//   from 3-D maps over (hd, s, b * heads), so ragged tiles read zeros and
+//   never the next head's rows; two consumer warpgroups own 64 rows each.
+//   The forward takes q tiles of 128 rows and streams K and V tiles of 128
+//   rows through a 2-stage ring (K and V behind separate barriers, so that
+//   S = Q K^T starts before V lands); the online softmax runs in the wgmma
+//   accumulator layout (a row spread over a quad of 4 threads: two
+//   __shfl_xor_sync), in log2 units. dk/dv keeps a kv tile of 128 rows and
+//   streams q tiles of 32 rows with their lse, delta and segment ids through
+//   a 4-stage ring. P and dS^T feed their products from registers (RS: an
+//   accumulator's 16-column slice is an A fragment once packed to bf16x2),
+//   as a hi + lo pair of bf16: one bf16 put outputs where a few large terms
+//   cancel past the 2^-8 limit.
+//   Masks are evaluated in registers only on tiles that can hide a score.
+// - fp32 (every kernel) and bf16 dq: scalar fp32 FMAs out of shared memory
+//   (wgmma on fp32 would be TF32): each thread owns a 4 x (N / 16) register
+//   micro-tile, so every shared-memory load feeds 2 to 4 FMAs, and the tiles
+//   are stored with one float of row padding so that the loads of a warp
+//   fall on distinct banks.
 //
 // Layouts: q/k/v/out/dO/dq/dk/dv are contiguous [b, heads, s, hd] in fp32 or
 // bf16 (all the same type); lse and delta are contiguous fp32 [b, h, sq]
@@ -45,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -449,6 +468,484 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores: forward and dk/dv (head_dim 128)
+// ---------------------------------------------------------------------------
+
+namespace tc = lpt::tc;
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_HD = 128;                  // the one head_dim of the tensor-core route
+constexpr uint32_t BOX = tc::BOX_BYTES;     // a 64 x 64 bf16 TMA box: 8 KB
+constexpr uint32_t TILE128 = 4 * BOX;       // 128 rows x hd 128: 32 KB
+constexpr int TC_THREADS = 3 * 128;         // consumer warpgroups 0 and 1, producer 2
+constexpr int PRODUCER_WARP = 8;            // the first warp of the producer warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// TMA-load rows [r0, r0 + 128) x hd [0, 128) of layer `layer` (one batch
+// row and head) into a tile of two row boxes. Box (hd chunk dc, row box rb)
+// goes to tile + (2 dc + rb) BOX, so that each chunk's rows are contiguous
+// as a K-major operand reads them; with MN (the forward's V: its rows are
+// the product's depth) to tile + (2 rb + dc) BOX, so that the two hd chunks
+// of a row box lie one box apart as an MN-major operand reads them. Rows
+// past the map's extent read as zeros.
+template <bool MN>
+__device__ __forceinline__ void load_tile128(uint32_t tile, const CUtensorMap* map, uint32_t bar,
+                                             int r0, int layer) {
+#pragma unroll
+  for (int dc = 0; dc < 2; ++dc)
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb)
+      tc::tma_load_3d(tile + (MN ? 2 * rb + dc : 2 * dc + rb) * BOX, map, bar, 64 * dc,
+                      r0 + 64 * rb, layer);
+}
+
+// Descriptor of depth slice kk (hd 16kk .. 16kk + 15) of the K-major operand
+// made of the rows of row boxes rb0 .. of a 128-row tile.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rb0, int kk) {
+  return tc::operand_desc<false>(tile + ((kk / 4) * 2 + rb0) * BOX, kk % 4);
+}
+
+// Descriptor of depth slice kk (rows 16kk .. 16kk + 15) of the MN-major
+// operand whose depth is a tile's rows and whose 128 columns are hd, the
+// tile's two hd chunks one box apart (the MN placement above).
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return tc::operand_desc<true>(tile + (kk / 4) * 2 * BOX, kk % 4);
+}
+
+// The 1024-aligned base of the dynamic shared memory, as a shared address
+// and as a generic pointer.
+__device__ __forceinline__ uint32_t tc_base(uint8_t* smem, uint8_t** ptr) {
+  const uint32_t raw = tc::smem_addr(smem), base = (raw + 1023u) & ~1023u;
+  *ptr = smem + (base - raw);
+  return base;
+}
+
+// Forward. Shared memory: Q (128 rows), then per stage the K tile and the V
+// tile (128 rows each), then per stage the kv tile's 128 segment ids, then
+// the mbarriers q_full, k_full[], v_full[], empty[].
+constexpr int FWD_STAGES = 2;
+constexpr uint32_t FWD_SEG = TILE128 + FWD_STAGES * 2 * TILE128;
+constexpr uint32_t FWD_BARS = FWD_SEG + FWD_STAGES * 128 * 4;
+constexpr int FWD_SMEM = FWD_BARS + 8 * (1 + 3 * FWD_STAGES) + 1024;
+
+// One block per (head, q tile of 128 rows, batch row): the last q tiles,
+// which see the most keys under the causal mask, first.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map, const int* __restrict__ seg_q,
+              const int* __restrict__ seg_kv, bf16* __restrict__ out, float* __restrict__ lse,
+              int h, int h_kv, int sq, int skv, float scale, int causal, int q_offset,
+              int kv_offset) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  uint8_t* smem;
+  const uint32_t base = tc_base(tc_smem, &smem);
+  int* segk_s = reinterpret_cast<int*>(smem + FWD_SEG);
+  const uint32_t q_full = base + FWD_BARS, k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * FWD_STAGES, empty = v_full + 8 * FWD_STAGES;
+  const int hh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128, bb = blockIdx.z;
+  const int bh = bb * h + hh, bh_kv = bb * h_kv + hh / (h / h_kv);
+  const bool has_seg = seg_q != nullptr;
+  // the kv tiles this q tile sees: under the causal mask, up to its last row
+  int n_tiles = tc::cdiv(skv, 128);
+  if (causal) {
+    const int reach = q_offset + min(q0 + 128, sq) - 1 - kv_offset;
+    n_tiles = reach < 0 ? 0 : min(n_tiles, reach / 128 + 1);
+  }
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(q_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      tc::mbar_init(k_full + 8 * s, 1 + 32);  // the TMA bytes and the producer warp's ids
+      tc::mbar_init(v_full + 8 * s, 1);
+      tc::mbar_init(empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one warp; lane 0 issues the TMA loads, every lane writes ids
+    tc::setmaxnreg_dec<40>();
+    if (threadIdx.x / 32 != PRODUCER_WARP || n_tiles == 0) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      tc::mbar_expect_tx(q_full, TILE128);
+      load_tile128<false>(base, &q_map, q_full, q0, bh);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % FWD_STAGES, k0 = it * 128;
+      tc::mbar_wait(empty + 8 * s, ((it / FWD_STAGES) & 1) ^ 1);  // the first round passes
+      const uint32_t kt = base + TILE128 + s * 2 * TILE128;
+      if (lane == 0) {
+        tc::mbar_expect_tx(k_full + 8 * s, TILE128);
+        load_tile128<false>(kt, &k_map, k_full + 8 * s, k0, bh_kv);
+        tc::mbar_expect_tx(v_full + 8 * s, TILE128);
+        load_tile128<true>(kt + TILE128, &v_map, v_full + 8 * s, k0, bh_kv);
+      }
+      // the tile's segment ids: 0 (pad) past skv, 1 everywhere without segments
+      for (int c = lane; c < 128; c += 32) {
+        const int kp = k0 + c;
+        segk_s[s * 128 + c] = kp >= skv ? 0 : has_seg ? seg_kv[(size_t)bb * skv + kp] : 1;
+      }
+      tc::mbar_arrive(k_full + 8 * s);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread rows
+  // row and row + 8, columns col + 8j + e of each kv tile (the accumulator
+  // layout of tc_tile.cuh)
+  tc::setmaxnreg_inc<232>();
+  const int lane = threadIdx.x % 32;
+  const int row = q0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int col = 2 * (lane % 4);
+  int segq[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = row + 8 * h2;
+    segq[h2] = r >= sq ? 0 : has_seg ? seg_q[(size_t)bb * sq + r] : 1;
+  }
+  // scores in log2 units: x = s * scale * log2(e), so that p = 2^(x - m)
+  const float sl2 = scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns only
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  if (n_tiles > 0) tc::mbar_wait(q_full, 0);
+  // Before every wgmma.fence, the registers a wgmma reads are pinned
+  // (fence_acc, fence_regs): the fence orders memory only, so the compiler
+  // could otherwise move their last writes after it, where the tensor cores
+  // may not see them.
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % FWD_STAGES, k0 = it * 128;
+    const uint32_t parity = (it / FWD_STAGES) & 1;
+    const uint32_t kt = base + TILE128 + s * 2 * TILE128, vt = kt + TILE128;
+
+    // S = Q K^T: 64 x 128, depth hd in 8 slices, both operands K-major
+    float sc[64];
+    tc::mbar_wait(k_full + 8 * s, parity);
+    tc::fence_acc(sc);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::WgmmaSS<128, false, false>::run(sc, kmajor(base, wg, kk), kmajor(kt, 0, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(sc);
+
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] *= sl2;
+    // masks only where they can hide a score: past skv, with segments, and
+    // on tiles the causal diagonal crosses for this warpgroup's rows
+    if (has_seg || k0 + 128 > skv ||
+        (causal && q_offset + q0 + 64 * wg < kv_offset + k0 + 127)) {
+      const int* sk = segk_s + s * 128;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col + 8 * j + e, id = sk[c];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const bool ok = id != 0 && id == segq[h2] &&
+                            (!causal || q_offset + row + 8 * h2 >= kv_offset + k0 + c);
+            if (!ok) sc[4 * j + 2 * h2 + e] = NEG_INF;
+          }
+        }
+    }
+
+    // online softmax per row: the row max over the quad's 4 threads, the
+    // rescale of O and l, then P = 2^(x - m) (0 where masked, also when the
+    // whole row is masked so far)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mx = m[h2];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h2], sc[4 * j + 2 * h2 + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = exp2f(m[h2] - mx);
+      m[h2] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h2 + e;
+          const float p = sc[i] > NEG_INF / 2 ? exp2f(sc[i] - mx) : 0.f;
+          sc[i] = p;
+          sum += p;
+          o[i] *= corr;
+        }
+      l[h2] = corr * l[h2] + sum;
+    }
+
+    // O += P V: P from registers as hi + lo bf16 (the accumulator's columns
+    // 16kk .. 16kk + 15 are depth slice kk's A fragment; one bf16 alone
+    // misses the 2^-8 limit where a few large terms of a row cancel), V
+    // MN-major
+    uint32_t ph[32], pl[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tc::split_bf16x2(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
+    tc::fence_acc(o);
+    tc::fence_regs(ph);
+    tc::fence_regs(pl);
+    tc::mbar_wait(v_full + 8 * s, parity);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      tc::WgmmaRS<128, true>::run(o, &ph[4 * kk], mnmajor(vt, kk));
+      tc::WgmmaRS<128, true>::run(o, &pl[4 * kk], mnmajor(vt, kk));
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(o);
+    tc::fence_regs(ph);
+    tc::fence_regs(pl);
+    tc::mbar_arrive(empty + 8 * s);
+  }
+
+  // out = O / l (0 for a row that saw no key), lse = m ln 2 + ln l (NEG_INF then)
+  bf16* op = out + (size_t)bh * sq * TC_HD;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float lt = l[h2];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = row + 8 * h2;
+    if (r >= sq) continue;
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)r * TC_HD + 8 * j + col) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h2] * inv, o[4 * j + 2 * h2 + 1] * inv);
+    if (lane % 4 == 0) lse[(size_t)bh * sq + r] = lt > 0.f ? m[h2] * LN2 + logf(lt) : NEG_INF;
+  }
+}
+
+// dk/dv. Shared memory: K and V (128 rows each, loaded once), then per stage
+// the Q tile and the dO tile (DKV_BQ rows each), then per stage the q tile's
+// lse, delta and segment ids, then the mbarriers kv_full, full[], empty[].
+// A q tile of 32 rows: with 64, each consumer's dK and dV (128 registers),
+// S^T and dP^T (64) and their hi + lo fragments did not fit the 240
+// registers a consumer gets (ptxas spilled); at 32 S^T and dP^T take 16
+// each.
+constexpr int DKV_BQ = 32;
+constexpr int DKV_STAGES = 4;
+constexpr uint32_t QBOX = DKV_BQ * 128;       // a box of DKV_BQ rows x 64 hd: 4 KB
+constexpr uint32_t QTILE = 2 * QBOX;          // DKV_BQ rows x hd 128
+constexpr uint32_t DKV_VEC = 2 * TILE128 + DKV_STAGES * 2 * QTILE;
+constexpr uint32_t DKV_BARS = DKV_VEC + DKV_STAGES * 3 * DKV_BQ * 4;
+constexpr int DKV_SMEM = DKV_BARS + 8 * (1 + 2 * DKV_STAGES) + 1024;
+
+// The first q tile that kv rows from k0 on can see under the causal mask:
+// q tiles become visible as they go down.
+__device__ __forceinline__ int first_visible_q_tile(int k0, int sq, int q_offset, int kv_offset) {
+  if (q_offset + sq - 1 < kv_offset + k0) return tc::cdiv(sq, DKV_BQ);
+  const int need = kv_offset + k0 - q_offset - (DKV_BQ - 1);  // the tile's last row reaches k0
+  return need <= 0 ? 0 : tc::cdiv(need, DKV_BQ);
+}
+
+// One block per (head, kv tile of 128 rows, batch row): the first kv tiles,
+// which see the most queries under the causal mask, first.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                  const float* __restrict__ delta, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_kv, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  int h, int sq, int skv, float scale, int causal, int q_offset, int kv_offset) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  uint8_t* smem;
+  const uint32_t base = tc_base(tc_smem, &smem);
+  float* vec_s = reinterpret_cast<float*>(smem + DKV_VEC);
+  const uint32_t kv_full = base + DKV_BARS, full = kv_full + 8, empty = full + 8 * DKV_STAGES;
+  const int hh = blockIdx.x, k0 = blockIdx.y * 128, bb = blockIdx.z;
+  const int bh = bb * h + hh;
+  const bool has_seg = seg_q != nullptr;
+  const int first = causal ? first_visible_q_tile(k0, sq, q_offset, kv_offset) : 0;
+  const int n_tiles = max(0, tc::cdiv(sq, DKV_BQ) - first);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      tc::mbar_init(full + 8 * s, 1 + 32);  // the TMA bytes and the producer warp's rows
+      tc::mbar_init(empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one warp; lane 0 issues the TMA loads, lane i writes the q
+    // tile's row i lse, delta and segment id
+    tc::setmaxnreg_dec<24>();
+    if (threadIdx.x / 32 != PRODUCER_WARP || n_tiles == 0) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      tc::mbar_expect_tx(kv_full, 2 * TILE128);
+      load_tile128<false>(base, &k_map, kv_full, k0, bh);
+      load_tile128<false>(base + TILE128, &v_map, kv_full, k0, bh);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % DKV_STAGES, q0 = (first + it) * DKV_BQ;
+      tc::mbar_wait(empty + 8 * s, ((it / DKV_STAGES) & 1) ^ 1);  // the first round passes
+      const uint32_t qt = base + 2 * TILE128 + s * 2 * QTILE;
+      if (lane == 0) {
+        tc::mbar_expect_tx(full + 8 * s, 2 * QTILE);
+        for (int dc = 0; dc < 2; ++dc) {
+          tc::tma_load_3d(qt + dc * QBOX, &q_map, full + 8 * s, 64 * dc, q0, bh);
+          tc::tma_load_3d(qt + QTILE + dc * QBOX, &do_map, full + 8 * s, 64 * dc, q0, bh);
+        }
+      }
+      // rows past sq: lse NEG_INF (p = 0), delta 0, segment 0 (pad)
+      float* vs = vec_s + s * 3 * DKV_BQ;
+      const int qp = q0 + lane;
+      const bool in = qp < sq;
+      vs[lane] = in ? lse[(size_t)bh * sq + qp] : NEG_INF;
+      vs[DKV_BQ + lane] = in ? delta[(size_t)bh * sq + qp] : 0.f;
+      reinterpret_cast<int*>(vs)[2 * DKV_BQ + lane] =
+          !in ? 0 : has_seg ? seg_q[(size_t)bb * sq + qp] : 1;
+      tc::mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns kv rows k0 + 64 wg .. + 63; this thread rows
+  // krow and krow + 8, columns (q rows of the tile) col + 8j + e
+  tc::setmaxnreg_inc<240>();
+  const int lane = threadIdx.x % 32;
+  const int krow = k0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int col = 2 * (lane % 4);
+  int segk[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = krow + 8 * h2;
+    segk[h2] = r >= skv ? 0 : has_seg ? seg_kv[(size_t)bb * skv + r] : 1;
+  }
+  const float sl2 = scale * LOG2E;
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  if (n_tiles > 0) tc::mbar_wait(kv_full, 0);
+  const uint32_t kt = base, vt = base + TILE128;
+  // registers a wgmma reads are pinned before each wgmma.fence (as in the forward)
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % DKV_STAGES, q0 = (first + it) * DKV_BQ;
+    const uint32_t qt = base + 2 * TILE128 + s * 2 * QTILE, dot = qt + QTILE;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 x 32 each, depth hd, all K-major
+    float st[16], dpt[16];
+    tc::mbar_wait(full + 8 * s, (it / DKV_STAGES) & 1);
+    tc::fence_acc(st);
+    tc::fence_acc(dpt);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::WgmmaSS<DKV_BQ, false, false>::run(
+          st, kmajor(kt, wg, kk), tc::operand_desc<false>(qt + (kk / 4) * QBOX, kk % 4), kk);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::WgmmaSS<DKV_BQ, false, false>::run(
+          dpt, kmajor(vt, wg, kk), tc::operand_desc<false>(dot + (kk / 4) * QBOX, kk % 4),
+          kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(st);
+    tc::fence_acc(dpt);
+
+    // P^T = 2^(x - lse log2 e) (0 on rows that saw no key: lse NEG_INF gives
+    // 2^-inf) and dS^T = P^T (dP^T - delta), the q row's lse and delta by
+    // column; masks as in the forward
+    const float* vs = vec_s + s * 3 * DKV_BQ;
+    const int* sqs = reinterpret_cast<const int*>(vs) + 2 * DKV_BQ;
+    const bool masked = has_seg || (causal && q_offset + q0 < kv_offset + k0 + 64 * wg + 63);
+#pragma unroll
+    for (int j = 0; j < DKV_BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = col + 8 * j + e;
+        const float lv = vs[c], dl = vs[DKV_BQ + c];
+        const float l2 = lv > NEG_INF / 2 ? lv * LOG2E : INFINITY;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = 4 * j + 2 * h2 + e;
+          float p = exp2f(st[i] * sl2 - l2);
+          if (masked) {
+            const int id = sqs[c];
+            const bool ok = segk[h2] != 0 && id == segk[h2] &&
+                            (!causal || q_offset + q0 + c >= kv_offset + krow + 8 * h2);
+            if (!ok) p = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - dl);
+        }
+      }
+
+    // dV += P^T dO and dK += dS^T Q: A from registers as hi + lo bf16 (as in
+    // the forward), depth the tile's q rows, dO and Q MN-major (their two hd
+    // chunks one QBOX apart)
+    uint32_t ph[8], pl[8], dh[8], dl[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      tc::split_bf16x2(st[2 * i], st[2 * i + 1], ph[i], pl[i]);
+      tc::split_bf16x2(dpt[2 * i], dpt[2 * i + 1], dh[i], dl[i]);
+    }
+    tc::fence_acc(dva);
+    tc::fence_acc(dka);
+    tc::fence_regs(ph);
+    tc::fence_regs(pl);
+    tc::fence_regs(dh);
+    tc::fence_regs(dl);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DKV_BQ / 16; ++kk) {
+      const uint64_t b = tc::operand_desc<true>(dot, kk, QBOX);
+      tc::WgmmaRS<128, true>::run(dva, &ph[4 * kk], b);
+      tc::WgmmaRS<128, true>::run(dva, &pl[4 * kk], b);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DKV_BQ / 16; ++kk) {
+      const uint64_t b = tc::operand_desc<true>(qt, kk, QBOX);
+      tc::WgmmaRS<128, true>::run(dka, &dh[4 * kk], b);
+      tc::WgmmaRS<128, true>::run(dka, &dl[4 * kk], b);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dva);
+    tc::fence_acc(dka);
+    tc::fence_regs(ph);
+    tc::fence_regs(pl);
+    tc::fence_regs(dh);
+    tc::fence_regs(dl);
+    tc::mbar_arrive(empty + 8 * s);
+  }
+
+  // dK carries the softmax scale here (the SIMT kernel carries it in q)
+  const size_t koff = (size_t)bh * skv * TC_HD;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = krow + 8 * h2;
+    if (r >= skv) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const size_t at = koff + (size_t)r * TC_HD + 8 * j + col;
+      const int i = 4 * j + 2 * h2;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(scale * dka[i], scale * dka[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -516,13 +1013,60 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+
+template <typename Kernel>
+cudaError_t prepare_tc(Kernel kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const int* seg_q,
+                          const int* seg_kv, void* out, float* lse, int b, int h, int h_kv,
+                          int sq, int skv, float scale, int causal, int q_offset, int kv_offset,
+                          cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = tc::make_map_3d(&q_map, q, TC_HD, sq, b * h);
+  if (err == cudaSuccess) err = tc::make_map_3d(&k_map, k, TC_HD, skv, b * h_kv);
+  if (err == cudaSuccess) err = tc::make_map_3d(&v_map, v, TC_HD, skv, b * h_kv);
+  if (err == cudaSuccess) err = prepare_tc(fwd_tc_kernel, FWD_SMEM);
+  if (err != cudaSuccess) return err;
+  fwd_tc_kernel<<<dim3(h, tc::cdiv(sq, 128), b), TC_THREADS, FWD_SMEM, stream>>>(
+      q_map, k_map, v_map, seg_q, seg_kv, static_cast<bf16*>(out), lse, h, h_kv, sq, skv, scale,
+      causal, q_offset, kv_offset);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, const int* seg_q,
+                          const int* seg_kv, void* dk, void* dv, int b, int h, int sq, int skv,
+                          float scale, int causal, int q_offset, int kv_offset,
+                          cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err = tc::make_map_3d(&q_map, q, TC_HD, sq, b * h, DKV_BQ);
+  if (err == cudaSuccess) err = tc::make_map_3d(&k_map, k, TC_HD, skv, b * h);
+  if (err == cudaSuccess) err = tc::make_map_3d(&v_map, v, TC_HD, skv, b * h);
+  if (err == cudaSuccess) err = tc::make_map_3d(&do_map, dout, TC_HD, sq, b * h, DKV_BQ);
+  if (err == cudaSuccess) err = prepare_tc(bwd_dkv_tc_kernel, DKV_SMEM);
+  if (err != cudaSuccess) return err;
+  bwd_dkv_tc_kernel<<<dim3(h, tc::cdiv(skv, 128), b), TC_THREADS, DKV_SMEM, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, seg_q, seg_kv, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), h, sq, skv, scale, causal, q_offset, kv_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 128 (every LLaMA preset's).
+// The SIMT forward and dk/dv take float32 only: in bf16 they run on the
+// tensor cores (lpt_flash_fwd_tc, lpt_flash_bwd_dkv_tc).
 #define LPT_DISPATCH(DTYPE, HD, CALL)                                       \
   do {                                                                      \
     if ((DTYPE) == 0 && (HD) == 128) return (int)CALL(float, 128);          \
     if ((DTYPE) == 1 && (HD) == 128) return (int)CALL(__nv_bfloat16, 128);  \
+    return (int)cudaErrorInvalidValue;                                      \
+  } while (0)
+#define LPT_DISPATCH_F32(DTYPE, HD, CALL)                                   \
+  do {                                                                      \
+    if ((DTYPE) == 0 && (HD) == 128) return (int)CALL(float, 128);          \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
@@ -535,7 +1079,7 @@ int lpt_flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
 #define CALL(T, HD)                                                                   \
   launch_fwd<T, HD>(q, k, v, seg_q, seg_kv, out, lse, b, h, h_kv, sq, skv, scale, causal, \
                     q_offset, kv_offset, static_cast<cudaStream_t>(stream))
-  LPT_DISPATCH(dtype, hd, CALL);
+  LPT_DISPATCH_F32(dtype, hd, CALL);
 #undef CALL
 }
 
@@ -558,8 +1102,26 @@ int lpt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 #define CALL(T, HD)                                                                        \
   launch_dkv<T, HD>(q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, b, h, sq, skv, scale, \
                     causal, q_offset, kv_offset, static_cast<cudaStream_t>(stream))
-  LPT_DISPATCH(dtype, hd, CALL);
+  LPT_DISPATCH_F32(dtype, hd, CALL);
 #undef CALL
+}
+
+// bf16 with head_dim 128 on the tensor cores; every pointer 16-byte aligned.
+int lpt_flash_fwd_tc(const void* q, const void* k, const void* v, const int* seg_q,
+                     const int* seg_kv, void* out, float* lse, int b, int h, int h_kv, int sq,
+                     int skv, float scale, int causal, int q_offset, int kv_offset,
+                     void* stream) {
+  return (int)launch_fwd_tc(q, k, v, seg_q, seg_kv, out, lse, b, h, h_kv, sq, skv, scale, causal,
+                            q_offset, kv_offset, static_cast<cudaStream_t>(stream));
+}
+
+int lpt_flash_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, const int* seg_q,
+                         const int* seg_kv, void* dk, void* dv, int b, int h, int sq, int skv,
+                         float scale, int causal, int q_offset, int kv_offset, void* stream) {
+  return (int)launch_dkv_tc(q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, b, h, sq, skv,
+                            scale, causal, q_offset, kv_offset,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* lpt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -3,7 +3,10 @@
 // warpgroup and two consumer warpgroups. fused_ce.cu's bf16 kernels (forward
 // statistics, gradient, dh, dW) and fused_prologue.cu's bf16 forward,
 // dhidden and dW use it; tc_matmul.cu wraps it bare, with a plain store, for
-// the layout tests.
+// the layout tests. flash_attention.cu's bf16 forward and dk/dv use only its
+// PTX wrappers (TMA from 3-D maps, mbarriers, setmaxnreg, wgmma with both
+// operands in shared memory at N = 128 and 32 and with A in registers at
+// N = 128): their loops are their own.
 //
 // One block computes a BM x BN = 128 x 256 output tile
 //   acc(i, j) = sum_k A(m0 + i, k) * B(n0 + j, k),   k in [0, K),
@@ -124,6 +127,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a 3-D map at (c0, c1, c2): a box of rows of one layer (a head).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
 }
@@ -148,16 +161,40 @@ template <int NA> __device__ __forceinline__ void fence_acc(float (&d)[NA]) {
   for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Keeps registers that an asynchronous wgmma reads (a register A fragment)
+// alive and unchanged until this point: call it after the wgmma.wait_group
+// that retires the product, or the compiler may reuse them while the tensor
+// cores still read them.
+template <int NR> __device__ __forceinline__ void fence_regs(uint32_t (&r)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Two fp32 values (x in the low half, y in the high) as two bf16x2 words,
+// hi + lo: hi the pair rounded to bf16, lo what that rounding left out,
+// rounded too; together about 16 significant bits where one bf16 holds 8. A
+// pair of accumulator columns 2 (t % 4) + e becomes a pair of A-fragment
+// columns of both words.
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // Descriptor of the 16-deep slice kk of one operand box in shared memory, in
 // the 128-byte swizzle (layout type 1 in bits 62-63; addresses and offsets in
 // 16-byte units). K-major: the slice is 32 bytes along every 128-byte row,
 // 8-row atoms 1024 bytes apart (stride offset); the leading offset is unused.
 // MN-major: the slice is 16 depth rows, i.e. two atoms (2048 bytes) further
-// per kk; 64-wide chunks of the operand's rows lie one box apart (leading
-// offset), 8-deep atoms 1024 bytes apart (stride offset).
-template <bool MN> __device__ __forceinline__ uint64_t operand_desc(uint32_t box, int kk) {
+// per kk; 64-wide chunks of the operand's rows lie `chunk` bytes apart (the
+// leading offset: one box, or less for boxes of fewer depth rows), 8-deep
+// atoms 1024 bytes apart (stride offset).
+template <bool MN>
+__device__ __forceinline__ uint64_t operand_desc(uint32_t box, int kk,
+                                                 uint32_t chunk = BOX_BYTES) {
   const uint32_t addr = MN ? box + kk * 2048 : box + kk * 32;
-  const uint64_t lead = MN ? BOX_BYTES : 16, stride = 1024;
+  const uint64_t lead = MN ? chunk : 16, stride = 1024;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((lead >> 4) << 16) | ((stride >> 4) << 32) |
          (1ull << 62);
 }
@@ -204,6 +241,97 @@ template <bool TA, bool TB> struct Wgmma {
           "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
           "+f"(d[127])
         : "l"(a), "l"(b), "r"(1), "n"(int(TA)), "n"(int(TB)));
+  }
+};
+
+// d (+)= A B^T for a 64 x N tile, depth 16, at N = 128 and 32, both
+// operands from shared memory (SS); TA / TB: the operand is MN-major;
+// scale_d = 0 overwrites d instead of adding to it (the first depth slice).
+template <int N, bool TA, bool TB> struct WgmmaSS;
+
+// d += A B^T for a 64 x N tile, depth 16, at N = 128, A from registers
+// (RS): the k16 A fragment, four bf16x2 words a thread, thread t of the
+// warpgroup holding
+//   a[h + 2g] = A(16 (t / 32) + (t % 32) / 4 + 8h, 8g + 2 (t % 4) + {0, 1}),
+// which is the layout of columns 16kk .. 16kk + 15 of an fp32 accumulator
+// (d[8kk + 2i], d[8kk + 2i + 1] -> a[i]) once packed to bf16x2: a product
+// of an accumulator feeds the next without a shuffle. B from shared memory;
+// TB: B is MN-major.
+template <int N, bool TB> struct WgmmaRS;
+
+template <bool TA, bool TB> struct WgmmaSS<128, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int(TA)), "n"(int(TB)));
+  }
+};
+
+template <bool TA, bool TB> struct WgmmaSS<32, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int(TA)), "n"(int(TB)));
+  }
+};
+
+template <bool TB> struct WgmmaRS<128, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t* a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(int(TB)));
   }
 };
 
@@ -388,6 +516,25 @@ inline cudaError_t make_map(CUtensorMap* map, const void* p, int cols, int rows,
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {BOX, BOX}, elems[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+                            strides, box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a bf16 array of `layers` x `rows` rows of `cols`
+// contiguous elements, all contiguous, read in boxes of BOX columns x
+// `box_rows` rows of one layer in the 128-byte swizzle with zeros past its
+// edges: a box never reads the next layer's rows. TMA needs p and cols * 2
+// to be multiples of 16 bytes.
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* p, int cols, int rows, int layers,
+                               int box_rows = BOX) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)layers};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
+  const cuuint32_t box[3] = {BOX, (cuuint32_t)box_rows, 1}, elems[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
                             strides, box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -2,7 +2,7 @@
 for each pass, as a `torch.autograd.Function`.
 
 The counterpart of llama_pipeline_parallel_tpu/ops/flash_attention.py. The
-three Pallas TPU kernels there become the three CUDA kernels of
+three Pallas TPU kernels there become the CUDA kernels of
 `csrc/flash_attention.cu` (forward, dq, dk/dv; see that file for the design
 and what bounds it). The causal predicate and the segment test are evaluated
 per tile inside the kernels, scores never exist in device memory, and memory
@@ -22,6 +22,15 @@ reference's `_fwd` / `_bwd`, which ring attention calls directly; the public
 
 `launch_counts` counts kernel launches per pass ("fwd", "dq", "dkv") over the
 process: a run can show that its attention went through the kernels.
+
+The forward and dk/dv each have two routes, chosen by `fwd_route` and
+`dkv_route` from the dtype and head_dim alone before any launch: bf16 runs
+on the tensor cores (`fwd_tc_kernel`, `bwd_dkv_tc_kernel`: wgmma fed by
+TMA), fp32 on the SIMT kernels (wgmma on fp32 would be TF32). dq stays on
+its SIMT kernel in both dtypes. The tensor-core route refuses operands that
+are not 16-byte aligned; it never falls back. `tensor_core_counts` counts
+the calls of each pass that took the tensor cores; `reset_launch_counts`
+zeroes both dicts.
 """
 
 from __future__ import annotations
@@ -32,17 +41,42 @@ from typing import Any
 
 import torch
 
+from llama_pipeline_parallel_tpu_torch.ops.fused_ce import SIMT, TENSOR_CORE
+
 NEG_INF = -1e30
-_PLAIN_BLOCK = 64  # kv tile of the plain version (the kernels' tile)
+_PLAIN_BLOCK = 64  # kv tile of the plain version (the SIMT kernels' tile)
 KERNEL_HEAD_DIMS = (128,)  # head_dim instantiations: every LLaMA preset's
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"fwd": 0, "dq": 0, "dkv": 0}
+tensor_core_counts = {"fwd": 0, "dkv": 0}
 
 
 def reset_launch_counts() -> None:
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, tensor_core_counts):
+        for key in counts:
+            counts[key] = 0
+
+
+def _route(dtype: torch.dtype, hd: int) -> str:
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash attention kernels take float32 or bfloat16, got {dtype}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take head_dim in {KERNEL_HEAD_DIMS}, got {hd}")
+    return TENSOR_CORE if dtype == torch.bfloat16 else SIMT
+
+
+def fwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes a forward: TENSOR_CORE for bf16, SIMT for fp32;
+    any other dtype or head_dim is refused. Every sequence length, offset,
+    GQA group and segment layout takes the dtype's route (TMA zero-fills
+    ragged tiles; the masks run in registers)."""
+    return _route(dtype, hd)
+
+
+def dkv_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes a dk/dv: as `fwd_route`."""
+    return _route(dtype, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +184,10 @@ def _lib() -> ctypes.CDLL:
     lib.lpt_flash_fwd.argtypes = [p] * 7 + [i] * 7 + [f] + [i] * 3 + [p]
     lib.lpt_flash_bwd_dq.argtypes = [p] * 9 + [i] * 6 + [f] + [i] * 3 + [p]
     lib.lpt_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [f] + [i] * 3 + [p]
-    for fn in (lib.lpt_flash_fwd, lib.lpt_flash_bwd_dq, lib.lpt_flash_bwd_dkv):
+    lib.lpt_flash_fwd_tc.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 3 + [p]
+    lib.lpt_flash_bwd_dkv_tc.argtypes = [p] * 10 + [i] * 4 + [f] + [i] * 3 + [p]
+    for fn in (lib.lpt_flash_fwd, lib.lpt_flash_bwd_dq, lib.lpt_flash_bwd_dkv,
+               lib.lpt_flash_fwd_tc, lib.lpt_flash_bwd_dkv_tc):
         fn.restype = ctypes.c_int
     lib.lpt_error_string.argtypes = [ctypes.c_int]
     lib.lpt_error_string.restype = ctypes.c_char_p
@@ -195,6 +232,12 @@ def _check_kernel_input(q: torch.Tensor) -> None:
                          f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
 
 
+def _check_aligned(tensors, what: str) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the tensor-core flash {what} reads its operands by TMA, which "
+                         f"needs 16-byte aligned tensors")
+
+
 def _seg_ptrs(segments_q, segments_kv, q, b, sq, skv):
     if segments_q is None:
         return None, None
@@ -214,17 +257,23 @@ def _fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset, segments_q,
     _check("k", k, q, (b, h_kv, skv, hd))
     _check("v", v, q, (b, h_kv, skv, hd))
     seg_q, seg_kv = _seg_ptrs(segments_q, segments_kv, q, b, sq, skv)
+    tensor_cores = fwd_route(q.dtype, hd) == TENSOR_CORE
+    if tensor_cores:
+        _check_aligned((q, k, v), "forward")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q, seg_kv, out.data_ptr(),
+           lse.data_ptr(), b, h, h_kv, sq, skv)
+    masks = (scale, int(causal), int(q_offset), int(kv_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().lpt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q, seg_kv,
-            out.data_ptr(), lse.data_ptr(), b, h, h_kv, sq, skv, hd,
-            _KERNEL_DTYPES[q.dtype], scale, int(causal), int(q_offset),
-            int(kv_offset), stream)
+        if tensor_cores:
+            err = _lib().lpt_flash_fwd_tc(*ins, *masks, stream)
+        else:
+            err = _lib().lpt_flash_fwd(*ins, hd, _KERNEL_DTYPES[q.dtype], *masks, stream)
     _check_launch(err, "forward")
     launch_counts["fwd"] += 1
+    tensor_core_counts["fwd"] += int(tensor_cores)
     return out, lse
 
 
@@ -262,14 +311,23 @@ def _bwd_dkv_cuda(q, k_full, v_full, delta, lse, do, *, causal, scale, q_offset,
                   kv_offset, segments_q, segments_kv):
     ins, dims = _check_bwd_inputs(q, k_full, v_full, delta, lse, do, segments_q,
                                   segments_kv)
+    tensor_cores = dkv_route(q.dtype, q.shape[-1]) == TENSOR_CORE
+    if tensor_cores:
+        _check_aligned((q, k_full, v_full, do), "dk/dv")
     dk = torch.empty_like(k_full)
     dv = torch.empty_like(v_full)
+    masks = (scale, int(causal), int(q_offset), int(kv_offset))
     with torch.cuda.device(q.device):
-        err = _lib().lpt_flash_bwd_dkv(
-            *ins, dk.data_ptr(), dv.data_ptr(), *dims, scale, int(causal),
-            int(q_offset), int(kv_offset), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            err = _lib().lpt_flash_bwd_dkv_tc(*ins, dk.data_ptr(), dv.data_ptr(), *dims[:4],
+                                              *masks, stream)
+        else:
+            err = _lib().lpt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, *masks,
+                                           stream)
     _check_launch(err, "dk/dv")
     launch_counts["dkv"] += 1
+    tensor_core_counts["dkv"] += int(tensor_cores)
     return dk, dv
 
 

@@ -164,12 +164,57 @@ def test_port_exact_attention_matches_flash_plain_on_live_rows():
 
 
 def test_cpu_path_launches_no_kernel():
+    """On the CPU the op takes the plain versions: no kernel launch and no
+    tensor-core call is counted, in fp32 and in bf16 (the tensor cores'
+    dtype)."""
     tfa.reset_launch_counts()
     q, k, v, _, _ = _inputs(1, 2, 2, 64, 16, False)
-    tq, tk, tv = (torch.from_numpy(x.transpose(0, 2, 1, 3).copy()).requires_grad_()
-                  for x in (q, k, v))
-    tfa.flash_attention(tq, tk, tv).sum().backward()
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv = (torch.from_numpy(x.transpose(0, 2, 1, 3).copy()).to(dtype)
+                      .requires_grad_() for x in (q, k, v))
+        tfa.flash_attention(tq, tk, tv).float().sum().backward()
     assert tfa.launch_counts == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert tfa.tensor_core_counts == {"fwd": 0, "dkv": 0}
+
+
+@pytest.mark.parametrize("which", ["fwd", "dkv"])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "simt")])
+def test_route_by_dtype(which, dtype, route):
+    """The forward and dk/dv route is a pure function of dtype and head_dim,
+    fixed before any launch: bf16 with head_dim 128 on the tensor cores,
+    fp32 on the SIMT kernels (wgmma on fp32 would be TF32)."""
+    assert getattr(tfa, f"{which}_route")(dtype, 128) == route
+    assert route == (tfa.TENSOR_CORE if dtype == torch.bfloat16 else tfa.SIMT)
+
+
+@pytest.mark.parametrize("which", ["fwd", "dkv"])
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64), (torch.bfloat16, 256),
+                                      (torch.float32, 96), (torch.float16, 128)])
+def test_route_refuses_other_head_dims_and_dtypes(which, dtype, hd):
+    with pytest.raises(ValueError, match="head_dim" if dtype != torch.float16 else "bfloat16"):
+        getattr(tfa, f"{which}_route")(dtype, hd)
+
+
+@pytest.mark.parametrize("kernel", ["fwd_kernel<float, 128>", "bwd_dq_kernel<float, 128>",
+                                    "bwd_dq_kernel<__nv_bfloat16, 128>",
+                                    "bwd_dkv_kernel<float, 128>", "fwd_tc_kernel",
+                                    "bwd_dkv_tc_kernel"])
+def test_step_profile_counts_every_flash_kernel_in_flash_attention(kernel):
+    """tools/torch_step_profile.py files each flash kernel, SIMT or
+    tensor-core, under the `flash_attention` family, by its name as the
+    profiler shows it."""
+    from tools import torch_step_profile
+
+    name = f"void (anonymous namespace)::{kernel}(CUtensorMap_st, int)"
+    assert torch_step_profile.family(name) == "flash_attention"
+
+
+def test_reset_launch_counts_zeroes_tensor_core_counts():
+    for key in tfa.tensor_core_counts:
+        tfa.tensor_core_counts[key] += 3
+    tfa.reset_launch_counts()
+    assert tfa.tensor_core_counts == {"fwd": 0, "dkv": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -239,3 +284,89 @@ def test_autograd_op_on_card_matches_cpu():
         results.append([t.detach().cpu() for t in (out, tq.grad, tk.grad, tv.grad)])
     for name, cpu, card in zip(("out", "dq", "dk", "dv"), *results):
         torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-5, msg=name)
+
+
+# The tensor-core route (bf16) at ragged shapes:
+# (b, h, h_kv, sq, skv, causal, q_offset, kv_offset, segmented). sq and skv
+# are multiples of none of 32, 64 and 128 (the kernels' q and kv tiles); segments come
+# from the global positions (two segments, then a pad tail), so some rows
+# see no key; offsets put some rows before every key.
+TC_CASES = {
+    "ragged_causal": (1, 4, 4, 200, 200, True, 0, 0, False),
+    "ring_slab_sq_ne_skv": (1, 4, 4, 136, 330, True, 300, 40, False),
+    "gqa4_segments_offsets": (2, 8, 2, 300, 300, True, 64, 128, True),
+    "gqa4_full_sq_ne_skv_segments": (2, 8, 2, 100, 260, False, 0, 0, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_kernels_match_plain_on_card(case):
+    """bf16 forward and dk/dv on the tensor cores (the route asserted through
+    `tensor_core_counts`) against their plain versions in fp32 math on the
+    same inputs, element by element: out, dk and dv to 2^-8 |ref| + 2^-8
+    rms(ref) (bf16 rounding of the output, of P and of dS^T before their
+    products), lse to 1e-4 absolute (fp32 summation order). The
+    empty-row contract holds exactly: out 0 and lse NEG_INF."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    b, h, h_kv, sq, skv, causal, q_off, kv_off, segmented = TC_CASES[case]
+    rng = np.random.RandomState(11)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda().bfloat16()
+
+    q, k, v, do = randn(b, h, sq, 128), randn(b, h_kv, skv, 128), randn(b, h_kv, skv, 128), \
+        randn(b, h, sq, 128)
+    seg_q = seg_kv = None
+    if segmented:
+        n = max(q_off + sq, kv_off + skv)
+        seg = np.zeros((b, n), np.int32)
+        for i in range(b):
+            cut = rng.randint(n // 4, n // 2)
+            seg[i, :cut], seg[i, cut:n - n // 8] = 1, 2
+        seg_q = torch.from_numpy(seg[:, q_off:q_off + sq].copy()).cuda()
+        seg_kv = torch.from_numpy(seg[:, kv_off:kv_off + skv].copy()).cuda()
+    kw = dict(causal=causal, scale=128 ** -0.5, q_offset=q_off, kv_offset=kv_off,
+              segments_q=seg_q, segments_kv=seg_kv)
+    group = h // h_kv
+    k_full, v_full = (x.repeat_interleave(group, dim=1).contiguous() for x in (k, v))
+    tfa.reset_launch_counts()
+    out, lse = tfa._fwd_cuda(q, k, v, **kw)
+    want_out, want_lse = tfa._fwd_plain(q.float(), k.float(), v.float(), **kw)
+    delta = (do.float() * want_out).sum(-1, keepdim=True)
+    dk, dv = tfa._bwd_dkv_cuda(q, k_full, v_full, delta, want_lse, do, **kw)
+    want_dk, want_dv = tfa._bwd_dkv_plain(
+        *(x.float() for x in (q, k_full, v_full, delta, want_lse, do)), **kw)
+    torch.cuda.synchronize()
+    assert tfa.fwd_route(q.dtype, 128) == tfa.dkv_route(q.dtype, 128) == tfa.TENSOR_CORE
+    assert tfa.tensor_core_counts == {"fwd": 1, "dkv": 1}
+    empty = want_lse[..., 0] <= tfa.NEG_INF / 2
+    if case == "gqa4_segments_offsets":
+        assert empty.any()  # pads, and rows before every key: the contract is exercised
+    assert (out[empty] == 0).all() and (lse[empty] == tfa.NEG_INF).all()
+    torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=1e-4, msg="lse")
+    for name, g, w in (("out", out, want_out), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        rtol = 2 ** -8
+        atol = rtol * w.float().square().mean().sqrt().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_refuses_misaligned_operands_on_card():
+    """TMA reads 16-byte aligned tensors only: the tensor-core route raises
+    on a misaligned q; it never falls back to SIMT."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    flat = torch.randn(1 * 2 * 64 * 128 + 1, device="cuda").bfloat16()
+    q = flat[1:].view(1, 2, 64, 128)  # contiguous, 2 bytes off the allocation
+    k = torch.randn(1, 2, 64, 128, device="cuda").bfloat16()
+    kw = dict(causal=True, scale=1.0, q_offset=0, kv_offset=0, segments_q=None,
+              segments_kv=None)
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._fwd_cuda(q, k, k, **kw)
+    lse = torch.zeros((1, 2, 64, 1), device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_dkv_cuda(q, k, k, lse, lse, k, **kw)
+    assert tfa.launch_counts == {"fwd": 0, "dq": 0, "dkv": 0}

@@ -34,14 +34,16 @@ sys.path.insert(0, ROOT)
 from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
 
 FAMILIES = (  # (family, substrings of kernel names), first match wins
-    # before flash_attention, whose "fwd_kernel" is also in "prologue_fwd_kernel"
+    # before flash_attention, whose "fwd_kernel" and "fwd_tc_kernel" are also in
+    # "prologue_fwd_kernel" and "prologue_fwd_tc_kernel"
     ("prologue", ("prologue_rstd_kernel", "prologue_fwd_kernel", "prologue_dhidden_kernel",
                   "prologue_dw_kernel", "prologue_unrope_kernel", "prologue_dhidden_tc_kernel",
                   "prologue_norm_kernel", "prologue_fwd_tc_kernel", "prologue_dw_tc_kernel")),
     ("ce_head", ("ce_stats_kernel", "ce_lse_kernel", "ce_grad_kernel", "ce_dh_kernel",
                  "ce_dw_kernel", "ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
                  "ce_dw_tc_kernel")),
-    ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
+    ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fwd_tc_kernel",
+                         "bwd_dkv_tc_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("copy", ("Memcpy", "Memset", "copy_")),
 )
