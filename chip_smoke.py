@@ -16,11 +16,11 @@ which raises on failure:
               that see no key), and in a small bf16 case ragged to every
               tile with sq != skv, GQA, segment ids (a pad tail: rows that
               see no key) and offsets. TF32 is off. Each case asserts the
-              route of the forward and dk/dv (`tensor_core_counts`): bf16 the
-              tensor cores, fp32 the SIMT kernels; dq is SIMT in both. At the
+              route of the forward, dq and dk/dv (`tensor_core_counts`): bf16
+              the tensor cores, fp32 the SIMT kernels. At the
               step's shape and in the small bf16 case the same check must
               also reject planted faults confined to the last tiles, on the
-              same route. Counts HGMMA and UTMALDG in the SASS of the two
+              same route. Counts HGMMA and UTMALDG in the SASS of the three
               tensor-core kernels. Times each kernel, its plain version and,
               as yardsticks the port never calls,
               F.scaled_dot_product_attention's forward and its backward
@@ -71,10 +71,9 @@ which raises on failure:
               kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas:
               every loss finite, exactly layers x microbatches x steps
               launches of each flash and each prologue kernel and
-              microbatches x steps of each CE kernel, every flash forward and
-              dk/dv call, every CE forward, dh and dW call and every prologue
-              forward, dhidden and dW call on the tensor cores (flash dq on
-              its SIMT kernel).
+              microbatches x steps of each CE kernel, every flash forward, dq
+              and dk/dv call, every CE forward, dh and dW call and every
+              prologue forward, dhidden and dW call on the tensor cores.
               Then step 1 again on the
               same params and batch (each time on the run's prologue) with
               flash and with exact attention: per-token losses and gradients
@@ -145,7 +144,8 @@ PRO_TC_KERNELS = {"prologue_fwd": ("prologue_norm_kernel", "prologue_fwd_tc_kern
                                   "prologue_dw_tc_kernel")}
 # the kernels whose products run on wgmma fed by TMA, by library: each must
 # hold HGMMA and UTMALDG in its SASS
-TC_PRODUCT_KERNELS = {"flash_attention": ("fwd_tc_kernel", "bwd_dkv_tc_kernel"),
+TC_PRODUCT_KERNELS = {"flash_attention": ("fwd_tc_kernel", "bwd_dq_tc_kernel",
+                                          "bwd_dkv_tc_kernel"),
                       "fused_ce": ("ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
                                    "ce_dw_tc_kernel"),
                       "fused_prologue": ("prologue_fwd_tc_kernel", "prologue_dhidden_tc_kernel",
@@ -293,7 +293,7 @@ def make_inputs(b, h, h_kv, sq, skv, hd, dtype, seed):
 def kernel_case(fa, q, k, v, do, kw, fp32: bool, route: str, plant: bool = False) -> dict:
     """Run the three kernels on (q, k, v, do) and hold each against its plain
     version in fp32 on the same inputs (the bwd ones given the same lse and
-    delta); the forward and dk/dv must take `route` (dq has one route, SIMT).
+    delta); the forward, dq and dk/dv must take `route`.
     Returns {kernel: max_abs_err}.
 
     With `plant`, the same check must reject each kernel made wrong in the last
@@ -301,7 +301,7 @@ def kernel_case(fa, q, k, v, do, kw, fp32: bool, route: str, plant: bool = False
     segment ids) without the last PLANT_CUT keys (the last q block loses its
     diagonal tile), dk/dv on q, dO, lse, delta (and their segment ids)
     without the last PLANT_CUT queries (the last kv tile gets nothing)."""
-    routes = {"fwd": route, "dkv": route}
+    routes = {"fwd": route, "dq": route, "dkv": route}
     fa.reset_launch_counts()
     group = q.shape[1] // k.shape[1]
     k_full = k.repeat_interleave(group, dim=1).contiguous()
@@ -317,7 +317,7 @@ def kernel_case(fa, q, k, v, do, kw, fp32: bool, route: str, plant: bool = False
     ref_dq = fa._bwd_dq_plain(q32, kf32, vf32, delta, ref_lse, do32, **kw)
     ref_dk, ref_dv = fa._bwd_dkv_plain(q32, kf32, vf32, delta, ref_lse, do32, **kw)
     expect_routes(fa, routes, 1)
-    log(f"  forward and dk/dv route: {route}, dq: simt (tensor_core_counts "
+    log(f"  forward, dq and dk/dv route: {route} (tensor_core_counts "
         f"{fa.tensor_core_counts})")
 
     tol = {name: tolerance(ref, fp32) for name, ref in
@@ -948,8 +948,7 @@ def phase_trainer() -> dict:
                **{key: layers * microbatches for key in fp.tensor_core_counts}}
     if tensor_core != want_tc:
         raise AssertionError(f"calls on the tensor cores {tensor_core}, expected {want_tc} "
-                             f"(the bf16 slice is on their grid; flash dq has no tensor-core "
-                             f"route, so its {launches['dq']} launches are SIMT)")
+                             f"(the bf16 slice is on their grid)")
     # at init the logits are about normal with variance 0.02^2 * d (lm_head
     # std 0.02 over a unit-rms hidden), so the expected loss is ln V + var / 2
     mcfg = build_model_config(cfg["model"])

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels of llama_pipeline_parallel_tpu/ops/flash_attention.py:
 //   fwd_tc_kernel (bf16), fwd_kernel (fp32)   <- _fwd_kernel     (pallas_call in _fwd)
-//   bwd_dq_kernel (bf16 and fp32)             <- _bwd_dq_kernel  (first pallas_call in _bwd)
+//   bwd_dq_tc_kernel (bf16), bwd_dq_kernel (fp32)
+//                                             <- _bwd_dq_kernel  (first pallas_call in _bwd)
 //   bwd_dkv_tc_kernel (bf16), bwd_dkv_kernel (fp32)
 //                                             <- _bwd_dkv_kernel (second pallas_call in _bwd)
 //
@@ -28,7 +29,7 @@
 // (head_dim 128, sequence 2048) attention is compute-bound (about 2 * hd
 // operations per loaded byte per tile pair), so the bound is the tensor-core
 // rate. Two routes:
-// - bf16 (the training path), forward and dk/dv: wgmma fed by TMA (the PTX
+// - bf16 (the training path), every kernel: wgmma fed by TMA (the PTX
 //   wrappers of tc_tile.cuh). One producer warpgroup gives its registers
 //   away (setmaxnreg) and TMA-loads 64 x 64 boxes in the 128-byte swizzle
 //   from 3-D maps over (hd, s, b * heads), so ragged tiles read zeros and
@@ -37,14 +38,16 @@
 //   rows through a 2-stage ring (K and V behind separate barriers, so that
 //   S = Q K^T starts before V lands); the online softmax runs in the wgmma
 //   accumulator layout (a row spread over a quad of 4 threads: two
-//   __shfl_xor_sync), in log2 units. dk/dv keeps a kv tile of 128 rows and
-//   streams q tiles of 32 rows with their lse, delta and segment ids through
-//   a 4-stage ring. P and dS^T feed their products from registers (RS: an
-//   accumulator's 16-column slice is an A fragment once packed to bf16x2),
-//   as a hi + lo pair of bf16: one bf16 put outputs where a few large terms
-//   cancel past the 2^-8 limit.
+//   __shfl_xor_sync), in log2 units. dq keeps a q tile of 128 rows (with
+//   its rows' lse, delta and segment ids in registers) and streams K and V
+//   tiles of 64 rows through a 4-stage ring; dk/dv keeps a kv tile of 128
+//   rows and streams q tiles of 32 rows with their lse, delta and segment
+//   ids through a 4-stage ring. P, dS and dS^T feed their products from
+//   registers (RS: an accumulator's 16-column slice is an A fragment once
+//   packed to bf16x2), as a hi + lo pair of bf16: one bf16 put outputs
+//   where a few large terms cancel past the 2^-8 limit.
 //   Masks are evaluated in registers only on tiles that can hide a score.
-// - fp32 (every kernel) and bf16 dq: scalar fp32 FMAs out of shared memory
+// - fp32 (every kernel): scalar fp32 FMAs out of shared memory
 //   (wgmma on fp32 would be TF32): each thread owns a 4 x (N / 16) register
 //   micro-tile, so every shared-memory load feeds 2 to 4 FMAs, and the tiles
 //   are stored with one float of row padding so that the loads of a warp
@@ -73,17 +76,12 @@ constexpr int NT = 256;          // threads per block, seen as a 16 x 16 grid
 constexpr int LDS = BK + 1;      // row stride of a [BQ, BK] score tile in shared memory
 constexpr float NEG_INF = -1e30f;
 
+// the SIMT kernels are instantiated for fp32 only (bf16 takes the tensor cores)
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Copy rows [row0, row0 + 64) of a [n_rows, HD] matrix into shared memory as
 // fp32 with row stride HD + 1, multiplied by `mul`; rows past n_rows are zero.
@@ -468,7 +466,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: forward and dk/dv (head_dim 128)
+// bf16 on the tensor cores: forward, dq and dk/dv (head_dim 128)
 // ---------------------------------------------------------------------------
 
 namespace tc = lpt::tc;
@@ -724,6 +722,209 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
       *reinterpret_cast<__nv_bfloat162*>(op + (size_t)r * TC_HD + 8 * j + col) =
           __floats2bfloat162_rn(o[4 * j + 2 * h2] * inv, o[4 * j + 2 * h2 + 1] * inv);
     if (lane % 4 == 0) lse[(size_t)bh * sq + r] = lt > 0.f ? m[h2] * LN2 + logf(lt) : NEG_INF;
+  }
+}
+
+// dq. Shared memory: Q and dO (128 rows each, loaded once), then per stage
+// the K tile and the V tile (DQ_BK rows each), then per stage the kv tile's
+// segment ids, then the mbarriers q_full, full[], empty[]. Kv tiles of 64:
+// each consumer's dQ (64 registers), S and dP (32 each) and dS's hi + lo
+// fragments (16 each) fit its 240 registers; at 128, S and dP alone would
+// take 128.
+constexpr int DQ_BK = 64;
+constexpr int DQ_STAGES = 4;
+constexpr uint32_t KVTILE = 2 * BOX;          // DQ_BK rows x hd 128: its two hd chunks
+constexpr uint32_t DQ_SEG = 2 * TILE128 + DQ_STAGES * 2 * KVTILE;
+constexpr uint32_t DQ_BARS = DQ_SEG + DQ_STAGES * DQ_BK * 4;
+constexpr int DQ_SMEM = DQ_BARS + 8 * (1 + 2 * DQ_STAGES) + 1024;
+
+// One block per (head, q tile of 128 rows, batch row): the last q tiles,
+// which see the most keys under the causal mask, first.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, bf16* __restrict__ dq, int h, int sq, int skv,
+                 float scale, int causal, int q_offset, int kv_offset) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  uint8_t* smem;
+  const uint32_t base = tc_base(tc_smem, &smem);
+  int* segk_s = reinterpret_cast<int*>(smem + DQ_SEG);
+  const uint32_t q_full = base + DQ_BARS, full = q_full + 8, empty = full + 8 * DQ_STAGES;
+  const int hh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128, bb = blockIdx.z;
+  const int bh = bb * h + hh;
+  const bool has_seg = seg_q != nullptr;
+  // the kv tiles this q tile sees: under the causal mask, up to its last row
+  int n_tiles = tc::cdiv(skv, DQ_BK);
+  if (causal) {
+    const int reach = q_offset + min(q0 + 128, sq) - 1 - kv_offset;
+    n_tiles = reach < 0 ? 0 : min(n_tiles, reach / DQ_BK + 1);
+  }
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      tc::mbar_init(full + 8 * s, 1 + 32);  // the TMA bytes and the producer warp's ids
+      tc::mbar_init(empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one warp; lane 0 issues the TMA loads, every lane writes ids
+    tc::setmaxnreg_dec<24>();
+    if (threadIdx.x / 32 != PRODUCER_WARP || n_tiles == 0) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      tc::mbar_expect_tx(q_full, 2 * TILE128);
+      load_tile128<false>(base, &q_map, q_full, q0, bh);
+      load_tile128<false>(base + TILE128, &do_map, q_full, q0, bh);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % DQ_STAGES, k0 = it * DQ_BK;
+      tc::mbar_wait(empty + 8 * s, ((it / DQ_STAGES) & 1) ^ 1);  // the first round passes
+      const uint32_t kt = base + 2 * TILE128 + s * 2 * KVTILE;
+      if (lane == 0) {
+        tc::mbar_expect_tx(full + 8 * s, 2 * KVTILE);
+        for (int dc = 0; dc < 2; ++dc) {
+          tc::tma_load_3d(kt + dc * BOX, &k_map, full + 8 * s, 64 * dc, k0, bh);
+          tc::tma_load_3d(kt + KVTILE + dc * BOX, &v_map, full + 8 * s, 64 * dc, k0, bh);
+        }
+      }
+      // the tile's segment ids: 0 (pad) past skv, 1 everywhere without segments
+      for (int c = lane; c < DQ_BK; c += 32) {
+        const int kp = k0 + c;
+        segk_s[s * DQ_BK + c] = kp >= skv ? 0 : has_seg ? seg_kv[(size_t)bb * skv + kp] : 1;
+      }
+      tc::mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread rows
+  // row and row + 8, columns (kv rows of the tile) col + 8j + e. A row's
+  // lse, delta and segment id stay in registers; rows past sq get lse
+  // NEG_INF (p = 0), delta 0 and segment 0.
+  tc::setmaxnreg_inc<240>();
+  const int lane = threadIdx.x % 32;
+  const int row = q0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int col = 2 * (lane % 4);
+  int segq[2];
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = row + 8 * h2;
+    const bool in = r < sq;
+    segq[h2] = !in ? 0 : has_seg ? seg_q[(size_t)bb * sq + r] : 1;
+    const float lv = in ? lse[(size_t)bh * sq + r] : NEG_INF;
+    // P = 2^(x - lse log2 e); a row that saw no key gets 2^-inf = 0
+    l2[h2] = lv > NEG_INF / 2 ? lv * LOG2E : INFINITY;
+    dl[h2] = in ? delta[(size_t)bh * sq + r] : 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+  // the last q position of this warpgroup's rows (tiles past it are hidden
+  // from all of them under the causal mask), and whether it has rows at all
+  const int wg_last = q_offset + min(q0 + 64 * wg + 64, sq) - 1;
+  const bool wg_live = q0 + 64 * wg < sq;
+  float dqa[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
+  if (n_tiles > 0) tc::mbar_wait(q_full, 0);
+  const uint32_t qt = base, dot = base + TILE128;
+  // registers a wgmma reads are pinned before each wgmma.fence (as in the forward)
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % DQ_STAGES, k0 = it * DQ_BK;
+    const uint32_t kt = base + 2 * TILE128 + s * 2 * KVTILE, vt = kt + KVTILE;
+    tc::mbar_wait(full + 8 * s, (it / DQ_STAGES) & 1);
+    if (!wg_live || (causal && wg_last < kv_offset + k0)) {
+      tc::mbar_arrive(empty + 8 * s);  // every score of the tile is hidden from these rows
+      continue;
+    }
+
+    // S = Q K^T and dP = dO V^T: 64 x 64 each, depth hd, all K-major
+    float sc[32], dp[32];
+    tc::fence_acc(sc);
+    tc::fence_acc(dp);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::WgmmaSS<DQ_BK, false, false>::run(
+          sc, kmajor(qt, wg, kk), tc::operand_desc<false>(kt + (kk / 4) * BOX, kk % 4), kk);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::WgmmaSS<DQ_BK, false, false>::run(
+          dp, kmajor(dot, wg, kk), tc::operand_desc<false>(vt + (kk / 4) * BOX, kk % 4), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(sc);
+    tc::fence_acc(dp);
+
+    // dS = P (dP - delta), P = 2^(x - lse log2 e); masks only where they can
+    // hide a score: past skv, with segments, and on tiles the causal
+    // diagonal crosses for this warpgroup's rows
+    const int* sk = segk_s + s * DQ_BK;
+    const bool masked = has_seg || k0 + DQ_BK > skv ||
+                        (causal && q_offset + q0 + 64 * wg < kv_offset + k0 + DQ_BK - 1);
+#pragma unroll
+    for (int j = 0; j < DQ_BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = col + 8 * j + e;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = 4 * j + 2 * h2 + e;
+          float p = exp2f(sc[i] * sl2 - l2[h2]);
+          if (masked) {
+            const int id = sk[c];
+            const bool ok = id != 0 && id == segq[h2] &&
+                            (!causal || q_offset + row + 8 * h2 >= kv_offset + k0 + c);
+            if (!ok) p = 0.f;
+          }
+          sc[i] = p * (dp[i] - dl[h2]);
+        }
+      }
+
+    // dQ += dS K: dS from registers as hi + lo bf16 (as in the forward),
+    // depth the tile's kv rows, K MN-major (its two hd chunks one box apart)
+    uint32_t dh[16], dlo[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) tc::split_bf16x2(sc[2 * i], sc[2 * i + 1], dh[i], dlo[i]);
+    tc::fence_acc(dqa);
+    tc::fence_regs(dh);
+    tc::fence_regs(dlo);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+      const uint64_t b = tc::operand_desc<true>(kt, kk);
+      tc::WgmmaRS<128, true>::run(dqa, &dh[4 * kk], b);
+      tc::WgmmaRS<128, true>::run(dqa, &dlo[4 * kk], b);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dqa);
+    tc::fence_regs(dh);
+    tc::fence_regs(dlo);
+    tc::mbar_arrive(empty + 8 * s);
+  }
+
+  // dQ carries the softmax scale here (the SIMT kernel carries it in q);
+  // rows that saw no key store 0
+  bf16* dqp = dq + (size_t)bh * sq * TC_HD;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = row + 8 * h2;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i = 4 * j + 2 * h2;
+      *reinterpret_cast<__nv_bfloat162*>(dqp + (size_t)r * TC_HD + 8 * j + col) =
+          __floats2bfloat162_rn(scale * dqa[i], scale * dqa[i + 1]);
+    }
   }
 }
 
@@ -1035,6 +1236,23 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const int
   return cudaGetLastError();
 }
 
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, const int* seg_q,
+                         const int* seg_kv, void* dq, int b, int h, int sq, int skv, float scale,
+                         int causal, int q_offset, int kv_offset, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err = tc::make_map_3d(&q_map, q, TC_HD, sq, b * h);
+  if (err == cudaSuccess) err = tc::make_map_3d(&k_map, k, TC_HD, skv, b * h);
+  if (err == cudaSuccess) err = tc::make_map_3d(&v_map, v, TC_HD, skv, b * h);
+  if (err == cudaSuccess) err = tc::make_map_3d(&do_map, dout, TC_HD, sq, b * h);
+  if (err == cudaSuccess) err = prepare_tc(bwd_dq_tc_kernel, DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  bwd_dq_tc_kernel<<<dim3(h, tc::cdiv(sq, 128), b), TC_THREADS, DQ_SMEM, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, seg_q, seg_kv, static_cast<bf16*>(dq), h, sq,
+      skv, scale, causal, q_offset, kv_offset);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, const int* seg_q,
                           const int* seg_kv, void* dk, void* dv, int b, int h, int sq, int skv,
@@ -1055,15 +1273,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 128 (every LLaMA preset's).
-// The SIMT forward and dk/dv take float32 only: in bf16 they run on the
-// tensor cores (lpt_flash_fwd_tc, lpt_flash_bwd_dkv_tc).
-#define LPT_DISPATCH(DTYPE, HD, CALL)                                       \
-  do {                                                                      \
-    if ((DTYPE) == 0 && (HD) == 128) return (int)CALL(float, 128);          \
-    if ((DTYPE) == 1 && (HD) == 128) return (int)CALL(__nv_bfloat16, 128);  \
-    return (int)cudaErrorInvalidValue;                                      \
-  } while (0)
+// dtype: 0 = float32. head_dim: 128 (every LLaMA preset's). The SIMT
+// kernels take float32 only: in bf16 every pass runs on the tensor cores
+// (lpt_flash_fwd_tc, lpt_flash_bwd_dq_tc, lpt_flash_bwd_dkv_tc).
 #define LPT_DISPATCH_F32(DTYPE, HD, CALL)                                   \
   do {                                                                      \
     if ((DTYPE) == 0 && (HD) == 128) return (int)CALL(float, 128);          \
@@ -1090,7 +1302,7 @@ int lpt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
 #define CALL(T, HD)                                                                      \
   launch_dq<T, HD>(q, k, v, dout, lse, delta, seg_q, seg_kv, dq, b, h, sq, skv, scale, causal, \
                    q_offset, kv_offset, static_cast<cudaStream_t>(stream))
-  LPT_DISPATCH(dtype, hd, CALL);
+  LPT_DISPATCH_F32(dtype, hd, CALL);
 #undef CALL
 }
 
@@ -1113,6 +1325,14 @@ int lpt_flash_fwd_tc(const void* q, const void* k, const void* v, const int* seg
                      void* stream) {
   return (int)launch_fwd_tc(q, k, v, seg_q, seg_kv, out, lse, b, h, h_kv, sq, skv, scale, causal,
                             q_offset, kv_offset, static_cast<cudaStream_t>(stream));
+}
+
+int lpt_flash_bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, const int* seg_q, const int* seg_kv,
+                        void* dq, int b, int h, int sq, int skv, float scale, int causal,
+                        int q_offset, int kv_offset, void* stream) {
+  return (int)launch_dq_tc(q, k, v, dout, lse, delta, seg_q, seg_kv, dq, b, h, sq, skv, scale,
+                           causal, q_offset, kv_offset, static_cast<cudaStream_t>(stream));
 }
 
 int lpt_flash_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,

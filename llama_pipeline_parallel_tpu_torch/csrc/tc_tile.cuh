@@ -3,9 +3,9 @@
 // warpgroup and two consumer warpgroups. fused_ce.cu's bf16 kernels (forward
 // statistics, gradient, dh, dW) and fused_prologue.cu's bf16 forward,
 // dhidden and dW use it; tc_matmul.cu wraps it bare, with a plain store, for
-// the layout tests. flash_attention.cu's bf16 forward and dk/dv use only its
-// PTX wrappers (TMA from 3-D maps, mbarriers, setmaxnreg, wgmma with both
-// operands in shared memory at N = 128 and 32 and with A in registers at
+// the layout tests. flash_attention.cu's bf16 forward, dq and dk/dv use only
+// its PTX wrappers (TMA from 3-D maps, mbarriers, setmaxnreg, wgmma with both
+// operands in shared memory at N = 128, 64 and 32 and with A in registers at
 // N = 128): their loops are their own.
 //
 // One block computes a BM x BN = 128 x 256 output tile
@@ -244,7 +244,7 @@ template <bool TA, bool TB> struct Wgmma {
   }
 };
 
-// d (+)= A B^T for a 64 x N tile, depth 16, at N = 128 and 32, both
+// d (+)= A B^T for a 64 x N tile, depth 16, at N = 128, 64 and 32, both
 // operands from shared memory (SS); TA / TB: the operand is MN-major;
 // scale_d = 0 overwrites d instead of adding to it (the first depth slice).
 template <int N, bool TA, bool TB> struct WgmmaSS;
@@ -284,6 +284,28 @@ template <bool TA, bool TB> struct WgmmaSS<128, TA, TB> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int(TA)), "n"(int(TB)));
+  }
+};
+
+template <bool TA, bool TB> struct WgmmaSS<64, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d), "n"(int(TA)), "n"(int(TB)));
   }
 };

@@ -23,14 +23,14 @@ reference's `_fwd` / `_bwd`, which ring attention calls directly; the public
 `launch_counts` counts kernel launches per pass ("fwd", "dq", "dkv") over the
 process: a run can show that its attention went through the kernels.
 
-The forward and dk/dv each have two routes, chosen by `fwd_route` and
+Each pass has two routes, chosen by `fwd_route`, `dq_route` and
 `dkv_route` from the dtype and head_dim alone before any launch: bf16 runs
-on the tensor cores (`fwd_tc_kernel`, `bwd_dkv_tc_kernel`: wgmma fed by
-TMA), fp32 on the SIMT kernels (wgmma on fp32 would be TF32). dq stays on
-its SIMT kernel in both dtypes. The tensor-core route refuses operands that
-are not 16-byte aligned; it never falls back. `tensor_core_counts` counts
-the calls of each pass that took the tensor cores; `reset_launch_counts`
-zeroes both dicts.
+on the tensor cores (`fwd_tc_kernel`, `bwd_dq_tc_kernel`,
+`bwd_dkv_tc_kernel`: wgmma fed by TMA), fp32 on the SIMT kernels (wgmma on
+fp32 would be TF32). The tensor-core route refuses operands that are not
+16-byte aligned; it never falls back. `tensor_core_counts` counts the calls
+of each pass that took the tensor cores; `reset_launch_counts` zeroes both
+dicts.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ KERNEL_HEAD_DIMS = (128,)  # head_dim instantiations: every LLaMA preset's
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"fwd": 0, "dq": 0, "dkv": 0}
-tensor_core_counts = {"fwd": 0, "dkv": 0}
+tensor_core_counts = {"fwd": 0, "dq": 0, "dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -71,6 +71,11 @@ def fwd_route(dtype: torch.dtype, hd: int) -> str:
     any other dtype or head_dim is refused. Every sequence length, offset,
     GQA group and segment layout takes the dtype's route (TMA zero-fills
     ragged tiles; the masks run in registers)."""
+    return _route(dtype, hd)
+
+
+def dq_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes a dq: as `fwd_route`."""
     return _route(dtype, hd)
 
 
@@ -185,9 +190,10 @@ def _lib() -> ctypes.CDLL:
     lib.lpt_flash_bwd_dq.argtypes = [p] * 9 + [i] * 6 + [f] + [i] * 3 + [p]
     lib.lpt_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [f] + [i] * 3 + [p]
     lib.lpt_flash_fwd_tc.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 3 + [p]
+    lib.lpt_flash_bwd_dq_tc.argtypes = [p] * 9 + [i] * 4 + [f] + [i] * 3 + [p]
     lib.lpt_flash_bwd_dkv_tc.argtypes = [p] * 10 + [i] * 4 + [f] + [i] * 3 + [p]
     for fn in (lib.lpt_flash_fwd, lib.lpt_flash_bwd_dq, lib.lpt_flash_bwd_dkv,
-               lib.lpt_flash_fwd_tc, lib.lpt_flash_bwd_dkv_tc):
+               lib.lpt_flash_fwd_tc, lib.lpt_flash_bwd_dq_tc, lib.lpt_flash_bwd_dkv_tc):
         fn.restype = ctypes.c_int
     lib.lpt_error_string.argtypes = [ctypes.c_int]
     lib.lpt_error_string.restype = ctypes.c_char_p
@@ -297,13 +303,20 @@ def _bwd_dq_cuda(q, k_full, v_full, delta, lse, do, *, causal, scale, q_offset,
                  kv_offset, segments_q, segments_kv):
     ins, dims = _check_bwd_inputs(q, k_full, v_full, delta, lse, do, segments_q,
                                   segments_kv)
+    tensor_cores = dq_route(q.dtype, q.shape[-1]) == TENSOR_CORE
+    if tensor_cores:
+        _check_aligned((q, k_full, v_full, do), "dq")
     dq = torch.empty_like(q)
+    masks = (scale, int(causal), int(q_offset), int(kv_offset))
     with torch.cuda.device(q.device):
-        err = _lib().lpt_flash_bwd_dq(
-            *ins, dq.data_ptr(), *dims, scale, int(causal), int(q_offset),
-            int(kv_offset), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            err = _lib().lpt_flash_bwd_dq_tc(*ins, dq.data_ptr(), *dims[:4], *masks, stream)
+        else:
+            err = _lib().lpt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, *masks, stream)
     _check_launch(err, "dq")
     launch_counts["dq"] += 1
+    tensor_core_counts["dq"] += int(tensor_cores)
     return dq
 
 

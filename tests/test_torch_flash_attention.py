@@ -174,21 +174,21 @@ def test_cpu_path_launches_no_kernel():
                       .requires_grad_() for x in (q, k, v))
         tfa.flash_attention(tq, tk, tv).float().sum().backward()
     assert tfa.launch_counts == {"fwd": 0, "dq": 0, "dkv": 0}
-    assert tfa.tensor_core_counts == {"fwd": 0, "dkv": 0}
+    assert tfa.tensor_core_counts == {"fwd": 0, "dq": 0, "dkv": 0}
 
 
-@pytest.mark.parametrize("which", ["fwd", "dkv"])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
                                          (torch.float32, "simt")])
 def test_route_by_dtype(which, dtype, route):
-    """The forward and dk/dv route is a pure function of dtype and head_dim,
-    fixed before any launch: bf16 with head_dim 128 on the tensor cores,
+    """Each pass's route is a pure function of dtype and head_dim, fixed
+    before any launch: bf16 with head_dim 128 on the tensor cores,
     fp32 on the SIMT kernels (wgmma on fp32 would be TF32)."""
     assert getattr(tfa, f"{which}_route")(dtype, 128) == route
     assert route == (tfa.TENSOR_CORE if dtype == torch.bfloat16 else tfa.SIMT)
 
 
-@pytest.mark.parametrize("which", ["fwd", "dkv"])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64), (torch.bfloat16, 256),
                                       (torch.float32, 96), (torch.float16, 128)])
 def test_route_refuses_other_head_dims_and_dtypes(which, dtype, hd):
@@ -199,7 +199,7 @@ def test_route_refuses_other_head_dims_and_dtypes(which, dtype, hd):
 @pytest.mark.parametrize("kernel", ["fwd_kernel<float, 128>", "bwd_dq_kernel<float, 128>",
                                     "bwd_dq_kernel<__nv_bfloat16, 128>",
                                     "bwd_dkv_kernel<float, 128>", "fwd_tc_kernel",
-                                    "bwd_dkv_tc_kernel"])
+                                    "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel"])
 def test_step_profile_counts_every_flash_kernel_in_flash_attention(kernel):
     """tools/torch_step_profile.py files each flash kernel, SIMT or
     tensor-core, under the `flash_attention` family, by its name as the
@@ -214,7 +214,7 @@ def test_reset_launch_counts_zeroes_tensor_core_counts():
     for key in tfa.tensor_core_counts:
         tfa.tensor_core_counts[key] += 3
     tfa.reset_launch_counts()
-    assert tfa.tensor_core_counts == {"fwd": 0, "dkv": 0}
+    assert tfa.tensor_core_counts == {"fwd": 0, "dq": 0, "dkv": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -302,12 +302,12 @@ TC_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(TC_CASES))
 def test_tensor_core_kernels_match_plain_on_card(case):
-    """bf16 forward and dk/dv on the tensor cores (the route asserted through
-    `tensor_core_counts`) against their plain versions in fp32 math on the
-    same inputs, element by element: out, dk and dv to 2^-8 |ref| + 2^-8
-    rms(ref) (bf16 rounding of the output, of P and of dS^T before their
-    products), lse to 1e-4 absolute (fp32 summation order). The
-    empty-row contract holds exactly: out 0 and lse NEG_INF."""
+    """bf16 forward, dq and dk/dv on the tensor cores (the route asserted
+    through `tensor_core_counts`) against their plain versions in fp32 math
+    on the same inputs, element by element: out, dq, dk and dv to 2^-8 |ref|
+    + 2^-8 rms(ref) (bf16 rounding of the output, of P, dS and dS^T before
+    their products), lse to 1e-4 absolute (fp32 summation order). The
+    empty-row contract holds exactly: out 0, lse NEG_INF and dq 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     b, h, h_kv, sq, skv, causal, q_off, kv_off, segmented = TC_CASES[case]
@@ -335,18 +335,23 @@ def test_tensor_core_kernels_match_plain_on_card(case):
     out, lse = tfa._fwd_cuda(q, k, v, **kw)
     want_out, want_lse = tfa._fwd_plain(q.float(), k.float(), v.float(), **kw)
     delta = (do.float() * want_out).sum(-1, keepdim=True)
+    dq = tfa._bwd_dq_cuda(q, k_full, v_full, delta, want_lse, do, **kw)
     dk, dv = tfa._bwd_dkv_cuda(q, k_full, v_full, delta, want_lse, do, **kw)
-    want_dk, want_dv = tfa._bwd_dkv_plain(
-        *(x.float() for x in (q, k_full, v_full, delta, want_lse, do)), **kw)
+    f32 = [x.float() for x in (q, k_full, v_full, delta, want_lse, do)]
+    want_dq = tfa._bwd_dq_plain(*f32, **kw)
+    want_dk, want_dv = tfa._bwd_dkv_plain(*f32, **kw)
     torch.cuda.synchronize()
-    assert tfa.fwd_route(q.dtype, 128) == tfa.dkv_route(q.dtype, 128) == tfa.TENSOR_CORE
-    assert tfa.tensor_core_counts == {"fwd": 1, "dkv": 1}
+    assert tfa.fwd_route(q.dtype, 128) == tfa.dq_route(q.dtype, 128) \
+        == tfa.dkv_route(q.dtype, 128) == tfa.TENSOR_CORE
+    assert tfa.tensor_core_counts == {"fwd": 1, "dq": 1, "dkv": 1}
     empty = want_lse[..., 0] <= tfa.NEG_INF / 2
     if case == "gqa4_segments_offsets":
         assert empty.any()  # pads, and rows before every key: the contract is exercised
     assert (out[empty] == 0).all() and (lse[empty] == tfa.NEG_INF).all()
+    assert (dq[empty] == 0).all()
     torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=1e-4, msg="lse")
-    for name, g, w in (("out", out, want_out), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+    for name, g, w in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
+                       ("dv", dv, want_dv)):
         rtol = 2 ** -8
         atol = rtol * w.float().square().mean().sqrt().item()
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol, msg=name)
@@ -354,8 +359,8 @@ def test_tensor_core_kernels_match_plain_on_card(case):
 
 @pytest.mark.cuda
 def test_tensor_core_route_refuses_misaligned_operands_on_card():
-    """TMA reads 16-byte aligned tensors only: the tensor-core route raises
-    on a misaligned q; it never falls back to SIMT."""
+    """TMA reads 16-byte aligned tensors only: the tensor-core route of each
+    pass raises on a misaligned q; it never falls back to SIMT."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     flat = torch.randn(1 * 2 * 64 * 128 + 1, device="cuda").bfloat16()
@@ -367,6 +372,8 @@ def test_tensor_core_route_refuses_misaligned_operands_on_card():
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._fwd_cuda(q, k, k, **kw)
     lse = torch.zeros((1, 2, 64, 1), device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_dq_cuda(q, k, k, lse, lse, k, **kw)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._bwd_dkv_cuda(q, k, k, lse, lse, k, **kw)
     assert tfa.launch_counts == {"fwd": 0, "dq": 0, "dkv": 0}

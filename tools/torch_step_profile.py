@@ -43,7 +43,7 @@ FAMILIES = (  # (family, substrings of kernel names), first match wins
                  "ce_dw_kernel", "ce_stats_tc_kernel", "ce_grad_tc_kernel", "ce_dh_tc_kernel",
                  "ce_dw_tc_kernel")),
     ("flash_attention", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fwd_tc_kernel",
-                         "bwd_dkv_tc_kernel")),
+                         "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("copy", ("Memcpy", "Memset", "copy_")),
 )
