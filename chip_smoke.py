@@ -68,7 +68,8 @@ which raises on failure:
               hidden^T @ [dq|dk|dv].
 5. trainer -- `run_training` on conf/llama_7b_pp4.yaml at LLaMA-7B width, cut
               to 4 layers, seq 2048, 2 microbatches, 4 steps, attention=flash,
-              kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas:
+              kernels.ce=pallas, loss_vocab_chunks=4, kernels.prologue=pallas,
+              saving and resuming nothing (save_final=false, resume=false):
               every loss finite, exactly layers x microbatches x steps
               launches of each flash and each prologue kernel and
               microbatches x steps of each CE kernel, every flash forward, dq
@@ -82,6 +83,21 @@ which raises on failure:
               and a planted CE fault is rejected; and with the prologue
               kernels and the composed prologue: step losses and gradients
               agree, and a planted prologue fault is rejected.
+6. checkpoint -- the trainer's checkpoints at LLaMA-7B width cut to 2 layers
+              (CKPT_OVERRIDES): free disk checked first; run A trains 6 steps
+              and saves step 4 with async_save; meta.json's keys checked;
+              run B resumes from it and repeats steps 5-6 through every
+              kernel (launch and tensor-core counts checked), its losses
+              within RESUME_LOSS_TOL of A's and its final params and moments
+              held to A's; a flipped byte is caught by verify and
+              quarantined; A's params go out through export_hf and back
+              through convert_hf into a run with model_name_or_path, which
+              starts from them bit for bit and takes a step. Prints the
+              seconds and GB/s of the save (the loop's device-to-host copy,
+              the background write, digest and commit), verify, reading,
+              host-to-device and the HF round trip. build/chip_smoke/ is
+              cleared at the start of the script and the phase removes what
+              it wrote.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -95,6 +111,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -119,8 +136,23 @@ TRAIN_OVERRIDES = [
     "max_seq_length=2048", "per_device_train_batch_size=1",
     "gradient_accumulation_steps=2", "max_steps=4", "total_steps=8", "warmup_steps=1",
     "attention=flash", "activation_checkpointing=false", "kernels.ce=pallas",
-    "loss_vocab_chunks=4", "kernels.prologue=pallas",
+    "loss_vocab_chunks=4", "kernels.prologue=pallas", "save_final=false", "resume=false",
 ]
+# the checkpoint phase: the slice cut to 2 layers (666.9 M parameters, 12
+# bytes each on disk: fp32 weights and both Adam moments, ~8.0 GB). Run A
+# trains 6 steps and saves the full state once, at step 4, in the background
+# while steps 5-6 run (save_steps=4; a multiple of 2 would also save at the
+# last step and prune step 4 away); run B resumes from it and takes steps 5-6
+CKPT_OVERRIDES = TRAIN_OVERRIDES + ["model.num_hidden_layers=2", "max_steps=6"]
+CKPT_RUN_A = ["save_steps=4", "save_final=false", "async_save=true", "save_total_limit=1",
+              "resume=false"]
+CKPT_RUN_B = ["save_steps=0", "save_final=false", "resume=true"]
+CKPT_SAVE_STEP = 4
+# B's losses against A's for the same steps, from the same restored state
+RESUME_LOSS_TOL = 1e-5
+# free disk the phase needs beyond one full-state checkpoint: the HF export
+# and the converted checkpoint (fp32 params each), and 2 GiB of room
+CKPT_DISK_SLACK = 2 * 2**30
 # the fused CE head: the step's shape (tokens of one microbatch, width,
 # vocab) and small cases ragged to every kernel tile (SIMT 128 x 128 x 16,
 # tensor cores 128 x 256 x 64): vocab 1000 in chunks of 250 (bf16: the
@@ -1236,6 +1268,210 @@ def prologue_parity(config: str, out_dir: str) -> None:
                              f"{bad_rel})")
 
 
+def gbps(nbytes: float, secs: float) -> str:
+    return f"{nbytes / 1e9:.3f} GB in {secs:.3f} s ({nbytes / 1e9 / max(secs, 1e-9):.2f} GB/s)"
+
+
+def phase_checkpoint() -> None:
+    """Save, resume and warm start on the card at LLaMA-7B width (2 layers).
+
+    Run A (CKPT_RUN_A) trains 6 steps and saves the full state at step 4 with
+    async_save: the loop pays the device-to-host copy, a background thread
+    writes, digests and commits while steps 5-6 run. Run B (CKPT_RUN_B)
+    resumes from it in the same directory and takes steps 5-6 through every
+    kernel of the slice. B's losses must equal A's within RESUME_LOSS_TOL;
+    B's final params and moments are held to A's (their largest difference
+    printed, and whether they are bit-equal). Then a byte of the checkpoint
+    is flipped: verify must raise and quarantine it, after which no
+    checkpoint is left to resume. Last, A's final params go out through
+    export_hf and back through convert_hf, and a run with model_name_or_path
+    starts from params bit-equal to A's and takes a step."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import checkpoint as ck
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.tools import convert_hf, export_hf
+    from llama_pipeline_parallel_tpu_torch.train import build_model_config, build_run, train_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+    from llama_pipeline_parallel_tpu_torch.utils.metrics import param_count
+
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    root = os.path.join(ROOT, "build", "chip_smoke")
+    ckpt_dir, hf_dir = os.path.join(root, "ckpt"), os.path.join(root, "hf")
+    warm_dir = os.path.join(root, "warm")
+    os.makedirs(root, exist_ok=True)
+
+    def cfg(*overrides):
+        return load_config(config, CKPT_OVERRIDES + list(overrides))
+
+    cfg_a = cfg(*CKPT_RUN_A, f"output_dir={ckpt_dir}")
+    log(f"[checkpoint] {config} TRAIN_OVERRIDES + "
+        f"{' '.join(CKPT_OVERRIDES[len(TRAIN_OVERRIDES):] + CKPT_RUN_A)}")
+    n_params = param_count(build_model_config(cfg_a["model"]))
+    need = 12 * n_params + 2 * 4 * n_params + CKPT_DISK_SLACK
+    free = shutil.disk_usage(root).free
+    log(f"[checkpoint] {n_params / 1e6:.1f} M parameters: a full-state checkpoint is "
+        f"{12 * n_params / 1e9:.2f} GB; free disk {free / 1e9:.1f} GB, the phase needs "
+        f"{need / 1e9:.1f} GB")
+    if free < need:
+        raise AssertionError(f"free disk under {root}: {free} bytes, the checkpoint phase "
+                             f"needs {need}")
+    run_a = build_run(cfg_a, "cuda")
+
+    # -- run A: the uninterrupted run, saving at step 4 in the background
+    summary_a = train_run(run_a)
+    save = dict(run_a.ckpt.last_save)
+    losses_a, times_a = summary_a["losses"], summary_a["step_times"]
+    log(f"[checkpoint] run A losses {losses_a}")
+    log(f"[checkpoint] async save of checkpoint-{CKPT_SAVE_STEP}: the loop paid "
+        f"{save['d2h_s']:.3f} s for the device-to-host copy of {save['d2h_bytes'] / 1e9:.3f} GB "
+        f"({save['d2h_bytes'] / 1e9 / save['d2h_s']:.2f} GB/s, host buffers pinned on this "
+        f"first save); in the background: write {gbps(save['bytes'], save['write_s'])}, "
+        f"sha256 {gbps(save['bytes'], save['digest_s'])}, commit in all "
+        f"{save['commit_s']:.3f} s")
+    meta = json.load(open(os.path.join(ckpt_dir, f"checkpoint-{CKPT_SAVE_STEP}", "meta.json")))
+    g = run_a.loader.global_batch_examples
+    checks = {"step": meta["step"] == CKPT_SAVE_STEP,
+              "has_optimizer_state": meta["has_optimizer_state"] is True,
+              "data_state": meta["data_state"]["consumed_samples"] == CKPT_SAVE_STEP * g,
+              "topology.layout": meta["topology"]["layout"] == "pp1xdp1xtp1xsp1",
+              "storage": meta["storage"] == "safetensors",
+              "integrity": sorted(meta["integrity"]["files"]) == ["opt.safetensors",
+                                                                  "params.safetensors"]}
+    log(f"[checkpoint] meta.json: {checks}; data_state {meta['data_state']}")
+    if not all(checks.values()):
+        raise AssertionError(f"meta.json of checkpoint-{CKPT_SAVE_STEP}: {checks}")
+
+    mgr = ck.CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    mgr.verify(CKPT_SAVE_STEP)
+    verify_s = time.perf_counter() - t0
+    params_file = os.path.join(mgr.step_dir(CKPT_SAVE_STEP), ck.PARAMS_FILE)
+    t0 = time.perf_counter()
+    with tensor_io.TensorFile(params_file) as f:
+        host = {name: f.tensor(name).clone() for name in f.keys()}
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_card = {name: t.to("cuda") for name, t in host.items()}
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    host_bytes = sum(t.numel() * t.element_size() for t in host.values())
+    del host, on_card
+    log(f"[checkpoint] verify (sha256 of both files) {gbps(save['bytes'], verify_s)}; "
+        f"reading params.safetensors into host memory {gbps(host_bytes, read_s)} (page "
+        f"cache warm from the write); host-to-device {gbps(host_bytes, h2d_s)} (pageable)")
+
+    # -- run B: resume from step 4 in the same directory
+    t0 = time.perf_counter()
+    run_b = build_run(cfg(*CKPT_RUN_B, f"output_dir={ckpt_dir}"), "cuda")
+    restore_s = time.perf_counter() - t0
+    if (run_b.start_step, run_b.data_start) != (CKPT_SAVE_STEP,
+                                                divmod(CKPT_SAVE_STEP, len(run_b.loader))):
+        raise AssertionError(f"run B starts at {run_b.start_step}, data {run_b.data_start}")
+    log(f"[checkpoint] run B build_run with the restore (verify, read, copy onto the card): "
+        f"{restore_s:.3f} s; starts at step {run_b.start_step}, data position "
+        f"{run_b.data_start}")
+    fa.reset_launch_counts()
+    fc.reset_launch_counts()
+    fp.reset_launch_counts()
+    summary_b = train_run(run_b)
+    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+    tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts}
+    layers = run_b.model_cfg.num_hidden_layers
+    microbatches = run_b.num_microbatches * len(summary_b["losses"])
+    expected = {**{key: layers * microbatches for key in fa.launch_counts},
+                **{key: microbatches for key in fc.launch_counts},
+                **{key: layers * microbatches for key in fp.launch_counts}}
+    want_tc = {**{key: layers * microbatches for key in fa.tensor_core_counts},
+               **{key: microbatches for key in fc.tensor_core_counts},
+               **{key: layers * microbatches for key in fp.tensor_core_counts}}
+    losses_b = summary_b["losses"]
+    diffs = [abs(b - a) for a, b in zip(losses_a[CKPT_SAVE_STEP:], losses_b)]
+    log(f"[checkpoint] run B losses {losses_b}; |B - A| {diffs} (tol {RESUME_LOSS_TOL}); "
+        f"kernel launches {launches} (expected {expected}), on the tensor cores "
+        f"{tensor_core}")
+    log(f"[checkpoint] step {CKPT_SAVE_STEP + 1}: {1e3 * times_a[CKPT_SAVE_STEP]:.1f} ms in A "
+        f"(commit in flight) against {1e3 * summary_b['step_times'][0]:.1f} ms in B; A's steps "
+        f"{[round(1e3 * t, 1) for t in times_a]} ms")
+    if len(losses_b) != len(losses_a) - CKPT_SAVE_STEP or not max(diffs) <= RESUME_LOSS_TOL:
+        raise AssertionError(f"resumed losses {losses_b} against {losses_a}")
+    if launches != expected or tensor_core != want_tc:
+        raise AssertionError(f"run B launches {launches}, tensor cores {tensor_core}, "
+                             f"expected {expected}")
+    # Adam moves each parameter by about the learning rate a step whatever its
+    # gradient, so a step that is not bit-reproducible moves a parameter by up
+    # to ~2 lr; the moments follow the gradients, held relative to their size
+    state_a, state_b = run_a.state, run_b.state
+    lr_sum = sum(state_b.optimizer.schedule(c) for c in range(CKPT_SAVE_STEP, run_b.end_step))
+    differ, worst = [], {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    for group, a_side, b_side in (("params", state_a.params, state_b.params),
+                                  ("mu", state_a.optimizer.mu, state_b.optimizer.mu),
+                                  ("nu", state_a.optimizer.nu, state_b.optimizer.nu)):
+        for k, ta in a_side.items():
+            d = (ta.detach() - b_side[k].detach()).abs().max().item()
+            if group != "params":
+                d /= max(ta.abs().max().item(), 1e-30)
+            worst[group] = max(worst[group], d)
+            if d > 0:
+                differ.append(f"{group} {k} {d:.3e}")
+    log(f"[checkpoint] B's final state against A's: largest |diff| of params "
+        f"{worst['params']:.3e} (limit 4 x the lr of B's steps = {4 * lr_sum:.3e}), of mu and "
+        f"nu relative to their largest element {worst['mu']:.3e} and {worst['nu']:.3e} (limit "
+        f"{GRAD_REL_TOL}); {'bit-equal' if not differ else 'not bit-equal: ' + ', '.join(differ)};"
+        f" count {state_b.optimizer.count} vs {state_a.optimizer.count}")
+    if (state_b.optimizer.count != state_a.optimizer.count
+            or not worst["params"] <= 4 * lr_sum
+            or not max(worst["mu"], worst["nu"]) <= GRAD_REL_TOL):
+        raise AssertionError(f"run B's final state is {worst} from A's")
+    del run_b, state_b, summary_b
+
+    # -- a planted fault: one flipped byte
+    with open(params_file, "r+b") as f:
+        f.seek(-4096, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-4096, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0x01]))
+    try:
+        mgr.verify(CKPT_SAVE_STEP)
+    except ck.CheckpointCorruptError as e:
+        log(f"[checkpoint] planted byte flip caught: {e}")
+    else:
+        raise AssertionError("verify passed a checkpoint with a flipped byte")
+    quarantined = os.path.isdir(mgr.step_dir(CKPT_SAVE_STEP) + ck.QUARANTINE_SUFFIX)
+    left = ck.find_resume_checkpoint(ckpt_dir)
+    log(f"[checkpoint] quarantined: {quarantined}; find_resume_checkpoint -> {left}")
+    if not quarantined or left is not None:
+        raise AssertionError(f"quarantine {quarantined}, resume candidate {left}")
+    shutil.rmtree(ckpt_dir)
+
+    # -- the HF round trip and a warm start on the card
+    t0 = time.perf_counter()
+    hf_bytes = export_hf.export_params(state_a.params, run_a.model_cfg, hf_dir)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_hf.convert(hf_dir, warm_dir)
+    convert_s = time.perf_counter() - t0
+    log(f"[checkpoint] export_hf of A's final params {gbps(hf_bytes, export_s)}; convert_hf "
+        f"back (read, stack, write, sha256) {gbps(hf_bytes, convert_s)}")
+    shutil.rmtree(hf_dir)
+    run_w = build_run(cfg("resume=false", "max_steps=1", f"model_name_or_path={warm_dir}",
+                          f"output_dir={root}/warm_run"), "cuda")
+    unequal = [k for k, v in state_a.params.items() if not torch.equal(v, run_w.state.params[k])]
+    if unequal:
+        raise AssertionError(f"warm-started params differ from A's: {unequal}")
+    warm = train_run(run_w)
+    log(f"[checkpoint] warm start from {warm_dir}: params bit-equal to A's; one step, loss "
+        f"{warm['losses']}")
+    if not (len(warm["losses"]) == 1 and math.isfinite(warm["losses"][0])):
+        raise AssertionError(f"warm-started step: {warm['losses']}")
+    del run_w, run_a, state_a
+    for path in (warm_dir, f"{root}/warm_run"):
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1251,11 +1487,13 @@ def main() -> int:
         return 2
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
     phase_build()
     rows = phase_kernels()
     rows.update(phase_ce())
     rows.update(phase_prologue())
     launches = phase_trainer()
+    phase_checkpoint()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -120,3 +120,24 @@ class LlamaConfig:
                     num_key_value_heads=8, max_position_embeddings=4096)
         base.update(kw)
         return LlamaConfig(**base)
+
+    @staticmethod
+    def from_hf_config(hf_config: Any, **kw) -> "LlamaConfig":
+        """Build from an HF LLaMA config: the dict of a `config.json`, or an
+        object with the same attributes (`transformers.LlamaConfig`)."""
+        get = (hf_config.get if isinstance(hf_config, dict)
+               else lambda key, default=None: getattr(hf_config, key, default))
+        base = dict(
+            vocab_size=get("vocab_size"),
+            hidden_size=get("hidden_size"),
+            intermediate_size=get("intermediate_size"),
+            num_hidden_layers=get("num_hidden_layers"),
+            num_attention_heads=get("num_attention_heads"),
+            num_key_value_heads=get("num_key_value_heads", None),
+            max_position_embeddings=get("max_position_embeddings"),
+            rms_norm_eps=get("rms_norm_eps"),
+            rope_theta=get("rope_theta", 10000.0),
+            tie_word_embeddings=get("tie_word_embeddings", False),
+        )
+        base.update(kw)
+        return LlamaConfig(**base)

@@ -73,6 +73,29 @@ class AdamW:
         self.mu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
 
+    def state_dict(self) -> dict:
+        """{"mu": {name: moment}, "nu": {name: moment}, "count": updates so
+        far}: the live tensors (optax's ScaleByAdamState leaves by name)."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy `state` (as `state_dict` gives it, tensors on any device)
+        into this optimizer's moments on their device; refuses a missing,
+        extra or reshaped moment. The count sets the schedule's position, so
+        the next update's learning rate is the uninterrupted run's."""
+        for moment in ("mu", "nu"):
+            mine, theirs = getattr(self, moment), state[moment]
+            if set(theirs.keys()) != set(mine):
+                raise ValueError(f"optimizer {moment}: names {sorted(set(theirs.keys()) ^ set(mine))} "
+                                 f"are not in both the state and this optimizer")
+            for name, t in mine.items():
+                if tuple(theirs[name].shape) != tuple(t.shape):
+                    raise ValueError(f"optimizer {moment}.{name}: {tuple(theirs[name].shape)} in "
+                                     f"the state, {tuple(t.shape)} here")
+                t.copy_(theirs[name])
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
              ) -> float:

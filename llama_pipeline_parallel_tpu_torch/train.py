@@ -3,28 +3,38 @@
 The counterpart of llama_pipeline_parallel_tpu/train.py for a single device
 (pp = dp = tp = sp = 1): the same config keys, the same synthetic data for
 the same seed, the same schedule-total rules and the same metrics line keys
-where they apply. Checkpointing, resume, evaluation, the observatories,
-fault injection and preemption handling are not ported yet; a config that
-asks for a layout or feature this trainer does not have is refused, naming
-its key, and keys that mean nothing on one device (the pipeline schedule)
-are logged once.
+where they apply. Checkpoints keep the JAX trainer's contract
+(ckpt/checkpoint.py): `save_steps`, `save_final`, `async_save`,
+`save_total_limit` and `save_sync_command` save; `resume` (true by default)
+restores the full state from `output_dir`'s newest complete checkpoint, with
+the data stream reopened at its O(1) position, falling back past a corrupt
+one; otherwise `model_name_or_path` warm-starts the weights from a converted
+checkpoint (tools/convert_hf.py). Evaluation, the observatories, fault
+injection and preemption handling are not ported yet; a config that asks for
+a layout or feature this trainer does not have is refused, naming its key,
+and keys that mean nothing on one device (the pipeline schedule) are logged
+once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
-import re
 import time
 from typing import Any, Iterator
 
 import numpy as np
 import torch
 
+from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import (
+    CheckpointCorruptError,
+    CheckpointManager,
+    config_from_meta,
+)
 from llama_pipeline_parallel_tpu_torch.data.collator import PretokenizedCollator
 from llama_pipeline_parallel_tpu_torch.data.datasets import SyntheticDataset
 from llama_pipeline_parallel_tpu_torch.data.loader import DataLoader, RepeatingLoader
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
+from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.models.llama.model import (
     LlamaForCausalLM,
     init_params,
@@ -63,12 +73,11 @@ _PRESETS = {
 }
 
 # config keys that name features of the JAX trainer this one does not have yet
-_NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "model_name_or_path",
-               "eval_dataset", "fault_plan", "profile_steps")
+_NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "eval_dataset", "fault_plan",
+               "profile_steps")
 # keys of the JAX trainer whose value, other than the default given here,
 # asks for something this trainer does not do
-_NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": 1, "eval_steps": 0,
-                              "async_save": False, "save_total_limit": None}
+_NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": 1, "eval_steps": 0}
 # blocks of the JAX trainer (host offload tiers, the observatories) that ask
 # for their feature when any of their values is set
 _NOT_PORTED_BLOCKS = ("offload", "numerics", "timeline", "profiler", "memory")
@@ -80,7 +89,6 @@ PIPELINE_SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver", "gpipe")
 # names); torch.utils.checkpoint here keeps nothing, which is nothing_saveable
 REMAT_POLICIES = ("nothing_saveable", "everything_saveable", "dots_saveable", "checkpoint_dots",
                   "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims")
-_CHECKPOINT_DIR = re.compile(r"^checkpoint-(\d+)$")
 
 
 def build_model_config(node: dict) -> LlamaConfig:
@@ -229,15 +237,6 @@ def _remat(cfg: dict) -> bool:
     return remat
 
 
-def _checkpoints_to_resume(cfg: dict) -> list[str]:
-    """The checkpoint-N directories in output_dir the JAX trainer would
-    resume from (`resume`, true by default)."""
-    out = cfg.get("output_dir")
-    if not cfg.get("resume", True) or not out or not os.path.isdir(out):
-        return []
-    return sorted(e for e in os.listdir(out) if _CHECKPOINT_DIR.match(e))
-
-
 def _check_supported(cfg: dict) -> None:
     """Refuse what this trainer does not run, naming the keys; log once the
     keys that have no effect on one device."""
@@ -257,20 +256,11 @@ def _check_supported(cfg: dict) -> None:
     asked += [key for key in _NOT_PORTED_BLOCKS if _block_asks(cfg.get(key))]
     if asked:
         raise NotImplementedError(f"not ported yet: {asked}")
-    found = _checkpoints_to_resume(cfg)
-    if found:
-        raise NotImplementedError(
-            f"output_dir {cfg['output_dir']} holds {found}, which resume (true by default) "
-            f"would restore, and resume is not ported yet: pass resume=false to start "
-            f"from step 0, or another output_dir")
     moot = [key for key, default in _ONE_STAGE_KEYS.items()
             if cfg.get(key) is not None and cfg.get(key) != default]
     if moot:
         logger.warning("%s: no effect on one device (one pipeline stage runs its "
                        "microbatches in order)", moot)
-    if cfg.get("resume", True):
-        logger.info("resume is not ported yet; output_dir holds no checkpoint, so the run "
-                    "starts at step 0")
 
 
 def _block_asks(node: Any) -> bool:
@@ -283,9 +273,12 @@ def _block_asks(node: Any) -> bool:
 
 @dataclasses.dataclass
 class Run:
-    """A configured training run on one device: what `run_training` loops
-    over, and what tools/torch_step_profile.py profiles."""
+    """A configured training run on one device: what `train_run` loops
+    over, and what tools/torch_step_profile.py profiles. `start_step` is
+    the restored checkpoint's step (0 on a fresh or warm start) and
+    `data_start` the (epoch, batch) the data stream reopens at."""
 
+    cfg: dict
     device: torch.device
     model_cfg: LlamaConfig
     loader: DataLoader
@@ -297,9 +290,14 @@ class Run:
     kernel_prologue: bool
     seq_length: int
     end_step: int
+    manifest: StageManifest
+    ckpt: CheckpointManager
+    topology: dict
+    start_step: int = 0
+    data_start: tuple[int, int] = (0, 0)
 
     def batches(self) -> Iterator[dict[str, torch.Tensor]]:
-        for batch in RepeatingLoader(self.loader):
+        for batch in RepeatingLoader(self.loader, *self.data_start):
             yield {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
     def step(self, batch: dict[str, torch.Tensor]) -> dict:
@@ -308,10 +306,29 @@ class Run:
                           remat=self.remat, head=self.head,
                           kernel_prologue=self.kernel_prologue)
 
+    def save(self, step: int, final: bool = False) -> str:
+        """The full state at `step` into `output_dir`: blocking when `final`
+        or without `async_save` (the process may exit right after a final
+        save, and a daemon commit thread would die with it)."""
+        cfg = self.cfg
+        batch_delta = (self.data_start[0] * max(len(self.loader), 1)
+                       + self.data_start[1] - self.start_step)
+        return self.ckpt.save(
+            step, self.state.params, self.manifest, self.model_cfg,
+            optimizer=self.state.optimizer,
+            blocking=final or not cfg.get("async_save", False),
+            on_complete=lambda path: _sync_checkpoint(cfg, path),
+            keep_last=cfg.get("save_total_limit"),
+            extra_meta={"topology": self.topology,
+                        "data_state": _data_state(step, self.loader, len(self.loader.dataset),
+                                                  cfg.get("seed", 42), batch_delta)})
+
 
 def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
     """Model, optimizer, data and attention for `cfg` on `device` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU), restored from `output_dir`'s newest
+    complete checkpoint under `resume` (true by default), else warm-started
+    from `model_name_or_path` when given."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch.cuda.is_available() is false; pass "
@@ -337,6 +354,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
                          f"batch {micro_batch * num_microbatches}")
 
     # `total_steps` (schedule horizon) is separate from `max_steps` (loop end)
+    # so an interrupted-then-resumed run sees the uninterrupted run's LR curve
     epochs = cfg.get("num_train_epochs", 1)
     t_total = cfg.get("total_steps") or cfg.get("max_steps") or steps_per_epoch * epochs
     end_step = min(cfg.get("max_steps") or t_total, t_total)
@@ -355,25 +373,228 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
     model = LlamaForCausalLM(model_cfg, init_params(model_cfg, device=device,
                                                     generator=generator))
     params = model.params()
+    state = TrainState(step=0, params=params, optimizer=AdamW(params, ocfg))
+    # the canonical layout is the one-stage manifest's
+    manifest = StageManifest(num_layers=model_cfg.num_hidden_layers, num_stages=1)
+    topology = _topology_meta(cfg, manifest)
+    mgr = CheckpointManager(cfg["output_dir"])
+    start_step, data_start = 0, (0, 0)
+    restored = (_restore_with_fallback(
+        mgr, lambda s: mgr.load(s, params, state.optimizer, manifest))
+        if cfg.get("resume", True) else None)
+    if restored is not None:
+        start_step = state.step = restored[2]
+        logger.info("resumed full state from checkpoint-%d", start_step)
+        _note_topology_change(mgr, start_step, topology)
+        data_start = _resume_data_position(mgr, start_step, loader, len(dataset), seed)
+    elif cfg.get("model_name_or_path"):
+        _warm_start(cfg["model_name_or_path"], params, model_cfg, manifest)
+
     seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
-    return Run(device=device, model_cfg=model_cfg, loader=loader,
-               state=TrainState(step=0, params=params, optimizer=AdamW(params, ocfg)),
+    return Run(cfg=cfg, device=device, model_cfg=model_cfg, loader=loader, state=state,
                attn_fn=select_attention(cfg.get("attention", "auto"), seq_length, device,
                                         model_cfg=model_cfg, micro_batch=micro_batch),
                num_microbatches=num_microbatches,
                remat=remat, head=head,
-               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step)
+               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
+               manifest=manifest, ckpt=mgr, topology=topology, start_step=start_step,
+               data_start=data_start)
+
+
+# the config fields that fix the parameters' shapes
+_SHAPE_FIELDS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+                 "num_attention_heads", "kv_heads")
+
+
+def _warm_start(path: str, params: dict[str, torch.Tensor], model_cfg: LlamaConfig,
+                manifest: StageManifest) -> None:
+    """Module-only warm start from the newest checkpoint under `path` (the
+    output of tools/convert_hf.py, or any checkpoint of this package)."""
+    warm = CheckpointManager(path)
+    step = warm.latest_step()
+    if step is None:
+        raise FileNotFoundError(
+            f"no checkpoint under model_name_or_path={path} (run python -m "
+            f"llama_pipeline_parallel_tpu_torch.tools.convert_hf first)")
+    source = config_from_meta(warm.load_meta(step))
+    differ = {f: (getattr(source, f), getattr(model_cfg, f)) for f in _SHAPE_FIELDS
+              if getattr(source, f) != getattr(model_cfg, f)}
+    if differ:
+        raise ValueError(
+            f"model_name_or_path={path} checkpoint-{step} does not fit this run's model "
+            f"({', '.join(f'{k}: {a} there, {b} here' for k, (a, b) in differ.items())}): "
+            f"re-convert the HF model (tools.convert_hf) or set the model block to match")
+    warm.load_params(step, params, manifest)
+    logger.info("warm-started module weights from %s (checkpoint-%d)", path, step)
+
+
+def _topology_meta(cfg: dict, manifest: StageManifest) -> dict:
+    """The run's topology as meta.json records it (the JAX trainer's
+    `_topology_meta` at pp = dp = tp = sp = 1): the source half of the
+    elastic-restore contract, read by a later run to log what changed."""
+    return {"pp": 1, "dp": 1, "tp": 1, "sp": 1, "layout": "pp1xdp1xtp1xsp1",
+            "schedule": cfg.get("pipeline_schedule", "1f1b"),
+            "virtual_stages": manifest.virtual_stages, "process_count": 1,
+            "layer_counts": (f"even/{manifest.stage_layer_counts[0]}" if manifest.is_even
+                             else list(manifest.stage_layer_counts))}
+
+
+def _data_state(step: int, loader: DataLoader, dataset_len: int,
+                seed: int, batch_delta: int = 0) -> dict:
+    """The sampler position at `step`, in dp-width-independent units: the
+    epoch permutation is a function of (seed, epoch) only, and step b
+    consumes exactly global-order positions [b*G, (b+1)*G) -- so
+    consumed_samples is the canonical resume coordinate.
+
+    `batch_delta`: data-stream batches minus step count, established at
+    resume (nonzero only after a changed-global-batch remap) -- without it,
+    a SECOND resume from a checkpoint written after such a remap would
+    reposition from step*G and re-train whole spans of data."""
+    spe = max(len(loader), 1)
+    g = loader.global_batch_examples
+    batches = step + batch_delta
+    return {"epoch": batches // spe, "offset_batches": batches % spe,
+            "consumed_samples": batches * g, "shuffle_seed": seed,
+            "global_batch_examples": g, "dataset_len": dataset_len,
+            "steps_per_epoch": spe}
+
+
+def _resume_data_position(mgr: CheckpointManager, resume_step: int,
+                          loader: DataLoader, dataset_len: int,
+                          seed: int) -> tuple[int, int]:
+    """O(1) resume position (start_epoch, start_batch) for the data stream.
+
+    The checkpoint's data_state pins (seed, dataset_len, consumed samples),
+    and index arithmetic alone repositions the sampler. Checkpoints without
+    a data_state derive the position from the step count. A changed global
+    batch is remapped by consumed-sample count (exact only when G is
+    unchanged -- re-trains at most one partial batch otherwise, and warns);
+    a changed shuffle seed or dataset cannot be remapped and falls back to
+    step-count positioning with a warning. The batch count folds into
+    (epoch, batch) by divmod: the loader opens only inside an epoch."""
+    spe = max(len(loader), 1)
+    g = loader.global_batch_examples
+    batches = resume_step
+    data_state = None
+    try:
+        data_state = mgr.load_meta(resume_step).get("data_state")
+    except Exception as e:  # meta vanished under us -- position by step count
+        logger.warning("could not re-read checkpoint-%d meta for data_state "
+                       "(%r); positioning the loader by step count",
+                       resume_step, e)
+    if data_state:
+        if (data_state.get("shuffle_seed") != seed
+                or data_state.get("dataset_len") != dataset_len):
+            logger.warning(
+                "checkpoint data_state (seed=%s, dataset_len=%s) does not "
+                "match this run (seed=%s, dataset_len=%s); positioning by "
+                "step count -- the shuffle order differs, sample-exact "
+                "continuity is not guaranteed",
+                data_state.get("shuffle_seed"), data_state.get("dataset_len"),
+                seed, dataset_len)
+        else:
+            consumed = int(data_state.get("consumed_samples", resume_step * g))
+            src_g = data_state.get("global_batch_examples")
+            if src_g not in (None, g):
+                logger.warning(
+                    "global batch changed across resume (%s -> %s examples/"
+                    "step); sample-exact continuity only holds for an "
+                    "unchanged global batch -- remapping by consumed-sample "
+                    "count, re-training at most one partial batch", src_g, g)
+            batches = consumed // g
+    epoch, offset = divmod(batches, spe)
+    logger.info("O(1) data resume: step %d -> epoch %d, batch offset %d "
+                "(no loader replay)", resume_step, epoch, offset)
+    return epoch, offset
+
+
+def _note_topology_change(mgr: CheckpointManager, step: int, current: dict) -> None:
+    """Log a restore across topologies: the checkpoint's recorded source
+    topology vs this run's. Purely informational."""
+    try:
+        source = mgr.load_meta(step).get("topology")
+    except Exception:
+        return
+    if not source:
+        return  # nothing recorded
+    keys = ["pp", "dp", "tp", "sp", "schedule", "virtual_stages"]
+    if "layer_counts" in source:
+        keys.append("layer_counts")
+    changed = sorted(k for k in keys if source.get(k) != current.get(k))
+    if changed:
+        logger.warning(
+            "elastic restore: checkpoint-%d was written at %s (schedule=%s, v=%s, "
+            "layer_counts=%s); restoring onto %s (schedule=%s, v=%s, layer_counts=%s) -- "
+            "changed: %s. Keep the global batch unchanged for sample-exact data continuity",
+            step, source.get("layout"), source.get("schedule"),
+            source.get("virtual_stages"), source.get("layer_counts"),
+            current.get("layout"), current.get("schedule"),
+            current.get("virtual_stages"), current.get("layer_counts"), changed)
+    else:
+        logger.info("resume topology matches checkpoint-%d (%s)", step, current.get("layout"))
+
+
+def _restore_with_fallback(mgr: CheckpointManager, restore_fn) -> Any | None:
+    """Resume restore with automatic fallback: when the newest checkpoint
+    fails integrity verification, `verify` quarantines it, `latest_step()`
+    then resolves to the previous complete one, and the restore re-runs --
+    until a checkpoint verifies or none remain (fresh start). Only
+    CheckpointCorruptError falls back; layout/compat errors (ValueError) stay
+    fatal -- they mean a misconfigured run."""
+    prev: int | None = None
+    while True:
+        step = mgr.latest_step()
+        if step is None:
+            return None
+        if step == prev:
+            # quarantine could not move the dir -- re-raising beats spinning
+            raise CheckpointCorruptError(
+                f"checkpoint-{step} is corrupt and could not be quarantined")
+        try:
+            return restore_fn(step)
+        except CheckpointCorruptError as e:
+            logger.error("resume blocked by corrupt checkpoint-%d (%s); falling back", step, e)
+            prev = step
+
+
+def _sync_checkpoint(cfg: dict, path: str) -> None:
+    """Off-node durability hook: run `save_sync_command` with {path}
+    substituted after the checkpoint is durably on disk, e.g.
+    `save_sync_command: "rsync -a {path} /mnt/backup/run/"`. Failures are
+    logged, never fatal -- a sync outage must not kill training."""
+    command = cfg.get("save_sync_command")
+    if not command:
+        return
+    import subprocess
+
+    # plain replace (not str.format): the command may contain shell braces
+    cmd = command.replace("{path}", path)
+    try:
+        result = subprocess.run(cmd, shell=True, capture_output=True, text=True,
+                                timeout=cfg.get("save_sync_timeout", 1800))
+        if result.returncode != 0:
+            logger.warning("save_sync_command failed (%d): %s", result.returncode,
+                           result.stderr.strip()[-500:])
+        else:
+            logger.info("checkpoint synced: %s", cmd)
+    except Exception as e:  # timeout / spawn failure -- never kill training
+        logger.warning("save_sync_command error: %r", e)
 
 
 def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:
     """The training run; returns a summary dict for programmatic callers.
     Runs on `device` (the card unless the caller asks for the CPU)."""
-    run = build_run(cfg, device)
-    device = run.device
-    if cfg.get("save_steps") or cfg.get("save_final", True):
-        logger.warning("checkpointing is not ported yet: save_steps / save_final "
-                       "write nothing")
+    return train_run(build_run(cfg, device))
+
+
+def train_run(run: Run) -> dict:
+    """Steps `run.start_step` .. `run.end_step`, saving every `save_steps`
+    and, under `save_final` (true by default), at the end unless the last
+    step was just saved. Step times leave the saves out. Returns the
+    summary; the trained state stays in `run.state`."""
+    cfg, device = run.cfg, run.device
     logging_steps = cfg.get("logging_steps", 10)
+    save_steps = cfg.get("save_steps", 0)
     peak = peak_flops(device)
     flops_per_token = train_flops_per_token(run.model_cfg, run.seq_length)
 
@@ -384,8 +605,9 @@ def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:
     batches = run.batches()
     losses, step_times, window = [], [], []
     tokens_per_step = 0
+    last_saved = -1
     try:
-        for step in range(run.end_step):
+        for step in range(run.start_step, run.end_step):
             batch = next(batches)
             tokens_per_step = batch["input_ids"].numel()
             t0 = time.perf_counter()
@@ -394,11 +616,11 @@ def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:
                 torch.cuda.synchronize(device)
             step_times.append(time.perf_counter() - t0)
             losses.append(float(metrics["loss"]))
-            window.append(step)
+            window.append(len(losses) - 1)
             if (step + 1) % logging_steps == 0 or step + 1 == run.end_step:
-                secs = sum(step_times[s] for s in window)
+                secs = sum(step_times[i] for i in window)
                 tps = tokens_per_step * len(window) / max(secs, 1e-9)
-                scalars = {"loss": float(np.mean([losses[s] for s in window])),
+                scalars = {"loss": float(np.mean([losses[i] for i in window])),
                            "lr": metrics["lr"],
                            "grad_norm": float(metrics["grad_norm"]),
                            "tokens_per_sec": tps, "tokens_per_sec_per_chip": tps,
@@ -408,9 +630,24 @@ def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:
                     scalars["mfu"] = flops_per_token * tps / peak
                 writer.log(step + 1, scalars)
                 window.clear()
+            if save_steps and (step + 1) % save_steps == 0:
+                run.save(step + 1)
+                last_saved = step + 1
+        if cfg.get("save_final", True) and last_saved != run.end_step:
+            run.save(run.end_step, final=True)
+    except BaseException:
+        # join the in-flight commit, but never let ITS failure replace the
+        # training exception that actually killed the run
+        try:
+            run.ckpt.finalize()
+        except Exception:
+            logger.exception("async checkpoint commit also failed while "
+                             "unwinding a training error")
+        raise
     finally:
         writer.close()
-    return {"final_step": run.end_step,
+    run.ckpt.finalize()  # surface any async-commit failure on the clean path
+    return {"final_step": run.end_step, "start_step": run.start_step,
             "final_loss": losses[-1] if losses else float("nan"),
             "steps_per_epoch": len(run.loader), "output_dir": cfg["output_dir"],
             "losses": losses, "step_times": step_times,

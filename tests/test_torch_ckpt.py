@@ -1,0 +1,526 @@
+"""The port's checkpoint layer (ckpt/checkpoint.py), stage manifest, retry
+policy and the trainer's save / resume surface, against the JAX package's.
+
+The manifest, retry policy, meta.json, topology and data-state records are
+pinned to the reference's on the same inputs (exact equality: they are
+integers, strings and JSON). Resume on the CPU is held bit for bit to the
+uninterrupted run: losses, params, moments and the step count. The integrity
+cases mirror tests/test_ckpt.py's.
+"""
+
+import dataclasses
+import importlib
+import json
+import os
+import random
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from llama_pipeline_parallel_tpu_torch import convert
+from llama_pipeline_parallel_tpu_torch import train as t_train
+from llama_pipeline_parallel_tpu_torch.ckpt import checkpoint as t_ckpt
+from llama_pipeline_parallel_tpu_torch.data import collator as t_collator
+from llama_pipeline_parallel_tpu_torch.data import datasets as t_datasets
+from llama_pipeline_parallel_tpu_torch.data import loader as t_loader
+from llama_pipeline_parallel_tpu_torch.models.llama import model as t_llama
+from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig as TConfig
+from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest as TManifest
+from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
+from llama_pipeline_parallel_tpu_torch.utils import config as t_config
+from llama_pipeline_parallel_tpu_torch.utils import retry as t_retry
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_SMOKE = os.path.join(REPO, "conf", "tiny_smoke.yaml")
+# one device, 4 steps of a 24-row dataset at batch 4: 6 steps an epoch
+ONE = ["mesh.pp=1", "mesh.dp=1", "max_steps=4", "total_steps=8", "warmup_steps=1",
+       "dataset.pseudo_dataset_len=24", "save_final=false"]
+
+
+@pytest.fixture(scope="session")
+def ref():
+    """The reference modules, after installing the stand-in for
+    `jax._src.sharding_impls.TransferToMemoryKind` where this jax lacks it
+    (imported by the reference's host stash, never constructed on the CPU)."""
+    import jax._src.sharding_impls as impls
+
+    if not hasattr(impls, "TransferToMemoryKind"):
+        class TransferToMemoryKind:
+            def __init__(self, memory_kind):
+                self.memory_kind = memory_kind
+
+        impls.TransferToMemoryKind = TransferToMemoryKind
+    mods = {"ckpt": "ckpt.checkpoint", "manifest": "models.llama.manifest",
+            "config": "models.llama.config", "llama": "models.llama.model",
+            "retry": "utils.retry", "train": "train", "mesh": "parallel.mesh",
+            "pl": "parallel.pipeline", "optim": "optim", "cfgio": "utils.config",
+            "loader": "data.loader", "datasets": "data.datasets",
+            "collator": "data.collator"}
+    return types.SimpleNamespace(**{
+        k: importlib.import_module(f"llama_pipeline_parallel_tpu.{v}") for k, v in mods.items()})
+
+
+def _tiny_cfg(*overrides):
+    return t_config.load_config(TINY_SMOKE, ONE + list(overrides))
+
+
+def _params(seed=0):
+    cfg = TConfig.tiny()
+    return cfg, t_llama.init_params(cfg, device="cpu",
+                                    generator=torch.Generator().manual_seed(seed))
+
+
+def _one_stage(cfg):
+    return TManifest(num_layers=cfg.num_hidden_layers, num_stages=1)
+
+
+def _optimizer(params):
+    opt = t_optim.AdamW(params, t_optim.OptimizerConfig(total_steps=10, warmup_steps=1))
+    for moment in (opt.mu, opt.nu):
+        for k, v in moment.items():
+            v.copy_(torch.randn(v.shape, generator=torch.Generator().manual_seed(len(k))))
+    opt.count = 3
+    return opt
+
+
+# ---------------------------------------------------------------------------
+# manifest and retry: copies, pinned to the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layers,stages,counts,virtual", [
+    (4, 1, None, 1), (8, 2, None, 1), (8, 2, None, 2), (12, 4, None, 3),
+    (10, 4, (3, 3, 2, 2), 1), (32, 4, None, 1), (10, 4, None, 1),
+])
+def test_manifest_matches_reference(ref, layers, stages, counts, virtual):
+    """for_config / balanced / the explicit form, their JSON, the per-stage
+    geometry and the refusals equal the reference's."""
+    rcfg = ref.config.LlamaConfig.tiny(num_hidden_layers=layers)
+    tcfg = TConfig.tiny(num_hidden_layers=layers)
+
+    def both(fn_ref, fn_port):
+        try:
+            want = fn_ref()
+        except ValueError as e:
+            with pytest.raises(ValueError, match=str(e)[:30].replace("(", r"\(")):
+                fn_port()
+            return None, None
+        return want, fn_port()
+
+    cases = [
+        both(lambda: ref.manifest.StageManifest.for_config(rcfg, stages, virtual),
+             lambda: TManifest.for_config(tcfg, stages, virtual)),
+        both(lambda: ref.manifest.StageManifest.balanced(rcfg, stages),
+             lambda: TManifest.balanced(tcfg, stages)),
+        both(lambda: ref.manifest.StageManifest(layers, stages, counts, virtual),
+             lambda: TManifest(layers, stages, counts, virtual)),
+    ]
+    for want, got in cases:
+        if want is None:
+            continue
+        assert got.to_json() == want.to_json()
+        assert TManifest.from_json(want.to_json()) == got
+        assert got.stage_layer_counts == want.stage_layer_counts
+        assert got.stage_offsets() == want.stage_offsets()
+        assert [got.stage_of_layer(i) for i in range(layers)] == \
+            [want.stage_of_layer(i) for i in range(layers)]
+        assert [list(got.layers_of_stage(s)) for s in range(stages)] == \
+            [list(want.layers_of_stage(s)) for s in range(stages)]
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_retry_policy_from_env_matches_reference(ref, monkeypatch):
+    """The policy read from the same LPT_RETRY_* env, and its backoff delays
+    for the same jitter seed, equal the reference's."""
+    for env in ({}, {"LPT_RETRY_MAX_ATTEMPTS": "7", "LPT_RETRY_BASE_DELAY_S": "0.25",
+                     "LPT_RETRY_MAX_DELAY_S": "3"}):
+        for var in ("LPT_RETRY_MAX_ATTEMPTS", "LPT_RETRY_BASE_DELAY_S", "LPT_RETRY_MAX_DELAY_S"):
+            monkeypatch.delenv(var, raising=False)
+        for var, val in env.items():
+            monkeypatch.setenv(var, val)
+        want, got = ref.retry.RetryPolicy.from_env(), t_retry.RetryPolicy.from_env()
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert dataclasses.asdict(t_retry.RetryPolicy.from_env(jitter=0.5)) == \
+            dataclasses.asdict(ref.retry.RetryPolicy.from_env(jitter=0.5))
+        delays = [(want.delay_s(a, random.Random(3)), got.delay_s(a, random.Random(3)))
+                  for a in range(1, 9)]
+        assert [d[0] for d in delays] == [d[1] for d in delays]
+    with pytest.raises(ValueError, match="max_attempts"):
+        t_retry.RetryPolicy(max_attempts=0)
+
+
+@pytest.mark.parametrize("error,fails,non_retryable", [
+    (OSError, 2, ()), (OSError, 5, ()), (FileNotFoundError, 1, (FileNotFoundError,)),
+    (ValueError, 1, ()), (None, 0, ()),
+])
+def test_retry_call_matches_reference(ref, monkeypatch, error, fails, non_retryable):
+    """retry_call retries what it should, stops where it should, and raises
+    or returns what the reference does, with the same on_retry attempts."""
+    monkeypatch.setenv("LPT_RETRY_BASE_DELAY_S", "0.001")
+    monkeypatch.setenv("LPT_RETRY_MAX_DELAY_S", "0.002")
+    outcomes = []
+    for mod in (ref.retry, t_retry):
+        calls, retries = [], []
+
+        def fn():
+            calls.append(1)
+            if len(calls) <= fails:
+                raise error("blip")
+            return "done"
+
+        try:
+            result = mod.retry_call(fn, non_retryable=non_retryable, seed=0,
+                                    on_retry=lambda a, e: retries.append(a))
+        except Exception as e:  # noqa: BLE001 -- the outcome is compared
+            result = type(e)
+        outcomes.append((result, len(calls), retries))
+    assert outcomes[1] == outcomes[0]
+
+
+# ---------------------------------------------------------------------------
+# meta.json, topology and data state, pinned to the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_optimizer", [False, True])
+def test_meta_json_matches_reference(ref, tmp_path, with_optimizer):
+    """For the same step, config, manifest and extra keys, every key of the
+    reference's meta.json has the reference's value in the port's; the
+    integrity file lists and `storage` are the only differences."""
+    rcfg = ref.config.LlamaConfig.tiny()
+    rman = ref.manifest.StageManifest.for_config(rcfg, 1)
+    tree = ref.llama.init_params(jax.random.PRNGKey(0), rcfg)
+    tx, _ = ref.optim.make_optimizer(ref.optim.OptimizerConfig(total_steps=10, warmup_steps=1))
+    extra = {"topology": {"layout": "pp1xdp1xtp1xsp1", "process_count": 1},
+             "data_state": {"epoch": 0, "consumed_samples": 8}}
+    stacked = ref.pl.stack_stages(tree, rman)
+    ref.ckpt.CheckpointManager(str(tmp_path / "ref")).save(
+        2, stacked, rman, rcfg, opt_state=tx.init(stacked) if with_optimizer else None,
+        extra_meta=extra)
+    tcfg = TConfig.tiny()
+    params = convert.params_from_jax(jax.device_get(tree))
+    t_ckpt.CheckpointManager(str(tmp_path / "port")).save(
+        2, params, _one_stage(tcfg), tcfg,
+        optimizer=_optimizer(params) if with_optimizer else None, extra_meta=extra)
+    want = json.load(open(tmp_path / "ref" / "checkpoint-2" / "meta.json"))
+    got = json.load(open(tmp_path / "port" / "checkpoint-2" / "meta.json"))
+    assert set(got) - set(want) == {"storage"} and got["storage"] == "safetensors"
+    assert set(want) <= set(got)
+    for key in want:
+        if key != "integrity":
+            assert got[key] == want[key], key
+    assert got["integrity"]["algo"] == want["integrity"]["algo"] == "sha256"
+    files = ["params.safetensors"] + (["opt.safetensors"] if with_optimizer else [])
+    assert sorted(got["integrity"]["files"]) == sorted(files)
+    assert open(tmp_path / "port" / "latest").read() == "checkpoint-2"
+
+
+def test_topology_meta_matches_reference(ref, devices):
+    """`_topology_meta` of a one-device run equals the reference's on a
+    one-device CPU mesh with the same config."""
+    cfg = _tiny_cfg()
+    mesh_cfg = ref.mesh.MeshConfig(pp=1, dp=1)
+    rmodel = ref.train.build_model_config(cfg["model"])
+    rman = ref.train.build_manifest(cfg, rmodel, 1)
+    pcfg = ref.train.build_pipeline_config(cfg, mesh_cfg, rman)
+    want = ref.train._topology_meta(ref.mesh.make_mesh(mesh_cfg), pcfg, rman)
+    got = t_train._topology_meta(cfg, _one_stage(t_train.build_model_config(cfg["model"])))
+    assert got == want
+
+
+def _loaders(ref, batch, length=24, seed=3):
+    kw = dict(vocab_size=64, seq_length=8, pseudo_dataset_len=length, seed=seed)
+    return (ref.loader.DataLoader(ref.datasets.SyntheticDataset(**kw),
+                                  ref.collator.PretokenizedCollator(),
+                                  per_replica_batch=batch, seed=seed),
+            t_loader.DataLoader(t_datasets.SyntheticDataset(**kw),
+                                t_collator.PretokenizedCollator(),
+                                per_replica_batch=batch, seed=seed))
+
+
+class _Meta:
+    """Stands in for a CheckpointManager whose checkpoint holds `data_state`."""
+
+    def __init__(self, data_state):
+        self.data_state = data_state
+
+    def load_meta(self, step):
+        return {"data_state": self.data_state}
+
+
+@pytest.mark.parametrize("step,delta,resume_batch,resume_seed", [
+    (0, 0, 4, 3), (3, 0, 4, 3), (6, 0, 4, 3), (7, 0, 4, 3), (13, 0, 4, 3),
+    (5, 2, 4, 3), (6, 0, 8, 3), (9, 0, 2, 3), (4, 0, 4, 5),
+])
+def test_data_state_and_resume_position_match_reference(ref, step, delta, resume_batch,
+                                                        resume_seed):
+    """`_data_state` at a step (across an epoch wrap, with a batch delta) and
+    `_resume_data_position` from it (unchanged or changed global batch, a
+    changed seed) equal the reference's; the position opens the port's
+    loader at the batch the uninterrupted stream would give."""
+    r_loader, t_loader_ = _loaders(ref, 4)
+    want = ref.train._data_state(step, r_loader, 24, 3, delta)
+    got = t_train._data_state(step, t_loader_, 24, 3, delta)
+    assert got == want
+    r_resume, t_resume = _loaders(ref, resume_batch)
+    pos = t_train._resume_data_position(_Meta(got), step, t_resume, 24, resume_seed)
+    assert pos == ref.train._resume_data_position(_Meta(want), step, r_resume, 24, resume_seed)
+    if resume_batch == 4 and resume_seed == 3:
+        stream = iter(t_loader.RepeatingLoader(t_loader_))
+        for _ in range(step + delta):
+            next(stream)
+        resumed = next(iter(t_loader.RepeatingLoader(t_resume, *pos)))
+        for key, arr in next(stream).items():
+            np.testing.assert_array_equal(resumed[key], arr)
+
+
+# ---------------------------------------------------------------------------
+# resume on the CPU: bit for bit
+# ---------------------------------------------------------------------------
+
+def _assert_same_state(a, b):
+    for k, v in a.params.items():
+        assert torch.equal(v, b.params[k]), k
+    for moment in ("mu", "nu"):
+        for k, v in getattr(a.optimizer, moment).items():
+            assert torch.equal(v, getattr(b.optimizer, moment)[k]), (moment, k)
+    assert a.optimizer.count == b.optimizer.count and a.step == b.step
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_resumed_run_equals_uninterrupted_run(tmp_path, async_save):
+    """4 steps in one run equal 2 steps saved at step 2 (save_steps=2)
+    followed by a resumed run to step 4: losses, params, moments and count,
+    bit for bit; the resumed run restores step 2 at consumed_samples 2 G."""
+    full = t_train.build_run(_tiny_cfg(f"output_dir={tmp_path}/full"), "cpu")
+    want = t_train.train_run(full)
+    split = [f"output_dir={tmp_path}/split", "save_steps=2", f"async_save={async_save}"]
+    first = t_train.run_training(_tiny_cfg(*split, "max_steps=2"), device="cpu")
+    meta = json.load(open(tmp_path / "split" / "checkpoint-2" / "meta.json"))
+    assert meta["has_optimizer_state"] and meta["step"] == 2
+    assert meta["data_state"]["consumed_samples"] == 2 * 4
+    resumed = t_train.build_run(_tiny_cfg(*split), "cpu")
+    assert (resumed.start_step, resumed.data_start) == (2, (0, 2))
+    second = t_train.train_run(resumed)
+    assert first["losses"] + second["losses"] == want["losses"]
+    assert second["start_step"] == 2 and len(second["losses"]) == 2
+    _assert_same_state(resumed.state, full.state)
+    assert t_ckpt.CheckpointManager(str(tmp_path / "split")).list_steps() == [2, 4]
+
+
+@pytest.mark.parametrize("override", ["async_save=true", "save_total_limit=1"])
+def test_trainer_saves_with_async_save_and_save_total_limit(tmp_path, override):
+    """async_save and save_total_limit, once refused, now save: every
+    save_steps and once at the end (save_final), the final save blocking;
+    save_total_limit keeps the newest; save_sync_command runs on each
+    committed checkpoint."""
+    log = tmp_path / "synced.txt"
+    t_train.run_training(_tiny_cfg(f"output_dir={tmp_path}/run", "save_steps=3",
+                                   "save_final=true", override,
+                                   f"save_sync_command='echo {{path}} >> {log}'"), "cpu")
+    steps = t_ckpt.CheckpointManager(str(tmp_path / "run")).list_steps(complete_only=True)
+    assert steps == ([4] if override == "save_total_limit=1" else [3, 4])
+    assert [os.path.basename(x) for x in open(log).read().split()] == \
+        ["checkpoint-3", "checkpoint-4"]
+
+
+def test_trainer_resumes_across_an_epoch_and_a_changed_batch(tmp_path):
+    """Resume reopens the stream by divmod past an epoch's end, and a
+    changed global batch remaps by consumed samples."""
+    out = f"output_dir={tmp_path}"
+    t_train.run_training(_tiny_cfg(out, "max_steps=7", "total_steps=12", "save_final=true"),
+                         "cpu")
+    run = t_train.build_run(_tiny_cfg(out, "max_steps=9", "total_steps=12"), "cpu")
+    assert (run.start_step, run.data_start) == (7, (1, 1))
+    run = t_train.build_run(_tiny_cfg(out, "max_steps=9", "total_steps=12",
+                                      "gradient_accumulation_steps=1"), "cpu")
+    assert (run.start_step, run.data_start) == (7, (1, 2))  # 28 samples at G = 2
+
+
+# ---------------------------------------------------------------------------
+# integrity (tests/test_ckpt.py's cases)
+# ---------------------------------------------------------------------------
+
+def _saved(root, steps=(2, 4), optimizer=True):
+    cfg, params = _params()
+    mgr = t_ckpt.CheckpointManager(str(root))
+    for s in steps:
+        mgr.save(s, params, _one_stage(cfg), cfg,
+                 optimizer=_optimizer(params) if optimizer else None)
+    return mgr, cfg, params
+
+
+def _flip_byte(path, offset=-5):
+    with open(path, "r+b") as f:
+        f.seek(offset, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(offset, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def test_flipped_byte_quarantines_and_restore_falls_back(tmp_path):
+    """A flipped byte in the newest checkpoint fails verification, which
+    quarantines it; the trainer's restore falls back to the previous one."""
+    t_train.run_training(_tiny_cfg(f"output_dir={tmp_path}", "save_steps=2"), "cpu")
+    _flip_byte(tmp_path / "checkpoint-4" / "params.safetensors")
+    run = t_train.build_run(_tiny_cfg(f"output_dir={tmp_path}", "max_steps=6"), "cpu")
+    assert run.start_step == 2
+    assert sorted(os.listdir(tmp_path)) == ["checkpoint-2", "checkpoint-4.corrupt", "latest",
+                                            "metrics.jsonl", "training_config.json"]
+    mgr = t_ckpt.CheckpointManager(str(tmp_path))
+    _flip_byte(tmp_path / "checkpoint-2" / "opt.safetensors", offset=-100)
+    with pytest.raises(t_ckpt.CheckpointCorruptError, match="opt.safetensors: sha256"):
+        mgr.verify(2)
+    assert t_ckpt.find_resume_checkpoint(str(tmp_path)) is None
+    assert os.path.isdir(tmp_path / "checkpoint-2.corrupt")
+
+
+def test_unparseable_meta_is_quarantined(tmp_path):
+    mgr, _, _ = _saved(tmp_path)
+    (tmp_path / "checkpoint-4" / "meta.json").write_text('{"step": 4, "manif')
+    assert mgr.latest_step() == 2
+    assert os.path.isdir(tmp_path / "checkpoint-4.corrupt")
+    (tmp_path / "checkpoint-2" / "meta.json").write_text("not json")
+    with pytest.raises(t_ckpt.CheckpointCorruptError, match="unparseable"):
+        mgr.verify(2)
+    assert os.path.isdir(tmp_path / "checkpoint-2.corrupt")
+
+
+def test_incomplete_dir_is_ignored(tmp_path):
+    mgr, _, _ = _saved(tmp_path, steps=(2,))
+    os.makedirs(mgr.step_dir(9))
+    (tmp_path / "checkpoint-9" / "params.safetensors").write_bytes(b"partial")
+    assert mgr.list_steps() == [2, 9] and mgr.list_steps(complete_only=True) == [2]
+    assert not mgr.is_complete(9) and mgr.latest_step() == 2
+    assert t_ckpt.find_resume_checkpoint(str(tmp_path))[0] == 2
+
+
+def test_stale_latest_tag_falls_back_to_scan(tmp_path):
+    mgr, _, _ = _saved(tmp_path)
+    for tag in ("!!torn write garbage", "checkpoint-999"):
+        (tmp_path / "latest").write_text(tag)
+        assert mgr.latest_tag_value() == tag and mgr.latest_step() == 4
+    os.rename(mgr.step_dir(4), mgr.step_dir(4) + ".corrupt")
+    (tmp_path / "latest").write_text("checkpoint-4")
+    step, path = t_ckpt.find_resume_checkpoint(str(tmp_path))
+    assert step == 2 and path.endswith("checkpoint-2")
+    assert t_ckpt.find_resume_checkpoint(str(tmp_path / "nope")) is None
+
+
+def test_prune_keeps_newest_and_leaves_incomplete(tmp_path):
+    mgr, cfg, params = _saved(tmp_path, steps=(2, 3), optimizer=False)
+    os.makedirs(mgr.step_dir(0))  # incomplete: never pruned
+    odd = tmp_path / "checkpoint-001"  # complete, non-canonical name
+    odd.mkdir()
+    (odd / "meta.json").write_text("{}")
+    mgr.save(4, params, _one_stage(cfg), cfg, blocking=False, keep_last=2)
+    mgr.finalize()
+    assert mgr.list_steps(complete_only=True) == [3, 4]
+    assert not odd.exists() and os.path.isdir(mgr.step_dir(0))
+    assert mgr.latest_step() == 4
+    with pytest.raises(ValueError, match="keep_last"):
+        mgr.prune(0)
+
+
+def test_failing_background_commit_reraises_from_finalize(tmp_path):
+    cfg, params = _params()
+    mgr = t_ckpt.CheckpointManager(str(tmp_path))
+
+    def boom(*a, **k):
+        raise OSError("disk full")
+
+    mgr._commit = boom
+    mgr.save(2, params, _one_stage(cfg), cfg, blocking=False)
+    with pytest.raises(RuntimeError, match="async checkpoint commit failed"):
+        mgr.finalize()
+    mgr.finalize()  # the error is consumed; the manager stays usable
+    assert not mgr.is_complete(2)
+
+
+def test_async_save_copies_before_returning(tmp_path):
+    """blocking=False returns after the host copy: updating the tensors in
+    place afterwards does not change what lands on disk, and the host
+    buffers are reused by the next save."""
+    cfg, params = _params()
+    mgr = t_ckpt.CheckpointManager(str(tmp_path))
+    want = {k: v.clone() for k, v in params.items()}
+    opt = _optimizer(params)
+    mgr.save(2, params, _one_stage(cfg), cfg, optimizer=opt, blocking=False)
+    staged = {k: v.data_ptr() for k, v in mgr._staging.items()}
+    for v in params.values():
+        v.add_(1.0)
+    mgr.finalize()
+    got = {k: torch.empty_like(v) for k, v in params.items()}
+    mgr.load_params(2, got)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    mgr.save(3, params, _one_stage(cfg), cfg, optimizer=opt, blocking=False)
+    assert {k: v.data_ptr() for k, v in mgr._staging.items()} == staged
+    mgr.finalize()
+    assert mgr.last_save["bytes"] > 0 and mgr.last_save["d2h_bytes"] > 0
+
+
+def test_module_only_checkpoint_refuses_full_resume(tmp_path):
+    mgr, cfg, params = _saved(tmp_path, steps=(0,), optimizer=False)
+    fresh = {k: torch.zeros_like(v) for k, v in params.items()}
+    with pytest.raises(ValueError, match="no optimizer state"):
+        mgr.load(0, fresh, t_optim.AdamW(fresh, t_optim.OptimizerConfig()))
+    mgr.load_params(0, fresh)
+    for k, v in params.items():
+        assert torch.equal(fresh[k], v), k
+    loaded, lcfg, manifest, step = t_ckpt.load_module_checkpoint(str(tmp_path), device="cpu")
+    # dtypes come from the config's defaults, not the run's
+    assert (step, lcfg, manifest) == (0, dataclasses.replace(cfg, dtype=torch.bfloat16),
+                                      _one_stage(cfg))
+    for k, v in params.items():
+        assert torch.equal(loaded[k], v), k
+    with pytest.raises(ValueError, match="lm_head"):
+        mgr.load_params(0, {k: v for k, v in fresh.items() if k != "lm_head"})
+
+
+def test_full_restore_round_trips(tmp_path):
+    mgr, cfg, params = _saved(tmp_path, steps=(5,))
+    want = _optimizer(params)
+    fresh = {k: torch.zeros_like(v) for k, v in params.items()}
+    opt = t_optim.AdamW(fresh, t_optim.OptimizerConfig())
+    _, _, step = mgr.load(5, fresh, opt)
+    assert step == 5 and opt.count == want.count == 3
+    for moment in ("mu", "nu"):
+        for k, v in getattr(want, moment).items():
+            assert torch.equal(getattr(opt, moment)[k], v), (moment, k)
+
+
+def test_digest_and_verify_knobs(tmp_path, monkeypatch):
+    """LPT_CKPT_DIGESTS=0 writes no integrity record (verify passes with a
+    log line); LPT_CKPT_VERIFY=0 restores without hashing."""
+    monkeypatch.setenv("LPT_CKPT_DIGESTS", "0")
+    mgr, cfg, params = _saved(tmp_path, steps=(1,), optimizer=False)
+    assert "integrity" not in mgr.load_meta(1)
+    mgr.verify(1)
+    monkeypatch.delenv("LPT_CKPT_DIGESTS")
+    mgr.save(2, params, _one_stage(cfg), cfg)
+    _flip_byte(tmp_path / "checkpoint-2" / "params.safetensors")
+    monkeypatch.setenv("LPT_CKPT_VERIFY", "0")
+    mgr.load_params(2, {k: torch.empty_like(v) for k, v in params.items()})
+    assert mgr.is_complete(2)
+
+
+def test_jax_package_checkpoint_is_refused_by_name(ref, tmp_path):
+    """A checkpoint of the JAX package (Orbax arrays, no `storage` in
+    meta.json) is refused, naming the HF route, by the loader and by the
+    trainer's resume."""
+    rcfg = ref.config.LlamaConfig.tiny()
+    rman = ref.manifest.StageManifest.for_config(rcfg, 1)
+    tree = ref.llama.init_params(jax.random.PRNGKey(0), rcfg)
+    tx, _ = ref.optim.make_optimizer(ref.optim.OptimizerConfig(total_steps=10, warmup_steps=1))
+    stacked = ref.pl.stack_stages(tree, rman)
+    ref.ckpt.CheckpointManager(str(tmp_path)).save(3, stacked, rman, rcfg,
+                                                   opt_state=tx.init(stacked))
+    cfg, params = _params()
+    mgr = t_ckpt.CheckpointManager(str(tmp_path))
+    assert mgr.latest_step() == 3
+    with pytest.raises(ValueError, match="JAX package.*export_hf"):
+        mgr.load_params(3, params)
+    with pytest.raises(ValueError, match="convert_hf"):
+        t_train.build_run(_tiny_cfg(f"output_dir={tmp_path}"), "cpu")

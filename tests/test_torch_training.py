@@ -24,6 +24,8 @@ from llama_pipeline_parallel_tpu_torch import convert
 from llama_pipeline_parallel_tpu_torch.data import collator as t_collator
 from llama_pipeline_parallel_tpu_torch.data import datasets as t_datasets
 from llama_pipeline_parallel_tpu_torch.data import loader as t_loader
+from llama_pipeline_parallel_tpu_torch.ckpt import checkpoint as t_ckpt
+from llama_pipeline_parallel_tpu_torch.models.llama import manifest as t_manifest
 from llama_pipeline_parallel_tpu_torch.models.llama import model as t_llama
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig as TConfig
 from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
@@ -56,7 +58,7 @@ def ref():
             "mesh": "parallel.mesh", "fa": "ops.flash_attention",
             "attn": "ops.attention", "cfgio": "utils.config",
             "collator": "data.collator", "datasets": "data.datasets",
-            "loader": "data.loader"}
+            "loader": "data.loader", "ckpt": "ckpt.checkpoint"}
     return types.SimpleNamespace(**{
         k: importlib.import_module(f"llama_pipeline_parallel_tpu.{v}") for k, v in mods.items()})
 
@@ -247,6 +249,54 @@ def test_optimizer_matches_optax_over_several_updates(ref):
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
 
 
+def test_optimizer_state_carries_from_the_reference_and_back(ref):
+    """The reference trains 2 steps at tiny; its params and optax moments
+    (convert.optimizer_state_from_jax) carried into the port, one port step
+    equals the reference's third step, with the train step's tolerances.
+    The carried state converts back (optimizer_state_to_jax) leaf for leaf."""
+    cfg_j, cfg_t = ref.config.LlamaConfig.tiny(), TConfig.tiny()
+    tree, _ = _params(ref, seed=2)
+    mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=1, dp=1))
+    manifest = ref.manifest.StageManifest.for_config(cfg_j, 1)
+    kw = dict(learning_rate=5e-3, total_steps=20, warmup_steps=1)
+    tx, sched = ref.optim.make_optimizer(ref.optim.OptimizerConfig(**kw))
+    stacked = ref.pl.stack_stages(tree, manifest)
+    state = ref.ts.init_train_state(stacked, tx, mesh)
+    step_fn = ref.ts.make_train_step(
+        mesh, cfg_j, ref.pl.PipelineConfig(num_stages=1, num_microbatches=2), tx, sched,
+        stacked, attn_fn=ref.attn.attention)
+    batches = [_batch(cfg_t.vocab_size, 4, 32, seed=s, pad_tail=3) for s in (7, 8, 9)]
+    for b in batches[:2]:
+        state, _ = step_fn(state, {k: jnp.asarray(v) for k, v in b.items()})
+    params = convert.params_from_jax(jax.device_get(ref.pl.unstack_stages(state.params,
+                                                                          manifest)))
+    canonical = ref.ckpt._canonicalize_moments(jax.device_get(state.opt_state), manifest,
+                                               to_canonical=True)
+    leaves = {k: v.requires_grad_() for k, v in params.items()}
+    opt = t_optim.AdamW(leaves, t_optim.OptimizerConfig(**kw))
+    carried = convert.optimizer_state_from_jax(canonical)
+    assert carried["count"] == 2
+    opt.load_state_dict(carried)
+    back = convert.optimizer_state_to_jax(opt.state_dict(), canonical)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(canonical)
+    for got, want in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(canonical)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+    state, want = step_fn(state, {k: jnp.asarray(v) for k, v in batches[2].items()})
+    t_state = t_ts.TrainState(step=2, params=leaves, optimizer=opt)
+    got = t_ts.train_step(t_state, {k: torch.from_numpy(v) for k, v in batches[2].items()},
+                          cfg_t, num_microbatches=2)
+    np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"].item(), float(want["grad_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(got["lr"], float(want["lr"]), rtol=1e-6)
+    assert got["step"] == int(want["step"]) == 3
+    final = convert.params_from_jax(jax.device_get(ref.pl.unstack_stages(state.params,
+                                                                         manifest)))
+    for k, v in final.items():
+        np.testing.assert_allclose(leaves[k].detach().numpy(), v.numpy(), rtol=0, atol=2e-5,
+                                   err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # the slice as a whole: the train step
 # ---------------------------------------------------------------------------
@@ -428,8 +478,8 @@ _REFUSED_KEYS = [
     ("timeline={enabled: true}", NotImplementedError, "timeline"),
     ("profiler={at_step: [3]}", NotImplementedError, "profiler"),
     ("memory={enabled: true}", NotImplementedError, "memory"),
-    ("async_save=true", NotImplementedError, "async_save"),
-    ("save_total_limit=3", NotImplementedError, "save_total_limit"),
+    ("eval_dataset={synthetic: true}", NotImplementedError, "eval_dataset"),
+    ("fault_plan={faults: []}", NotImplementedError, "fault_plan"),
 ]
 
 
@@ -487,7 +537,7 @@ def test_remat_policy_nothing_saveable_trains(tmp_path):
     assert named["losses"] == default["losses"] and len(named["losses"]) == 2
 
 
-@pytest.mark.parametrize("entries,resume,refused", [
+@pytest.mark.parametrize("entries,resume,resumes", [
     (["checkpoint-4"], None, True),
     (["checkpoint-4", "checkpoint-8"], "true", True),
     (["checkpoint-4"], "false", False),
@@ -495,18 +545,29 @@ def test_remat_policy_nothing_saveable_trains(tmp_path):
     (["checkpoint-4.corrupt", "metrics.jsonl"], None, False),
 ])
 def test_trainer_refuses_to_skip_a_checkpoint_it_would_resume(tmp_path, entries, resume,
-                                                              refused):
-    """The JAX trainer resumes from output_dir's checkpoint-N by default; this
-    one cannot yet, so it refuses rather than start at step 0 over them. With
-    resume=false, or nothing to resume, it builds."""
+                                                              resumes):
+    """The trainer resumes from output_dir's newest complete checkpoint-N by
+    default (`resume`, true), as the JAX trainer does, rather than start at
+    step 0 over it; with resume=false, an empty dir, or only a quarantined
+    checkpoint and other files, it starts at step 0."""
+    cfg = TConfig.tiny()
+    params = t_llama.init_params(cfg, device="cpu")
+    mgr = t_ckpt.CheckpointManager(str(tmp_path))
     for entry in entries:
-        (tmp_path / entry).mkdir()
+        if entry.startswith("checkpoint-") and entry[len("checkpoint-"):].isdigit():
+            mgr.save(int(entry[len("checkpoint-"):]), params,
+                     t_manifest.StageManifest(num_layers=cfg.num_hidden_layers, num_stages=1),
+                     cfg, optimizer=t_optim.AdamW(params, t_optim.OptimizerConfig()))
+        elif entry.endswith(".corrupt"):
+            (tmp_path / entry).mkdir()
+        else:
+            (tmp_path / entry).write_text("")
     overrides = [] if resume is None else [f"resume={resume}"]
-    if refused:
-        with pytest.raises(NotImplementedError, match="checkpoint-4"):
-            _build_tiny(tmp_path, *overrides)
-    else:
-        _build_tiny(tmp_path, *overrides)
+    run = _build_tiny(tmp_path, "max_steps=12", *overrides)
+    newest = max((int(e.split("-")[1]) for e in entries if e.split("-")[-1].isdigit()),
+                 default=0)
+    assert run.start_step == (newest if resumes else 0)
+    assert run.state.step == run.start_step
 
 
 # what the trainer refuses in each shipped config with the mesh cut to one
@@ -519,7 +580,7 @@ _ONE_CARD_REFUSALS = {
     "llama_65b_pp8_v2_tp2_dp2.yaml": "optimizer_offload",
     "llama_65b_pp8_zb1_offload_tp2_dp2.yaml": "'offload'",
     "llama_65b_pp8_zb1_tp2_dp2.yaml": "optimizer_offload",
-    "llama_7b_flan_packed.yaml": "async_save",
+    "llama_7b_flan_packed.yaml": "packing_factor",
     "llama_7b_pp4.yaml": None,
     "tiny_smoke.yaml": None,
 }

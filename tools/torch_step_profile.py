@@ -77,7 +77,9 @@ def main(argv=None) -> int:
     from llama_pipeline_parallel_tpu_torch.train import build_run
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
-    run = build_run(load_config(args.config, TRAIN_OVERRIDES + args.overrides), "cuda")
+    run = build_run(load_config(args.config, TRAIN_OVERRIDES + [
+        f"output_dir={os.path.join(ROOT, 'build', 'torch_step_profile')}"] + args.overrides),
+        "cuda")
     batches = run.batches()
 
     def step():
