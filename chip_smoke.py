@@ -98,6 +98,35 @@ which raises on failure:
               host-to-device and the HF round trip. build/chip_smoke/ is
               cleared at the start of the script and the phase removes what
               it wrote.
+7. packed  -- the fine-tune config conf/llama_7b_flan_packed.yaml at LLaMA-7B
+              width (PACKED_OVERRIDES: 4 layers, 8 rows of 512 tokens a
+              microbatch, packing_factor 4, 2 microbatches, 4 steps) on a
+              JSONL of synthetic {"inputs", "targets"} rows (FLAN's record
+              format) written from a seed and a
+              SentencePiece-Unigram tokenizer trained on them here
+              (tokenizers + transformers), through `run_training` and
+              `tokenizer_path`: finite losses, the expected first loss,
+              exact launch counts with every call on the tensor cores and
+              every flash call carrying segment ids (`segmented_counts`),
+              the packing counters in the metrics line; the three flash
+              kernels on the segment ids [8, 512] of each microbatch of step
+              1 (at least one boundary a row inside the tiles, a pad tail)
+              against their plain versions (out and dq exactly 0 on pad
+              rows; the same calls without segment ids rejected), timed
+              with and without them; the CE kernels on the run's hidden
+              states, lm_head and mostly-IGNORE targets, and the prologue
+              kernels on layer 0's input and weights with positions that
+              restart in each segment, against their plain versions with
+              planted faults (ignored tokens weighted, labels unshifted,
+              positions not restarted, ...) rejected; step 1 again with
+              flash (segment ids) against the exact op, the CE kernel head
+              against the dense head and the prologue kernels against the
+              composed prologue, in bf16 and fp32, each with a planted
+              fault rejected; one packed row's fp32 logits through the
+              kernels against each of its examples run alone. Prints the
+              step time,
+              tokens/s (row tokens and non-pad tokens), peak memory, the
+              drop rate and what attention=auto picks at this shape.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -138,6 +167,42 @@ TRAIN_OVERRIDES = [
     "attention=flash", "activation_checkpointing=false", "kernels.ce=pallas",
     "loss_vocab_chunks=4", "kernels.prologue=pallas", "save_final=false", "resume=false",
 ]
+# the packed phase: conf/llama_7b_flan_packed.yaml (max_seq_length 512,
+# packing_factor 4, 8 rows a microbatch, loss_vocab_chunks 4) at LLaMA-7B
+# width, cut to 4 layers, 2 microbatches and one card, 4 steps, on a JSONL of
+# synthetic {"inputs", "targets"} rows written from PACKED_SEED and a
+# SentencePiece-Unigram tokenizer trained on it in the process (tokenizers +
+# transformers)
+PACKED_OVERRIDES = [
+    "mesh.pp=1", "mesh.dp=1", "model.num_hidden_layers=4", "per_device_train_batch_size=8",
+    "gradient_accumulation_steps=2", "max_steps=4", "total_steps=8", "warmup_steps=1",
+    "attention=flash", "kernels.ce=pallas", "kernels.prologue=pallas", "save_final=false",
+    "resume=false",
+]
+PACKED_SEED = 10
+PACKED_ROWS = 1024
+# synthetic data, not FLAN: words per prompt and per target in these ranges,
+# lo * (hi / lo) ** (u * u) for u uniform in [0, 1), words of 1-3
+# consonant-vowel syllables, PACKED_WORDS of them drawn Zipf-like. The skew to
+# short is chosen, not measured: the tokenizer trained here splits a word into
+# 2-3 pieces, and uniform lengths over these ranges put one example in each
+# 512-token row (no segment boundary for the kernels to meet), where the
+# config's packing_factor 4 expects about four. With the skew, rows hold 1-8
+# examples and some examples fit no row; the drop rate and the segments per
+# row describe this data only
+PACKED_PROMPT_WORDS = (20, 300)
+PACKED_TARGET_WORDS = (1, 60)
+PACKED_WORDS = 1500
+PACKED_TOKENIZER_VOCAB = 8000
+# a segment boundary (or a pad tail's start) at a position that is not a
+# multiple of TILE_EDGE lies inside a tile of every flash kernel (q tiles of 32
+# in dk/dv, kv tiles of 64 in dq, 128 elsewhere); each microbatch the flash
+# kernels are held on must hold at least one such boundary a row
+TILE_EDGE = 32
+# one packed row's logits against each of its examples run alone, fp32 compute
+# through every kernel (the SIMT flash and prologue routes, cuBLAS without
+# TF32): other segments add exact zeros, so only summation order moves them
+PACKED_LOGIT_TOL = 1e-4
 # the checkpoint phase: the slice cut to 2 layers (666.9 M parameters, 12
 # bytes each on disk: fp32 weights and both Adam moments, ~8.0 GB). Run A
 # trains 6 steps and saves the full state once, at step 4, in the background
@@ -387,17 +452,19 @@ def causal_pairs(b, h, s) -> int:
     return b * h * s * (s + 1) // 2
 
 
-def bounds(b, h, s, hd, elem_bytes) -> dict:
+def bounds(b, h, s, hd, elem_bytes, pairs: int | None = None, seg_bytes: int = 0) -> dict:
     """Least time of each kernel on the card: the larger of its bytes (each
     input read once, each output written once) over the memory rate and its
-    operations (the causal pairs this run needs) over the bf16 peak."""
+    operations (the (q, k) pairs this run needs: every causal pair, or the
+    `pairs` the segment ids leave visible) over the bf16 peak. `seg_bytes`:
+    the segment ids read."""
     tensor = b * h * s * hd * elem_bytes
     rows = b * h * s * 4
-    pairs = causal_pairs(b, h, s)
+    pairs = causal_pairs(b, h, s) if pairs is None else pairs
     work = {  # (bytes moved, operations)
-        "fwd": (4 * tensor + rows, 2 * 2 * hd * pairs),                # q k v in, out + lse
-        "dq": (5 * tensor + 2 * rows, 3 * 2 * hd * pairs),             # q k v dO lse delta, dq
-        "dkv": (6 * tensor + 2 * rows, 4 * 2 * hd * pairs),            # ..., dk dv
+        "fwd": (4 * tensor + rows + seg_bytes, 2 * 2 * hd * pairs),     # q k v in, out + lse
+        "dq": (5 * tensor + 2 * rows + seg_bytes, 3 * 2 * hd * pairs),  # q k v dO lse delta, dq
+        "dkv": (6 * tensor + 2 * rows + seg_bytes, 4 * 2 * hd * pairs),  # ..., dk dv
     }
     out = {}
     for name, (nbytes, ops) in work.items():
@@ -941,7 +1008,11 @@ def phase_trainer() -> dict:
     from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
     from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
     from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
-    from llama_pipeline_parallel_tpu_torch.train import build_model_config, run_training
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_model_config,
+        build_run,
+        run_training,
+    )
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
@@ -992,25 +1063,52 @@ def phase_trainer() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    attention_parity(config, out_dir)
+    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/parity"]),
+                    "cuda")
+    step_parity(run, (f"last {PLANT_CUT} keys hidden", hide_last_keys), losses[0], "[trainer]")
+    del run
     gc.collect()
     torch.cuda.empty_cache()
-    ce_parity(config, out_dir, losses[0])
-    gc.collect()
-    torch.cuda.empty_cache()
-    prologue_parity(config, out_dir)
     return launches
 
 
-def attention_parity(config: str, out_dir: str) -> None:
-    """Step 1 of the slice again, on the params and batch the trainer's run
-    started from (build_run, same seed), on the run's prologue, with flash and
-    with exact attention:
-    in bf16 the step loss; in fp32 compute the per-token losses and the
-    gradients, which attention decides (the mean loss at random init barely
-    depends on it). A planted fault -- flash attention that hides the last
-    PLANT_CUT keys, so the last q block loses its diagonal tile -- must fail
-    the per-token check."""
+def hide_last_keys(q, k, v, padding_mask=None, *, causal=True):
+    """Flash attention that misses the last PLANT_CUT keys, so the last q
+    block loses its diagonal tile (a planted fault)."""
+    from llama_pipeline_parallel_tpu_torch.ops.flash_attention import flash_attention
+
+    return flash_attention(q, k[:, :-PLANT_CUT], v[:, :-PLANT_CUT], None, causal=causal)
+
+
+def step_parity(run, plant: tuple, run_loss: float, tag: str) -> None:
+    """Step 1 of a run again on `run`, a fresh build_run of its config (the
+    same seed: the params and the batch the run started from), three ways:
+    flash against exact attention (attention_parity, with the attention
+    fault `plant`), the CE kernel head against the dense head (ce_parity)
+    and the prologue kernels against the composed prologue
+    (prologue_parity), each with its planted fault."""
+    import gc
+
+    import torch
+
+    attention_parity(run, plant, tag)
+    for check_one in (lambda: ce_parity(run, run_loss, tag), lambda: prologue_parity(run, tag)):
+        for p in run.state.params.values():
+            p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_one()
+
+
+def attention_parity(run, plant: tuple, tag: str) -> None:
+    """Step 1 of a run again, on the params and batch the trainer's run
+    started from (`run` is a fresh build_run of the same config, same seed),
+    on the run's prologue, with the run's flash attention and with exact
+    attention (given the batch's segment ids): in bf16 the step loss; in fp32
+    compute the per-token losses and the gradients, which attention decides
+    (the mean loss at random init barely depends on it). A planted fault,
+    `plant` = (what it does, an attention function), must fail the per-token
+    check."""
     import dataclasses
 
     import torch
@@ -1018,13 +1116,8 @@ def attention_parity(config: str, out_dir: str) -> None:
 
     from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
     from llama_pipeline_parallel_tpu_torch.ops.attention import attention
-    from llama_pipeline_parallel_tpu_torch.ops.flash_attention import flash_attention
     from llama_pipeline_parallel_tpu_torch.parallel.train_step import shift_labels
-    from llama_pipeline_parallel_tpu_torch.train import build_run
-    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
-    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/parity"]),
-                    "cuda")
     batch = next(run.batches())
     params = run.state.params
     targets = shift_labels(batch["labels"])
@@ -1069,7 +1162,7 @@ def attention_parity(config: str, out_dir: str) -> None:
     tok_diff = (flash_tok - exact_tok).abs().max().item()
     grad_rel = rel_diff(flash_grads, exact_grads)
     del flash_grads, exact_grads
-    log(f"[trainer] step 1 on the same params and batch, flash vs exact attention: bf16 "
+    log(f"{tag} step 1 on the same params and batch, flash vs exact attention: bf16 "
         f"step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}; per-token max |diff| "
         f"{(flash_bf16 - exact_bf16).abs().max().item():.3e}, not held); fp32 per-token "
         f"loss max |diff| {tok_diff:.3e} (tol {TOKEN_LOSS_TOL}), gradient rel diff "
@@ -1081,12 +1174,9 @@ def attention_parity(config: str, out_dir: str) -> None:
     if not grad_rel <= GRAD_REL_TOL:
         raise AssertionError(f"flash vs exact gradients differ by {grad_rel} (relative)")
 
-    def hide_last_keys(q, k, v, padding_mask=None, *, causal=True):
-        return flash_attention(q, k[:, :-PLANT_CUT], v[:, :-PLANT_CUT], None, causal=causal)
-
-    bad_tok, _ = step_one(hide_last_keys, fp32, grad=False)
+    bad_tok, _ = step_one(plant[1], fp32, grad=False)
     bad_diff = (bad_tok - exact_tok).abs().max().item()
-    log(f"[trainer] planted fault (last {PLANT_CUT} keys hidden), fp32: per-token loss "
+    log(f"{tag} planted fault ({plant[0]}), fp32: per-token loss "
         f"max |diff| {bad_diff:.3e}, step loss |diff| {abs(mean(bad_tok) - mean(exact_tok)):.3e}")
     if not bad_diff > TOKEN_LOSS_TOL:
         raise AssertionError(f"the per-token check passes a planted fault ({bad_diff})")
@@ -1098,12 +1188,11 @@ def rel_diff(a: dict, b: dict) -> float:
     return (sq_diff / sum(g.square().sum() for g in b.values())).sqrt().item()
 
 
-def first_step(config: str, out_dir: str):
-    """(run, step_one): a fresh build of the slice's run -- the params and the
-    first batch the trainer's run started from -- and step_one(mcfg, grad,
-    head=None, kernel_prologue=None) -> (step 1's mean loss, its gradients
-    with `grad`), on the loss head `head` ((hn, targets, mcfg) -> loss sum;
-    None: the run's) and the prologue `kernel_prologue` (None: the run's)."""
+def first_step(run):
+    """step_one(mcfg, grad, head=None, kernel_prologue=None) -> (step 1's
+    mean loss, its gradients with `grad`) on `run`'s params and first batch,
+    on the loss head `head` ((hn, targets, mcfg) -> loss sum; None: the
+    run's) and the prologue `kernel_prologue` (None: the run's)."""
     import torch
 
     from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
@@ -1111,10 +1200,7 @@ def first_step(config: str, out_dir: str):
         head_loss_sum_count,
         shift_labels,
     )
-    from llama_pipeline_parallel_tpu_torch.train import build_run
-    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
-    run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}"]), "cuda")
     batch = next(run.batches())
     params = run.state.params
     targets = shift_labels(batch["labels"])
@@ -1145,12 +1231,12 @@ def first_step(config: str, out_dir: str):
         grads = {k: p.grad.clone() for k, p in params.items()} if grad else None
         return total, grads
 
-    return run, step_one
+    return step_one
 
 
-def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
-    """Step 1 of the slice again, on the params and batch the trainer's run
-    started from, on the run's prologue, with the CE kernel head (the run's)
+def ce_parity(run, run_loss: float, tag: str) -> None:
+    """Step 1 again on `run` (see step_parity), on the run's attention and
+    prologue, with the CE kernel head (the run's)
     and the dense head (lm_head + cross-entropy on fp32 logits): in bf16 the
     step loss, which must also repeat the run's first loss; in fp32 compute
     the step loss and the gradients, where only summation order separates the
@@ -1166,9 +1252,9 @@ def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
         head_loss_sum_count,
     )
 
-    run, step_one = first_step(config, f"{out_dir}/ce")
+    step_one = first_step(run)
     if not run.head.kernel_ce:
-        raise AssertionError(f"the slice's run does not take the CE kernel head: {run.head}")
+        raise AssertionError(f"{tag} the run does not take the CE kernel head: {run.head}")
     params = run.state.params
 
     def dense_head(hn, tgt, mcfg):
@@ -1187,7 +1273,7 @@ def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
     dense_loss, dense_grads = step_one(fp32, grad=True, head=dense_head)
     loss_diff, grad_rel = abs(kernel_loss - dense_loss), rel_diff(kernel_grads, dense_grads)
     del kernel_grads
-    log(f"[trainer] step 1 on the same params and batch, CE kernel head vs dense head: "
+    log(f"{tag} step 1 on the same params and batch, CE kernel head vs dense head: "
         f"bf16 step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}); fp32 step loss "
         f"|diff| {loss_diff:.3e} (tol {FP32_STEP_LOSS_TOL}), gradient rel diff "
         f"{grad_rel:.3e} (tol {GRAD_REL_TOL}); this step's bf16 loss on the run's path vs "
@@ -1204,16 +1290,16 @@ def ce_parity(config: str, out_dir: str, run_loss: float) -> None:
 
     bad_loss, bad_grads = step_one(fp32, grad=True, head=cut_head)
     bad_diff, bad_rel = abs(bad_loss - dense_loss), rel_diff(bad_grads, dense_grads)
-    log(f"[trainer] planted CE fault (last {PLANT_CUT} vocab columns hidden), fp32: step "
+    log(f"{tag} planted CE fault (last {PLANT_CUT} vocab columns hidden), fp32: step "
         f"loss |diff| {bad_diff:.3e}, gradient rel diff {bad_rel:.3e}")
     if bad_diff <= FP32_STEP_LOSS_TOL and bad_rel <= GRAD_REL_TOL:
         raise AssertionError(f"the CE head check passes a planted fault ({bad_diff}, "
                              f"{bad_rel})")
 
 
-def prologue_parity(config: str, out_dir: str) -> None:
-    """Step 1 of the slice again, on the params and batch the trainer's run
-    started from, with the prologue kernels (the run's) and the composed
+def prologue_parity(run, tag: str) -> None:
+    """Step 1 again on `run` (see step_parity), with the prologue kernels
+    (the run's) and the composed
     prologue (rms_norm, the three matmuls, apply_rope), each with the run's
     attention and loss head: in bf16 the step loss; in fp32 compute the step
     loss and the gradients, where only summation order separates the two. A
@@ -1225,9 +1311,9 @@ def prologue_parity(config: str, out_dir: str) -> None:
 
     from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
 
-    run, step_one = first_step(config, f"{out_dir}/prologue")
+    step_one = first_step(run)
     if not run.kernel_prologue:
-        raise AssertionError("the slice's run does not take the prologue kernels")
+        raise AssertionError(f"{tag} the run does not take the prologue kernels")
     bf16 = run.model_cfg
     step_diff = abs(step_one(bf16, grad=False)[0]
                     - step_one(bf16, grad=False, kernel_prologue=False)[0])
@@ -1237,7 +1323,7 @@ def prologue_parity(config: str, out_dir: str) -> None:
     loss_diff = abs(kernel_loss - composed_loss)
     grad_rel = rel_diff(kernel_grads, composed_grads)
     del kernel_grads
-    log(f"[trainer] step 1 on the same params and batch, prologue kernels vs composed "
+    log(f"{tag} step 1 on the same params and batch, prologue kernels vs composed "
         f"prologue: bf16 step loss |diff| {step_diff:.3e} (tol {STEP_LOSS_TOL}); fp32 step "
         f"loss |diff| {loss_diff:.3e} (tol {FP32_STEP_LOSS_TOL}), gradient rel diff "
         f"{grad_rel:.3e} (tol {GRAD_REL_TOL})")
@@ -1261,7 +1347,7 @@ def prologue_parity(config: str, out_dir: str) -> None:
     finally:
         llama.fused_prologue = good
     bad_diff, bad_rel = abs(bad_loss - composed_loss), rel_diff(bad_grads, composed_grads)
-    log(f"[trainer] planted prologue fault (wq without its last head's columns), fp32: step "
+    log(f"{tag} planted prologue fault (wq without its last head's columns), fp32: step "
         f"loss |diff| {bad_diff:.3e}, gradient rel diff {bad_rel:.3e}")
     if bad_diff <= FP32_STEP_LOSS_TOL and bad_rel <= GRAD_REL_TOL:
         raise AssertionError(f"the prologue check passes a planted fault ({bad_diff}, "
@@ -1472,6 +1558,417 @@ def phase_checkpoint() -> None:
         shutil.rmtree(path, ignore_errors=True)
 
 
+def packed_corpus(root: str) -> tuple[str, str]:
+    """Write PACKED_ROWS synthetic {"inputs", "targets"} rows from
+    PACKED_SEED to <root>/train.jsonl, train a SentencePiece-Unigram
+    tokenizer on them (no pad token: the trainer falls back to eos) and save
+    it to <root>/tok. Returns (jsonl path, tokenizer dir)."""
+    import numpy as np
+    from tokenizers import SentencePieceUnigramTokenizer
+    from transformers import PreTrainedTokenizerFast
+
+    rng = np.random.RandomState(PACKED_SEED)
+    syllables = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    words = sorted({"".join(rng.choice(syllables, n))
+                    for n in rng.randint(1, 4, 2 * PACKED_WORDS)})
+    words = np.array(words[:PACKED_WORDS])
+    zipf = 1.0 / np.arange(1, len(words) + 1)
+    zipf /= zipf.sum()
+
+    def text(lo: int, hi: int) -> str:
+        n = int(round(lo * (hi / lo) ** (rng.uniform() ** 2)))
+        return " ".join(words[rng.choice(len(words), n, p=zipf)])
+
+    rows = [{"inputs": text(*PACKED_PROMPT_WORDS), "targets": text(*PACKED_TARGET_WORDS)}
+            for _ in range(PACKED_ROWS)]
+    jsonl = os.path.join(root, "train.jsonl")
+    with open(jsonl, "w") as f:
+        f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+    spm = SentencePieceUnigramTokenizer()
+    spm.train_from_iterator([f"{r['inputs']} {r['targets']}" for r in rows],
+                            vocab_size=PACKED_TOKENIZER_VOCAB, unk_token="<unk>",
+                            special_tokens=["<unk>", "<s>", "</s>"])
+    tok_dir = os.path.join(root, "tok")
+    PreTrainedTokenizerFast(tokenizer_object=spm._tokenizer, bos_token="<s>", eos_token="</s>",
+                            unk_token="<unk>").save_pretrained(tok_dir)
+    return jsonl, tok_dir
+
+
+def tile_boundaries(seg) -> int:
+    """Segment boundaries and pad-tail starts of segment ids `seg` [b, s]
+    that lie inside a tile of every flash kernel (see TILE_EDGE)."""
+    import torch
+
+    change = seg[:, 1:] != seg[:, :-1]
+    pos = torch.arange(1, seg.shape[1], device=seg.device)
+    return int((change & (pos % TILE_EDGE != 0)).sum())
+
+
+def segment_kernel_case(seg, timed: bool) -> None:
+    """The three flash kernels on the tensor cores with a packed microbatch's
+    segment ids `seg` [b, s] (at least one boundary a row inside the tiles,
+    and a pad tail: both asserted), bf16 q/k/v/dO from a seed against the
+    plain versions in fp32 (the 2^-8 rule; lse to FP32_TOL): out and dq
+    exactly 0 on pad rows, every call counted as segmented, and the same
+    calls without the segment ids rejected by the same check. With `timed`,
+    each kernel's time with and without segments (cuda_ms), beside its bound
+    on the pairs each leaves visible."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+
+    b, s = seg.shape
+    inside, pad_rows = tile_boundaries(seg), int((seg == 0).sum())
+    log(f"  {inside} segment boundaries inside tiles, {pad_rows} pad rows of {b * s}; segments "
+        f"per row {seg.max(dim=1).values.tolist()}")
+    if inside < b or not pad_rows:
+        raise AssertionError(f"the microbatch holds {inside} boundaries inside tiles (want at "
+                             f"least {b}, one a row) and {pad_rows} pad rows (want some)")
+    h, hd = 32, 128
+    q, k, v, do = make_inputs(b, h, h, s, s, hd, torch.bfloat16, PACKED_SEED)
+    kw = dict(causal=True, scale=hd ** -0.5, q_offset=0, kv_offset=0, segments_q=seg,
+              segments_kv=seg)
+    fa.reset_launch_counts()
+    out, lse = fa._fwd_cuda(q, k, v, **kw)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    ref_out, ref_lse = fa._fwd_plain(q32, k32, v32, **kw)
+    delta = (do32 * ref_out).sum(dim=-1, keepdim=True)
+    dq = fa._bwd_dq_cuda(q, k, v, delta, ref_lse, do, **kw)
+    dk, dv = fa._bwd_dkv_cuda(q, k, v, delta, ref_lse, do, **kw)
+    ref_dq = fa._bwd_dq_plain(q32, k32, v32, delta, ref_lse, do32, **kw)
+    ref_dk, ref_dv = fa._bwd_dkv_plain(q32, k32, v32, delta, ref_lse, do32, **kw)
+    expect_routes(fa, {"fwd": fa.TENSOR_CORE, "dq": fa.TENSOR_CORE, "dkv": fa.TENSOR_CORE}, 1)
+    if fa.segmented_counts != {"fwd": 1, "dq": 1, "dkv": 1}:
+        raise AssertionError(f"segmented calls {fa.segmented_counts}, expected one each")
+    pad = (seg == 0)[:, None, :].expand(b, h, s)
+    tol = {name: tolerance(ref, False) for name, ref in
+           (("out", ref_out), ("dq", ref_dq), ("dk", ref_dk), ("dv", ref_dv))}
+    check("fwd out", out, ref_out, tol["out"])
+    check("fwd lse", lse, ref_lse, (0.0, FP32_TOL))
+    check("dq", dq, ref_dq, tol["dq"])
+    check("dk", dk, ref_dk, tol["dk"])
+    check("dv", dv, ref_dv, tol["dv"])
+    for name, t in (("out", out), ("dq", dq)):
+        nonzero = int((t[pad] != 0).sum())
+        log(f"  {name} on pad rows: {nonzero} nonzero elements (must be 0)")
+        if nonzero:
+            raise AssertionError(f"{name} is not exactly 0 on pad rows ({nonzero} elements)")
+
+    plain = dict(kw, segments_q=None, segments_kv=None)
+    expect_rejected("fwd out (segments dropped)", fa._fwd_cuda(q, k, v, **plain)[0], ref_out,
+                    tol["out"])
+    expect_rejected("dq (segments dropped)",
+                    fa._bwd_dq_cuda(q, k, v, delta, ref_lse, do, **plain), ref_dq, tol["dq"])
+    dk_bad, dv_bad = fa._bwd_dkv_cuda(q, k, v, delta, ref_lse, do, **plain)
+    expect_rejected("dk (segments dropped)", dk_bad, ref_dk, tol["dk"])
+    expect_rejected("dv (segments dropped)", dv_bad, ref_dv, tol["dv"])
+    if not timed:
+        return
+
+    bwd = (q, k, v, delta, lse, do)
+    calls = {"fwd": lambda kw: fa._fwd_cuda(q, k, v, **kw),
+             "dq": lambda kw: fa._bwd_dq_cuda(*bwd, **kw),
+             "dkv": lambda kw: fa._bwd_dkv_cuda(*bwd, **kw)}
+    lengths = [int(n) for row in seg.tolist() for n in _run_lengths(row)]
+    visible = h * sum(n * (n + 1) // 2 for n in lengths)
+    bound_seg = bounds(b, h, s, hd, 2, pairs=visible, seg_bytes=2 * b * s * 4)
+    bound_all = bounds(b, h, s, hd, 2)
+    log(f"[packed] flash kernels at b={b} h={h} s={s} hd={hd} bf16: {visible} visible (q, k) "
+        f"pairs with segments, {causal_pairs(b, h, s)} causal pairs without")
+    for key, name in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+        ms_seg, ms_all = cuda_ms(lambda: calls[key](kw)), cuda_ms(lambda: calls[key](plain))
+        log(f"  {name}: with segments {ms_seg:.4f} ms (bound {bound_seg[key]['bound_ms']:.4f} "
+            f"ms by {bound_seg[key]['bound_by']}), without {ms_all:.4f} ms (bound "
+            f"{bound_all[key]['bound_ms']:.4f} ms by {bound_all[key]['bound_by']})")
+
+
+def packed_ce_case(run, batch, rows: slice) -> None:
+    """The three CE kernels on the tensor cores at the packed path's inputs:
+    the final-normed hidden states of microbatch `rows` of `batch` in bf16
+    through the run's model, the run's lm_head, its shifted targets (most of
+    them IGNORE: prompts, pads, each segment's first token) and the step's
+    cotangent 1 / (valid targets of the step) on the valid ones, against the
+    plain versions in fp32 (ce_case). Planted faults on the same inputs must
+    be rejected by the same check: the forward on W without its last
+    PLANT_CUT vocab columns (lse) and on the labels unshifted (the target
+    logit), dh and dW with the ignored tokens weighted as valid."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import shift_labels
+
+    params, chunks = run.state.params, run.head.loss_chunks
+    targets = shift_labels(batch["labels"])
+    count = (targets != fc.IGNORE_INDEX).sum()
+    with torch.no_grad():
+        h = llama.hidden_states(params, batch["input_ids"][rows], batch["attention_mask"][rows],
+                                batch["position_ids"][rows], cfg=run.model_cfg,
+                                attn_fn=run.attn_fn, kernel_prologue=run.kernel_prologue)
+    h = h.reshape(-1, h.shape[-1])
+    w = params["lm_head"].to(h.dtype).contiguous()
+    t = targets[rows].reshape(-1)
+    valid = t != fc.IGNORE_INDEX
+    safe_t = torch.where(valid, t, 0).to(torch.int32)
+    svec = valid.float() / count
+    log(f"[packed] CE kernels at the path's inputs: {h.shape[0]} tokens x {h.shape[1]} x "
+        f"{w.shape[1]} bf16, {chunks} vocab chunks, {int((~valid).sum())} targets IGNORE, vs "
+        f"the plain versions in fp32")
+    ce_case(h, w, safe_t, svec, chunks, fp32=False, routes=(fc.TENSOR_CORE, fc.TENSOR_CORE))
+
+    hf, wf = h.float(), w.float()
+    ref_lse, ref_tgt = fc._fwd_stats_plain(hf, wf, safe_t, chunks)
+    ref_dh = fc._dh_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
+    ref_dw = fc._dw_plain(hf, wf, safe_t, ref_lse, svec, chunks, g_dtype=h.dtype)
+    del hf, wf
+    expect_rejected("ce lse (last vocab columns hidden)",
+                    fc._fwd_stats_cuda(h, w[:, :-PLANT_CUT].contiguous(), safe_t, chunks)[0],
+                    ref_lse, (0.0, FP32_TOL))
+    unshifted = batch["labels"][rows].reshape(-1)
+    unshifted = torch.where(unshifted != fc.IGNORE_INDEX, unshifted, 0).to(torch.int32)
+    expect_rejected("ce tgt (labels unshifted)",
+                    fc._fwd_stats_cuda(h, w, unshifted, chunks)[1], ref_tgt, (0.0, FP32_TOL))
+    every = torch.full_like(svec, 1.0) / count
+    dh_bad, dw_bad = fc._backward_cuda(h, w, safe_t, ref_lse, every, chunks)
+    expect_rejected("ce dh (ignored tokens weighted)", dh_bad, ref_dh, tolerance(ref_dh, False))
+    expect_rejected("ce dW (ignored tokens weighted)", dw_bad, ref_dw, tolerance(ref_dw, False))
+    if fc.tensor_core_counts != fc.launch_counts:
+        raise AssertionError(f"CE calls on the tensor cores {fc.tensor_core_counts}, launches "
+                             f"{fc.launch_counts}: every call at these inputs must take them")
+
+
+def packed_prologue_case(run, batch, rows: slice) -> None:
+    """The three prologue kernels on the tensor cores at the packed path's
+    inputs: layer 0's input (the embedded tokens of microbatch `rows` of
+    `batch`), its norm weight and q/k/v weights in bf16, and cos / sin of the
+    batch's positions, which restart in each segment; cotangents from a
+    seed. Held to the plain versions (prologue_case, with its planted
+    faults); the forward with the positions of the row (0 .. s - 1, not
+    restarted) must fall outside the rounding bounds of q and k."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.ops.rope import rope_cos_sin
+
+    mcfg, params = run.model_cfg, run.state.params
+    if mcfg.rms_norm_eps != PRO_EPS:
+        raise AssertionError(f"the model's rms_norm_eps {mcfg.rms_norm_eps} is not PRO_EPS")
+    ids, pos = batch["input_ids"][rows], batch["position_ids"][rows]
+    b, s = ids.shape
+    n, hd, dt = b * s, mcfg.head_dim, mcfg.dtype
+
+    def trig(positions):
+        return tuple(t.reshape(n, hd).contiguous()
+                     for t in rope_cos_sin(positions, hd, mcfg.rope_theta, dtype=dt))
+
+    g = torch.Generator(device="cuda").manual_seed(PACKED_SEED)
+    with torch.no_grad():
+        x = llama.embed(params, ids, mcfg).reshape(n, -1).contiguous()
+    w = {name: params[f"layers.attn.{name}"][0].to(dt).contiguous() for name in ("wq", "wk", "wv")}
+    cos, sin = trig(pos)
+    inp = dict(x=x, norm_w=params["layers.input_norm"][0], **w, cos=cos, sin=sin, hd=hd,
+               **{f"d{name}": torch.randn(n, w[f"w{name}"].shape[1], generator=g,
+                                          device="cuda").to(dt) for name in "qkv"})
+    restarts = int((pos[:, 1:] < pos[:, :-1]).sum())
+    log(f"[packed] prologue kernels at the path's inputs: {n} tokens d={x.shape[1]} bf16, "
+        f"layer 0's weights, positions restarting {restarts} times, vs the plain versions")
+    prologue_case(inp, fp32=False, route=fp.TENSOR_CORE, plant=True)
+    row_cos, row_sin = trig(torch.arange(s, device="cuda").expand(b, s))
+    bad = forward_flips(inp, fp._fwd_cuda(x, inp["norm_w"], w["wq"], w["wk"], w["wv"], row_cos,
+                                          row_sin, PRO_EPS, hd))
+    for name in "qk":
+        off, share, err = bad[name]
+        log(f"  planted prologue {name} (positions not restarted): {off} elements outside the "
+            f"rounding bounds, {share:.2e} off the plain version (must exceed 0 or {FLIP_SHARE})")
+        if not off and share <= FLIP_SHARE:
+            raise AssertionError(f"the check of prologue {name} passes unrestarted positions")
+    if not restarts or fp.tensor_core_counts != fp.launch_counts:
+        raise AssertionError(f"positions restart {restarts} times (want some); prologue calls "
+                             f"on the tensor cores {fp.tensor_core_counts}, launches "
+                             f"{fp.launch_counts} (want all)")
+
+
+def _run_lengths(row: list) -> list:
+    """Lengths of the runs of equal nonzero ids in a row of segment ids."""
+    out, prev = [], 0
+    for x in row:
+        if x and x == prev:
+            out[-1] += 1
+        elif x:
+            out.append(1)
+        prev = x
+    return out
+
+
+def packed_alone_parity(run, batch) -> None:
+    """In fp32 compute with every kernel of the run on (flash with segments,
+    the prologue kernels), the logits of each segment of the batch's row with
+    the most segments against its example run alone (positions from 0, no
+    segment ids), within PACKED_LOGIT_TOL."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+
+    fp32 = dataclasses.replace(run.model_cfg, dtype=torch.float32)
+    params = run.state.params
+    r = int(batch["attention_mask"].max(dim=1).values.argmax())
+    row = slice(r, r + 1)
+    seg = batch["attention_mask"][r]
+    worst = 0.0
+    with torch.no_grad():
+        packed = llama.forward(params, batch["input_ids"][row], batch["attention_mask"][row],
+                               batch["position_ids"][row], cfg=fp32, attn_fn=run.attn_fn,
+                               kernel_prologue=True)[0]
+        ids = sorted(set(seg.tolist()) - {0})
+        for sid in ids:
+            at = (seg == sid).nonzero().squeeze(1)
+            alone = llama.forward(params, batch["input_ids"][row, at], cfg=fp32,
+                                  attn_fn=run.attn_fn, kernel_prologue=True)[0]
+            err, ratio = reading(packed[at], alone, PACKED_LOGIT_TOL, PACKED_LOGIT_TOL)
+            worst = max(worst, ratio)
+            log(f"  segment {sid}: {len(at)} tokens at {at[0].item()}..{at[-1].item()}, "
+                f"logits max_abs_err {err:.3e}")
+    log(f"[packed] packed row {r} vs its {len(ids)} examples alone, fp32 through the kernels: "
+        f"worst err / limit {worst:.3f} (rtol = atol = {PACKED_LOGIT_TOL})")
+    if not worst <= 1.0 or len(ids) < 2:
+        raise AssertionError(f"packed logits differ from the examples alone ({worst} x the "
+                             f"limit) or the row holds {len(ids)} segment(s)")
+
+
+def phase_packed() -> None:
+    """The fine-tune config conf/llama_7b_flan_packed.yaml on the card at
+    LLaMA-7B width (PACKED_OVERRIDES): a JSONL and a tokenizer made here,
+    sequence packing with segment ids through the flash kernels. Checks:
+    finite losses and the expected first loss; exact launch counts, every
+    call on the tensor cores and every flash call with segment ids; the
+    packing counters in the metrics line; the flash kernels at the segment
+    ids of each microbatch of step 1 against their plain versions
+    (segment_kernel_case), timed on the one with the most boundaries inside
+    tiles; on that microbatch the CE kernels (packed_ce_case) and the
+    prologue kernels (packed_prologue_case) at the path's inputs against
+    their plain versions; step 1 again (step_parity): flash (segments)
+    against the exact op with segments dropped as the planted fault, the CE
+    kernel head against the dense head and the prologue kernels against the
+    composed prologue, each with its planted fault; one packed row against
+    its examples alone."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch import train
+    from llama_pipeline_parallel_tpu_torch.data.loader import RepeatingLoader
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "packed")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    jsonl, tok_dir = packed_corpus(root)
+    config = os.path.join(ROOT, "conf", "llama_7b_flan_packed.yaml")
+    data = [f"dataset.path={jsonl}", f"tokenizer_path={tok_dir}"]
+    cfg = load_config(config, PACKED_OVERRIDES + data + [f"output_dir={root}/run"])
+    log(f"[packed] {config} {' '.join(PACKED_OVERRIDES)} (max_seq_length "
+        f"{cfg['max_seq_length']}, packing_factor {cfg['packing_factor']}, "
+        f"loss_vocab_chunks {cfg['loss_vocab_chunks']}); {PACKED_ROWS} rows and a "
+        f"{PACKED_TOKENIZER_VOCAB}-piece tokenizer made in {time.perf_counter() - t0:.1f} s")
+    layers = cfg["model"]["num_hidden_layers"]
+    microbatches = cfg["gradient_accumulation_steps"] * cfg["max_steps"]
+    expected = {**{key: layers * microbatches for key in fa.launch_counts},
+                **{key: microbatches for key in fc.launch_counts},
+                **{key: layers * microbatches for key in fp.launch_counts}}
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fc.reset_launch_counts()
+    fp.reset_launch_counts()
+    summary = train.run_training(cfg, device="cuda")
+    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+    tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts}
+    segmented = dict(fa.segmented_counts)
+    peak = torch.cuda.max_memory_allocated()
+    losses = summary["losses"]
+    step_s = statistics.median(summary["step_times"][1:])
+    with open(os.path.join(root, "run", "metrics.jsonl")) as f:
+        line = [json.loads(x) for x in f][-1]
+    log(f"[packed] losses {losses}; metrics line at step {line['step']}: packing_dropped_total "
+        f"{line.get('packing_dropped_total')}, packing_drop_rate {line.get('packing_drop_rate')}")
+    log(f"[packed] kernel launches {launches} (expected {expected}), on the tensor cores "
+        f"{tensor_core}, flash calls with segment ids {segmented}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    mcfg = train.build_model_config(cfg["model"])
+    expected_loss = math.log(mcfg.vocab_size) + 0.02 ** 2 * mcfg.hidden_size / 2
+    if abs(losses[0] - expected_loss) > 0.1:
+        raise AssertionError(f"first loss {losses[0]} far from {expected_loss:.3f}, "
+                             f"the expectation at random init")
+    if launches != expected or tensor_core != expected:
+        raise AssertionError(f"launch counts {launches} and tensor-core calls {tensor_core}, "
+                             f"both expected {expected}")
+    if segmented != fa.launch_counts:
+        raise AssertionError(f"flash calls with segment ids {segmented}, launches "
+                             f"{fa.launch_counts}: the packed run must pass them on every call")
+    rate, dropped = line.get("packing_drop_rate"), line.get("packing_dropped_total")
+    if rate is None or dropped is None or not 0.0 <= rate <= 1.0 or not dropped > 0:
+        raise AssertionError(f"packing counters in the metrics line: dropped {dropped}, "
+                             f"rate {rate} (want a rate in [0, 1] and drops on this data)")
+    del summary
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run = train.build_run(load_config(config, PACKED_OVERRIDES + data
+                                      + [f"output_dir={root}/parity"]), "cuda")
+    stream = iter(RepeatingLoader(run.loader))
+    rows = [next(stream) for _ in losses]
+    row_tokens = rows[0]["input_ids"].size
+    real = [int((b["attention_mask"] != 0).sum()) for b in rows]
+    mb = cfg["per_device_train_batch_size"]
+    log(f"[packed] card {card_line()}: step {1e3 * step_s:.1f} ms (median of steps "
+        f"2-{len(losses)}), {row_tokens / step_s:.0f} tokens/s counting every row token, "
+        f"{statistics.mean(real) / step_s:.0f} counting non-pad tokens ({real} a step), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, drop rate {rate}")
+    auto = train._measure_attention(run.model_cfg, cfg["max_seq_length"], mb,
+                                    torch.device("cuda"), packed=True)
+    log(f"[packed] attention=auto at batch {mb} seq {cfg['max_seq_length']} with segment ids "
+        f"picks {'flash (with segment ids)' if auto is train.flash_attention else 'exact'} "
+        f"(its timings on stderr); this phase runs attention=flash")
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in rows[0].items()}
+    step_rows = [slice(i, i + mb) for i in range(0, batch["input_ids"].shape[0], mb)]
+    inside = [tile_boundaries(batch["attention_mask"][r]) for r in step_rows]
+    busiest = step_rows[inside.index(max(inside))]
+    for i, r in enumerate(step_rows):
+        log(f"[packed] flash kernels on step 1's microbatch {i + 1} segment ids [{mb}, "
+            f"{batch['attention_mask'].shape[1]}] vs the plain versions in fp32")
+        segment_kernel_case(batch["attention_mask"][r], timed=r == busiest)
+        gc.collect()
+        torch.cuda.empty_cache()
+    packed_ce_case(run, batch, busiest)
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed_prologue_case(run, batch, busiest)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if run.attn_fn is not train.flash_attention:
+        raise AssertionError(f"the packed run attends with {run.attn_fn}, not flash_attention "
+                             f"with segment ids")
+    step_parity(run, ("segments dropped", train._flash_without_mask), losses[0], "[packed]")
+    for p in run.state.params.values():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed_alone_parity(run, batch)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[packed] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1494,6 +1991,7 @@ def main() -> int:
     rows.update(phase_prologue())
     launches = phase_trainer()
     phase_checkpoint()
+    phase_packed()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

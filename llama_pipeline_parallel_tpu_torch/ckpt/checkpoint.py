@@ -24,7 +24,10 @@ verify them first and QUARANTINE a corrupt checkpoint to
 `checkpoint-N.corrupt` (latest_step() then falls back to the previous
 complete one). meta/tag writes are atomic (tmp + fsync + os.replace), and all
 storage I/O runs under the shared transient-retry policy (utils/retry.py,
-LPT_RETRY_* knobs). `LPT_CKPT_DIGESTS=0` skips the digests at commit,
+LPT_RETRY_* knobs). Each try of a file write or read fires the
+`storage_write` fault site, and the commit fires `ckpt_commit` before its
+digests and meta/tag writes (utils/faults.py, where the JAX package fires
+them). `LPT_CKPT_DIGESTS=0` skips the digests at commit,
 `LPT_CKPT_VERIFY=0` the verification at restore.
 """
 
@@ -46,7 +49,7 @@ from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.models.llama.model import param_shapes
-from llama_pipeline_parallel_tpu_torch.utils import retry
+from llama_pipeline_parallel_tpu_torch.utils import faults, retry
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -415,7 +418,10 @@ class CheckpointManager:
     def _commit(self, path: str, step: int, manifest: StageManifest,
                 cfg: LlamaConfig, **meta_extra) -> float:
         """Digest the files, then write meta.json (the completeness marker)
-        and the `latest` tag; returns the digest seconds."""
+        and the `latest` tag; returns the digest seconds. The `ckpt_commit`
+        fault site fires first: a `die` there kills the process after the
+        files are durable but before the completeness marker."""
+        faults.fire("ckpt_commit", tag=path, step=step)
         meta = {
             "step": step,
             "manifest": dataclasses.asdict(manifest),
@@ -499,6 +505,7 @@ class CheckpointManager:
         full = os.path.join(self.step_dir(step), filename)
 
         def read():
+            faults.fire("storage_write", tag=full)
             with tensor_io.TensorFile(full) as f:
                 fn(f)
 

@@ -27,7 +27,7 @@ from typing import BinaryIO
 
 import torch
 
-from llama_pipeline_parallel_tpu_torch.utils import retry
+from llama_pipeline_parallel_tpu_torch.utils import faults, retry
 
 DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
           "I64": torch.int64, "I32": torch.int32}
@@ -48,9 +48,11 @@ def _host_bytes(t: torch.Tensor) -> memoryview:
 def write_atomic(path: str, fill: Callable[[BinaryIO], None]) -> None:
     """Crash-safe write: `fill` writes a temporary file, which is fsynced and
     renamed over `path`, under the storage retry policy. Readers see the old
-    content or the new, never a torn file."""
+    content or the new, never a torn file. Each try fires the `storage_write`
+    fault site (utils/faults.py) with `path` as its tag."""
 
     def write() -> None:
+        faults.fire("storage_write", tag=path)
         tmp = f"{path}.tmp.{os.getpid()}"
         try:
             with open(tmp, "wb") as f:

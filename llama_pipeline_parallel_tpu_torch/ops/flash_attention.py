@@ -29,8 +29,8 @@ on the tensor cores (`fwd_tc_kernel`, `bwd_dq_tc_kernel`,
 `bwd_dkv_tc_kernel`: wgmma fed by TMA), fp32 on the SIMT kernels (wgmma on
 fp32 would be TF32). The tensor-core route refuses operands that are not
 16-byte aligned; it never falls back. `tensor_core_counts` counts the calls
-of each pass that took the tensor cores; `reset_launch_counts` zeroes both
-dicts.
+of each pass that took the tensor cores, `segmented_counts` those that
+carried segment ids; `reset_launch_counts` zeroes the three dicts.
 """
 
 from __future__ import annotations
@@ -50,10 +50,11 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"fwd": 0, "dq": 0, "dkv": 0}
 tensor_core_counts = {"fwd": 0, "dq": 0, "dkv": 0}
+segmented_counts = {"fwd": 0, "dq": 0, "dkv": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, tensor_core_counts):
+    for counts in (launch_counts, tensor_core_counts, segmented_counts):
         for key in counts:
             counts[key] = 0
 
@@ -280,6 +281,7 @@ def _fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset, segments_q,
     _check_launch(err, "forward")
     launch_counts["fwd"] += 1
     tensor_core_counts["fwd"] += int(tensor_cores)
+    segmented_counts["fwd"] += int(segments_q is not None)
     return out, lse
 
 
@@ -317,6 +319,7 @@ def _bwd_dq_cuda(q, k_full, v_full, delta, lse, do, *, causal, scale, q_offset,
     _check_launch(err, "dq")
     launch_counts["dq"] += 1
     tensor_core_counts["dq"] += int(tensor_cores)
+    segmented_counts["dq"] += int(segments_q is not None)
     return dq
 
 
@@ -341,6 +344,7 @@ def _bwd_dkv_cuda(q, k_full, v_full, delta, lse, do, *, causal, scale, q_offset,
     _check_launch(err, "dk/dv")
     launch_counts["dkv"] += 1
     tensor_core_counts["dkv"] += int(tensor_cores)
+    segmented_counts["dkv"] += int(segments_q is not None)
     return dk, dv
 
 

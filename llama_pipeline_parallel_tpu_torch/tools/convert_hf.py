@@ -3,19 +3,23 @@
     python -m llama_pipeline_parallel_tpu_torch.tools.convert_hf \
         --model_name_or_path <hf-dir> --output_dir <dir> [--no_expand_vocab]
 
-The counterpart of the JAX package's tools/convert_hf.py, without
-`transformers`: reads `config.json` and the weights -- `model.safetensors`
+The counterpart of the JAX package's tools/convert_hf.py. It reads
+`config.json` and the weights without `transformers` -- `model.safetensors`
 (or the shards `model.safetensors.index.json` names) through ckpt/tensor_io.py,
 else `pytorch_model.bin` (or the shards of `pytorch_model.bin.index.json`)
 through `torch.load(weights_only=True, mmap=True)` -- and writes
 `checkpoint-0` (fp32 params, the one-stage manifest, no optimizer state) with
-a `latest` tag, then copies `config.json` and the tokenizer files beside it.
-A run warm-starts from it with `model_name_or_path: <dir>`.
+a `latest` tag, then writes `config.json` and the tokenizer beside it. A run
+warm-starts from it with `model_name_or_path: <dir>`.
 
-Vocabulary expansion (the special tokens the JAX converter adds through the
-tokenizer) needs a tokenizer, which this package does not have yet: with
-tokenizer files present it refuses unless `--no_expand_vocab` is given; a
-weights-only directory converts as it is, as the JAX converter does.
+Vocabulary expansion, as the JAX converter does it: the directory's tokenizer
+is loaded through `transformers.AutoTokenizer` (imported only then) and given
+its missing special tokens (data/tokenization.py); when that adds tokens,
+`embed_tokens` and an untied `lm_head` are resized to the tokenizer's length
+(`resize_vocab`) and the tokenizer is saved beside the checkpoint. A
+directory without tokenizer files, or whose tokenizer does not load, skips
+the expansion with a warning; `--no_expand_vocab` skips it and copies the
+tokenizer files as they are.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
 from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import CheckpointManager
+from llama_pipeline_parallel_tpu_torch.data.tokenization import expand_special_tokenizer
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.hf import params_from_hf_state_dict
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
@@ -70,28 +75,72 @@ def hf_weights(directory: str) -> Mapping[str, torch.Tensor]:
     return sd
 
 
+def load_tokenizer(directory: str):
+    """`transformers.AutoTokenizer` of `directory`, or None (with a warning)
+    when none loads from its files."""
+    from transformers import AutoTokenizer
+
+    try:
+        return AutoTokenizer.from_pretrained(directory)
+    except Exception as e:  # files of another kind, or unreadable ones
+        print(f"warning: no loadable tokenizer at {directory} ({e!r}); skipping vocab "
+              f"expansion", file=sys.stderr)
+        return None
+
+
+def resize_vocab(sd: Mapping[str, torch.Tensor], new_num_tokens: int,
+                 tie_word_embeddings: bool) -> dict[str, torch.Tensor]:
+    """The HF state dict with `embed_tokens` (and an untied `lm_head`) cut or
+    grown to `new_num_tokens` rows, in fp32: the rows kept as they are, each
+    added row the mean of the old rows. transformers' resize_token_embeddings
+    (what the JAX converter calls) draws each added row from a normal around
+    that mean with 1e-9 of the rows' covariance, a spread of ~3e-5 of a
+    column's standard deviation; here the mean itself, so the result is
+    deterministic."""
+    out = dict(sd)
+    names = ["model.embed_tokens.weight"] + ([] if tie_word_embeddings else ["lm_head.weight"])
+    for name in names:
+        old = sd[name].float()
+        keep = min(old.shape[0], new_num_tokens)
+        added = new_num_tokens - keep
+        out[name] = torch.cat([old[:keep], old.mean(dim=0).expand(added, -1)])
+    return out
+
+
 def convert(model_name_or_path: str, output_dir: str, expand_vocab: bool = True) -> str:
     """Convert; returns the checkpoint's path."""
     with open(os.path.join(model_name_or_path, "config.json")) as f:
         hf_config = json.load(f)
-    tokenizer = tokenizer_files(model_name_or_path)
-    if tokenizer and expand_vocab:
-        raise NotImplementedError(
-            f"{model_name_or_path} holds tokenizer files {tokenizer}: expanding the "
-            f"vocabulary for the special tokens needs a tokenizer, which this package does "
-            f"not have yet; pass --no_expand_vocab (expand_vocab=False) to convert the "
-            f"weights as they are")
-    if not tokenizer:
+    files = tokenizer_files(model_name_or_path)
+    if not files:
         print(f"warning: no tokenizer files at {model_name_or_path}; skipping vocab "
               f"expansion and tokenizer export", file=sys.stderr)
+    tokenizer = load_tokenizer(model_name_or_path) if files and expand_vocab else None
+    sd = hf_weights(model_name_or_path)
+    resized = tokenizer is not None and expand_special_tokenizer(tokenizer) > 0
+    if resized:
+        cfg = LlamaConfig.from_hf_config(hf_config)
+        sd = resize_vocab(sd, len(tokenizer), cfg.tie_word_embeddings)
+        print(f"resized the vocabulary {hf_config['vocab_size']} -> {len(tokenizer)} for "
+              f"the added special tokens", file=sys.stderr)
+        hf_config["vocab_size"] = len(tokenizer)
     cfg = LlamaConfig.from_hf_config(hf_config)
-    params = params_from_hf_state_dict(hf_weights(model_name_or_path), cfg)
+    params = params_from_hf_state_dict(sd, cfg)
     # the canonical layout is pipeline-agnostic: save through the one-stage manifest
     manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=1)
     path = CheckpointManager(output_dir).save(step=0, params=params, manifest=manifest,
                                               cfg=cfg)
-    for name in tokenizer + ["config.json"]:
-        shutil.copy2(os.path.join(model_name_or_path, name), os.path.join(output_dir, name))
+    if tokenizer is not None:
+        tokenizer.save_pretrained(output_dir)
+    else:
+        for name in files:
+            shutil.copy2(os.path.join(model_name_or_path, name), os.path.join(output_dir, name))
+    if resized:
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump(hf_config, f, indent=2)
+    else:
+        shutil.copy2(os.path.join(model_name_or_path, "config.json"),
+                     os.path.join(output_dir, "config.json"))
     print(f"wrote module-only checkpoint to {path}")
     return path
 

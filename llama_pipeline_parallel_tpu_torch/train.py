@@ -1,24 +1,31 @@
 """The trainer: config -> model -> data -> step loop, on one device.
 
 The counterpart of llama_pipeline_parallel_tpu/train.py for a single device
-(pp = dp = tp = sp = 1): the same config keys, the same synthetic data for
-the same seed, the same schedule-total rules and the same metrics line keys
-where they apply. Checkpoints keep the JAX trainer's contract
+(pp = dp = tp = sp = 1): the same config keys, the same data for the same
+seed, the same schedule-total rules and the same metrics line keys where they
+apply. Data is the synthetic dataset or a tokenizer-backed one (`dataset:
+{_target_: ...}` with `tokenizer_path`), packed `packing_factor` examples to
+a row when asked, through the loader's retry, quarantine
+(`data.quarantine_bad_shards`), sample ledger (`data.log_sample_ids`) and
+prefetch thread (`prefetch_depth`). Checkpoints keep the JAX trainer's contract
 (ckpt/checkpoint.py): `save_steps`, `save_final`, `async_save`,
 `save_total_limit` and `save_sync_command` save; `resume` (true by default)
 restores the full state from `output_dir`'s newest complete checkpoint, with
 the data stream reopened at its O(1) position, falling back past a corrupt
 one; otherwise `model_name_or_path` warm-starts the weights from a converted
-checkpoint (tools/convert_hf.py). Evaluation, the observatories, fault
-injection and preemption handling are not ported yet; a config that asks for
-a layout or feature this trainer does not have is refused, naming its key,
-and keys that mean nothing on one device (the pipeline schedule) are logged
-once.
+checkpoint (tools/convert_hf.py). A fault plan (`fault_plan`, or
+LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `data_read`,
+`storage_write` and `ckpt_commit`. Evaluation, the observatories, the other
+fault sites and preemption handling are not ported yet; a config that asks
+for a layout or feature this trainer does not have is refused, naming its
+key, and keys that mean nothing on one device (the pipeline schedule) are
+logged once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Iterator
 
@@ -30,9 +37,18 @@ from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import (
     CheckpointManager,
     config_from_meta,
 )
-from llama_pipeline_parallel_tpu_torch.data.collator import PretokenizedCollator
+from llama_pipeline_parallel_tpu_torch.data.collator import (
+    CausalLMCollator,
+    PackedCausalLMCollator,
+    PretokenizedCollator,
+)
 from llama_pipeline_parallel_tpu_torch.data.datasets import SyntheticDataset
-from llama_pipeline_parallel_tpu_torch.data.loader import DataLoader, RepeatingLoader
+from llama_pipeline_parallel_tpu_torch.data.loader import (
+    DataLoader,
+    PrefetchIterator,
+    RepeatingLoader,
+)
+from llama_pipeline_parallel_tpu_torch.data.tokenization import expand_special_tokenizer
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.models.llama.model import (
@@ -50,6 +66,7 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     TrainState,
     train_step,
 )
+from llama_pipeline_parallel_tpu_torch.utils import faults
 from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 from llama_pipeline_parallel_tpu_torch.utils.metrics import (
@@ -73,8 +90,10 @@ _PRESETS = {
 }
 
 # config keys that name features of the JAX trainer this one does not have yet
-_NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "eval_dataset", "fault_plan",
-               "profile_steps")
+_NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "eval_dataset", "profile_steps")
+# the fault sites this trainer fires (utils/faults.py); a plan with a rule at
+# any other site is refused
+FAULT_SITES = ("data_read", "storage_write", "ckpt_commit")
 # keys of the JAX trainer whose value, other than the default given here,
 # asks for something this trainer does not do
 _NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": 1, "eval_steps": 0}
@@ -104,22 +123,53 @@ def build_model_config(node: dict) -> LlamaConfig:
     return LlamaConfig(**node)
 
 
-def build_dataset_and_collator(cfg: dict, model_cfg: LlamaConfig) -> tuple[Any, Any]:
+def _packing_factor(cfg: dict) -> int:
+    """The one place `packing_factor` is parsed (collator and loader)."""
+    return int(cfg.get("packing_factor", 1) or 1)
+
+
+def build_dataset_and_collator(cfg: dict, model_cfg: LlamaConfig,
+                               tokenizer: Any = None) -> tuple[Any, Any]:
+    """The synthetic dataset with its pass-through collator, or
+    `instantiate(dataset)` with the collator `_target_` or, by default, a
+    tokenizer's causal-LM collator (packed with `packing_factor` > 1). The
+    tokenizer is `AutoTokenizer.from_pretrained(tokenizer_path)` unless the
+    caller hands one in as `tokenizer`; either goes through
+    expand_special_tokenizer and must fit the model's vocabulary."""
+    packing = _packing_factor(cfg)
     data_cfg = cfg.get("dataset")
-    if data_cfg is not None and not data_cfg.get("synthetic"):
-        raise NotImplementedError(
-            "only the synthetic dataset is ported; tokenizer-backed datasets "
-            "and their collators come with a later slice")
-    if int(cfg.get("packing_factor", 1) or 1) > 1:
-        raise ValueError("packing_factor requires a tokenizer-backed dataset (the "
-                         "synthetic dataset emits fixed full-length rows)")
-    seq = (data_cfg or {}).get("seq_length", cfg.get("max_seq_length", 512))
-    ds = SyntheticDataset(
-        vocab_size=model_cfg.vocab_size, seq_length=seq,
-        pseudo_dataset_len=(data_cfg or {}).get("pseudo_dataset_len", 4096),
-        seed=cfg.get("seed", 42),
-        pad_fraction=(data_cfg or {}).get("pad_fraction", 0.0))
-    return ds, PretokenizedCollator()
+    if data_cfg is None or data_cfg.get("synthetic"):
+        if packing > 1:
+            raise ValueError("packing_factor requires a tokenizer-backed dataset (the "
+                             "synthetic dataset emits fixed full-length rows)")
+        seq = (data_cfg or {}).get("seq_length", cfg.get("max_seq_length", 512))
+        ds = SyntheticDataset(
+            vocab_size=model_cfg.vocab_size, seq_length=seq,
+            pseudo_dataset_len=(data_cfg or {}).get("pseudo_dataset_len", 4096),
+            seed=cfg.get("seed", 42),
+            pad_fraction=(data_cfg or {}).get("pad_fraction", 0.0))
+        return ds, PretokenizedCollator()
+    ds = instantiate(data_cfg)
+    coll_cfg = cfg.get("collator")
+    if coll_cfg is not None and "_target_" in coll_cfg:
+        if packing > 1:
+            raise ValueError("packing_factor cannot be combined with a custom collator "
+                             "_target_; construct PackedCausalLMCollator there directly")
+        return ds, instantiate(coll_cfg)
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(cfg["tokenizer_path"])
+    expand_special_tokenizer(tokenizer)
+    if len(tokenizer) > model_cfg.vocab_size:
+        raise ValueError(
+            f"tokenizer has {len(tokenizer)} tokens but model vocab_size is "
+            f"{model_cfg.vocab_size}; re-convert the checkpoint with vocab expansion "
+            f"(tools/convert_hf.py resizes the embeddings)")
+    max_len = cfg.get("max_seq_length", 512)
+    if packing > 1:
+        return ds, PackedCausalLMCollator(tokenizer, max_len, pack_factor=packing)
+    return ds, CausalLMCollator(tokenizer, max_len)
 
 
 def _flash_without_mask(q, k, v, padding_mask=None, *, causal=True):
@@ -128,10 +178,21 @@ def _flash_without_mask(q, k, v, padding_mask=None, *, causal=True):
     return flash_attention(q, k, v, None, causal=causal)
 
 
+def _measure_segments(batch: int, seq_len: int, device: torch.device) -> torch.Tensor:
+    """Representative packed-row segment ids for the auto measurement: four
+    equal segments over ~4/5 of the row, then a pad tail."""
+    seg = torch.zeros((batch, seq_len), dtype=torch.int32)
+    fifth = max(seq_len // 5, 1)
+    for i in range(4):
+        seg[:, i * fifth:(i + 1) * fifth] = i + 1
+    return seg.to(device)
+
+
 def _measure_attention(model_cfg: LlamaConfig, seq_len: int, micro_batch: int,
-                       device: torch.device) -> Any:
+                       device: torch.device, packed: bool = False) -> Any:
     """Time exact vs flash (fwd+bwd, bf16, device-synchronised) at the run's
-    (microbatch, seq) shape on the card and return the faster."""
+    (microbatch, seq) shape on the card, with segment ids when the run packs,
+    and return the faster."""
     rng = np.random.RandomState(0)
     h, hkv, hd = model_cfg.num_attention_heads, model_cfg.kv_heads, model_cfg.head_dim
     b = max(int(micro_batch), 1)
@@ -141,10 +202,11 @@ def _measure_attention(model_cfg: LlamaConfig, seq_len: int, micro_batch: int,
             device=device, dtype=torch.bfloat16).requires_grad_()
 
     q, k, v = rand(h), rand(hkv), rand(hkv)
+    mask = _measure_segments(b, seq_len, device) if packed else None
 
     def time_one(fn):
         def run():
-            out = fn(q, k, v, None, causal=True)
+            out = fn(q, k, v, mask, causal=True)
             out.float().square().sum().backward()
         run()  # warm-up (and the kernels' build on first use)
         torch.cuda.synchronize(device)
@@ -155,22 +217,28 @@ def _measure_attention(model_cfg: LlamaConfig, seq_len: int, micro_batch: int,
         return (time.perf_counter() - t0) / 3
 
     t_exact, t_flash = time_one(attention), time_one(flash_attention)
-    logger.info("attention=auto @ batch %d seq %d: exact %.2fms, flash %.2fms",
-                b, seq_len, 1e3 * t_exact, 1e3 * t_flash)
-    return _flash_without_mask if t_flash < t_exact else attention
+    flash = flash_attention if packed else _flash_without_mask
+    winner = flash if t_flash < t_exact else attention
+    logger.info("attention=auto @ batch %d seq %d packed=%s: exact %.2fms, flash %.2fms -> %s",
+                b, seq_len, packed, 1e3 * t_exact, 1e3 * t_flash,
+                "exact" if winner is attention else "flash")
+    return winner
 
 
 def select_attention(impl: str, seq_length: int, device: torch.device,
-                     model_cfg: LlamaConfig | None = None, micro_batch: int = 1) -> Any:
+                     model_cfg: LlamaConfig | None = None, micro_batch: int = 1,
+                     packed: bool = False) -> Any:
     """'exact' | 'flash' | 'auto'. `auto` (needs `model_cfg`) measures both
-    paths on the card at the run's (microbatch, seq) shape and keeps the
-    faster; off the card it takes the exact path (the flash kernels' plain
-    version is slower there). Flash runs drop the segment-id stream
-    (`_flash_without_mask`): batches are unpacked and right-padded."""
+    paths on the card at the run's (microbatch, seq) shape, with segment ids
+    when `packed`, and keeps the faster; off the card it takes the exact path
+    (the flash kernels' plain version is slower there). Flash takes the
+    batch's segment ids when the run packs; otherwise it drops them
+    (`_flash_without_mask`): unpacked batches are right-padded."""
+    flash = flash_attention if packed else _flash_without_mask
     if impl == "exact":
         return attention
     if impl == "flash":
-        return _flash_without_mask
+        return flash
     if impl == "auto":
         if device.type != "cuda":
             return attention
@@ -180,7 +248,7 @@ def select_attention(impl: str, seq_length: int, device: torch.device,
             logger.warning("attention=auto: head_dim %d has no flash kernel; using "
                            "the exact path", model_cfg.head_dim)
             return attention
-        return _measure_attention(model_cfg, seq_length, micro_batch, device)
+        return _measure_attention(model_cfg, seq_length, micro_batch, device, packed)
     raise ValueError(f"unknown attention impl {impl!r} (use exact|flash|auto)")
 
 
@@ -263,6 +331,23 @@ def _check_supported(cfg: dict) -> None:
                        "microbatches in order)", moot)
 
 
+def _configure_faults(cfg: dict) -> None:
+    """Install the run's fault plan: LPT_FAULT_PLAN when set (it wins over
+    the config, as in the JAX trainer), else `fault_plan`, else none. A plan
+    with a rule at a site this trainer does not fire is refused by name."""
+    if os.environ.get(faults.ENV_PLAN):
+        source, injector = f"${faults.ENV_PLAN}", faults.configure_from_env()
+    else:
+        source, injector = "fault_plan", faults.configure(cfg.get("fault_plan"))
+    sites = {rule["site"] for rule in injector.stats()} if injector is not None else set()
+    other = sorted(sites - set(FAULT_SITES))
+    if other:
+        faults.configure(None)
+        raise NotImplementedError(
+            f"not ported yet: {source} has rules at site(s) {other}; this trainer fires "
+            f"{list(FAULT_SITES)}")
+
+
 def _block_asks(node: Any) -> bool:
     """Whether a config block asks for its feature: any value set, unless
     it says `enabled: false`."""
@@ -297,8 +382,24 @@ class Run:
     data_start: tuple[int, int] = (0, 0)
 
     def batches(self) -> Iterator[dict[str, torch.Tensor]]:
-        for batch in RepeatingLoader(self.loader, *self.data_start):
+        """The data stream from `data_start` on, collated `prefetch_depth`
+        batches ahead on a background thread."""
+        stream = PrefetchIterator(RepeatingLoader(self.loader, *self.data_start),
+                                  depth=self.cfg.get("prefetch_depth", 2))
+        for batch in stream:
             yield {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+
+    def host_scalars(self) -> dict:
+        """The host-side counters of the metrics line: the packed collator's
+        drops and, when the quarantine is armed, the records it skipped."""
+        out = {}
+        collator = self.loader.collate_fn
+        if isinstance(collator, PackedCausalLMCollator):
+            out["packing_dropped_total"] = collator.dropped_total
+            out["packing_drop_rate"] = round(collator.drop_rate(), 4)
+        if self.loader.quarantine_bad_records:
+            out["data_quarantined_records"] = self.loader.quarantine_count
+        return out
 
     def step(self, batch: dict[str, torch.Tensor]) -> dict:
         return train_step(self.state, batch, self.model_cfg,
@@ -324,16 +425,19 @@ class Run:
                                                   cfg.get("seed", 42), batch_delta)})
 
 
-def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
+def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = None) -> Run:
     """Model, optimizer, data and attention for `cfg` on `device` (the card
     unless the caller asks for the CPU), restored from `output_dir`'s newest
     complete checkpoint under `resume` (true by default), else warm-started
-    from `model_name_or_path` when given."""
+    from `model_name_or_path` when given. `tokenizer` replaces the load of
+    `tokenizer_path` (build_dataset_and_collator). Installs the run's fault
+    plan (or none) for the process."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch.cuda.is_available() is false; pass "
                            "device='cpu' (--device cpu) to run on the CPU")
     _check_supported(cfg)
+    _configure_faults(cfg)
     remat = _remat(cfg)
     seed = cfg.get("seed", 42)
     model_cfg = build_model_config(cfg["model"])
@@ -343,15 +447,25 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
         logger.info("hand-written kernels enabled (ce=%s prologue=%s): %s", head.kernel_ce,
                     kernel_prologue, "CUDA" if device.type == "cuda"
                     else "their plain PyTorch versions on the CPU")
-    dataset, collator = build_dataset_and_collator(cfg, model_cfg)
+    dataset, collator = build_dataset_and_collator(cfg, model_cfg, tokenizer)
     micro_batch = cfg.get("per_device_train_batch_size", 1)
     num_microbatches = cfg.get("gradient_accumulation_steps", 1)
-    loader = DataLoader(dataset, collator, per_replica_batch=micro_batch * num_microbatches,
-                        seed=seed)
+    packing = _packing_factor(cfg)
+    data_node = cfg.get("data") or {}
+    ledger = None
+    if data_node.get("log_sample_ids"):
+        os.makedirs(cfg["output_dir"], exist_ok=True)
+        ledger = os.path.join(cfg["output_dir"], "samples.jsonl")
+    # with packing the loader feeds packing_factor examples per emitted row,
+    # and the data position (data_state) counts examples
+    loader = DataLoader(dataset, collator,
+                        per_replica_batch=micro_batch * num_microbatches * packing, seed=seed,
+                        quarantine_bad_records=bool(data_node.get("quarantine_bad_shards", False)),
+                        sample_ledger=ledger)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"dataset of {len(dataset)} examples yields 0 steps at "
-                         f"batch {micro_batch * num_microbatches}")
+                         f"batch {loader.per_replica_batch}")
 
     # `total_steps` (schedule horizon) is separate from `max_steps` (loop end)
     # so an interrupted-then-resumed run sees the uninterrupted run's LR curve
@@ -393,7 +507,8 @@ def build_run(cfg: dict, device: str | torch.device = "cuda") -> Run:
     seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
     return Run(cfg=cfg, device=device, model_cfg=model_cfg, loader=loader, state=state,
                attn_fn=select_attention(cfg.get("attention", "auto"), seq_length, device,
-                                        model_cfg=model_cfg, micro_batch=micro_batch),
+                                        model_cfg=model_cfg, micro_batch=micro_batch,
+                                        packed=packing > 1),
                num_microbatches=num_microbatches,
                remat=remat, head=head,
                kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
@@ -581,10 +696,14 @@ def _sync_checkpoint(cfg: dict, path: str) -> None:
         logger.warning("save_sync_command error: %r", e)
 
 
-def run_training(cfg: dict, device: str | torch.device = "cuda") -> dict:
+def run_training(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = None) -> dict:
     """The training run; returns a summary dict for programmatic callers.
-    Runs on `device` (the card unless the caller asks for the CPU)."""
-    return train_run(build_run(cfg, device))
+    Runs on `device` (the card unless the caller asks for the CPU);
+    `tokenizer` as in build_run. The run's fault plan is cleared at the end."""
+    try:
+        return train_run(build_run(cfg, device, tokenizer))
+    finally:
+        faults.configure(None)
 
 
 def train_run(run: Run) -> dict:
@@ -628,6 +747,7 @@ def train_run(run: Run) -> dict:
                            "device_peak_bytes": peak_bytes()}
                 if peak:
                     scalars["mfu"] = flops_per_token * tps / peak
+                scalars.update(run.host_scalars())
                 writer.log(step + 1, scalars)
                 window.clear()
             if save_steps and (step + 1) % save_steps == 0:
@@ -645,6 +765,7 @@ def train_run(run: Run) -> dict:
                              "unwinding a training error")
         raise
     finally:
+        run.loader.close_ledger()
         writer.close()
     run.ckpt.finalize()  # surface any async-commit failure on the clean path
     return {"final_step": run.end_step, "start_step": run.start_step,

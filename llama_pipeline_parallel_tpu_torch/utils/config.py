@@ -5,7 +5,10 @@ A copy of llama_pipeline_parallel_tpu/utils/config.py (the port keeps its own):
 - `load_config(path, overrides)` -> plain dict, with `${key.path}` strings
   resolved against the root and `key.path=value` overrides applied first.
 - `instantiate(node, **extra)` -> import the dotted `_target_` and call it
-  with the node's other keys (children instantiated recursively).
+  with the node's other keys (children instantiated recursively). The
+  shipped configs name the JAX package's classes; a target under
+  `llama_pipeline_parallel_tpu.` resolves to the module of the same name in
+  this package, which keeps the JAX package's module names.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Any
 
 import yaml
 
+_JAX_PACKAGE = "llama_pipeline_parallel_tpu"
+_PACKAGE = "llama_pipeline_parallel_tpu_torch"
 _INTERP_RE = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 # YAML 1.1 leaves exponent-form numbers without a dot ("1e-2") as strings.
 _SCI_FLOAT_RE = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)[eE][+-]?\d+")
@@ -109,6 +114,8 @@ def resolve_target(dotted: str) -> Any:
     if "." not in dotted:
         raise ValueError(f"_target_ {dotted!r} must be a dotted path")
     parts = dotted.split(".")
+    if parts[0] == _JAX_PACKAGE:
+        parts[0] = _PACKAGE
     last_err: Exception | None = None
     for split in range(len(parts) - 1, 0, -1):
         mod_name = ".".join(parts[:split])

@@ -297,21 +297,116 @@ def test_other_hf_layouts_convert_to_the_same_params(tmp_path, layout):
 
 
 def test_convert_hf_refuses_vocab_expansion_and_carries_the_tokenizer(tmp_path):
-    """With tokenizer files, the converter refuses to skip the vocabulary
-    expansion it cannot do, unless told to; then it copies them, and
-    export_hf carries them on."""
-    _port_checkpoint(tmp_path / "port")
+    """Told not to expand the vocabulary (--no_expand_vocab), the converter
+    copies the tokenizer files unread and leaves the params as they are;
+    export_hf carries the files on. Needs no transformers."""
+    _, params = _port_checkpoint(tmp_path / "port")
     export_hf.export(str(tmp_path / "port"), str(tmp_path / "hf"))
     (tmp_path / "hf" / "tokenizer.json").write_text("{}")
     (tmp_path / "hf" / "special_tokens_map.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="no_expand_vocab"):
-        convert_hf.convert(str(tmp_path / "hf"), str(tmp_path / "out"))
     convert_hf.convert(str(tmp_path / "hf"), str(tmp_path / "out"), expand_vocab=False)
+    _assert_params_equal(t_ckpt.load_module_checkpoint(str(tmp_path / "out"),
+                                                       device="cpu")[0], params)
     assert {"tokenizer.json", "special_tokens_map.json", "config.json"} <= \
         set(os.listdir(tmp_path / "out"))
     export_hf.export(str(tmp_path / "out"), str(tmp_path / "hf2"))
     assert {"tokenizer.json", "special_tokens_map.json", "config.json",
             "model.safetensors"} == set(os.listdir(tmp_path / "hf2"))
+
+
+def test_convert_hf_skips_the_expansion_without_a_loadable_tokenizer(tmp_path, capsys):
+    """With tokenizer files that load as no tokenizer, the converter skips
+    the vocabulary expansion with a warning (as the JAX converter does),
+    leaves the params as they are and copies the files."""
+    pytest.importorskip("transformers")
+    _, params = _port_checkpoint(tmp_path / "port")
+    export_hf.export(str(tmp_path / "port"), str(tmp_path / "hf"))
+    (tmp_path / "hf" / "tokenizer.json").write_text("{}")
+    (tmp_path / "hf" / "special_tokens_map.json").write_text("{}")
+    convert_hf.convert(str(tmp_path / "hf"), str(tmp_path / "skipped"))
+    assert "no loadable tokenizer" in capsys.readouterr().err
+    _assert_params_equal(t_ckpt.load_module_checkpoint(str(tmp_path / "skipped"),
+                                                       device="cpu")[0], params)
+    assert {"tokenizer.json", "special_tokens_map.json", "config.json"} <= \
+        set(os.listdir(tmp_path / "skipped"))
+
+
+def _trained_tokenizer(directory) -> int:
+    """A SentencePiece-Unigram tokenizer without a pad token, trained here and
+    saved to `directory`; returns its length."""
+    from tokenizers import SentencePieceUnigramTokenizer
+    from transformers import PreTrainedTokenizerFast
+
+    spm = SentencePieceUnigramTokenizer()
+    spm.train_from_iterator(["the quick brown fox jumps over the lazy dog",
+                             "pipeline parallelism cuts a model into stages",
+                             "what is the capital of france paris is the capital"] * 8,
+                            vocab_size=90, unk_token="<unk>",
+                            special_tokens=["<unk>", "<s>", "</s>"])
+    tok = PreTrainedTokenizerFast(tokenizer_object=spm._tokenizer, bos_token="<s>",
+                                  eos_token="</s>", unk_token="<unk>")
+    tok.save_pretrained(str(directory))
+    return len(tok)
+
+
+# transformers' resize_token_embeddings, which the JAX converter calls, draws
+# each added row from a normal around the old rows' mean with 1e-9 of their
+# covariance; the port writes the mean. An added element may differ by up to
+# 8 standard deviations of that draw: 8 * sqrt(1e-9) * the column's std
+ADDED_ROW_SIGMAS = 8.0
+
+
+@pytest.mark.parametrize("env,added", [({}, 0), ({"EOS_TOKEN": "<eos_new>"}, 1),
+                                       ({"EOS_TOKEN": "<eos_new>", "PAD_TOKEN": "<pad_new>"}, 2)],
+                         ids=["no-pad", "eos-override", "eos-and-pad"])
+def test_convert_hf_expands_the_vocabulary_as_the_reference(ref, tmp_path, offline, monkeypatch,
+                                                            env, added):
+    """An HF directory with a trained tokenizer that has no pad token
+    converts to the params the root tools/convert_hf.py gives: every tensor
+    but the embeddings bit for bit, the embeddings' and lm_head's old rows bit
+    for bit, as many added rows as tokens added, within the added rows'
+    spread (ADDED_ROW_SIGMAS); the saved tokenizers have the same vocabulary
+    and specials, and config.json the new vocab_size."""
+    from transformers import AutoTokenizer
+
+    for key in ("BOS_TOKEN", "EOS_TOKEN", "UNK_TOKEN", "PAD_TOKEN"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    n_tok = _trained_tokenizer(tmp_path / "hf")
+    cfg = TConfig.tiny(vocab_size=n_tok)
+    params = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    t_ckpt.CheckpointManager(str(tmp_path / "port")).save(
+        0, params, TManifest(num_layers=cfg.num_hidden_layers, num_stages=1), cfg)
+    export_hf.export(str(tmp_path / "port"), str(tmp_path / "hf"))
+    convert_hf.convert(str(tmp_path / "hf"), str(tmp_path / "got"))
+    importlib.import_module("tools.convert_hf").convert(str(tmp_path / "hf"),
+                                                        str(tmp_path / "want"))
+    got, got_cfg, _, _ = t_ckpt.load_module_checkpoint(str(tmp_path / "got"), device="cpu")
+    tree, rcfg, _, _ = ref.ckpt.load_module_checkpoint(str(tmp_path / "want"))
+    want = convert.params_from_jax(jax.device_get(tree))
+    assert got_cfg.vocab_size == rcfg.vocab_size == n_tok + added
+    assert json.load(open(tmp_path / "got" / "config.json"))["vocab_size"] == n_tok + added
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if k in ("embed.embedding", "lm_head"):
+            rows = 0 if k == "embed.embedding" else 1  # lm_head is [d, V]
+            old = v.narrow(rows, 0, n_tok)
+            assert torch.equal(got[k].narrow(rows, 0, n_tok), old), k
+            assert torch.equal(old, params[k]), k
+            spread = ADDED_ROW_SIGMAS * 1e-9 ** 0.5 * params[k].std(dim=rows).max()
+            new = got[k].narrow(rows, n_tok, added)
+            torch.testing.assert_close(new, v.narrow(rows, n_tok, added), rtol=0,
+                                       atol=spread.item(), msg=k)
+            mean = params[k].mean(dim=rows, keepdim=True).expand_as(new)
+            torch.testing.assert_close(new, mean, rtol=0, atol=1e-8, msg=k)  # summation order
+        else:
+            assert torch.equal(got[k], v), k
+    got_tok = AutoTokenizer.from_pretrained(str(tmp_path / "got"))
+    want_tok = AutoTokenizer.from_pretrained(str(tmp_path / "want"))
+    assert got_tok.get_vocab() == want_tok.get_vocab() and len(got_tok) == n_tok + added
+    for attr in ("bos_token", "eos_token", "unk_token", "pad_token"):
+        assert getattr(got_tok, attr) == getattr(want_tok, attr), attr
 
 
 def test_warm_start_refusals(tmp_path):

@@ -479,7 +479,8 @@ _REFUSED_KEYS = [
     ("profiler={at_step: [3]}", NotImplementedError, "profiler"),
     ("memory={enabled: true}", NotImplementedError, "memory"),
     ("eval_dataset={synthetic: true}", NotImplementedError, "eval_dataset"),
-    ("fault_plan={faults: []}", NotImplementedError, "fault_plan"),
+    ("fault_plan={faults: [{site: step, op: die, at_step: 3}]}", NotImplementedError,
+     "fault_plan has rules at site.*'step'"),
 ]
 
 
@@ -580,10 +581,27 @@ _ONE_CARD_REFUSALS = {
     "llama_65b_pp8_v2_tp2_dp2.yaml": "optimizer_offload",
     "llama_65b_pp8_zb1_offload_tp2_dp2.yaml": "'offload'",
     "llama_65b_pp8_zb1_tp2_dp2.yaml": "optimizer_offload",
-    "llama_7b_flan_packed.yaml": "packing_factor",
+    "llama_7b_flan_packed.yaml": None,
     "llama_7b_pp4.yaml": None,
     "tiny_smoke.yaml": None,
 }
+
+
+def _tokenizer_and_jsonl(root) -> tuple[str, str]:
+    """A SentencePiece-Unigram tokenizer trained here (saved under tok/) and a
+    JSONL of {"inputs", "targets"} rows."""
+    from tokenizers import SentencePieceUnigramTokenizer
+    from transformers import PreTrainedTokenizerFast
+
+    rows = [{"inputs": f"what is item {i}", "targets": f"item {i} is thing {i}"}
+            for i in range(32)]
+    spm = SentencePieceUnigramTokenizer()
+    spm.train_from_iterator([f"{r['inputs']} {r['targets']}" for r in rows], vocab_size=60,
+                            unk_token="<unk>", special_tokens=["<unk>", "<s>", "</s>"])
+    PreTrainedTokenizerFast(tokenizer_object=spm._tokenizer, bos_token="<s>", eos_token="</s>",
+                            unk_token="<unk>").save_pretrained(str(root / "tok"))
+    (root / "train.jsonl").write_text("\n".join(json.dumps(r) for r in rows))
+    return str(root / "tok"), str(root / "train.jsonl")
 
 
 @pytest.mark.parametrize("name", sorted(f for f in os.listdir(os.path.join(REPO, "conf"))
@@ -591,10 +609,16 @@ _ONE_CARD_REFUSALS = {
 def test_shipped_configs_build_on_one_card_or_name_the_refused_key(tmp_path, name):
     """Every shipped config, with the mesh cut to one device (and the model,
     data and batch cut to the tiny preset's size), builds or is refused with
-    a message that names the key it cannot honour."""
-    cfg = t_config.load_config(os.path.join(REPO, "conf", name), [
-        "mesh.pp=1", "mesh.dp=1", "mesh.tp=1", "mesh.sp=1", "model={preset: tiny}",
-        "dataset={synthetic: true, seq_length: 32, pseudo_dataset_len: 8}",
+    a message that names the key it cannot honour. A tokenizer-backed config
+    keeps its dataset and packing, on a JSONL and a tokenizer the test writes."""
+    path = os.path.join(REPO, "conf", name)
+    if "_target_" in (t_config.load_config(path).get("dataset") or {}):
+        tok, jsonl = _tokenizer_and_jsonl(tmp_path)
+        data = [f"dataset.path={jsonl}", f"tokenizer_path={tok}", "max_seq_length=32"]
+    else:
+        data = ["dataset={synthetic: true, seq_length: 32, pseudo_dataset_len: 8}"]
+    cfg = t_config.load_config(path, [
+        "mesh.pp=1", "mesh.dp=1", "mesh.tp=1", "mesh.sp=1", "model={preset: tiny}", *data,
         "per_device_train_batch_size=1", "gradient_accumulation_steps=2",
         f"output_dir={tmp_path}"])
     key = _ONE_CARD_REFUSALS[name]
