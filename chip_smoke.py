@@ -126,7 +126,35 @@ which raises on failure:
               kernels against each of its examples run alone. Prints the
               step time,
               tokens/s (row tokens and non-pad tokens), peak memory, the
-              drop rate and what attention=auto picks at this shape.
+              drop rate and what attention=auto picks at this shape. The run
+              also evaluates a held-out JSONL (PACKED_EVAL_SEED) every 2
+              steps: each eval's launches exactly (forward only, segment ids
+              on every flash call), `real_tokens_per_sec` and `eval_loss` on
+              the metrics lines, and the eval against the plain path
+              (eval_parity, segments dropped as the planted fault).
+8. eval    -- the trainer's slice (TRAIN_OVERRIDES + EVAL_OVERRIDES) with a
+              held-out synthetic set at seq 2048 evaluated at steps 2 and 4,
+              the state saved at step 4: each eval's launches exactly (the
+              flash, prologue and CE forwards, no backward kernel, all on the
+              tensor cores), parameters and optimizer moments bit-equal
+              across an eval, the losses those of the trainer phase within
+              RUN_REPEAT_TOL, checkpoint-4's meta.json carrying the last
+              eval_loss and eval_step 4, the eval's (loss sum, count) against
+              the plain path (exact attention, dense head, composed
+              prologue) in bf16 and fp32 with a planted fault rejected.
+              Prints eval ms per token, the forward kernels' device ms per
+              call inside an eval (torch.profiler) and peak memory in eval
+              against training.
+9. preempt -- the checkpoint phase's run through the CLI in a subprocess,
+              stopped with SIGTERM partway (PREEMPT_RUN): rc 0, a complete
+              checkpoint-N and `latest` at the step the log names; resumed,
+              its losses those of the checkpoint phase's uninterrupted run
+              within RESUME_LOSS_TOL; a resume one batch late rejected.
+10. remat  -- the slice with activation checkpointing under each policy of
+              REMAT_TABLE: step 1's launches (forwards twice under a
+              recomputing policy), ms, peak memory (not falling as the
+              policy keeps more), loss and gradients against
+              everything_saveable in bf16 and fp32.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -297,6 +325,37 @@ GRAD_REL_TOL = 1e-3    # ||g_flash - g_exact|| / ||g_exact|| over all parameters
 # Step 1 recomputed on the run's path must repeat the run's loss.
 FP32_STEP_LOSS_TOL = 1e-4
 RUN_REPEAT_TOL = 1e-4
+# the eval phase: the trainer's slice with a held-out synthetic set at seq
+# 2048 (4 rows: 2 eval batches of 2 microbatches of 1 row), evaluated every 2
+# steps, and the full state saved at step 4
+EVAL_OVERRIDES = ["eval_dataset={synthetic: true, seq_length: 2048, pseudo_dataset_len: 4}",
+                  "eval_steps=2", "save_steps=4"]
+EVAL_SAVE_STEP = 4
+# an eval's loss sum through the kernels against the plain path (exact
+# attention, dense head, composed prologue) on the same params and batches, in
+# fp32 compute: summation order only (~1e-7 of a loss of 11.2); the planted
+# fault (the last PLANT_CUT keys hidden) moves the trainer phase's fp32 step
+# loss by ~7e-5 of it on an H100. In bf16 the token mean is held to
+# STEP_LOSS_TOL, as a step's loss.
+EVAL_SUM_RTOL = 1e-5
+# the packed phase's held-out set: rows from the same generator with another
+# seed (2 eval batches of 2 microbatches of 8 rows of 4 examples)
+PACKED_EVAL_SEED = 11
+PACKED_EVAL_ROWS = 128
+# the preemption phase: the checkpoint phase's run (CKPT_OVERRIDES) through the
+# CLI in a subprocess, slowed at the `step` fault site so that the SIGTERM sent
+# after its second logged step lands mid-run; then resumed in this process
+PREEMPT_RUN = ["save_steps=0", "save_final=false", "resume=false", "logging_steps=1",
+               "fault_plan={faults: [{site: step, op: slow, seconds: 0.5}]}"]
+PREEMPT_RESUME = ["save_steps=0", "save_final=false", "resume=true"]
+# the remat table: the slice with activation checkpointing, under each
+# policy, in order of what it keeps; step 1's loss and gradients held to
+# everything_saveable's (no remat): fp32 compute within REMAT_FP32_RTOL
+# relative (recompute repeats the same kernels on the same inputs), bf16
+# within STEP_LOSS_TOL
+REMAT_TABLE = ("nothing_saveable", "dots_with_no_batch_dims_saveable", "dots_saveable",
+               "everything_saveable")
+REMAT_FP32_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1000,7 +1059,7 @@ def phase_prologue() -> dict:
     return rows
 
 
-def phase_trainer() -> dict:
+def phase_trainer() -> tuple[dict, list]:
     import gc
 
     import torch
@@ -1069,7 +1128,7 @@ def phase_trainer() -> dict:
     del run
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 def hide_last_keys(q, k, v, padding_mask=None, *, causal=True):
@@ -1358,7 +1417,7 @@ def gbps(nbytes: float, secs: float) -> str:
     return f"{nbytes / 1e9:.3f} GB in {secs:.3f} s ({nbytes / 1e9 / max(secs, 1e-9):.2f} GB/s)"
 
 
-def phase_checkpoint() -> None:
+def phase_checkpoint() -> list:
     """Save, resume and warm start on the card at LLaMA-7B width (2 layers).
 
     Run A (CKPT_RUN_A) trains 6 steps and saves the full state at step 4 with
@@ -1556,13 +1615,16 @@ def phase_checkpoint() -> None:
     del run_w, run_a, state_a
     for path in (warm_dir, f"{root}/warm_run"):
         shutil.rmtree(path, ignore_errors=True)
+    return losses_a
 
 
-def packed_corpus(root: str) -> tuple[str, str]:
+def packed_corpus(root: str) -> tuple[str, str, str]:
     """Write PACKED_ROWS synthetic {"inputs", "targets"} rows from
-    PACKED_SEED to <root>/train.jsonl, train a SentencePiece-Unigram
-    tokenizer on them (no pad token: the trainer falls back to eos) and save
-    it to <root>/tok. Returns (jsonl path, tokenizer dir)."""
+    PACKED_SEED to <root>/train.jsonl and PACKED_EVAL_ROWS more, drawn from
+    the same words with PACKED_EVAL_SEED, to <root>/eval.jsonl; train a
+    SentencePiece-Unigram tokenizer on the training rows (no pad token: the
+    trainer falls back to eos) and save it to <root>/tok. Returns (training
+    jsonl, eval jsonl, tokenizer dir)."""
     import numpy as np
     from tokenizers import SentencePieceUnigramTokenizer
     from transformers import PreTrainedTokenizerFast
@@ -1575,15 +1637,20 @@ def packed_corpus(root: str) -> tuple[str, str]:
     zipf = 1.0 / np.arange(1, len(words) + 1)
     zipf /= zipf.sum()
 
-    def text(lo: int, hi: int) -> str:
+    def text(rng, lo: int, hi: int) -> str:
         n = int(round(lo * (hi / lo) ** (rng.uniform() ** 2)))
         return " ".join(words[rng.choice(len(words), n, p=zipf)])
 
-    rows = [{"inputs": text(*PACKED_PROMPT_WORDS), "targets": text(*PACKED_TARGET_WORDS)}
-            for _ in range(PACKED_ROWS)]
-    jsonl = os.path.join(root, "train.jsonl")
-    with open(jsonl, "w") as f:
-        f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+    def write(name: str, rng, n: int) -> tuple[str, list]:
+        rows = [{"inputs": text(rng, *PACKED_PROMPT_WORDS),
+                 "targets": text(rng, *PACKED_TARGET_WORDS)} for _ in range(n)]
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+        return path, rows
+
+    jsonl, rows = write("train.jsonl", rng, PACKED_ROWS)
+    eval_jsonl, _ = write("eval.jsonl", np.random.RandomState(PACKED_EVAL_SEED), PACKED_EVAL_ROWS)
     spm = SentencePieceUnigramTokenizer()
     spm.train_from_iterator([f"{r['inputs']} {r['targets']}" for r in rows],
                             vocab_size=PACKED_TOKENIZER_VOCAB, unk_token="<unk>",
@@ -1591,7 +1658,7 @@ def packed_corpus(root: str) -> tuple[str, str]:
     tok_dir = os.path.join(root, "tok")
     PreTrainedTokenizerFast(tokenizer_object=spm._tokenizer, bos_token="<s>", eos_token="</s>",
                             unk_token="<unk>").save_pretrained(tok_dir)
-    return jsonl, tok_dir
+    return jsonl, eval_jsonl, tok_dir
 
 
 def tile_boundaries(seg) -> int:
@@ -1868,37 +1935,62 @@ def phase_packed() -> None:
     root = os.path.join(ROOT, "build", "chip_smoke", "packed")
     os.makedirs(root, exist_ok=True)
     t0 = time.perf_counter()
-    jsonl, tok_dir = packed_corpus(root)
+    jsonl, eval_jsonl, tok_dir = packed_corpus(root)
     config = os.path.join(ROOT, "conf", "llama_7b_flan_packed.yaml")
     data = [f"dataset.path={jsonl}", f"tokenizer_path={tok_dir}"]
-    cfg = load_config(config, PACKED_OVERRIDES + data + [f"output_dir={root}/run"])
+    held_out = ["eval_dataset={_target_: llama_pipeline_parallel_tpu.data.datasets."
+                f"LazyJsonlDataset, path: {eval_jsonl}}}", "eval_steps=2"]
+    cfg = load_config(config, PACKED_OVERRIDES + data + held_out + [f"output_dir={root}/run"])
     log(f"[packed] {config} {' '.join(PACKED_OVERRIDES)} (max_seq_length "
         f"{cfg['max_seq_length']}, packing_factor {cfg['packing_factor']}, "
-        f"loss_vocab_chunks {cfg['loss_vocab_chunks']}); {PACKED_ROWS} rows and a "
-        f"{PACKED_TOKENIZER_VOCAB}-piece tokenizer made in {time.perf_counter() - t0:.1f} s")
+        f"loss_vocab_chunks {cfg['loss_vocab_chunks']}); {PACKED_ROWS} rows, {PACKED_EVAL_ROWS} "
+        f"held out (eval every 2 steps) and a {PACKED_TOKENIZER_VOCAB}-piece tokenizer made in "
+        f"{time.perf_counter() - t0:.1f} s")
     layers = cfg["model"]["num_hidden_layers"]
     microbatches = cfg["gradient_accumulation_steps"] * cfg["max_steps"]
     expected = {**{key: layers * microbatches for key in fa.launch_counts},
                 **{key: microbatches for key in fc.launch_counts},
                 **{key: layers * microbatches for key in fp.launch_counts}}
 
+    def counts():
+        return ({**fa.launch_counts, **fc.launch_counts, **fp.launch_counts},
+                {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts},
+                dict(fa.segmented_counts))
+
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     fc.reset_launch_counts()
     fp.reset_launch_counts()
-    summary = train.run_training(cfg, device="cuda")
-    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
-    tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts}
-    segmented = dict(fa.segmented_counts)
+    run = train.build_run(cfg, "cuda")
+    evals = []  # each eval's launches, tensor-core calls and segmented flash calls
+    evaluate = run.evaluate
+
+    def counted_eval():
+        before = counts()
+        eval_loss = evaluate()
+        evals.append([{k: v - b[k] for k, v in after.items()}
+                      for after, b in zip(counts(), before)])
+        return eval_loss
+
+    run.evaluate = counted_eval
+    summary = train.train_run(run)
+    launches, tensor_core, segmented = counts()
+    eval_launches = {k: sum(e[0][k] for e in evals) for k in launches}
+    eval_tc = {k: sum(e[1][k] for e in evals) for k in tensor_core}
     peak = torch.cuda.max_memory_allocated()
     losses = summary["losses"]
     step_s = statistics.median(summary["step_times"][1:])
     with open(os.path.join(root, "run", "metrics.jsonl")) as f:
-        line = [json.loads(x) for x in f][-1]
+        lines = [json.loads(x) for x in f]
+    line = [r for r in lines if "loss" in r][-1]
+    eval_lines = [r for r in lines if "eval_loss" in r]
     log(f"[packed] losses {losses}; metrics line at step {line['step']}: packing_dropped_total "
-        f"{line.get('packing_dropped_total')}, packing_drop_rate {line.get('packing_drop_rate')}")
-    log(f"[packed] kernel launches {launches} (expected {expected}), on the tensor cores "
-        f"{tensor_core}, flash calls with segment ids {segmented}")
+        f"{line.get('packing_dropped_total')}, packing_drop_rate {line.get('packing_drop_rate')}, "
+        f"tokens_per_sec {line['tokens_per_sec']:.0f}, real_tokens_per_sec "
+        f"{line.get('real_tokens_per_sec')}; eval lines {eval_lines}")
+    log(f"[packed] kernel launches {launches} ({eval_launches} of them in {len(evals)} evals; "
+        f"training expected {expected}), on the tensor cores {tensor_core}, flash calls with "
+        f"segment ids {segmented}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     mcfg = train.build_model_config(cfg["model"])
@@ -1906,9 +1998,13 @@ def phase_packed() -> None:
     if abs(losses[0] - expected_loss) > 0.1:
         raise AssertionError(f"first loss {losses[0]} far from {expected_loss:.3f}, "
                              f"the expectation at random init")
-    if launches != expected or tensor_core != expected:
-        raise AssertionError(f"launch counts {launches} and tensor-core calls {tensor_core}, "
-                             f"both expected {expected}")
+    trained = {k: v - eval_launches[k] for k, v in launches.items()}
+    trained_tc = {k: v - eval_tc[k] for k, v in tensor_core.items()}
+    if trained != expected or trained_tc != expected:
+        raise AssertionError(f"training launch counts {trained} and tensor-core calls "
+                             f"{trained_tc}, both expected {expected}")
+    eval_mb = len(run.eval_loader) * run.num_microbatches
+    check_eval_counts("[packed]", evals, layers, eval_mb)
     if segmented != fa.launch_counts:
         raise AssertionError(f"flash calls with segment ids {segmented}, launches "
                              f"{fa.launch_counts}: the packed run must pass them on every call")
@@ -1916,7 +2012,15 @@ def phase_packed() -> None:
     if rate is None or dropped is None or not 0.0 <= rate <= 1.0 or not dropped > 0:
         raise AssertionError(f"packing counters in the metrics line: dropped {dropped}, "
                              f"rate {rate} (want a rate in [0, 1] and drops on this data)")
-    del summary
+    real = line.get("real_tokens_per_sec")
+    if real is None or not 0 < real < line["tokens_per_sec"]:
+        raise AssertionError(f"real_tokens_per_sec {real} on the metrics line (want it, below "
+                             f"tokens_per_sec {line['tokens_per_sec']})")
+    if [r["step"] for r in eval_lines] != [2, 4] or len(evals) != 2:
+        raise AssertionError(f"eval lines {eval_lines}, {len(evals)} evals: want steps 2 and 4")
+    eval_parity(run, train.attention, ("segments dropped", train._flash_without_mask),
+                "[packed]")
+    del summary, run, evaluate
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1969,6 +2073,449 @@ def phase_packed() -> None:
     log(f"[packed] phase {time.perf_counter() - t0:.1f} s")
 
 
+def check_eval_counts(tag: str, evals: list, layers: int, eval_mb: int) -> None:
+    """Each eval's launches and tensor-core calls (`evals`: [launches, tensor
+    core, ...] per eval), exactly: the flash and prologue forwards once a
+    layer and eval microbatch, the CE forward once a microbatch, no backward
+    kernel; every call on the tensor cores."""
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    want = {**{key: 0 for key in (*fa.launch_counts, *fc.launch_counts, *fp.launch_counts)},
+            "fwd": layers * eval_mb, "prologue_fwd": layers * eval_mb, "ce_fwd": eval_mb}
+    for i, (launches, tensor_core, *_) in enumerate(evals):
+        if launches != want or tensor_core != want:
+            raise AssertionError(f"{tag} eval {i + 1}: launches {launches}, tensor-core calls "
+                                 f"{tensor_core}; both expected {want} ({layers} layers x "
+                                 f"{eval_mb} eval microbatches, forward only)")
+    log(f"{tag} each of {len(evals)} evals: launches {want} (forward only; {layers} layers x "
+        f"{eval_mb} eval microbatches), all on the tensor cores")
+
+
+def eval_parity(run, plain_attn, plant: tuple, tag: str) -> None:
+    """The run's eval pass ((loss sum, count) over its eval set, on its
+    current params) through its kernels against the plain path on the same
+    params and batches: `plain_attn` (the exact op), the dense head and the
+    composed prologue. bf16: the token means within STEP_LOSS_TOL; fp32
+    compute: the sums within EVAL_SUM_RTOL (relative); counts equal. A
+    planted fault, `plant` = (what it does, an attention function) on the
+    run's head and prologue, must fail the fp32 check."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import LossHead, eval_step
+
+    batches = [run.on_device(b) for b in run.eval_loader]
+
+    def total(mcfg, attn_fn, head, kernel_prologue):
+        loss_sum, count = 0.0, 0
+        for batch in batches:
+            s, n = eval_step(run.state.params, batch, mcfg, num_microbatches=run.num_microbatches,
+                             attn_fn=attn_fn, head=head, kernel_prologue=kernel_prologue)
+            loss_sum += float(s)
+            count += int(n)
+        return loss_sum, count
+
+    bf16 = run.model_cfg
+    fp32 = dataclasses.replace(bf16, dtype=torch.float32)
+    k16, c16 = total(bf16, run.attn_fn, run.head, run.kernel_prologue)
+    p16, pc16 = total(bf16, plain_attn, LossHead(), False)
+    k32, c32 = total(fp32, run.attn_fn, run.head, run.kernel_prologue)
+    p32, pc32 = total(fp32, plain_attn, LossHead(), False)
+    bad32, _ = total(fp32, plant[1], run.head, run.kernel_prologue)
+    mean_diff = abs(k16 / c16 - p16 / pc16)
+    rel, bad_rel = abs(k32 - p32) / abs(p32), abs(bad32 - p32) / abs(p32)
+    log(f"{tag} eval over {len(batches)} batches ({c16} targets) on the same params, kernels vs "
+        f"the plain path: bf16 token mean {k16 / c16:.6f} vs {p16 / pc16:.6f}, |diff| "
+        f"{mean_diff:.3e} (tol {STEP_LOSS_TOL}); fp32 sum {k32:.4f} vs {p32:.4f}, relative diff "
+        f"{rel:.3e} (tol {EVAL_SUM_RTOL}); planted fault ({plant[0]}), fp32: relative diff "
+        f"{bad_rel:.3e} (must exceed {EVAL_SUM_RTOL})")
+    if not (c16 == pc16 == c32 == pc32):
+        raise AssertionError(f"eval counts differ: {c16}, {pc16}, {c32}, {pc32}")
+    if not mean_diff <= STEP_LOSS_TOL or not rel <= EVAL_SUM_RTOL:
+        raise AssertionError(f"eval through the kernels vs the plain path: bf16 {mean_diff}, "
+                             f"fp32 {rel}")
+    if not bad_rel > EVAL_SUM_RTOL:
+        raise AssertionError(f"the eval check passes a planted fault ({bad_rel})")
+
+
+# the kernels of each forward pass, as torch.profiler names them (substrings)
+FORWARD_KERNELS = {"fwd": ("fwd_tc_kernel",), "ce_fwd": ("ce_stats_tc_kernel", "ce_lse_kernel"),
+                   "prologue_fwd": ("prologue_norm_kernel", "prologue_fwd_tc_kernel")}
+
+
+def forward_kernel_ms(run) -> dict:
+    """Device ms per call of each forward pass inside one more eval of `run`
+    (torch.profiler, device-side events; its launches from the counters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    fa.reset_launch_counts()
+    fc.reset_launch_counts()
+    fp.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run.evaluate()
+        torch.cuda.synchronize()
+    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+    ms = {key: 0.0 for key in FORWARD_KERNELS}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for key, names in FORWARD_KERNELS.items():
+            # "fwd_tc_kernel" is also inside "prologue_fwd_tc_kernel"
+            if any(n in evt.key for n in names) and (key != "fwd" or "prologue" not in evt.key):
+                ms[key] += evt.self_device_time_total / 1e3
+    if not all(ms.values()):
+        raise AssertionError(f"the eval's profile holds no device time for {ms}")
+    return {key: ms[key] / launches[key] for key in ms}
+
+
+def phase_eval(train_losses: list) -> None:
+    """Evaluation at the slice (TRAIN_OVERRIDES + EVAL_OVERRIDES): the
+    trainer's 4 steps with a held-out set evaluated at steps 2 and 4 and the
+    state saved at step 4. Each eval's launches exactly (forward only, on the
+    tensor cores); parameters and optimizer moments bit-equal across the
+    second eval (the first measures peak memory, with nothing extra held);
+    the training losses those of the trainer phase (no eval)
+    within RUN_REPEAT_TOL; checkpoint-4's meta.json carries the last
+    eval_loss of the metrics line and eval_step 4; the eval's (sum, count)
+    against the plain path (eval_parity, the last PLANT_CUT keys hidden as
+    the planted fault). Prints eval ms per token, the forward kernels' ms
+    per call inside an eval, and peak memory in eval against training."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.ops.attention import attention
+    from llama_pipeline_parallel_tpu_torch.train import build_run, train_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "eval")
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    log(f"[eval] {config} TRAIN_OVERRIDES + {' '.join(EVAL_OVERRIDES)}")
+    run = build_run(load_config(config, TRAIN_OVERRIDES + EVAL_OVERRIDES
+                                + [f"output_dir={out_dir}"]), "cuda")
+    state = run.state
+    evals = []  # [launches, tensor-core calls, seconds, train peak, eval peak, bit-equal]
+    evaluate = run.evaluate
+
+    def measured_eval():
+        train_peak = torch.cuda.max_memory_allocated()
+        kept = None
+        if evals:  # the second eval: hold the state to compare (the first measures memory)
+            kept = ({k: v.detach().clone() for k, v in state.params.items()},
+                    {k: v.clone() for k, v in state.optimizer.mu.items()},
+                    {k: v.clone() for k, v in state.optimizer.nu.items()})
+        fa.reset_launch_counts()
+        fc.reset_launch_counts()
+        fp.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        eval_loss = evaluate()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        same = None
+        if kept is not None:
+            same = (all(torch.equal(v, kept[0][k]) for k, v in state.params.items())
+                    and all(torch.equal(v, kept[1][k]) for k, v in state.optimizer.mu.items())
+                    and all(torch.equal(v, kept[2][k]) for k, v in state.optimizer.nu.items()))
+            del kept
+        evals.append([{**fa.launch_counts, **fc.launch_counts, **fp.launch_counts},
+                      {**fa.tensor_core_counts, **fc.tensor_core_counts,
+                       **fp.tensor_core_counts}, secs, train_peak,
+                      torch.cuda.max_memory_allocated(), same])
+        return eval_loss
+
+    run.evaluate = measured_eval
+    torch.cuda.reset_peak_memory_stats()
+    summary = train_run(run)
+    run.evaluate = evaluate
+    losses = summary["losses"]
+    layers = run.model_cfg.num_hidden_layers
+    eval_mb = len(run.eval_loader) * run.num_microbatches
+    eval_tokens = sum(b["input_ids"].size for b in run.eval_loader)
+    repeat = max(abs(a - b) for a, b in zip(losses, train_losses))
+    log(f"[eval] losses {losses}; |diff| from the trainer phase's run without eval {repeat:.2e} "
+        f"(tol {RUN_REPEAT_TOL}); parameters and moments bit-equal across the second eval: "
+        f"{evals[-1][5] if evals else None}")
+    if len(evals) != 2 or len(losses) != len(train_losses) or not repeat <= RUN_REPEAT_TOL:
+        raise AssertionError(f"{len(evals)} evals (want 2), losses {losses} against "
+                             f"{train_losses}")
+    if evals[-1][5] is not True:
+        raise AssertionError("an eval changed the parameters or the optimizer's moments")
+    check_eval_counts("[eval]", evals, layers, eval_mb)
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        eval_lines = [r for r in map(json.loads, f) if "eval_loss" in r]
+    meta = json.load(open(os.path.join(out_dir, f"checkpoint-{EVAL_SAVE_STEP}", "meta.json")))
+    log(f"[eval] metrics eval lines {eval_lines}; checkpoint-{EVAL_SAVE_STEP} meta.json "
+        f"eval_loss {meta.get('eval_loss')}, eval_step {meta.get('eval_step')}")
+    if ([r["step"] for r in eval_lines] != [2, EVAL_SAVE_STEP]
+            or meta.get("eval_loss") != eval_lines[-1]["eval_loss"]
+            or meta.get("eval_step") != EVAL_SAVE_STEP):
+        raise AssertionError(f"eval lines {eval_lines}, meta.json {meta.get('eval_loss')} at "
+                             f"{meta.get('eval_step')}")
+    shutil.rmtree(os.path.join(out_dir, f"checkpoint-{EVAL_SAVE_STEP}"))
+
+    per_call = forward_kernel_ms(run)
+    secs = statistics.median(e[2] for e in evals)
+    log(f"[eval] card {card_line()}: an eval of {eval_tokens} row tokens ({eval_mb} microbatches) "
+        f"takes {1e3 * secs:.1f} ms (median of {len(evals)}), "
+        f"{1e3 * secs / eval_tokens:.5f} ms per eval token; forward kernels' device ms per "
+        f"call inside an eval: flash_fwd {per_call['fwd']:.4f}, ce_fwd {per_call['ce_fwd']:.4f}, "
+        f"prologue_fwd {per_call['prologue_fwd']:.4f}; max_memory_allocated in the first "
+        f"eval {evals[0][4] / 2**30:.2f} GiB against training (steps 1-2, 3-4) "
+        f"{evals[0][3] / 2**30:.2f}, {evals[1][3] / 2**30:.2f} GiB")
+    eval_parity(run, attention, (f"last {PLANT_CUT} keys hidden", hide_last_keys), "[eval]")
+    del run, state, summary, evaluate
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[eval] phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_preempt(losses_a: list) -> None:
+    """Preemption on the card: the checkpoint phase's run (CKPT_OVERRIDES)
+    through the CLI in a subprocess (PREEMPT_RUN), sent SIGTERM after its
+    second logged step. It must exit 0 with a complete checkpoint-N and
+    `latest` at the step its log names; resumed here (PREEMPT_RESUME: the
+    restore verifies the checkpoint's digests), steps
+    N+1.. must repeat the checkpoint phase's uninterrupted run A within
+    RESUME_LOSS_TOL. Planted: the resumed stream opened one batch late (a
+    skipped batch) must give a first-step loss outside that limit."""
+    import gc
+    import re
+    import signal
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import checkpoint as ck
+    from llama_pipeline_parallel_tpu_torch.data.loader import RepeatingLoader
+    from llama_pipeline_parallel_tpu_torch.train import build_run, train_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "preempt")
+    metrics = os.path.join(out_dir, "metrics.jsonl")
+    cmd = [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.cli", "--config", config,
+           *CKPT_OVERRIDES, *PREEMPT_RUN, f"output_dir={out_dir}"]
+    log(f"[preempt] CLI: {config} TRAIN_OVERRIDES + "
+        f"{' '.join(CKPT_OVERRIDES[len(TRAIN_OVERRIDES):] + PREEMPT_RUN)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.monotonic() + 300
+        logged = 0
+        while logged < 2 and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+            if os.path.exists(metrics):
+                with open(metrics) as f:
+                    logged = sum(1 for x in f if x.strip())
+        t_signal = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    stop_s = time.perf_counter() - t_signal
+    found = re.search(r"preemption signal; checkpointing at step (\d+)", err)
+    n = int(found.group(1)) if found else None
+    mgr = ck.CheckpointManager(out_dir)
+    log(f"[preempt] SIGTERM after {logged} logged steps: rc {proc.returncode}, log names step "
+        f"{n}, {stop_s:.1f} s from the signal to the exit (the blocking save included); latest "
+        f"complete checkpoint {mgr.latest_step()}; stdout {out.strip()[-300:]!r}")
+    if proc.returncode != 0 or n is None or mgr.latest_step() != n or not 2 <= n < len(losses_a):
+        raise AssertionError(f"preempted CLI: rc {proc.returncode}, step {n}, latest "
+                             f"{mgr.latest_step()}; stderr {err[-2000:]}")
+    with open(os.path.join(out_dir, "latest")) as f:
+        if f.read().strip() != f"checkpoint-{n}":
+            raise AssertionError(f"latest does not name checkpoint-{n}")
+
+    run = build_run(load_config(config, CKPT_OVERRIDES + PREEMPT_RESUME
+                                + [f"output_dir={out_dir}"]), "cuda")
+    if run.start_step != n:
+        raise AssertionError(f"the resume starts at {run.start_step}, not {n}")
+    epoch, offset = run.data_start
+    spe = len(run.loader)
+
+    def first_loss(start_batch: int) -> float:
+        """Step N+1's loss from the batch at this stream position, forward
+        only, on the restored params."""
+        batch = next(iter(RepeatingLoader(run.loader, *divmod(epoch * spe + start_batch, spe))))
+        loss_sum, count = run.eval_sum_count(run.on_device(batch))
+        return float(loss_sum) / int(count)
+
+    honest, skipped = first_loss(offset), first_loss(offset + 1)
+    summary = train_run(run)
+    diffs = [abs(b - a) for a, b in zip(losses_a[n:], summary["losses"])]
+    log(f"[preempt] resumed at step {n}: losses {summary['losses']} against run A's "
+        f"{losses_a[n:]}, |diff| {diffs} (tol {RESUME_LOSS_TOL}; "
+        f"{'bit-equal' if not any(diffs) else 'not bit-equal'}); step {n + 1}'s loss forward "
+        f"only {abs(honest - losses_a[n]):.2e} off A's; planted (one batch skipped): "
+        f"{abs(skipped - losses_a[n]):.2e} off (must exceed {RESUME_LOSS_TOL})")
+    if len(diffs) != len(losses_a) - n or not max(diffs) <= RESUME_LOSS_TOL:
+        raise AssertionError(f"resumed losses {summary['losses']} against {losses_a[n:]}")
+    if not abs(honest - losses_a[n]) <= RESUME_LOSS_TOL:
+        raise AssertionError(f"step {n + 1} forward only: {honest} against {losses_a[n]}")
+    if not abs(skipped - losses_a[n]) > RESUME_LOSS_TOL:
+        raise AssertionError("the resume check passes a skipped batch")
+    del run, summary
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[preempt] phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_remat() -> None:
+    """The remat policies at the slice with activation checkpointing (the
+    trainer's attention, loss head and prologue): per policy of REMAT_TABLE,
+    step 1's forward and backward (no update) on the same params and batch:
+    its launches (the flash and prologue forwards twice a layer and
+    microbatch under a recomputing policy, once under everything_saveable),
+    its ms (median of 3 after a warm-up), max_memory_allocated and the
+    memory the first microbatch's forward leaves allocated for the backward,
+    neither of which may fall as the policy keeps more (and what the forward
+    keeps must grow from nothing_saveable to everything_saveable); its loss and gradients against
+    everything_saveable's, in bf16 within STEP_LOSS_TOL and in fp32 compute
+    within REMAT_FP32_RTOL (relative)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
+        head_loss_sum_count,
+        shift_labels,
+    )
+    from llama_pipeline_parallel_tpu_torch.train import build_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    overrides = TRAIN_OVERRIDES + ["activation_checkpointing=true"]
+    run = build_run(load_config(config, overrides + [
+        f"output_dir={os.path.join(ROOT, 'build', 'chip_smoke', 'remat')}"]), "cuda")
+    log(f"[remat] {config} TRAIN_OVERRIDES + activation_checkpointing=true, policies "
+        f"{REMAT_TABLE}")
+    batch = next(run.batches())
+    params = run.state.params
+    targets = shift_labels(batch["labels"])
+    count = (targets != llama.IGNORE_INDEX).sum()
+    mb = targets.shape[0] // run.num_microbatches
+    layers = run.model_cfg.num_hidden_layers
+
+    kept = {}  # policy -> bytes the first microbatch's forward leaves allocated
+
+    def step_one(mcfg, policy: str) -> float:
+        """Step 1's forward and backward under `policy`; the loss (grads in
+        .grad)."""
+        for p in params.values():
+            p.grad = None
+        total = 0.0
+        for i in range(run.num_microbatches):
+            rows = slice(i * mb, (i + 1) * mb)
+            before = torch.cuda.memory_allocated()
+            hn = llama.hidden_states(params, batch["input_ids"][rows],
+                                     batch["attention_mask"][rows], batch["position_ids"][rows],
+                                     cfg=mcfg, attn_fn=run.attn_fn, remat=True,
+                                     remat_policy=policy, kernel_prologue=run.kernel_prologue)
+            loss = head_loss_sum_count(params, hn, targets[rows], mcfg, run.head)[0] / count
+            if i == 0:
+                kept[policy] = torch.cuda.memory_allocated() - before
+            loss.backward()
+            total += loss.item()
+        torch.cuda.synchronize()
+        return total
+
+    rows = {}
+    for policy in REMAT_TABLE:  # launches, time and memory, with nothing else held
+        step_one(run.model_cfg, policy)  # warm-up
+        for p in params.values():
+            p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.reset_launch_counts()
+        fc.reset_launch_counts()
+        fp.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_one(run.model_cfg, policy)
+        launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            step_one(run.model_cfg, policy)
+            times.append(time.perf_counter() - t)
+        rows[policy] = {"launches": launches, "peak": peak, "kept": kept[policy],
+                        "ms": 1e3 * statistics.median(times)}
+        forwards = run.num_microbatches * layers * (1 if policy == "everything_saveable" else 2)
+        want = {**{key: run.num_microbatches * layers for key in (*fa.launch_counts,
+                                                                  *fp.launch_counts)},
+                **{key: run.num_microbatches for key in fc.launch_counts},
+                "fwd": forwards, "prologue_fwd": forwards}
+        if launches != want:
+            raise AssertionError(f"[remat] {policy}: launches {launches}, expected {want}")
+    for p in params.values():
+        p.grad = None
+
+    fp32 = dataclasses.replace(run.model_cfg, dtype=torch.float32)
+    ref = {}
+    for mcfg, tag in ((run.model_cfg, "bf16"), (fp32, "fp32")):
+        ref_loss = step_one(mcfg, "everything_saveable")
+        ref_grads = {k: p.grad.clone() for k, p in params.items()}
+        for policy in REMAT_TABLE[:-1]:
+            loss = step_one(mcfg, policy)
+            rows[policy][tag] = (abs(loss - ref_loss),
+                                 rel_diff({k: p.grad for k, p in params.items()}, ref_grads))
+        ref[tag] = ref_loss
+        del ref_grads
+    for p in params.values():
+        p.grad = None
+    card = card_line()
+    log(f"[remat] card {card}: step 1 forward + backward ({run.num_microbatches} microbatches, "
+        f"no update) per policy; loss and gradient rel diff against everything_saveable "
+        f"(bf16 tol {STEP_LOSS_TOL}, fp32 tol {REMAT_FP32_RTOL} relative)")
+    for policy, row in rows.items():
+        (l16, g16), (l32, g32) = row.get("bf16", (0.0, 0.0)), row.get("fp32", (0.0, 0.0))
+        log(f"  {policy:34s} {row['ms']:8.1f} ms  max_memory_allocated "
+            f"{row['peak'] / 2**30:6.2f} GiB, kept by a microbatch's forward "
+            f"{row['kept'] / 2**30:6.3f} GiB  flash fwd {row['launches']['fwd']}, prologue fwd "
+            f"{row['launches']['prologue_fwd']}; bf16 loss |diff| {l16:.2e}, grads {g16:.2e}; "
+            f"fp32 loss |diff| {l32:.2e}, grads {g32:.2e}")
+    for policy in REMAT_TABLE[:-1]:
+        (l16, g16), (l32, g32) = rows[policy]["bf16"], rows[policy]["fp32"]
+        if not (l16 <= STEP_LOSS_TOL and g16 <= STEP_LOSS_TOL
+                and l32 <= REMAT_FP32_RTOL * abs(ref["fp32"]) and g32 <= REMAT_FP32_RTOL):
+            raise AssertionError(f"[remat] {policy} against everything_saveable: {rows[policy]}")
+    peaks = [rows[policy]["peak"] for policy in REMAT_TABLE]
+    held = [rows[policy]["kept"] for policy in REMAT_TABLE]
+    if peaks != sorted(peaks) or held != sorted(held) or not held[0] < held[-1]:
+        raise AssertionError(f"[remat] memory falls as the policy keeps more: peaks {peaks}, "
+                             f"kept by the forward {held}")
+    del run, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[remat] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1989,9 +2536,12 @@ def main() -> int:
     rows = phase_kernels()
     rows.update(phase_ce())
     rows.update(phase_prologue())
-    launches = phase_trainer()
-    phase_checkpoint()
+    launches, train_losses = phase_trainer()
+    losses_a = phase_checkpoint()
     phase_packed()
+    phase_eval(train_losses)
+    phase_preempt(losses_a)
+    phase_remat()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -45,6 +45,7 @@ class ShardedSampler:
     dataset_len: int
     num_replicas: int
     rank: int
+    shuffle: bool = True
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -60,8 +61,9 @@ class ShardedSampler:
         return self.dataset_len // self.num_replicas
 
     def indices(self) -> np.ndarray:
-        order = np.random.RandomState(self.seed * 131071 + self._epoch).permutation(
-            self.dataset_len)
+        order = np.arange(self.dataset_len)
+        if self.shuffle:
+            order = np.random.RandomState(self.seed * 131071 + self._epoch).permutation(order)
         return order[self.rank::self.num_replicas][:self.num_samples_per_replica]
 
     def __len__(self) -> int:
@@ -79,6 +81,7 @@ class DataLoader:
     collate_fn: Callable[[Sequence[Any]], dict[str, np.ndarray]]
     per_replica_batch: int
     dp_size: int = 1
+    shuffle: bool = True  # False: dataset order (the evaluator's loader)
     seed: int = 0
     dp_range: tuple[int, int] | None = None
     # a record still unreadable after the retry budget is quarantined (skipped,
@@ -95,7 +98,8 @@ class DataLoader:
         self._local_dp = range(first, first + count)
         self._retry_policy = retry.RetryPolicy.from_env()  # once, not per record
         self._samplers = [
-            ShardedSampler(len(self.dataset), self.dp_size, rank=d, seed=self.seed)
+            ShardedSampler(len(self.dataset), self.dp_size, rank=d, shuffle=self.shuffle,
+                           seed=self.seed)
             for d in self._local_dp
         ]
         self.records_read = 0       # successful dataset fetches

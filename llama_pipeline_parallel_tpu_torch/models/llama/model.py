@@ -23,12 +23,17 @@ axis; `run_layers` walks it. Params are fp32 masters, cast to `cfg.dtype`
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
@@ -40,6 +45,21 @@ Params = dict[str, torch.Tensor]
 AttnFn = Callable[..., torch.Tensor]
 
 IGNORE_INDEX = -100  # label value excluded from the loss
+
+# The JAX trainer's activation-checkpointing policies, by their jax.checkpoint
+# names (aliases included).
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable", "dots_saveable", "checkpoint_dots",
+                  "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims")
+_aten = torch.ops.aten
+# What each dot-saving policy keeps from a layer's forward: the outputs of the
+# aten products. A projection `x @ W` reaches aten as `mm` (after a view); a
+# product with batch dims (the exact attention's einsums) as `bmm`. A kernel's
+# output is not a product, so the CUDA kernels run again in the backward.
+_DOTS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default)
+_NO_BATCH_DOTS = (_aten.mm.default, _aten.addmm.default)
+_SAVED_PRODUCTS = {"dots_saveable": _DOTS, "checkpoint_dots": _DOTS,
+                   "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+                   "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS}
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +119,11 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, position_ids=None, *,
                 attn_fn: AttnFn = attention, remat: bool = False,
-                kernel_prologue: bool = False) -> torch.Tensor:
+                kernel_prologue: bool = False,
+                remat_policy: str = "nothing_saveable") -> torch.Tensor:
         return forward(self.params(), input_ids, attention_mask, position_ids,
                        cfg=self.cfg, attn_fn=attn_fn, remat=remat,
-                       kernel_prologue=kernel_prologue)
+                       kernel_prologue=kernel_prologue, remat_policy=remat_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +178,28 @@ def mlp_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return x + (gate * up) @ layer["mlp.down"].to(dt)
 
 
+def remat_layer(fn: Callable, policy: str = "nothing_saveable") -> Callable:
+    """`fn` recomputed in the backward under the JAX remat policy `policy`
+    (reference: models/llama/model.py's `resolve_remat_policy`):
+    `nothing_saveable` keeps nothing (torch.utils.checkpoint);
+    `everything_saveable` keeps everything, which is `fn` itself; the dot
+    policies keep the outputs of the aten products in _SAVED_PRODUCTS
+    (selective checkpointing) and recompute the rest."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; choose one of {REMAT_POLICIES}")
+    if policy == "everything_saveable":
+        return fn
+    kw = {}
+    saved = _SAVED_PRODUCTS.get(policy)
+    if saved is not None:
+        def keep_products(ctx, op, *args, **kwargs):
+            return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             keep_products)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def run_layers(
     layers: Params,
     x: torch.Tensor,
@@ -167,21 +210,20 @@ def run_layers(
     attn_fn: AttnFn = attention,
     remat: bool = False,
     kernel_prologue: bool = False,
+    remat_policy: str = "nothing_saveable",
 ) -> torch.Tensor:
     """Apply a stack of layers (leading layer axis on every leaf; names
     without the `layers.` prefix). `remat=True` recomputes each layer in the
-    backward (torch.utils.checkpoint) instead of keeping its activations.
+    backward under `remat_policy` (remat_layer) instead of keeping its
+    activations.
 
     The leaves are unbound once, so the backward stacks each leaf's per-layer
     gradients in one allocation instead of one full-size gradient per layer."""
+    layer_fn = remat_layer(decoder_layer, remat_policy) if remat else decoder_layer
     per_layer = {name: leaf.unbind(0) for name, leaf in layers.items()}
     for i in range(len(next(iter(per_layer.values())))):
         layer = {name: leaves[i] for name, leaves in per_layer.items()}
-        if remat:
-            x = checkpoint(decoder_layer, layer, x, padding_mask, cos, sin, cfg,
-                           attn_fn, kernel_prologue, use_reentrant=False)
-        else:
-            x = decoder_layer(layer, x, padding_mask, cos, sin, cfg, attn_fn, kernel_prologue)
+        x = layer_fn(layer, x, padding_mask, cos, sin, cfg, attn_fn, kernel_prologue)
     return x
 
 
@@ -204,6 +246,7 @@ def hidden_states(
     attn_fn: AttnFn = attention,
     remat: bool = False,
     kernel_prologue: bool = False,
+    remat_policy: str = "nothing_saveable",
 ) -> torch.Tensor:
     """Single-device forward up to and including the final norm -> [b, s, d]
     in `cfg.dtype`: what the loss head takes.
@@ -217,7 +260,8 @@ def hidden_states(
     x = embed(params, input_ids, cfg)
     layers = {name[len("layers."):]: leaf for name, leaf in params.items()
               if name.startswith("layers.")}
-    x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue)
+    x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue,
+                   remat_policy)
     return final_norm(params, x, cfg)
 
 
@@ -231,11 +275,13 @@ def forward(
     attn_fn: AttnFn = attention,
     remat: bool = False,
     kernel_prologue: bool = False,
+    remat_policy: str = "nothing_saveable",
 ) -> torch.Tensor:
     """Single-device full forward -> fp32 logits [b, s, V] (`hidden_states`,
     then `lm_head`)."""
     x = hidden_states(params, input_ids, attention_mask, position_ids, cfg=cfg,
-                      attn_fn=attn_fn, remat=remat, kernel_prologue=kernel_prologue)
+                      attn_fn=attn_fn, remat=remat, kernel_prologue=kernel_prologue,
+                      remat_policy=remat_policy)
     return lm_head(params, x, cfg)
 
 

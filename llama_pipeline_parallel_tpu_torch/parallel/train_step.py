@@ -17,6 +17,11 @@ pallas`, a fused head on the final-normed hidden states that never builds the
 
 Metrics are `loss`, `grad_norm` (before clipping), `lr` (the schedule at the
 step count before its increment) and `step`, as in the reference.
+
+`eval_step` is the loss-only pass (the reference's `make_pipeline_eval_fn`,
+parallel/pipeline.py): the same microbatches, head and prologue under
+`torch.no_grad()`, returning the (loss sum, valid count) pair so that the
+evaluator weights batches exactly.
 """
 
 from __future__ import annotations
@@ -67,35 +72,42 @@ def shift_labels(labels: torch.Tensor) -> torch.Tensor:
     return torch.cat([labels[:, 1:], tail], dim=1)
 
 
-def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
-               num_microbatches: int = 1, attn_fn: Callable = attention,
-               remat: bool = False, head: LossHead = LossHead(),
-               kernel_prologue: bool = False) -> dict:
-    """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
-    the params' device), updating `state` in place. `kernel_prologue` runs
-    each layer's norm -> QKV -> RoPE on the fused prologue kernels
-    (`kernels.prologue: pallas`). Returns the metrics."""
+def _microbatches(batch: dict[str, torch.Tensor], num_microbatches: int):
+    """(next-token targets [bsz, s], [(ids, mask, positions, targets) for each
+    microbatch of `batch`]); mask and positions None where the batch has none."""
     ids = batch["input_ids"]
     bsz = ids.shape[0]
     if bsz % num_microbatches:
         raise ValueError(f"batch {bsz} not divisible by microbatches {num_microbatches}")
     mb = bsz // num_microbatches
     targets = shift_labels(batch["labels"])
-    global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
     mask, positions = batch.get("attention_mask"), batch.get("position_ids")
+    rows = [slice(i * mb, (i + 1) * mb) for i in range(num_microbatches)]
+    return targets, [(ids[r], None if mask is None else mask[r],
+                      None if positions is None else positions[r], targets[r]) for r in rows]
+
+
+def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
+               num_microbatches: int = 1, attn_fn: Callable = attention,
+               remat: bool = False, head: LossHead = LossHead(),
+               kernel_prologue: bool = False, remat_policy: str = "nothing_saveable") -> dict:
+    """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
+    the params' device), updating `state` in place. `kernel_prologue` runs
+    each layer's norm -> QKV -> RoPE on the fused prologue kernels
+    (`kernels.prologue: pallas`); `remat` recomputes each layer in the
+    backward under `remat_policy` (model.remat_layer). Returns the metrics."""
+    targets, microbatches = _microbatches(batch, num_microbatches)
+    global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
 
     params = state.params
     for p in params.values():
         p.grad = None
-    loss = torch.zeros((), device=ids.device)
-    for i in range(num_microbatches):
-        rows = slice(i * mb, (i + 1) * mb)
-        hn = llama.hidden_states(params, ids[rows],
-                                 None if mask is None else mask[rows],
-                                 None if positions is None else positions[rows],
-                                 cfg=cfg, attn_fn=attn_fn, remat=remat,
-                                 kernel_prologue=kernel_prologue)
-        mb_loss = head_loss_sum_count(params, hn, targets[rows], cfg, head)[0]
+    loss = torch.zeros((), device=targets.device)
+    for ids, mask, positions, mb_targets in microbatches:
+        hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
+                                 remat=remat, kernel_prologue=kernel_prologue,
+                                 remat_policy=remat_policy)
+        mb_loss = head_loss_sum_count(params, hn, mb_targets, cfg, head)[0]
         mb_loss = mb_loss / global_count
         mb_loss.backward()
         loss += mb_loss.detach()
@@ -104,3 +116,20 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     lr = state.optimizer.step(params, grads)
     state.step += 1
     return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "step": state.step}
+
+
+@torch.no_grad()
+def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
+              num_microbatches: int = 1, attn_fn: Callable = attention,
+              head: LossHead = LossHead(),
+              kernel_prologue: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The loss-only pass over `batch` in `num_microbatches` microbatches, on
+    the training step's attention, head and prologue, with no autograd graph:
+    (token-loss sum fp32, valid-target count) over the whole batch."""
+    targets, microbatches = _microbatches(batch, num_microbatches)
+    loss_sum = torch.zeros((), device=targets.device)
+    for ids, mask, positions, mb_targets in microbatches:
+        hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
+                                 kernel_prologue=kernel_prologue)
+        loss_sum += head_loss_sum_count(params, hn, mb_targets, cfg, head)[0].float()
+    return loss_sum, (targets != llama.IGNORE_INDEX).sum()

@@ -13,12 +13,19 @@ prefetch thread (`prefetch_depth`). Checkpoints keep the JAX trainer's contract
 restores the full state from `output_dir`'s newest complete checkpoint, with
 the data stream reopened at its O(1) position, falling back past a corrupt
 one; otherwise `model_name_or_path` warm-starts the weights from a converted
-checkpoint (tools/convert_hf.py). A fault plan (`fault_plan`, or
-LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `data_read`,
-`storage_write` and `ckpt_commit`. Evaluation, the observatories, the other
-fault sites and preemption handling are not ported yet; a config that asks
-for a layout or feature this trainer does not have is refused, naming its
-key, and keys that mean nothing on one device (the pipeline schedule) are
+checkpoint (tools/convert_hf.py). `eval_dataset` with `eval_steps` evaluates
+the exact token-mean loss of a held-out set (`per_device_eval_batch_size`
+rows a microbatch) with no autograd graph, and later checkpoints carry it
+(`eval_loss`, `eval_step`). SIGTERM or SIGINT stops the run at the next
+step with a checkpoint there (`preempted_at`); a second signal force-quits.
+`activation_checkpointing` recomputes each layer under `remat_policy`
+(models/llama/model.remat_layer). A fault plan (`fault_plan`, or
+LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
+`data_read`, `storage_write` and `ckpt_commit`. The metrics line goes to
+`metrics.jsonl` and, with `use_wandb` / `use_tensorboard`, to those sinks. The
+observatories and the resilience actions are not ported yet; a config that
+asks for a layout or feature this trainer does not have is refused, naming
+its key, and keys that mean nothing on one device (the pipeline schedule) are
 logged once.
 """
 
@@ -26,6 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import threading
 import time
 from typing import Any, Iterator
 
@@ -52,6 +61,7 @@ from llama_pipeline_parallel_tpu_torch.data.tokenization import expand_special_t
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.models.llama.model import (
+    REMAT_POLICIES,
     LlamaForCausalLM,
     init_params,
 )
@@ -64,16 +74,13 @@ from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerCo
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
     TrainState,
+    eval_step,
     train_step,
 )
 from llama_pipeline_parallel_tpu_torch.utils import faults
 from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
-from llama_pipeline_parallel_tpu_torch.utils.metrics import (
-    MetricsWriter,
-    peak_flops,
-    train_flops_per_token,
-)
+from llama_pipeline_parallel_tpu_torch.utils.metrics import MetricsWriter, Throughput
 
 logger = get_logger(__name__)
 
@@ -89,25 +96,30 @@ _PRESETS = {
     "codellama_34b_16k": LlamaConfig.codellama_34b_16k,
 }
 
-# config keys that name features of the JAX trainer this one does not have yet
-_NOT_PORTED = ("optimizer_offload", "optimizer_offload_zero2", "eval_dataset", "profile_steps")
+# config keys that name features of the JAX trainer this one does not have
+# yet, with what ports each
+_NOT_PORTED = {"optimizer_offload": "host offload", "optimizer_offload_zero2": "host offload",
+               "profile_steps": "the profiler", "health_interval": "the health heartbeat"}
 # the fault sites this trainer fires (utils/faults.py); a plan with a rule at
 # any other site is refused
-FAULT_SITES = ("data_read", "storage_write", "ckpt_commit")
+FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit")
+# (site, op) rules this trainer cannot honour, with what each needs: a plan
+# that holds one is refused
+_NOT_PORTED_FAULTS = {("step", "grad_nonfinite"): "the numerics observatory",
+                      ("step", "oom"): "the memory observatory"}
 # keys of the JAX trainer whose value, other than the default given here,
-# asks for something this trainer does not do
-_NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": 1, "eval_steps": 0}
-# blocks of the JAX trainer (host offload tiers, the observatories) that ask
-# for their feature when any of their values is set
-_NOT_PORTED_BLOCKS = ("offload", "numerics", "timeline", "profiler", "memory")
+# asks for something this trainer does not do, with what ports each
+_NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": (1, "the pipeline schedule")}
+# blocks of the JAX trainer (host offload tiers, the observatories, the
+# resilience actions) that ask for their feature when any of their values is
+# set, with what ports each
+_NOT_PORTED_BLOCKS = {"offload": "host offload", "numerics": "the numerics observatory",
+                      "timeline": "the schedule observatory", "profiler": "the profiler",
+                      "memory": "the memory observatory", "actions": "the resilience actions"}
 # keys that order the pipeline's stages, with their defaults: with one stage
 # (pp = 1) the microbatches run in order whatever they say
 _ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None}
 PIPELINE_SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver", "gpipe")
-# the JAX trainer's activation-checkpointing policies (jax.checkpoint policy
-# names); torch.utils.checkpoint here keeps nothing, which is nothing_saveable
-REMAT_POLICIES = ("nothing_saveable", "everything_saveable", "dots_saveable", "checkpoint_dots",
-                  "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims")
 
 
 def build_model_config(node: dict) -> LlamaConfig:
@@ -287,27 +299,22 @@ def _loss_head(cfg: dict, model_cfg: LlamaConfig) -> LossHead:
     return LossHead(loss_chunks=chunks, kernel_ce=_kernel_flags(cfg)[0])
 
 
-def _remat(cfg: dict) -> bool:
-    """`activation_checkpointing` with its `remat_policy`: a name outside the
-    JAX trainer's policies is refused, and so is a policy that saves
-    something while checkpointing is on (torch.utils.checkpoint keeps
-    nothing here)."""
+def _remat(cfg: dict) -> tuple[bool, str]:
+    """(`activation_checkpointing`, its `remat_policy`): a name outside the
+    JAX trainer's policies is refused; a policy other than the default with
+    checkpointing off is logged as having no effect."""
     remat = bool(cfg.get("activation_checkpointing", True))
     policy = cfg.get("remat_policy", "nothing_saveable")
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}; choose one of {REMAT_POLICIES}")
-    if policy != "nothing_saveable":
-        if remat:
-            raise NotImplementedError(
-                f"remat_policy={policy!r} is not ported yet: activation checkpointing here "
-                f"saves nothing ('nothing_saveable')")
+    if policy != "nothing_saveable" and not remat:
         logger.info("remat_policy=%r has no effect: activation_checkpointing is off", policy)
-    return remat
+    return remat, policy
 
 
 def _check_supported(cfg: dict) -> None:
-    """Refuse what this trainer does not run, naming the keys; log once the
-    keys that have no effect on one device."""
+    """Refuse what this trainer does not run, naming the keys and what ports
+    each; log once the keys that have no effect on one device."""
     mesh = cfg.get("mesh") or {}
     layout = {ax: int(mesh.get(ax, 1)) for ax in ("pp", "dp", "tp", "sp")}
     if any(n != 1 for n in layout.values()):
@@ -318,12 +325,15 @@ def _check_supported(cfg: dict) -> None:
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
                          f"{PIPELINE_SCHEDULES}")
-    asked = [key for key in _NOT_PORTED if cfg.get(key)]
-    asked += [key for key, default in _NOT_PORTED_UNLESS_DEFAULT.items()
-              if cfg.get(key) is not None and cfg.get(key) != default]
-    asked += [key for key in _NOT_PORTED_BLOCKS if _block_asks(cfg.get(key))]
+    asked = {key: what for key, what in _NOT_PORTED.items() if cfg.get(key)}
+    asked.update({key: what for key, (default, what) in _NOT_PORTED_UNLESS_DEFAULT.items()
+                  if cfg.get(key) is not None and cfg.get(key) != default})
+    asked.update({key: what for key, what in _NOT_PORTED_BLOCKS.items()
+                  if _block_asks(cfg.get(key))})
     if asked:
-        raise NotImplementedError(f"not ported yet: {asked}")
+        raise NotImplementedError(
+            f"not ported yet: {list(asked)} ("
+            + "; ".join(f"{key} comes with {what}" for key, what in asked.items()) + ")")
     moot = [key for key, default in _ONE_STAGE_KEYS.items()
             if cfg.get(key) is not None and cfg.get(key) != default]
     if moot:
@@ -334,18 +344,26 @@ def _check_supported(cfg: dict) -> None:
 def _configure_faults(cfg: dict) -> None:
     """Install the run's fault plan: LPT_FAULT_PLAN when set (it wins over
     the config, as in the JAX trainer), else `fault_plan`, else none. A plan
-    with a rule at a site this trainer does not fire is refused by name."""
+    with a rule at a site this trainer does not fire, or with an op it cannot
+    honour there (_NOT_PORTED_FAULTS), is refused by name."""
     if os.environ.get(faults.ENV_PLAN):
         source, injector = f"${faults.ENV_PLAN}", faults.configure_from_env()
     else:
         source, injector = "fault_plan", faults.configure(cfg.get("fault_plan"))
-    sites = {rule["site"] for rule in injector.stats()} if injector is not None else set()
-    other = sorted(sites - set(FAULT_SITES))
+    rules = {(rule["site"], rule["op"]) for rule in injector.stats()} if injector else set()
+    other = sorted({site for site, _ in rules} - set(FAULT_SITES))
     if other:
         faults.configure(None)
         raise NotImplementedError(
             f"not ported yet: {source} has rules at site(s) {other}; this trainer fires "
             f"{list(FAULT_SITES)}")
+    needs = {f"{op}@{site}": what for (site, op), what in _NOT_PORTED_FAULTS.items()
+             if (site, op) in rules}
+    if needs:
+        faults.configure(None)
+        raise NotImplementedError(
+            f"not ported yet: {source} has rules {sorted(needs)}; "
+            + "; ".join(f"{rule} needs {what}" for rule, what in needs.items()))
 
 
 def _block_asks(node: Any) -> bool:
@@ -361,7 +379,10 @@ class Run:
     """A configured training run on one device: what `train_run` loops
     over, and what tools/torch_step_profile.py profiles. `start_step` is
     the restored checkpoint's step (0 on a fresh or warm start) and
-    `data_start` the (epoch, batch) the data stream reopens at."""
+    `data_start` the (epoch, batch) the data stream reopens at.
+    `eval_loader` is the held-out set (None without `eval_dataset`) and
+    `last_eval` the newest evaluation ({"step", "loss"}), which later
+    checkpoints carry."""
 
     cfg: dict
     device: torch.device
@@ -380,6 +401,13 @@ class Run:
     topology: dict
     start_step: int = 0
     data_start: tuple[int, int] = (0, 0)
+    remat_policy: str = "nothing_saveable"
+    eval_loader: DataLoader | None = None
+    last_eval: dict = dataclasses.field(default_factory=dict)
+
+    def on_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """A collated batch (numpy) as tensors on the run's device."""
+        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
     def batches(self) -> Iterator[dict[str, torch.Tensor]]:
         """The data stream from `data_start` on, collated `prefetch_depth`
@@ -387,7 +415,7 @@ class Run:
         stream = PrefetchIterator(RepeatingLoader(self.loader, *self.data_start),
                                   depth=self.cfg.get("prefetch_depth", 2))
         for batch in stream:
-            yield {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+            yield self.on_device(batch)
 
     def host_scalars(self) -> dict:
         """The host-side counters of the metrics line: the packed collator's
@@ -405,7 +433,25 @@ class Run:
         return train_step(self.state, batch, self.model_cfg,
                           num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                           remat=self.remat, head=self.head,
-                          kernel_prologue=self.kernel_prologue)
+                          kernel_prologue=self.kernel_prologue,
+                          remat_policy=self.remat_policy)
+
+    def eval_sum_count(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss sum, valid count) of one eval batch on the training step's
+        attention, head and prologue, without an autograd graph."""
+        return eval_step(self.state.params, batch, self.model_cfg,
+                         num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
+                         head=self.head, kernel_prologue=self.kernel_prologue)
+
+    def evaluate(self) -> float:
+        """eval_loss: the exact token mean over every batch of the eval set
+        (summed over batches, then divided once: not a mean of means)."""
+        total, tokens = 0.0, 0
+        for batch in self.eval_loader:
+            loss_sum, count = self.eval_sum_count(self.on_device(batch))
+            total += float(loss_sum)
+            tokens += int(count)
+        return total / max(tokens, 1)
 
     def save(self, step: int, final: bool = False) -> str:
         """The full state at `step` into `output_dir`: blocking when `final`
@@ -422,7 +468,8 @@ class Run:
             keep_last=cfg.get("save_total_limit"),
             extra_meta={"topology": self.topology,
                         "data_state": _data_state(step, self.loader, len(self.loader.dataset),
-                                                  cfg.get("seed", 42), batch_delta)})
+                                                  cfg.get("seed", 42), batch_delta),
+                        **_eval_meta(self.last_eval)})
 
 
 def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = None) -> Run:
@@ -438,7 +485,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
                            "device='cpu' (--device cpu) to run on the CPU")
     _check_supported(cfg)
     _configure_faults(cfg)
-    remat = _remat(cfg)
+    remat, remat_policy = _remat(cfg)
     seed = cfg.get("seed", 42)
     model_cfg = build_model_config(cfg["model"])
     head = _loss_head(cfg, model_cfg)
@@ -466,6 +513,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     if steps_per_epoch == 0:
         raise ValueError(f"dataset of {len(dataset)} examples yields 0 steps at "
                          f"batch {loader.per_replica_batch}")
+    eval_loader = _eval_loader(cfg, model_cfg, tokenizer, num_microbatches)
 
     # `total_steps` (schedule horizon) is separate from `max_steps` (loop end)
     # so an interrupted-then-resumed run sees the uninterrupted run's LR curve
@@ -513,7 +561,38 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
                remat=remat, head=head,
                kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
                manifest=manifest, ckpt=mgr, topology=topology, start_step=start_step,
-               data_start=data_start)
+               data_start=data_start, remat_policy=remat_policy, eval_loader=eval_loader)
+
+
+def _eval_loader(cfg: dict, model_cfg: LlamaConfig, tokenizer: Any,
+                 num_microbatches: int) -> DataLoader | None:
+    """The held-out set of `eval_dataset` (None without one), as the JAX
+    trainer's `_make_evaluator` builds it: the training config's tokenizer
+    and collator over that dataset node, in dataset order, a batch of
+    `num_microbatches` microbatches of `per_device_eval_batch_size` rows
+    (default: the training micro-batch), times `packing_factor` examples.
+    Refused when the set holds no whole batch."""
+    eval_cfg = cfg.get("eval_dataset")
+    if eval_cfg is None:
+        return None
+    dataset, collator = build_dataset_and_collator({**cfg, "dataset": eval_cfg}, model_cfg,
+                                                   tokenizer)
+    rows = cfg.get("per_device_eval_batch_size", cfg.get("per_device_train_batch_size", 1))
+    loader = DataLoader(dataset, collator,
+                        per_replica_batch=rows * num_microbatches * _packing_factor(cfg),
+                        shuffle=False)
+    if len(loader) == 0:
+        raise ValueError(f"eval dataset too small for one batch ({len(dataset)} examples, "
+                         f"batch {loader.per_replica_batch})")
+    return loader
+
+
+def _eval_meta(last_eval: dict) -> dict:
+    """meta.json's share of the newest evaluation: `eval_loss` and the step
+    it was measured at; nothing before the first evaluation."""
+    if "loss" in last_eval:
+        return {"eval_loss": last_eval["loss"], "eval_step": last_eval["step"]}
+    return {}
 
 
 # the config fields that fix the parameters' shapes
@@ -696,37 +775,122 @@ def _sync_checkpoint(cfg: dict, path: str) -> None:
         logger.warning("save_sync_command error: %r", e)
 
 
+# Preemption: SIGTERM / SIGINT (a maintenance event, a spot reclaim, Ctrl+C)
+# set a flag that the step loop reads at the top of every step; it then saves
+# at that step and returns with `preempted_at`. The handlers are installed when
+# run_training starts, so a signal during setup or the kernels' build is
+# honoured at the first step. Signal dispositions belong to the process, so
+# this state is module-level; it is changed only on the main thread (the
+# handler runs there too).
+_STOP_SIGNALS: list[int] = []
+_INSTALLED_SIGNALS: list[int] = []
+_PREVIOUS_HANDLERS: dict = {}
+
+
+def _in_main_thread() -> bool:
+    return threading.current_thread() is threading.main_thread()
+
+
+def _on_preemption_signal(sig, frame):
+    _STOP_SIGNALS.append(sig)
+    # async-signal-safe notice: the stop itself waits for the next step
+    os.write(2, b"\n[trainer] signal received; will checkpoint at the next "
+                b"step and exit (signal again to force-quit)\n")
+    for s in _INSTALLED_SIGNALS:  # a second signal takes the default action
+        signal.signal(s, signal.SIG_DFL)
+
+
+def _install_preemption_handlers() -> None:
+    """Record SIGTERM / SIGINT from the start of the run. A run on a worker
+    thread (an embedding caller) installs nothing: Python handlers live on
+    the main thread, whose run may be another."""
+    if not _in_main_thread():
+        return
+    _STOP_SIGNALS.clear()  # a stale flag from a prior run must not stop this one
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        prev = signal.signal(sig, _on_preemption_signal)
+        # None: a handler installed outside Python, which signal.signal
+        # cannot reinstate; restore the default instead of ours
+        _PREVIOUS_HANDLERS[sig] = signal.SIG_DFL if prev is None else prev
+        _INSTALLED_SIGNALS.append(sig)
+
+
+def _release_preemption_handlers() -> None:
+    """Restore the handlers from before the run. Idempotent: the loop hands
+    the signals back before the final save (a signal there must interrupt,
+    as nothing reads the flag any more), and run_training's finally is the
+    backstop for every other exit."""
+    if not _in_main_thread():
+        return
+    for sig, handler in list(_PREVIOUS_HANDLERS.items()):
+        signal.signal(sig, handler)
+        del _PREVIOUS_HANDLERS[sig]
+    _STOP_SIGNALS.clear()
+    _INSTALLED_SIGNALS.clear()
+
+
 def run_training(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = None) -> dict:
     """The training run; returns a summary dict for programmatic callers.
     Runs on `device` (the card unless the caller asks for the CPU);
-    `tokenizer` as in build_run. The run's fault plan is cleared at the end."""
+    `tokenizer` as in build_run. Installs the preemption handlers first; the
+    run's fault plan is cleared and the handlers restored at the end."""
+    _install_preemption_handlers()
     try:
         return train_run(build_run(cfg, device, tokenizer))
     finally:
         faults.configure(None)
+        _release_preemption_handlers()
 
 
 def train_run(run: Run) -> dict:
-    """Steps `run.start_step` .. `run.end_step`, saving every `save_steps`
+    """Steps `run.start_step` .. `run.end_step` (the JAX trainer's
+    `_train_loop` for one process). Each step fires the `step` fault site,
+    then stops the run on a preemption signal: a blocking save at that step,
+    and the summary's `preempted_at` and `final_step` name it. Every
+    `logging_steps` the metrics line: the window's mean loss, tokens/s over
+    its wall time (data wait, eval and saves included; `real_tokens_per_sec`
+    over the non-pad positions where they differ), and `step_time`, that
+    wall less the first step (the kernels' build and warm-up), eval and
+    checkpoint seconds, per step. Every `eval_steps` with an eval set,
+    `eval_loss`, before a save at the same step. Saves every `save_steps`
     and, under `save_final` (true by default), at the end unless the last
-    step was just saved. Step times leave the saves out. Returns the
-    summary; the trained state stays in `run.state`."""
+    step was just saved. The summary's `step_times` and `losses` are per
+    step, device-synchronised; the trained state stays in `run.state`."""
     cfg, device = run.cfg, run.device
     logging_steps = cfg.get("logging_steps", 10)
     save_steps = cfg.get("save_steps", 0)
-    peak = peak_flops(device)
-    flops_per_token = train_flops_per_token(run.model_cfg, run.seq_length)
+    eval_steps = cfg.get("eval_steps", 0) if run.eval_loader is not None else 0
+    # The stop flag is read every step when the run is one process, as in the
+    # JAX trainer when process_count() == 1; `preempt_check_every` paces the
+    # cross-process stop vote, which comes with the distributed trainer.
+    process_count = 1
+    check_every = max(int(cfg.get("preempt_check_every", 10)), 1)
 
     def peak_bytes():
         return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    writer = MetricsWriter(cfg["output_dir"], config_snapshot=cfg)
+    writer = MetricsWriter(cfg["output_dir"], config_snapshot=cfg,
+                           use_wandb=cfg.get("use_wandb", False),
+                           use_tensorboard=cfg.get("use_tensorboard", False))
+    meter = Throughput(run.model_cfg, run.seq_length, device=device)
     batches = run.batches()
     losses, step_times, window = [], [], []
     tokens_per_step = 0
     last_saved = -1
+    preempted_at = None
+    window_t0 = time.perf_counter()
+    window_overhead = 0.0  # first-step, eval and checkpoint seconds: not step_time
     try:
         for step in range(run.start_step, run.end_step):
+            faults.fire("step", step=step)
+            check_now = process_count == 1 or step % check_every == 0
+            if check_now and _STOP_SIGNALS:
+                logger.warning("preemption signal; checkpointing at step %d and exiting for "
+                               "clean resume", step)
+                preempted_at = step
+                run.save(step, final=True)  # joins an async save in flight first
+                last_saved = run.end_step  # no save_final after it
+                break
             batch = next(batches)
             tokens_per_step = batch["input_ids"].numel()
             t0 = time.perf_counter()
@@ -734,27 +898,34 @@ def train_run(run: Run) -> dict:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_times.append(time.perf_counter() - t0)
+            if step == run.start_step:
+                window_overhead += step_times[-1]
             losses.append(float(metrics["loss"]))
-            window.append(len(losses) - 1)
+            window.append(losses[-1])
+            mask = batch.get("attention_mask")
+            meter.update(tokens_per_step, None if mask is None else int((mask != 0).sum()))
             if (step + 1) % logging_steps == 0 or step + 1 == run.end_step:
-                secs = sum(step_times[i] for i in window)
-                tps = tokens_per_step * len(window) / max(secs, 1e-9)
-                scalars = {"loss": float(np.mean([losses[i] for i in window])),
-                           "lr": metrics["lr"],
-                           "grad_norm": float(metrics["grad_norm"]),
-                           "tokens_per_sec": tps, "tokens_per_sec_per_chip": tps,
-                           "step_time": secs / len(window),
-                           "device_peak_bytes": peak_bytes()}
-                if peak:
-                    scalars["mfu"] = flops_per_token * tps / peak
-                scalars.update(run.host_scalars())
-                writer.log(step + 1, scalars)
+                step_time = max(time.perf_counter() - window_t0 - window_overhead,
+                                0.0) / len(window)
+                window_t0 = time.perf_counter()
+                window_overhead = 0.0
+                writer.log(step + 1, {"loss": float(np.mean(window)), "lr": metrics["lr"],
+                                      "grad_norm": float(metrics["grad_norm"]),
+                                      **meter.read_and_reset(), "step_time": step_time,
+                                      "device_peak_bytes": peak_bytes(),
+                                      **run.host_scalars()})
                 window.clear()
+            if eval_steps and (step + 1) % eval_steps == 0:
+                t_eval = time.perf_counter()
+                eval_loss = run.evaluate()
+                writer.log(step + 1, {"eval_loss": eval_loss})
+                run.last_eval = {"step": step + 1, "loss": eval_loss}
+                window_overhead += time.perf_counter() - t_eval
             if save_steps and (step + 1) % save_steps == 0:
+                t_save = time.perf_counter()
                 run.save(step + 1)
                 last_saved = step + 1
-        if cfg.get("save_final", True) and last_saved != run.end_step:
-            run.save(run.end_step, final=True)
+                window_overhead += time.perf_counter() - t_save
     except BaseException:
         # join the in-flight commit, but never let ITS failure replace the
         # training exception that actually killed the run
@@ -767,8 +938,12 @@ def train_run(run: Run) -> dict:
     finally:
         run.loader.close_ledger()
         writer.close()
+        _release_preemption_handlers()
+    if cfg.get("save_final", True) and last_saved != run.end_step:
+        run.save(run.end_step, final=True)
     run.ckpt.finalize()  # surface any async-commit failure on the clean path
-    return {"final_step": run.end_step, "start_step": run.start_step,
+    return {"final_step": run.end_step if preempted_at is None else preempted_at,
+            "start_step": run.start_step, "preempted_at": preempted_at,
             "final_loss": losses[-1] if losses else float("nan"),
             "steps_per_epoch": len(run.loader), "output_dir": cfg["output_dir"],
             "losses": losses, "step_times": step_times,

@@ -55,9 +55,10 @@ Sites: `storage_write` (checkpoint file I/O), `ckpt_commit` (between the
 files' durability and the meta/tag write), `barrier` (host_barrier entry),
 `data_read` (per-record dataset reads), `step` (top of every training step),
 `device_probe` (the supervisor's available-device probe). This package fires
-`storage_write`, `ckpt_commit` and `data_read` (ckpt/checkpoint.py,
-data/loader.py); its trainer refuses a plan with a rule at any other site
-(train.FAULT_SITES).
+`step`, `storage_write`, `ckpt_commit` and `data_read` (train.py,
+ckpt/checkpoint.py, data/loader.py); its trainer refuses a plan with a rule
+at any other site (train.FAULT_SITES), or with `grad_nonfinite` or `oom` at
+`step`.
 """
 
 from __future__ import annotations

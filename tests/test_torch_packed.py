@@ -345,7 +345,7 @@ def test_storage_read_fault_is_retried_on_restore(tmp_path, no_backoff):
     assert t_faults.active().stats()[0]["fired"] == 1
 
 
-@pytest.mark.parametrize("site", ["step", "barrier", "device_probe"])
+@pytest.mark.parametrize("site", ["action_execute", "barrier", "device_probe"])
 def test_fault_plan_at_a_site_this_trainer_lacks_is_refused(tmp_path, no_backoff, monkeypatch,
                                                             site):
     """A rule at a site this trainer does not fire is refused by name, from

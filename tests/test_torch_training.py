@@ -467,20 +467,23 @@ def _build_tiny(tmp_path, *overrides):
 
 
 _REFUSED_KEYS = [
-    ("remat_policy=dots_with_no_batch_dims_saveable", NotImplementedError, "remat_policy"),
-    ("remat_policy=everything_saveable", NotImplementedError, "remat_policy"),
+    ("actions={resize_on_request: true}", NotImplementedError,
+     r"'actions'.*the resilience actions"),
+    ("health_interval=5", NotImplementedError, r"'health_interval'.*the health heartbeat"),
     ("remat_policy=nothing_savable", ValueError, "unknown remat_policy"),
     ("offload={wgrad_stash: true}", NotImplementedError, "'offload'"),
     ("gradient_accumulation_chunks=2", NotImplementedError, "gradient_accumulation_chunks"),
     ("pipeline_schedule=zb2", ValueError, "unknown pipeline_schedule"),
-    ("eval_steps=10", NotImplementedError, "eval_steps"),
+    ("fault_plan={faults: [{site: step, op: grad_nonfinite, at_step: 3}]}",
+     NotImplementedError, r"grad_nonfinite@step.*numerics observatory"),
     ("numerics={enabled: true}", NotImplementedError, "numerics"),
     ("timeline={enabled: true}", NotImplementedError, "timeline"),
     ("profiler={at_step: [3]}", NotImplementedError, "profiler"),
     ("memory={enabled: true}", NotImplementedError, "memory"),
-    ("eval_dataset={synthetic: true}", NotImplementedError, "eval_dataset"),
-    ("fault_plan={faults: [{site: step, op: die, at_step: 3}]}", NotImplementedError,
-     "fault_plan has rules at site.*'step'"),
+    ("eval_dataset={synthetic: true, seq_length: 32, pseudo_dataset_len: 1}", ValueError,
+     "eval dataset too small for one batch"),
+    ("fault_plan={faults: [{site: step, op: oom, at_step: 3}]}", NotImplementedError,
+     r"oom@step.*memory observatory"),
 ]
 
 
@@ -488,9 +491,9 @@ _REFUSED_KEYS = [
                          ids=[case[0] for case in _REFUSED_KEYS])
 def test_trainer_refuses_keys_it_does_not_run(tmp_path, override, error, match):
     """A key of the JAX trainer whose value asks for what this trainer does
-    not do is refused by name (tiny_smoke checkpoints activations, so a
-    saving remat_policy would change what is kept); a name outside the JAX
-    trainer's remat policies or schedules is refused as unknown."""
+    not do is refused by name, with what would port it; a name outside the
+    JAX trainer's remat policies or schedules is refused as unknown, and an
+    eval set too small for one batch as such."""
     with pytest.raises(error, match=match):
         _build_tiny(tmp_path, override)
 
@@ -575,7 +578,7 @@ def test_trainer_refuses_to_skip_a_checkpoint_it_would_resume(tmp_path, entries,
 # card (None: it builds)
 _ONE_CARD_REFUSALS = {
     "codellama_34b_16k.yaml": "optimizer_offload",
-    "llama2_70b_pp4_tp4_dp2.yaml": "remat_policy",
+    "llama2_70b_pp4_tp4_dp2.yaml": None,
     "llama_13b_pp4_dp2.yaml": None,
     "llama_65b_pp8_tp2_dp2.yaml": "optimizer_offload",
     "llama_65b_pp8_v2_tp2_dp2.yaml": "optimizer_offload",
