@@ -155,6 +155,23 @@ which raises on failure:
               recomputing policy), ms, peak memory (not falling as the
               policy keeps more), loss and gradients against
               everything_saveable in bf16 and fp32.
+11. pipeline -- conf/llama_7b_pp4.yaml with its own mesh.pp: 4 (every stage in
+              this process on the one card, the local transport) at LLaMA-7B
+              width cut to 8 layers (two a stage), seq 2048, 8 microbatches of
+              1 row (PIPE_OVERRIDES), 3 steps through `run_training` under
+              each of PIPE_SCHEDULES (flat 1f1b, interleaved_1f1b with
+              virtual_stages 2, zb1 with virtual_stages 2): every loss finite,
+              each of the nine kernels launched exactly as the unit grid
+              says (pipeline_launches) and every call on the tensor cores;
+              step ms, tokens/s, MFU, max_memory_allocated and the counted
+              bubble per schedule, beside the unpipelined step at the same
+              depth and microbatches with activation checkpointing on. Then
+              step 1 again on the same params and batch: the flat pipeline
+              against the unpipelined step (bf16 step loss; fp32 compute at
+              4 microbatches: loss and gradients), interleaved and zb1
+              against flat (the same tolerances; bit-equality reported), and
+              the flat pipeline with one B unit's received cotangent zeroed
+              rejected by the fp32 gradient check.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -356,6 +373,26 @@ PREEMPT_RESUME = ["save_steps=0", "save_final=false", "resume=true"]
 REMAT_TABLE = ("nothing_saveable", "dots_with_no_batch_dims_saveable", "dots_saveable",
                "everything_saveable")
 REMAT_FP32_RTOL = 1e-6
+# the pipeline phase: conf/llama_7b_pp4.yaml with its own mesh.pp: 4, every
+# stage in this process on the one card, at LLaMA-7B width cut to 8 layers (two
+# a stage; 1.88 B parameters, ~30 GB of fp32 masters, gradients and moments),
+# seq 2048, 8 microbatches of 1 row (M = 2S: 1F1B reaches its steady state), 3
+# steps a schedule. activation_checkpointing stays the config's (off): every
+# unit schedule recomputes a stage's chunk in its backward anyway
+PIPE_OVERRIDES = [
+    "mesh.dp=1", "model.num_hidden_layers=8", "dataset.seq_length=2048",
+    "max_seq_length=2048", "per_device_train_batch_size=1", "gradient_accumulation_steps=8",
+    "max_steps=3", "total_steps=8", "warmup_steps=1", "attention=flash", "kernels.ce=pallas",
+    "loss_vocab_chunks=4", "kernels.prologue=pallas", "save_final=false", "resume=false",
+    "logging_steps=1",
+]
+PIPE_SCHEDULES = {
+    "1f1b": [],
+    "interleaved_1f1b": ["pipeline_schedule=interleaved_1f1b", "virtual_stages=2"],
+    "zb1": ["pipeline_schedule=zb1", "virtual_stages=2"],
+}
+# the fp32 parity runs the first PIPE_FP32_MICROBATCHES rows of the batch (M = S)
+PIPE_FP32_MICROBATCHES = 4
 
 
 def log(msg: str) -> None:
@@ -2516,6 +2553,285 @@ def phase_remat() -> None:
     log(f"[remat] phase {time.perf_counter() - t0:.1f} s")
 
 
+def pipeline_launches(us, manifest, accum_chunks: int, remat: bool) -> dict:
+    """The launches of each of the nine kernels in one step of the unit
+    sequence `us` (parallel/pipeline.Pipeline's rules), per valid cell of
+    stage s holding a chunk of k layers:
+    - F: k flash and prologue forwards, none on the chunk that owns the loss
+      (its output goes nowhere; its B recomputes it);
+    - B: a recompute (k forwards, 2k with `remat`), k flash dq and dk/dv and
+      prologue dhidden, k prologue dW when fused; on the loss-owning chunk
+      one CE forward and dh, and dW when fused. Split (zb1): nothing on
+      (stage 0, chunk 0), whose input is the embedding lookup;
+    - W: the recompute, k dq, dk/dv, dhidden (the norm weight's gradient)
+      and dW; on the loss-owning chunk one CE forward, dh and dW.
+    Times `accum_chunks` flushes."""
+    from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
+
+    n = dict.fromkeys(("fwd", "dq", "dkv", "ce_fwd", "ce_dh", "ce_dw", "prologue_fwd",
+                       "prologue_dhidden", "prologue_dw"), 0)
+    s_total, v = us.num_stages, us.virtual_stages
+    for kind, grid in (("F", us.f_unit), ("B", us.b_unit), ("W", us.w_unit)):
+        for s in range(s_total):
+            for u in grid[:, s][grid[:, s] >= 0]:
+                ch = (usched.unit_mb_chunk if kind == "F"
+                      else usched.bwd_unit_mb_chunk)(int(u), s_total, v)[1]
+                first, last = s == 0 and ch == 0, s == s_total - 1 and ch == v - 1
+                k = len(manifest.layers_of_chunk(s, ch))
+                if kind == "F":
+                    n["fwd"] += 0 if last else k
+                    n["prologue_fwd"] += 0 if last else k
+                    continue
+                if kind == "B" and us.split_backward and first:
+                    continue
+                weights = kind == "W" or not us.split_backward
+                for key in ("fwd", "prologue_fwd"):
+                    n[key] += 2 * k if remat else k
+                for key in ("dq", "dkv", "prologue_dhidden"):
+                    n[key] += k
+                n["prologue_dw"] += k if weights else 0
+                if last:
+                    n["ce_fwd"] += 1
+                    n["ce_dh"] += 1
+                    n["ce_dw"] += int(weights)
+    return {key: c * accum_chunks for key, c in n.items()}
+
+
+def phase_pipeline() -> None:
+    """conf/llama_7b_pp4.yaml at pp 4 on the one card (see the module
+    docstring, phase 11): each schedule of PIPE_SCHEDULES through
+    run_training with exact launch counts, its numbers beside the
+    unpipelined step's, then the parity of step 1 (pipeline_parity)."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_model_config,
+        build_pipeline_config,
+        run_training,
+    )
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+    from llama_pipeline_parallel_tpu_torch.utils.metrics import peak_flops, train_flops_per_token
+
+    t0 = time.perf_counter()
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "pipeline")
+    log(f"[pipeline] {config} {' '.join(PIPE_OVERRIDES)}")
+    rows = {}
+    first_loss = None
+    for name, extra in {**PIPE_SCHEDULES, "unpipelined": ["mesh.pp=1",
+                                                          "activation_checkpointing=true"]
+                        }.items():
+        cfg = load_config(config, PIPE_OVERRIDES + extra + [f"output_dir={out_dir}/{name}"])
+        mcfg = build_model_config(cfg["model"])
+        pp = cfg["mesh"]["pp"]
+        steps = cfg["max_steps"]
+        if name in PIPE_SCHEDULES:
+            if pp != 4:
+                raise AssertionError(f"[pipeline] {config} has mesh.pp {pp}, not 4")
+            manifest = build_manifest(cfg, mcfg, pp)
+            pcfg = build_pipeline_config(cfg, MeshConfig(pp=pp), manifest)
+            per_step = pipeline_launches(pl.flush_unit_schedule(pcfg), manifest,
+                                         pcfg.accum_chunks, pcfg.remat)
+            bubble = pl.bubble_fraction(pcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for module in (fa, fc, fp):
+            module.reset_launch_counts()
+        summary = run_training(cfg, device="cuda")
+        launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+        tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts,
+                       **fp.tensor_core_counts}
+        losses = summary["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[pipeline] {name}: non-finite loss {losses}")
+        step_s = statistics.median(summary["step_times"][1:])
+        tokens = summary["tokens_per_step"]
+        rows[name] = {"losses": losses, "ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+                      "mfu": (train_flops_per_token(mcfg, 2048) * tokens / step_s
+                              / peak_flops(torch.device("cuda"))),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "bubble": bubble if name in PIPE_SCHEDULES else 0.0}
+        del summary
+        if name not in PIPE_SCHEDULES:
+            continue
+        want = {key: c * steps for key, c in per_step.items()}
+        log(f"[pipeline] {name}: launches {launches} (expected {want}); per step {per_step}")
+        if launches != want:
+            raise AssertionError(f"[pipeline] {name}: launches {launches}, expected {want} "
+                                 f"(pipeline_launches over the unit grid, x {steps} steps)")
+        if tensor_core != want:
+            raise AssertionError(f"[pipeline] {name}: calls on the tensor cores {tensor_core}, "
+                                 f"expected every launch {want}")
+        first_loss = losses[0] if first_loss is None else first_loss
+    card = card_line()
+    log(f"[pipeline] card {card}: per schedule, {steps} steps at LLaMA-7B width, 8 layers, seq "
+        f"2048, 8 microbatches of 1 row; step ms the median of steps 2-{steps}; MFU against "
+        f"989 TFLOP/s (PaLM accounting, recompute not counted). All stages run one after "
+        f"another on the one card, so the counted bubble costs no wall time here")
+    for name, row in rows.items():
+        log(f"  {name:17s} step {row['ms']:8.1f} ms  {row['tokens_per_s']:8.0f} tokens/s  MFU "
+            f"{row['mfu']:.4f}  max_memory_allocated {row['peak_gib']:6.2f} GiB  bubble "
+            f"{row['bubble']:.4f}  losses {[round(x, 5) for x in row['losses']]}  ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_parity(config, first_loss)
+    log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+
+
+def zero_first_cotangent(num_stages: int):
+    """A planted fault for the pipeline parity: a local transport that hands
+    the first B cotangent it delivers over as zeros."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+
+    class ZeroFirstCotangent(pl.LocalTransport):
+        planted = False
+
+        def recv(self, kind, stage):
+            t = super().recv(kind, stage)
+            if kind == pl.BWD and not self.planted:
+                self.planted = True
+                return torch.zeros_like(t)
+            return t
+
+    return ZeroFirstCotangent(num_stages)
+
+
+def pipeline_parity(config: str, run_first_loss: float) -> None:
+    """Step 1 of the pipeline phase's runs again, on the same params and
+    batch (a fresh build of the unpipelined config from the same seed: the
+    canonical init every schedule split into its stages): the flat pipeline
+    against the unpipelined forward and backward (bf16: step loss within
+    STEP_LOSS_TOL, and the run's first loss repeated within RUN_REPEAT_TOL;
+    fp32 compute on PIPE_FP32_MICROBATCHES rows: loss within
+    FP32_STEP_LOSS_TOL, gradients within GRAD_REL_TOL relative); interleaved
+    and zb1 against flat with the same tolerances, whether the gradients
+    are bit-equal reported (the unpipelined loss is a sum of Python floats,
+    the pipeline's of fp32 tensors, so the losses differ in rounding); a
+    zeroed cotangent (zero_first_cotangent) must fail the fp32 gradient check."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
+        head_loss_sum_count,
+        shift_labels,
+    )
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_pipeline_config,
+        build_run,
+    )
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    run = build_run(load_config(config, PIPE_OVERRIDES + ["mesh.pp=1", (
+        f"output_dir={os.path.join(ROOT, 'build', 'chip_smoke', 'pipeline', 'parity')}")]),
+        "cuda")
+    run.state.optimizer = None  # only the params and the batch are needed here
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = next(run.batches())
+    params = run.state.params
+
+    def unpipelined(mcfg, rows: int):
+        """The step's loss and gradients (canonical, cloned), microbatch by
+        microbatch on the run's kernels, no update."""
+        targets = shift_labels(batch["labels"][:rows])
+        count = (targets != llama.IGNORE_INDEX).sum()
+        for p in params.values():
+            p.grad = None
+        total = 0.0
+        for i in range(rows):
+            r = slice(i, i + 1)
+            hn = llama.hidden_states(params, batch["input_ids"][r], batch["attention_mask"][r],
+                                     batch["position_ids"][r], cfg=mcfg, attn_fn=run.attn_fn,
+                                     kernel_prologue=run.kernel_prologue)
+            loss = head_loss_sum_count(params, hn, targets[r], mcfg, run.head)[0] / count
+            loss.backward()
+            total += loss.item()
+        grads = {k: p.grad.clone() for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return total, grads
+
+    def pipelined(mcfg, schedule: str, rows: int, transport=None):
+        cfg = load_config(config, PIPE_OVERRIDES + PIPE_SCHEDULES[schedule] + [
+            f"gradient_accumulation_steps={rows}"])
+        manifest = build_manifest(cfg, mcfg, 4)
+        pcfg = build_pipeline_config(cfg, MeshConfig(pp=4), manifest)
+        sp = pl.StageParams.from_canonical(params, manifest)
+        pipe = pl.Pipeline(mcfg, pcfg, make_mesh(MeshConfig(pp=4)), sp, run.attn_fn,
+                           transport=transport)
+        loss = pipe.loss_and_grad({k: v[:rows] for k, v in batch.items()}).item()
+        grads = sp.to_canonical({k: p.grad for k, p in sp.flat().items()})
+        del pipe, sp
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss, grads
+
+    def same_grads(a, b) -> bool:
+        return all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+    card = card_line()
+    bf16 = run.model_cfg
+    fp32 = dataclasses.replace(bf16, dtype=torch.float32)
+    rows = run.num_microbatches
+    for mcfg, tag, n in ((bf16, "bf16", rows), (fp32, "fp32", PIPE_FP32_MICROBATCHES)):
+        ref = unpipelined(mcfg, n)
+        flat = pipelined(mcfg, "1f1b", n)
+        loss_diff, grad_rel = abs(flat[0] - ref[0]), rel_diff(flat[1], ref[1])
+        held_loss = STEP_LOSS_TOL if tag == "bf16" else FP32_STEP_LOSS_TOL
+        log(f"[pipeline] {tag}, {n} microbatches, step 1 on the same params and batch: flat "
+            f"pipeline vs unpipelined: loss |diff| {loss_diff:.3e} (tol {held_loss}), gradient "
+            f"rel diff {grad_rel:.3e} ({'tol ' + str(GRAD_REL_TOL) if tag == 'fp32' else 'not held'}"
+            f"), gradients bit-equal {same_grads(flat, ref)} ({card})")
+        if not loss_diff <= held_loss or (tag == "fp32" and not grad_rel <= GRAD_REL_TOL):
+            raise AssertionError(f"[pipeline] {tag} flat pipeline vs unpipelined: loss "
+                                 f"{flat[0]} vs {ref[0]}, gradient rel diff {grad_rel}")
+        if tag == "bf16" and not abs(flat[0] - run_first_loss) <= RUN_REPEAT_TOL:
+            raise AssertionError(f"[pipeline] step 1 again gives {flat[0]}, the run gave "
+                                 f"{run_first_loss}")
+        if tag == "fp32":
+            bad = pipelined(mcfg, "1f1b", n, transport=zero_first_cotangent(4))
+            bad_rel = rel_diff(bad[1], ref[1])
+            log(f"[pipeline] planted fault (one B unit's received cotangent zeroed), fp32: "
+                f"gradient rel diff {bad_rel:.3e}, loss |diff| {abs(bad[0] - ref[0]):.3e}")
+            if not bad_rel > GRAD_REL_TOL:
+                raise AssertionError(f"[pipeline] the gradient check passes a zeroed cotangent "
+                                     f"({bad_rel})")
+            del bad
+        del ref
+        for schedule in ("interleaved_1f1b", "zb1"):
+            got = pipelined(mcfg, schedule, n)
+            d_loss, d_grad = abs(got[0] - flat[0]), rel_diff(got[1], flat[1])
+            log(f"[pipeline] {tag}: {schedule} vs flat 1f1b: loss |diff| {d_loss:.3e}, gradient "
+                f"rel diff {d_grad:.3e}, gradients bit-equal {same_grads(got, flat)}")
+            if not d_loss <= held_loss or (tag == "fp32" and not d_grad <= GRAD_REL_TOL):
+                raise AssertionError(f"[pipeline] {tag} {schedule} vs flat: loss |diff| "
+                                     f"{d_loss}, gradient rel diff {d_grad}")
+            del got
+        del flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    del run, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2542,6 +2858,7 @@ def main() -> int:
     phase_eval(train_losses)
     phase_preempt(losses_a)
     phase_remat()
+    phase_pipeline()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

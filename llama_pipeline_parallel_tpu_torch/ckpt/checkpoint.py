@@ -151,6 +151,14 @@ def _copy_tensors(targets: dict[str, torch.Tensor], source: Any, what: str) -> N
             t.copy_(src)
 
 
+def _check_canonical(params: dict[str, torch.Tensor], manifest: StageManifest) -> None:
+    """Layer leaves must be the canonical [num_layers, ...] ones."""
+    for name, t in params.items():
+        if name.startswith("layers.") and t.shape[0] != manifest.num_layers:
+            raise ValueError(f"{name} is {tuple(t.shape)}: checkpoints hold the canonical "
+                             f"[num_layers={manifest.num_layers}, ...] layer leaves")
+
+
 @dataclasses.dataclass
 class CheckpointManager:
     """Layout: <root>/checkpoint-<step>/{params.safetensors, opt.safetensors,
@@ -347,7 +355,11 @@ class CheckpointManager:
              blocking: bool = True, on_complete: Any = None,
              keep_last: int | None = None,
              extra_meta: dict | None = None) -> str:
-        """Save the train state (canonical layout) + metadata, update `latest`.
+        """Save the train state + metadata, update `latest`. `params` (and the
+        optimizer's moments) are the canonical tree, layer leaves
+        [num_layers, ...], whatever the run's partition; `manifest` records
+        that partition in meta.json (a pipeline run merges its stages'
+        chunks first: parallel/pipeline.StageParams.to_canonical).
 
         `optimizer=None` produces a module-only checkpoint (the converter's
         output); otherwise its `state_dict()` (AdamW: mu, nu, count) goes to
@@ -367,10 +379,7 @@ class CheckpointManager:
         """
         self.finalize()
         path = self.step_dir(step)
-        if manifest.num_stages != 1:
-            raise NotImplementedError(
-                f"saving a {manifest.num_stages}-stage manifest: only the one-stage "
-                f"layout (canonical [num_layers, ...] leaves) is written here")
+        _check_canonical(params, manifest)
         items = {PARAMS_FILE: dict(params)}
         if optimizer is not None:
             items[OPT_FILE] = _optimizer_tensors(optimizer)
@@ -530,14 +539,16 @@ class CheckpointManager:
                     manifest: StageManifest | None = None,
                     verify: bool | None = None) -> dict[str, torch.Tensor]:
         """Module-only warm start: copy checkpoint-<step>'s parameters into
-        `params` (in place, on their device) and return them. The file's
-        canonical [num_layers, ...] layout is the one-stage manifest's.
+        `params` (in place, on their device) and return them. Both are the
+        canonical [num_layers, ...] tree, whatever partition `manifest` (the
+        run's) names: a restore across a change of pp, schedule or layer
+        counts is a copy.
 
         `verify` (default: on, unless LPT_CKPT_VERIFY=0): check the commit's
         recorded digests first; corruption quarantines the checkpoint and
         raises CheckpointCorruptError instead of restoring garbage."""
-        if manifest is not None and manifest.num_stages != 1:
-            raise NotImplementedError("restoring into a multi-stage layout")
+        if manifest is not None:
+            _check_canonical(params, manifest)
         if _verify_default() if verify is None else verify:
             self.verify(step)
         self._check_storage(step, self.load_meta(step))

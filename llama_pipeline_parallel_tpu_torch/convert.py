@@ -8,6 +8,14 @@ no reshape. The JAX optimizer state is optax's chain of clip and adamw, whose
 `ScaleByAdamState` (count, mu, nu) is the port's `AdamW.state_dict()`
 (optim/optimizer.py). Leaves cross as numpy arrays, so neither package
 imports the other.
+
+The JAX pipeline keeps its layer leaves stage-stacked (its parallel/pipeline.py
+`stack_stages`): `[S, k, ...]` for an even flat partition, `[S, v, k, ...]`
+interleaved (global chunk c at `[c % S, c // S]`), `[S, k_max, ...]` with
+zero padding slots for uneven `layer_counts`. `unstack_stages` /
+`stack_stages` are the same maps in numpy, and `stage_params_from_jax` /
+`stage_params_to_jax` carry such a tree to this port's per-chunk trees
+(parallel/pipeline.py `split_params`) and back.
 """
 
 from __future__ import annotations
@@ -16,6 +24,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
+from llama_pipeline_parallel_tpu_torch.parallel.pipeline import merge_params, split_params
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
@@ -114,3 +125,71 @@ def optimizer_state_to_jax(state: dict, template: Any) -> Any:
         return node
 
     return walk(template)
+
+
+def _stage_slots(manifest: StageManifest) -> np.ndarray:
+    """[num_layers] index of each layer's slot in the flattened [S * k_max]
+    stacked layer axis of a flat (v = 1) partition."""
+    k = manifest.max_layers_per_stage
+    slot = np.zeros(manifest.num_layers, np.int64)
+    for st in range(manifest.num_stages):
+        for j, layer in enumerate(manifest.layers_of_stage(st)):
+            slot[layer] = st * k + j
+    return slot
+
+
+def unstack_stages(tree: dict, manifest: StageManifest) -> dict:
+    """The JAX pipeline's stage-stacked tree (numpy leaves) -> the canonical
+    tree, layer leaves [num_layers, ...] (the padding slots of an uneven
+    partition dropped)."""
+    s, v = manifest.num_stages, manifest.virtual_stages
+
+    def leaf(x):
+        x = np.asarray(x)
+        if v > 1:  # [S, v, k, ...] -> [v, S, k, ...] -> [n, ...]
+            return np.moveaxis(x, 1, 0).reshape((manifest.num_layers,) + x.shape[3:])
+        flat = x.reshape((s * x.shape[1],) + x.shape[2:])
+        return flat[_stage_slots(manifest)]
+
+    out = dict(tree)
+    out["layers"] = _map_leaves(leaf, tree["layers"])
+    return out
+
+
+def stack_stages(tree: dict, manifest: StageManifest) -> dict:
+    """The canonical tree -> the JAX pipeline's stage-stacked layout (numpy
+    leaves; an uneven partition's padding slots zero)."""
+    s, v, k = manifest.num_stages, manifest.virtual_stages, manifest.max_layers_per_stage
+
+    def leaf(x):
+        x = np.asarray(x)
+        if v > 1:
+            kc = manifest.layers_per_chunk
+            return np.moveaxis(x.reshape((v, s, kc) + x.shape[1:]), 0, 1)
+        out = np.zeros((s * k,) + x.shape[1:], x.dtype)
+        out[_stage_slots(manifest)] = x
+        return out.reshape((s, k) + x.shape[1:])
+
+    out = dict(tree)
+    out["layers"] = _map_leaves(leaf, tree["layers"])
+    return out
+
+
+def _map_leaves(fn, node):
+    if isinstance(node, dict):
+        return {key: _map_leaves(fn, value) for key, value in node.items()}
+    return fn(node)
+
+
+def stage_params_from_jax(stacked: dict, manifest: StageManifest,
+                          stages: tuple[int, ...] | None = None) -> dict[int, list]:
+    """The JAX pipeline's stage-stacked params (numpy-convertible leaves) ->
+    this port's {stage: [chunk trees]} of `stages` (default all), values kept
+    exactly."""
+    return split_params(params_from_jax(unstack_stages(stacked, manifest)), manifest, stages)
+
+
+def stage_params_to_jax(chunks: dict[int, list], manifest: StageManifest) -> dict:
+    """Every stage's chunk trees -> the JAX pipeline's stage-stacked tree of
+    numpy arrays."""
+    return stack_stages(params_to_jax(merge_params(chunks, manifest)), manifest)

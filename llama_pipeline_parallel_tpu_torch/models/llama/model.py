@@ -236,6 +236,48 @@ def lm_head(params: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
+def rope_tables(input_ids: torch.Tensor, position_ids: torch.Tensor | None,
+                cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE (cos, sin) [b, s, head_dim] in `cfg.dtype` at `position_ids`
+    (default: 0..s-1 on every row)."""
+    b, s = input_ids.shape
+    if position_ids is None:
+        position_ids = torch.arange(s, device=input_ids.device).expand(b, s)
+    return rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype=cfg.dtype)
+
+
+def chunk_hidden(
+    params: Params,
+    x: torch.Tensor | None,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor | None,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    cfg: LlamaConfig,
+    first: bool,
+    last: bool,
+    attn_fn: AttnFn = attention,
+    remat: bool = False,
+    kernel_prologue: bool = False,
+    remat_policy: str = "nothing_saveable",
+) -> torch.Tensor:
+    """The forward of one pipeline chunk (reference: the chunk body of
+    parallel/pipeline.py's interpreter): the embedding of `input_ids` when
+    `first` (the chunk that holds `embed.embedding`; `x` is then None), else
+    the received hidden states `x`; then the chunk's `layers.*` leaves (a
+    leading axis of its layers) through run_layers; then, when `last` (the
+    chunk that holds `norm`), the final norm, giving what the loss head
+    takes. The whole model is the one chunk that is both."""
+    if first:
+        x = embed(params, input_ids, cfg)
+    layers = {name[len("layers."):]: leaf for name, leaf in params.items()
+              if name.startswith("layers.")}
+    x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue,
+                   remat_policy)
+    return final_norm(params, x, cfg) if last else x
+
+
 def hidden_states(
     params: Params,
     input_ids: torch.Tensor,
@@ -253,16 +295,10 @@ def hidden_states(
 
     `attention_mask` is per-token [b, s] SEGMENT IDS (0 = pad; packed batches
     number each example 1..k), never a materialised [b, 1, L, L] tensor."""
-    b, s = input_ids.shape
-    if position_ids is None:
-        position_ids = torch.arange(s, device=input_ids.device).expand(b, s)
-    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype=cfg.dtype)
-    x = embed(params, input_ids, cfg)
-    layers = {name[len("layers."):]: leaf for name, leaf in params.items()
-              if name.startswith("layers.")}
-    x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue,
-                   remat_policy)
-    return final_norm(params, x, cfg)
+    cos, sin = rope_tables(input_ids, position_ids, cfg)
+    return chunk_hidden(params, None, input_ids, attention_mask, cos, sin, cfg=cfg, first=True,
+                        last=True, attn_fn=attn_fn, remat=remat,
+                        kernel_prologue=kernel_prologue, remat_policy=remat_policy)
 
 
 def forward(

@@ -97,11 +97,15 @@ class AdamW:
         self.count = int(state["count"])
 
     @torch.no_grad()
-    def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
-             ) -> float:
-        """Apply one update in place; returns the learning rate it used."""
+    def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
+             norm: torch.Tensor | None = None) -> float:
+        """Apply one update in place; returns the learning rate it used.
+        `norm` is the global gradient norm when the caller has it (the train
+        step reports it; under several pipeline processes it spans every
+        stage's gradients, not just `grads`); otherwise it is computed here."""
         cfg = self.cfg
-        norm = global_norm(grads.values())
+        if norm is None:
+            norm = global_norm(grads.values())
         clip = cfg.max_grad_norm / torch.clamp(norm, min=cfg.max_grad_norm)
         lr = self.schedule(self.count)
         count_inc = self.count + 1

@@ -15,8 +15,10 @@ lm_head + cross-entropy, or, with `loss_vocab_chunks > 1` or `kernels.ce:
 pallas`, a fused head on the final-normed hidden states that never builds the
 [tokens, V] logits — the vocab-chunked PyTorch op or the CUDA kernels.
 
-Metrics are `loss`, `grad_norm` (before clipping), `lr` (the schedule at the
-step count before its increment) and `step`, as in the reference.
+Metrics are `loss`, `grad_norm` (before clipping, computed once and handed
+to the optimizer), `lr` (the schedule at the step count before its increment)
+and `step`, as in the reference. At pp > 1 the step's forward and backward
+are a parallel/pipeline.Pipeline's.
 
 `eval_step` is the loss-only pass (the reference's `make_pipeline_eval_fn`,
 parallel/pipeline.py): the same microbatches, head and prologue under
@@ -27,7 +29,7 @@ evaluator weights batches exactly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -72,7 +74,7 @@ def shift_labels(labels: torch.Tensor) -> torch.Tensor:
     return torch.cat([labels[:, 1:], tail], dim=1)
 
 
-def _microbatches(batch: dict[str, torch.Tensor], num_microbatches: int):
+def microbatches(batch: dict[str, torch.Tensor], num_microbatches: int):
     """(next-token targets [bsz, s], [(ids, mask, positions, targets) for each
     microbatch of `batch`]); mask and positions None where the batch has none."""
     ids = batch["input_ids"]
@@ -90,30 +92,38 @@ def _microbatches(batch: dict[str, torch.Tensor], num_microbatches: int):
 def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
                num_microbatches: int = 1, attn_fn: Callable = attention,
                remat: bool = False, head: LossHead = LossHead(),
-               kernel_prologue: bool = False, remat_policy: str = "nothing_saveable") -> dict:
+               kernel_prologue: bool = False, remat_policy: str = "nothing_saveable",
+               pipeline: Any = None) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. `kernel_prologue` runs
     each layer's norm -> QKV -> RoPE on the fused prologue kernels
     (`kernels.prologue: pallas`); `remat` recomputes each layer in the
-    backward under `remat_policy` (model.remat_layer). Returns the metrics."""
-    targets, microbatches = _microbatches(batch, num_microbatches)
-    global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
-
+    backward under `remat_policy` (model.remat_layer). With `pipeline` (a
+    parallel/pipeline.Pipeline whose StageParams.flat() are
+    `state.params`) the forward and backward are its schedule's, and the
+    other step knobs its config's; the gradient norm then spans every
+    stage. Returns the metrics."""
     params = state.params
     for p in params.values():
         p.grad = None
-    loss = torch.zeros((), device=targets.device)
-    for ids, mask, positions, mb_targets in microbatches:
-        hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
-                                 remat=remat, kernel_prologue=kernel_prologue,
-                                 remat_policy=remat_policy)
-        mb_loss = head_loss_sum_count(params, hn, mb_targets, cfg, head)[0]
-        mb_loss = mb_loss / global_count
-        mb_loss.backward()
-        loss += mb_loss.detach()
+    if pipeline is not None:
+        loss = pipeline.loss_and_grad(batch)
+        grad_norm = pipeline.global_norm()
+    else:
+        targets, mbs = microbatches(batch, num_microbatches)
+        global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
+        loss = torch.zeros((), device=targets.device)
+        for ids, mask, positions, mb_targets in mbs:
+            hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
+                                     remat=remat, kernel_prologue=kernel_prologue,
+                                     remat_policy=remat_policy)
+            mb_loss = head_loss_sum_count(params, hn, mb_targets, cfg, head)[0]
+            mb_loss = mb_loss / global_count
+            mb_loss.backward()
+            loss += mb_loss.detach()
+        grad_norm = global_norm(p.grad for p in params.values())
     grads = {name: p.grad for name, p in params.items()}
-    grad_norm = global_norm(grads.values())
-    lr = state.optimizer.step(params, grads)
+    lr = state.optimizer.step(params, grads, grad_norm)
     state.step += 1
     return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "step": state.step}
 
@@ -121,14 +131,17 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
 @torch.no_grad()
 def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
               num_microbatches: int = 1, attn_fn: Callable = attention,
-              head: LossHead = LossHead(),
-              kernel_prologue: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              head: LossHead = LossHead(), kernel_prologue: bool = False,
+              pipeline: Any = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The loss-only pass over `batch` in `num_microbatches` microbatches, on
     the training step's attention, head and prologue, with no autograd graph:
-    (token-loss sum fp32, valid-target count) over the whole batch."""
-    targets, microbatches = _microbatches(batch, num_microbatches)
+    (token-loss sum fp32, valid-target count) over the whole batch. With
+    `pipeline`, its forward-only pass through every stage."""
+    if pipeline is not None:
+        return pipeline.loss_sum_count(batch)
+    targets, mbs = microbatches(batch, num_microbatches)
     loss_sum = torch.zeros((), device=targets.device)
-    for ids, mask, positions, mb_targets in microbatches:
+    for ids, mask, positions, mb_targets in mbs:
         hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
                                  kernel_prologue=kernel_prologue)
         loss_sum += head_loss_sum_count(params, hn, mb_targets, cfg, head)[0].float()

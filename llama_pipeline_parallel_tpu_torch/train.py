@@ -1,7 +1,13 @@
-"""The trainer: config -> model -> data -> step loop, on one device.
+"""The trainer: config -> model -> data -> step loop.
 
-The counterpart of llama_pipeline_parallel_tpu/train.py for a single device
-(pp = dp = tp = sp = 1): the same config keys, the same data for the same
+The counterpart of llama_pipeline_parallel_tpu/train.py at dp = tp = sp = 1:
+one device at pp = 1, or a pipeline of `mesh.pp` stages (parallel/pipeline.py)
+under `pipeline_schedule` (1f1b, interleaved_1f1b, zb1, solver with
+`schedule_file`), `virtual_stages`, `layer_counts` / `stage_balance` and
+`gradient_accumulation_chunks`, either with every stage in this process on
+one device or one stage per process of a `torch.distributed` group of `pp`
+processes (cli.py under `python -m torch.distributed.run`; the metrics line
+and the logs come from process 0). The same config keys, the same data for the same
 seed, the same schedule-total rules and the same metrics line keys where they
 apply. Data is the synthetic dataset or a tokenizer-backed one (`dataset:
 {_target_: ...}` with `tokenizer_path`), packed `packing_factor` examples to
@@ -25,8 +31,10 @@ LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
 `metrics.jsonl` and, with `use_wandb` / `use_tensorboard`, to those sinks. The
 observatories and the resilience actions are not ported yet; a config that
 asks for a layout or feature this trainer does not have is refused, naming
-its key, and keys that mean nothing on one device (the pipeline schedule) are
-logged once.
+its key, and keys that mean nothing with one stage (the pipeline schedule) are
+logged once. A run of several processes saves and resumes nothing, and takes
+no preemption signal (cross-process checkpoints and the stop vote come with
+the next slice).
 """
 
 from __future__ import annotations
@@ -71,6 +79,10 @@ from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
+from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
+from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
     TrainState,
@@ -80,7 +92,11 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
 from llama_pipeline_parallel_tpu_torch.utils import faults
 from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
-from llama_pipeline_parallel_tpu_torch.utils.metrics import MetricsWriter, Throughput
+from llama_pipeline_parallel_tpu_torch.utils.metrics import (
+    MetricsWriter,
+    NullMetricsWriter,
+    Throughput,
+)
 
 logger = get_logger(__name__)
 
@@ -107,9 +123,6 @@ FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit")
 # that holds one is refused
 _NOT_PORTED_FAULTS = {("step", "grad_nonfinite"): "the numerics observatory",
                       ("step", "oom"): "the memory observatory"}
-# keys of the JAX trainer whose value, other than the default given here,
-# asks for something this trainer does not do, with what ports each
-_NOT_PORTED_UNLESS_DEFAULT = {"gradient_accumulation_chunks": (1, "the pipeline schedule")}
 # blocks of the JAX trainer (host offload tiers, the observatories, the
 # resilience actions) that ask for their feature when any of their values is
 # set, with what ports each
@@ -118,8 +131,11 @@ _NOT_PORTED_BLOCKS = {"offload": "host offload", "numerics": "the numerics obser
                       "memory": "the memory observatory", "actions": "the resilience actions"}
 # keys that order the pipeline's stages, with their defaults: with one stage
 # (pp = 1) the microbatches run in order whatever they say
-_ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None}
-PIPELINE_SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver", "gpipe")
+_ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None,
+                   "gradient_accumulation_chunks": 1}
+PIPELINE_SCHEDULES = pl.SCHEDULES
+# what a run of several processes cannot do yet, by key (value when unset)
+_ONE_PROCESS_KEYS = {"save_steps": 0, "save_final": True, "resume": True, "async_save": False}
 
 
 def build_model_config(node: dict) -> LlamaConfig:
@@ -312,33 +328,123 @@ def _remat(cfg: dict) -> tuple[bool, str]:
     return remat, policy
 
 
+def _mesh_config(cfg: dict) -> MeshConfig:
+    mesh = cfg.get("mesh") or {}
+    return MeshConfig(**{ax: int(mesh.get(ax, 1)) for ax in ("pp", "dp", "tp", "sp")})
+
+
 def _check_supported(cfg: dict) -> None:
     """Refuse what this trainer does not run, naming the keys and what ports
-    each; log once the keys that have no effect on one device."""
-    mesh = cfg.get("mesh") or {}
-    layout = {ax: int(mesh.get(ax, 1)) for ax in ("pp", "dp", "tp", "sp")}
-    if any(n != 1 for n in layout.values()):
+    each; log once the keys that have no effect with one stage."""
+    mesh_cfg = _mesh_config(cfg)
+    layout = mesh_cfg.axis_sizes()
+    other = {ax: n for ax, n in layout.items() if ax != "pp" and n != 1}
+    if other:
         raise NotImplementedError(
-            f"this trainer runs on one device (pp=dp=tp=sp=1); got {layout}. "
-            f"Pipeline, data, tensor and sequence parallelism come with later slices")
+            f"not ported yet: {other} of {mesh_cfg.describe()} (data, tensor and sequence "
+            f"parallelism come with later slices; this trainer runs pp >= 1 with "
+            f"dp = tp = sp = 1)")
     schedule = cfg.get("pipeline_schedule") or "1f1b"
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
                          f"{PIPELINE_SCHEDULES}")
     asked = {key: what for key, what in _NOT_PORTED.items() if cfg.get(key)}
-    asked.update({key: what for key, (default, what) in _NOT_PORTED_UNLESS_DEFAULT.items()
-                  if cfg.get(key) is not None and cfg.get(key) != default})
     asked.update({key: what for key, what in _NOT_PORTED_BLOCKS.items()
                   if _block_asks(cfg.get(key))})
     if asked:
         raise NotImplementedError(
             f"not ported yet: {list(asked)} ("
             + "; ".join(f"{key} comes with {what}" for key, what in asked.items()) + ")")
-    moot = [key for key, default in _ONE_STAGE_KEYS.items()
-            if cfg.get(key) is not None and cfg.get(key) != default]
-    if moot:
-        logger.warning("%s: no effect on one device (one pipeline stage runs its "
-                       "microbatches in order)", moot)
+    if distributed.process_count() > 1:
+        multi = [key for key, unset in _ONE_PROCESS_KEYS.items()
+                 if cfg.get(key, unset)]
+        if multi:
+            raise NotImplementedError(
+                f"not ported yet: {multi} in a run of {distributed.process_count()} processes "
+                f"(cross-process checkpoints, resume and the preemption stop vote come with "
+                f"the next slice); set save_steps=0 save_final=false resume=false")
+    if mesh_cfg.pp == 1:
+        chunks = int(cfg.get("gradient_accumulation_chunks") or 1)
+        if chunks < 1 or cfg.get("gradient_accumulation_steps", 1) % chunks:
+            raise ValueError(f"gradient_accumulation_chunks={chunks} must divide "
+                             f"gradient_accumulation_steps="
+                             f"{cfg.get('gradient_accumulation_steps', 1)}")
+        moot = [key for key, default in _ONE_STAGE_KEYS.items()
+                if cfg.get(key) is not None and cfg.get(key) != default]
+        if moot:
+            logger.warning("%s: no effect on one device (one pipeline stage runs its "
+                           "microbatches in order)", moot)
+
+
+def _virtual_stages(cfg: dict) -> int:
+    """The `virtual_stages` knob, parsed in one place (the reference's
+    `_virtual_stages`)."""
+    v = int(cfg.get("virtual_stages", 1) or 1)
+    if v > 1 and cfg.get("pipeline_schedule", "1f1b") not in ("interleaved_1f1b", "zb1",
+                                                               "solver"):
+        raise ValueError(
+            f"virtual_stages={v} requires pipeline_schedule: interleaved_1f1b, zb1, or "
+            f"solver (got {cfg.get('pipeline_schedule', '1f1b')!r})")
+    return v
+
+
+def _load_unit_schedule(cfg: dict) -> usched.UnitSchedule | None:
+    """The `schedule_file` key under `pipeline_schedule: solver`: a unit
+    sequence JSON (schedule.to_json, of either package), loaded and
+    validated; None for the named schedules (they generate their canonical
+    sequences)."""
+    if cfg.get("pipeline_schedule", "1f1b") != "solver":
+        if cfg.get("schedule_file"):
+            raise ValueError("schedule_file only applies under pipeline_schedule: solver "
+                             f"(got {cfg.get('pipeline_schedule', '1f1b')!r})")
+        return None
+    path = cfg.get("schedule_file")
+    if not path:
+        raise ValueError("pipeline_schedule: solver needs schedule_file: <path> (a unit "
+                         "sequence written by parallel/schedule.py's to_json)")
+    return usched.load(path)
+
+
+def build_manifest(cfg: dict, model_cfg: LlamaConfig, pp: int) -> StageManifest:
+    """The stage partition, as the reference's `build_manifest` chooses it:
+    explicit `layer_counts` > cost-balanced (`stage_balance: cost`, or a
+    layer count that pp does not divide) > even; `virtual_stages` > 1 takes
+    the round-robin chunked layout, which has no uneven form."""
+    v = _virtual_stages(cfg)
+    if v > 1:
+        if cfg.get("layer_counts") or cfg.get("stage_balance", "even") == "cost":
+            raise ValueError(
+                "virtual_stages > 1 (interleaved 1F1B / zb1) uses the round-robin even chunk "
+                "partition; layer_counts/stage_balance: cost cannot apply — drop them or fall "
+                "back to a flat schedule")
+        return StageManifest.for_config(model_cfg, pp, virtual_stages=v)
+    if cfg.get("layer_counts"):
+        return StageManifest(num_layers=model_cfg.num_hidden_layers, num_stages=pp,
+                             layer_counts=tuple(cfg["layer_counts"]))
+    if cfg.get("stage_balance", "even") == "cost" or model_cfg.num_hidden_layers % pp:
+        manifest = StageManifest.balanced(model_cfg, pp)
+        logger.info("stage partition (cost-balanced): %s", manifest.stage_layer_counts)
+        return manifest
+    return StageManifest.for_config(model_cfg, pp)
+
+
+def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManifest
+                          ) -> pl.PipelineConfig:
+    """The PipelineConfig of the run config (the reference's
+    `build_pipeline_config`, without its offload and sp knobs)."""
+    kernel_ce, kernel_prologue = _kernel_flags(cfg)
+    remat, remat_policy = _remat(cfg)
+    return pl.PipelineConfig(
+        num_stages=mesh_cfg.pp,
+        unit_schedule=_load_unit_schedule(cfg),
+        num_microbatches=cfg.get("gradient_accumulation_steps", 1),
+        remat=remat, remat_policy=remat_policy,
+        schedule=cfg.get("pipeline_schedule", "1f1b"),
+        virtual_stages=manifest.virtual_stages,
+        accum_chunks=cfg.get("gradient_accumulation_chunks", 1) or 1,
+        loss_chunks=cfg.get("loss_vocab_chunks", 1),
+        layer_counts=None if manifest.is_even else manifest.stage_layer_counts,
+        kernel_ce=kernel_ce, kernel_prologue=kernel_prologue)
 
 
 def _configure_faults(cfg: dict) -> None:
@@ -376,13 +482,15 @@ def _block_asks(node: Any) -> bool:
 
 @dataclasses.dataclass
 class Run:
-    """A configured training run on one device: what `train_run` loops
-    over, and what tools/torch_step_profile.py profiles. `start_step` is
-    the restored checkpoint's step (0 on a fresh or warm start) and
-    `data_start` the (epoch, batch) the data stream reopens at.
-    `eval_loader` is the held-out set (None without `eval_dataset`) and
-    `last_eval` the newest evaluation ({"step", "loss"}), which later
-    checkpoints carry."""
+    """A configured training run: what `train_run` loops over, and what
+    tools/torch_step_profile.py profiles. `start_step` is the restored
+    checkpoint's step (0 on a fresh or warm start) and `data_start` the
+    (epoch, batch) the data stream reopens at. `eval_loader` is the
+    held-out set (None without `eval_dataset`) and `last_eval` the newest
+    evaluation ({"step", "loss"}), which later checkpoints carry. At pp > 1
+    `pipeline` runs the steps: `state.params` are then its StageParams'
+    flat() leaves (this process's stages), and `manifest` is the run's
+    partition; checkpoints hold the canonical tree either way."""
 
     cfg: dict
     device: torch.device
@@ -404,6 +512,17 @@ class Run:
     remat_policy: str = "nothing_saveable"
     eval_loader: DataLoader | None = None
     last_eval: dict = dataclasses.field(default_factory=dict)
+    pipeline: pl.Pipeline | None = None
+
+    def canonical_state(self) -> tuple[dict[str, torch.Tensor], Any]:
+        """(params, optimizer) in the canonical naming and layout that
+        checkpoints hold: the run's own at pp = 1, else the pipeline's
+        chunks merged (copies) and their moments seen through
+        pl.CanonicalOptimizer."""
+        if self.pipeline is None:
+            return self.state.params, self.state.optimizer
+        sp = self.pipeline.stage_params
+        return sp.to_canonical(), pl.CanonicalOptimizer(self.state.optimizer, sp)
 
     def on_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         """A collated batch (numpy) as tensors on the run's device."""
@@ -434,14 +553,15 @@ class Run:
                           num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                           remat=self.remat, head=self.head,
                           kernel_prologue=self.kernel_prologue,
-                          remat_policy=self.remat_policy)
+                          remat_policy=self.remat_policy, pipeline=self.pipeline)
 
     def eval_sum_count(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss sum, valid count) of one eval batch on the training step's
         attention, head and prologue, without an autograd graph."""
         return eval_step(self.state.params, batch, self.model_cfg,
                          num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
-                         head=self.head, kernel_prologue=self.kernel_prologue)
+                         head=self.head, kernel_prologue=self.kernel_prologue,
+                         pipeline=self.pipeline)
 
     def evaluate(self) -> float:
         """eval_loss: the exact token mean over every batch of the eval set
@@ -460,9 +580,10 @@ class Run:
         cfg = self.cfg
         batch_delta = (self.data_start[0] * max(len(self.loader), 1)
                        + self.data_start[1] - self.start_step)
+        params, optimizer = self.canonical_state()
         return self.ckpt.save(
-            step, self.state.params, self.manifest, self.model_cfg,
-            optimizer=self.state.optimizer,
+            step, params, self.manifest, self.model_cfg,
+            optimizer=optimizer,
             blocking=final or not cfg.get("async_save", False),
             on_complete=lambda path: _sync_checkpoint(cfg, path),
             keep_last=cfg.get("save_total_limit"),
@@ -534,34 +655,59 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     generator = torch.Generator(device=device).manual_seed(seed)
     model = LlamaForCausalLM(model_cfg, init_params(model_cfg, device=device,
                                                     generator=generator))
-    params = model.params()
+    mesh_cfg = _mesh_config(cfg)
+    seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
+    attn_fn = select_attention(cfg.get("attention", "auto"), seq_length, device,
+                               model_cfg=model_cfg, micro_batch=micro_batch,
+                               packed=packing > 1)
+    mesh = make_mesh(mesh_cfg)  # refuses a process count other than 1 or pp
+    pipeline = None
+    if mesh_cfg.pp == 1:
+        params = model.params()
+        # the canonical layout is the one-stage manifest's
+        manifest = StageManifest(num_layers=model_cfg.num_hidden_layers, num_stages=1)
+    else:
+        manifest = build_manifest(cfg, model_cfg, mesh_cfg.pp)
+        pcfg = build_pipeline_config(cfg, mesh_cfg, manifest)
+        stage_params = pl.StageParams.from_canonical(model.params(), manifest, mesh.stages)
+        del model
+        pipeline = pl.Pipeline(model_cfg, pcfg, mesh, stage_params, attn_fn)
+        params = stage_params.flat()
+        logger.info("pipeline %s: schedule %s, %d microbatches in %d flush(es), stages of %s "
+                    "layers (virtual_stages %d), counted bubble %.4f", mesh_cfg.describe(),
+                    pcfg.schedule, pcfg.num_microbatches, pcfg.accum_chunks,
+                    list(manifest.stage_layer_counts), manifest.virtual_stages,
+                    pl.bubble_fraction(pcfg))
     state = TrainState(step=0, params=params, optimizer=AdamW(params, ocfg))
-    # the canonical layout is the one-stage manifest's
-    manifest = StageManifest(num_layers=model_cfg.num_hidden_layers, num_stages=1)
     topology = _topology_meta(cfg, manifest)
     mgr = CheckpointManager(cfg["output_dir"])
-    start_step, data_start = 0, (0, 0)
-    restored = (_restore_with_fallback(
-        mgr, lambda s: mgr.load(s, params, state.optimizer, manifest))
-        if cfg.get("resume", True) else None)
+    run = Run(cfg=cfg, device=device, model_cfg=model_cfg, loader=loader, state=state,
+              attn_fn=attn_fn, num_microbatches=num_microbatches, remat=remat, head=head,
+              kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
+              manifest=manifest, ckpt=mgr, topology=topology, remat_policy=remat_policy,
+              eval_loader=eval_loader, pipeline=pipeline)
+    if cfg.get("resume", True) and distributed.process_count() == 1:
+        restored = _restore_with_fallback(mgr, lambda s: _restore(run, s))
+    else:
+        restored = None
     if restored is not None:
-        start_step = state.step = restored[2]
-        logger.info("resumed full state from checkpoint-%d", start_step)
-        _note_topology_change(mgr, start_step, topology)
-        data_start = _resume_data_position(mgr, start_step, loader, len(dataset), seed)
+        run.start_step = state.step = restored
+        logger.info("resumed full state from checkpoint-%d", run.start_step)
+        _note_topology_change(mgr, run.start_step, topology)
+        run.data_start = _resume_data_position(mgr, run.start_step, loader, len(dataset), seed)
     elif cfg.get("model_name_or_path"):
-        _warm_start(cfg["model_name_or_path"], params, model_cfg, manifest)
+        _warm_start(cfg["model_name_or_path"], run)
+    return run
 
-    seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
-    return Run(cfg=cfg, device=device, model_cfg=model_cfg, loader=loader, state=state,
-               attn_fn=select_attention(cfg.get("attention", "auto"), seq_length, device,
-                                        model_cfg=model_cfg, micro_batch=micro_batch,
-                                        packed=packing > 1),
-               num_microbatches=num_microbatches,
-               remat=remat, head=head,
-               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
-               manifest=manifest, ckpt=mgr, topology=topology, start_step=start_step,
-               data_start=data_start, remat_policy=remat_policy, eval_loader=eval_loader)
+
+def _restore(run: Run, step: int) -> int:
+    """Full-state restore of checkpoint-`step` into the run (its canonical
+    tree carried into the pipeline's chunks at pp > 1); returns the step."""
+    params, optimizer = run.canonical_state()
+    step = run.ckpt.load(step, params, optimizer, run.manifest)[2]
+    if run.pipeline is not None:
+        run.pipeline.stage_params.copy_canonical(params)
+    return step
 
 
 def _eval_loader(cfg: dict, model_cfg: LlamaConfig, tokenizer: Any,
@@ -600,10 +746,11 @@ _SHAPE_FIELDS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_l
                  "num_attention_heads", "kv_heads")
 
 
-def _warm_start(path: str, params: dict[str, torch.Tensor], model_cfg: LlamaConfig,
-                manifest: StageManifest) -> None:
+def _warm_start(path: str, run: Run) -> None:
     """Module-only warm start from the newest checkpoint under `path` (the
-    output of tools/convert_hf.py, or any checkpoint of this package)."""
+    output of tools/convert_hf.py, or any checkpoint of this package), into
+    the run's params (its pipeline's chunks at pp > 1)."""
+    model_cfg = run.model_cfg
     warm = CheckpointManager(path)
     step = warm.latest_step()
     if step is None:
@@ -618,17 +765,23 @@ def _warm_start(path: str, params: dict[str, torch.Tensor], model_cfg: LlamaConf
             f"model_name_or_path={path} checkpoint-{step} does not fit this run's model "
             f"({', '.join(f'{k}: {a} there, {b} here' for k, (a, b) in differ.items())}): "
             f"re-convert the HF model (tools.convert_hf) or set the model block to match")
-    warm.load_params(step, params, manifest)
+    params = run.canonical_state()[0]
+    warm.load_params(step, params, run.manifest)
+    if run.pipeline is not None:
+        run.pipeline.stage_params.copy_canonical(params)
     logger.info("warm-started module weights from %s (checkpoint-%d)", path, step)
 
 
 def _topology_meta(cfg: dict, manifest: StageManifest) -> dict:
     """The run's topology as meta.json records it (the JAX trainer's
-    `_topology_meta` at pp = dp = tp = sp = 1): the source half of the
-    elastic-restore contract, read by a later run to log what changed."""
-    return {"pp": 1, "dp": 1, "tp": 1, "sp": 1, "layout": "pp1xdp1xtp1xsp1",
+    `_topology_meta`): the source half of the elastic-restore contract, read
+    by a later run to log what changed. `layer_counts` names the partition:
+    "even/<k>" or the per-stage list."""
+    mc = MeshConfig(pp=manifest.num_stages)
+    return {"pp": mc.pp, "dp": mc.dp, "tp": mc.tp, "sp": mc.sp, "layout": mc.describe(),
             "schedule": cfg.get("pipeline_schedule", "1f1b"),
-            "virtual_stages": manifest.virtual_stages, "process_count": 1,
+            "virtual_stages": manifest.virtual_stages,
+            "process_count": distributed.process_count(),
             "layer_counts": (f"even/{manifest.stage_layer_counts[0]}" if manifest.is_even
                              else list(manifest.stage_layer_counts))}
 
@@ -834,7 +987,12 @@ def run_training(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any 
     Runs on `device` (the card unless the caller asks for the CPU);
     `tokenizer` as in build_run. Installs the preemption handlers first; the
     run's fault plan is cleared and the handlers restored at the end."""
-    _install_preemption_handlers()
+    if distributed.process_count() == 1:
+        _install_preemption_handlers()
+    else:
+        logger.warning("%d processes: SIGTERM / SIGINT end this process without a checkpoint "
+                       "(the cross-process stop vote comes with the next slice)",
+                       distributed.process_count())
     try:
         return train_run(build_run(cfg, device, tokenizer))
     finally:
@@ -862,16 +1020,18 @@ def train_run(run: Run) -> dict:
     eval_steps = cfg.get("eval_steps", 0) if run.eval_loader is not None else 0
     # The stop flag is read every step when the run is one process, as in the
     # JAX trainer when process_count() == 1; `preempt_check_every` paces the
-    # cross-process stop vote, which comes with the distributed trainer.
-    process_count = 1
+    # cross-process stop vote, which comes with the next slice (a run of
+    # several processes installs no handler, so its flag stays down).
+    process_count = distributed.process_count()
     check_every = max(int(cfg.get("preempt_check_every", 10)), 1)
 
     def peak_bytes():
         return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    writer = MetricsWriter(cfg["output_dir"], config_snapshot=cfg,
-                           use_wandb=cfg.get("use_wandb", False),
-                           use_tensorboard=cfg.get("use_tensorboard", False))
+    writer = (MetricsWriter(cfg["output_dir"], config_snapshot=cfg,
+                            use_wandb=cfg.get("use_wandb", False),
+                            use_tensorboard=cfg.get("use_tensorboard", False))
+              if distributed.process_index() == 0 else NullMetricsWriter())
     meter = Throughput(run.model_cfg, run.seq_length, device=device)
     batches = run.batches()
     losses, step_times, window = [], [], []

@@ -433,7 +433,7 @@ def test_cli_cpu_run_with_kernel_prologue_and_ce_head(tmp_path):
 def test_trainer_refuses_what_it_does_not_run(tmp_path):
     cfg = t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                [f"output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(NotImplementedError, match="'dp': 2"):
         run_training(cfg, device="cpu")  # tiny_smoke is pp=2 dp=2
     one = ["mesh.pp=1", "mesh.dp=1", f"output_dir={tmp_path}"]
 
@@ -472,7 +472,7 @@ _REFUSED_KEYS = [
     ("health_interval=5", NotImplementedError, r"'health_interval'.*the health heartbeat"),
     ("remat_policy=nothing_savable", ValueError, "unknown remat_policy"),
     ("offload={wgrad_stash: true}", NotImplementedError, "'offload'"),
-    ("gradient_accumulation_chunks=2", NotImplementedError, "gradient_accumulation_chunks"),
+    ("gradient_accumulation_chunks=3", ValueError, "must divide"),
     ("pipeline_schedule=zb2", ValueError, "unknown pipeline_schedule"),
     ("fault_plan={faults: [{site: step, op: grad_nonfinite, at_step: 3}]}",
      NotImplementedError, r"grad_nonfinite@step.*numerics observatory"),

@@ -2,10 +2,13 @@
 """Where the time of one training step of the PyTorch/CUDA port goes, on the card.
 
     python tools/torch_step_profile.py [--config conf/llama_7b_pp4.yaml]
-        [--steps 3] [key=value ...]
+        [--pipeline] [--steps 3] [key=value ...]
 
 Builds the run as `run_training` does (`build_run`; defaults: the single-card
-LLaMA-7B-width slice, chip_smoke.TRAIN_OVERRIDES), takes one warm-up step, then profiles
+LLaMA-7B-width slice, chip_smoke.TRAIN_OVERRIDES; with `--pipeline`, the
+pipeline phase's chip_smoke.PIPE_OVERRIDES: the config's own mesh.pp, every
+stage in this process, to which `pipeline_schedule=zb1 virtual_stages=2` and
+the like apply), takes one warm-up step, then profiles
 `--steps` steps with torch.profiler (CPU + CUDA activities). Prints, per step:
 the wall time (host clock around synchronised steps), device busy time (sum
 of kernel times; the port runs one stream) and idle share, peak device memory
@@ -31,7 +34,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import TRAIN_OVERRIDES  # noqa: E402  (the slice, defined once)
+from chip_smoke import PIPE_OVERRIDES, TRAIN_OVERRIDES  # noqa: E402  (defined once)
 
 FAMILIES = (  # (family, substrings of kernel names), first match wins
     # before flash_attention, whose "fwd_kernel" and "fwd_tc_kernel" are also in
@@ -64,6 +67,8 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default=os.path.join(ROOT, "conf", "llama_7b_pp4.yaml"))
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--pipeline", action="store_true",
+                   help="profile the pipeline phase's step (PIPE_OVERRIDES) instead of the slice")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
 
@@ -77,7 +82,8 @@ def main(argv=None) -> int:
     from llama_pipeline_parallel_tpu_torch.train import build_run
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
-    run = build_run(load_config(args.config, TRAIN_OVERRIDES + [
+    base = PIPE_OVERRIDES if args.pipeline else TRAIN_OVERRIDES
+    run = build_run(load_config(args.config, base + [
         f"output_dir={os.path.join(ROOT, 'build', 'torch_step_profile')}"] + args.overrides),
         "cuda")
     batches = run.batches()
@@ -110,6 +116,10 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}")
+    if run.pipeline is not None:
+        pcfg = run.pipeline.pcfg
+        print(f"pipeline: {pcfg.num_stages} stages in one process, schedule {pcfg.schedule}, "
+              f"virtual_stages {pcfg.virtual_stages}, {pcfg.num_microbatches} microbatches")
     print(f"per step ({args.steps} steps profiled): wall {1e3 * wall:.2f} ms, device busy "
           f"{busy:.2f} ms, idle share {1 - busy / (1e3 * wall):.4f}, max_memory_allocated "
           f"{peak_gib:.2f} GiB")
