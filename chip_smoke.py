@@ -172,6 +172,27 @@ which raises on failure:
               against flat (the same tolerances; bit-equality reported), and
               the flat pipeline with one B unit's received cotangent zeroed
               rejected by the fp32 gradient check.
+12. offload -- the host optimizer (optimizer_offload) and the host stash on
+              conf/llama_7b_pp4.yaml: (a) the pipeline phase's run at 4
+              layers on the host AdamW against the device AdamW (step 1's
+              loss and the gradients handed over bit-equal, held to
+              OFFLOAD_GRAD_RTOL; masters after 3 steps within the reference's
+              optax limits; losses of steps 2-3 within STEP_LOSS_TOL), run
+              twice (bit-equal losses: no upload races a step), the working
+              copy held bit for bit to the RNE cast of the host masters and a
+              wq copy left one step stale rejected by that check; zb1
+              (virtual_stages 2, 8 layers) with the W queue and the stage
+              inputs in pinned host memory against both on the card (loss and
+              gradients bit-equal, peak memory not higher, host bytes beside
+              the byte model); launches exact in every run. (b) The config as
+              published, 32 layers (or the largest depth whose 12 B a
+              parameter the host's MemTotal holds with 25 % to spare, the cut
+              printed), a warm-up and 3 steps: finite losses, exact launches,
+              step ms, tokens/s, MFU, peak device memory, peak host RSS, the
+              host phases, the link's GB/s each way and the step's link
+              floor. (c) The checkpoint phase's run on the host optimizer:
+              an offload_parts checkpoint at step 4, resumed bit for bit for
+              steps 5-6; resuming it without offload refused by name.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -393,6 +414,41 @@ PIPE_SCHEDULES = {
 }
 # the fp32 parity runs the first PIPE_FP32_MICROBATCHES rows of the batch (M = S)
 PIPE_FP32_MICROBATCHES = 4
+# the offload phase. (a) The pipeline phase's run cut to 4 layers (one a
+# stage), on the host optimizer against the device AdamW: step 1's gradients
+# are the same numbers, handed over in fp32 (held to OFFLOAD_GRAD_RTOL
+# relative; expected bit-equal) and its loss bit-equal; losses of steps 2-3
+# within STEP_LOSS_TOL (the working copy rounds the norms to bf16, the device
+# path reads them in fp32, and the two AdamWs round in another order, so
+# later gradients differ); the host masters after 3 steps against a device
+# AdamW stepped by the same gradients within the reference's
+# test_matches_optax limits (Adam moves a parameter by up to its lr whatever
+# the gradient's size, so masters of runs whose gradients differ are not
+# held to these). The stash runs at 8 layers, the least zb1 at virtual_stages 2 on 4
+# stages takes.
+OFFLOAD_PARITY_OVERRIDES = PIPE_OVERRIDES + ["model.num_hidden_layers=4"]
+OFFLOAD_STASH_OVERRIDES = PIPE_OVERRIDES + PIPE_SCHEDULES["zb1"]
+OFFLOAD_STASH_TIERS = ["offload.wgrad_stash=true", "offload.activations=true"]
+OFFLOAD_GRAD_RTOL = 1e-6
+OFFLOAD_MASTER_RTOL = 2e-5
+OFFLOAD_MASTER_ATOL = 1e-6
+# (b) conf/llama_7b_pp4.yaml as published (pp 4 in one process, 32 layers, seq
+# 512, 4 rows x 16 microbatches, no remat, dp 1) on the host optimizer with the
+# slice's kernels, a warm-up step and 3 more. Host memory: 12 bytes a
+# parameter (fp32 master, two moments) plus the pinned staging, with
+# OFFLOAD_HOST_SPARE to spare, else the depth is cut to what fits.
+OFFLOAD_FULL_OVERRIDES = [
+    "optimizer_offload=true", "attention=flash", "kernels.ce=pallas", "loss_vocab_chunks=4",
+    "kernels.prologue=pallas", "max_steps=4", "save_steps=0", "save_final=false",
+    "resume=false", "logging_steps=1",
+]
+OFFLOAD_HOST_SPARE = 1.25
+# (c) the checkpoint phase's run on the host optimizer: run A saves step 4 in
+# the offload_parts layout, run B resumes it and repeats steps 5-6
+OFFLOAD_CKPT_RUN_A = ["optimizer_offload=true", "save_steps=4", "save_final=false",
+                      "resume=false"]
+OFFLOAD_CKPT_RUN_B = ["optimizer_offload=true", "save_steps=0", "save_final=false",
+                      "resume=true"]
 
 
 def log(msg: str) -> None:
@@ -2832,6 +2888,417 @@ def pipeline_parity(config: str, run_first_loss: float) -> None:
     torch.cuda.empty_cache()
 
 
+def host_memory() -> tuple[int, int]:
+    """(MemTotal bytes from /proc/meminfo, CPUs this process may use)."""
+    with open("/proc/meminfo") as f:
+        kib = next(int(line.split()[1]) for line in f if line.startswith("MemTotal:"))
+    return kib * 1024, len(os.sched_getaffinity(0))
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident set (VmHWM), GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def release_host_cache() -> None:
+    """Hand freed pinned host blocks (PyTorch keeps them cached) back to the
+    system before a run that needs the host's memory."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:
+        empty_host()
+
+
+def record_optimizer(run, watch: str | None = None):
+    """Wrap run.state.optimizer: the wrapper keeps a copy of the gradients
+    handed to it at its first step (`grads`) and, with `watch`, of that
+    params leaf before each update (`before`: after the run, one step
+    stale). Under the host optimizer it also steps `twin`, the device AdamW
+    on fp32 masters on the card that start as the host's, by the same
+    gradients and norm each step."""
+    from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW
+
+    inner = run.state.optimizer
+
+    class Recorder:
+        grads = None
+        before = None
+        twin = None
+        if run.host is not None:
+            twin = {k: p.to(run.device) for k, p in run.host.masters.items()}
+            twin_opt = AdamW(twin, run.host.cfg)
+
+        def step(self, params, grads, norm):
+            if self.grads is None:
+                self.grads = {k: g.detach().clone() for k, g in grads.items()}
+            if watch is not None:
+                self.before = params[watch].detach().clone()
+            if self.twin is not None:
+                self.twin_opt.step(self.twin, grads, norm)
+            return inner.step(params, grads, norm)
+
+    recorder = Recorder()
+    run.state.optimizer = recorder
+    return recorder
+
+
+def working_copy_mismatch(run) -> list:
+    """The leaves of an offload run's working copy (what the next step
+    reads) that are not, bit for bit, the RNE cast of the host masters."""
+    import torch
+
+    return [name for name, w in run.state.params.items()
+            if not torch.equal(w.cpu().view(torch.int16),
+                               run.host.masters[name].to(torch.bfloat16).view(torch.int16))]
+
+
+def reset_kernel_counts() -> None:
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    for module in (fa, fc, fp):
+        module.reset_launch_counts()
+
+
+def check_pipeline_launches(tag: str, pipeline, steps: int) -> dict:
+    """Every kernel's launches and tensor-core calls since the counts were
+    reset equal `steps` times what `pipeline`'s unit grid gives
+    (pipeline_launches); returns the per-step counts."""
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+
+    pcfg = pipeline.pcfg
+    per_step = pipeline_launches(pl.flush_unit_schedule(pcfg), pipeline.stage_params.manifest,
+                                 pcfg.accum_chunks, pcfg.remat)
+    want = {key: c * steps for key, c in per_step.items()}
+    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+    tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts}
+    log(f"[offload] launches {launches} (expected {want}: pipeline_launches x {steps} steps)")
+    if launches != want or tensor_core != want:
+        raise AssertionError(f"[offload] launches {launches}, on the tensor cores {tensor_core}, "
+                             f"expected {want}")
+    return per_step
+
+
+def offload_parity(config: str) -> None:
+    """(a) The pipeline phase's run at 4 layers on the device AdamW, then
+    twice on the host optimizer (OFFLOAD_PARITY_OVERRIDES; see its comment
+    for the limits): launches exact in each; the offload runs repeat each
+    other's losses bit for bit (an upload racing a step's reads would not);
+    their working copy after the run is the RNE cast of the host masters bit
+    for bit, and a planted fault (one layer's wq copy left one step stale)
+    is rejected by that check."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.train import build_run, train_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "offload")
+    watch = "s0c0/layers.attn.wq"
+    device_run = None
+    offload_losses = []
+    for tag, offload in (("device AdamW", False), ("host AdamW", True),
+                         ("host AdamW again", True)):
+        release_host_cache()
+        run = build_run(load_config(config, OFFLOAD_PARITY_OVERRIDES + [
+            f"optimizer_offload={str(offload).lower()}", f"output_dir={out_dir}/parity"]),
+            "cuda")
+        recorder = record_optimizer(run, watch if offload else None)
+        reset_kernel_counts()
+        summary = train_run(run)
+        torch.cuda.synchronize()
+        check_pipeline_launches(f"[offload] {tag}:", run.pipeline, len(summary["losses"]))
+        losses = summary["losses"]
+        log(f"[offload] {tag}: losses {losses}, step ms "
+            f"{[round(1e3 * t, 1) for t in summary['step_times']]}"
+            + (f", host phases of the last step {run.host.last_timings}" if offload else ""))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[offload] {tag}: non-finite loss {losses}")
+        if not offload:
+            device_run = {"losses": losses, "grads": recorder.grads}
+            del run, recorder, summary
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        offload_losses.append(losses)
+        if len(offload_losses) == 2:
+            log(f"[offload] the two host-optimizer runs: losses bit-equal "
+                f"{offload_losses[0] == offload_losses[1]}")
+            if offload_losses[0] != offload_losses[1]:
+                raise AssertionError(f"[offload] two runs of the same config differ: "
+                                     f"{offload_losses}")
+        else:
+            same = [k for k, g in recorder.grads.items() if torch.equal(g, device_run["grads"][k])]
+            grad_rel = rel_diff(recorder.grads, device_run["grads"])
+            worst = 0.0
+            for k, twin in recorder.twin.items():
+                want, got = twin.cpu(), run.host.masters[k]
+                ratio = ((got - want).abs() / (OFFLOAD_MASTER_RTOL * want.abs()
+                                               + OFFLOAD_MASTER_ATOL)).max().item()
+                worst = max(worst, ratio)
+            later = [abs(a - b) for a, b in zip(losses[1:], device_run["losses"][1:])]
+            log(f"[offload] step 1 against the device AdamW: loss {losses[0]!r} vs "
+                f"{device_run['losses'][0]!r} (bit-equal {losses[0] == device_run['losses'][0]}); "
+                f"gradients handed over: rel diff {grad_rel:.3e} (tol {OFFLOAD_GRAD_RTOL}), "
+                f"{len(same)} of {len(recorder.grads)} leaves bit-equal; masters after "
+                f"{len(losses)} steps against the device AdamW stepped by the same gradients: "
+                f"worst |diff| / (rtol {OFFLOAD_MASTER_RTOL} x |ref| + atol "
+                f"{OFFLOAD_MASTER_ATOL}) {worst:.3f}; steps 2-{len(losses)} loss |diff| "
+                f"{later} (tol {STEP_LOSS_TOL})")
+            if (losses[0] != device_run["losses"][0] or not grad_rel <= OFFLOAD_GRAD_RTOL
+                    or not worst <= 1.0 or not max(later) <= STEP_LOSS_TOL):
+                raise AssertionError("[offload] the host optimizer's run departs from the "
+                                     "device AdamW's")
+        stale = working_copy_mismatch(run)
+        with torch.no_grad():
+            run.state.params[watch].copy_(recorder.before)
+        planted = working_copy_mismatch(run)
+        log(f"[offload] working copy vs the RNE cast of the host masters: {len(stale)} leaves "
+            f"differ; planted fault ({watch} one step stale): {planted} differ")
+        if stale or planted != [watch]:
+            raise AssertionError(f"[offload] working copy check: {stale}; planted: {planted}")
+        del run, recorder, summary
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def offload_stash(config: str) -> None:
+    """(a) The stash: a step of zb1 (virtual_stages 2) at 8 layers with the W
+    queue and the stage inputs in pinned host memory, against the same step
+    with both on the card, each taken twice on the same params and batch
+    (the second timed; the first allocates the rings): loss and gradients
+    bit-equal, launches exact, max_memory_allocated not higher (the first
+    run's gradients wait in host memory meanwhile); the host rings' bytes
+    beside the byte model's."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_pipeline_config,
+        build_run,
+    )
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    out = os.path.join(ROOT, "build", "chip_smoke", "offload", "stash")
+    run = build_run(load_config(config, OFFLOAD_STASH_OVERRIDES + ["mesh.pp=1",
+                                                                    f"output_dir={out}"]), "cuda")
+    run.state.optimizer = None  # only the params and the batch are needed here
+    batch = next(run.batches())
+    mcfg = run.model_cfg
+    rows = {}
+    for tag, tiers in (("on the card", []), ("in host memory", OFFLOAD_STASH_TIERS)):
+        cfg = load_config(config, OFFLOAD_STASH_OVERRIDES + tiers)
+        manifest = build_manifest(cfg, mcfg, 4)
+        pcfg = build_pipeline_config(cfg, MeshConfig(pp=4), manifest)
+        sp = pl.StageParams.from_canonical(run.state.params, manifest)
+        pipe = pl.Pipeline(mcfg, pcfg, make_mesh(MeshConfig(pp=4)), sp, run.attn_fn)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        for _ in range(2):
+            for p in sp.flat().values():
+                p.grad = None
+            t0 = time.perf_counter()
+            loss = pipe.loss_and_grad(batch).item()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        check_pipeline_launches(f"[offload] zb1 stash {tag}:", pipe, 2)
+        model = pl.host_stash_bytes(pcfg, *pl.stash_dims(
+            cfg["per_device_train_batch_size"], cfg["max_seq_length"], 1, mcfg.hidden_size,
+            mcfg.dtype))
+        rows[tag] = {"loss": loss, "grads": {k: g.cpu() for k, g in sp.grads().items()},
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "host": pipe.host_stash_bytes(), "model": model}
+        log(f"[offload] zb1 step, W queue and stage inputs {tag}: {ms:.1f} ms (the second "
+            f"step of this pipeline), max_memory_allocated {rows[tag]['peak'] / 2**30:.2f} GiB, "
+            f"host rings {rows[tag]['host'] / 2**30:.4f} GiB (byte model: "
+            f"{model / 2**30:.4f} GiB a stage x 4 stages = {4 * model / 2**30:.4f} GiB), "
+            f"{pl.wgrad_offloaded_units(pcfg)} W pairs a flush over the link")
+        del pipe, sp
+    off, on = rows["on the card"], rows["in host memory"]
+    same = all(torch.equal(on["grads"][k], g) for k, g in off["grads"].items())
+    log(f"[offload] stash on vs off: loss bit-equal {on['loss'] == off['loss']}, gradients "
+        f"bit-equal {same}, max_memory_allocated {on['peak'] / 2**30:.2f} vs "
+        f"{off['peak'] / 2**30:.2f} GiB")
+    if on["loss"] != off["loss"] or not same or on["peak"] > off["peak"] or not on["host"]:
+        raise AssertionError("[offload] the host stash changed the step or its memory")
+    del rows, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def offload_full_depth(config: str) -> None:
+    """(b) conf/llama_7b_pp4.yaml at its full 32 layers on the host
+    optimizer (OFFLOAD_FULL_OVERRIDES), or at the largest depth the host's
+    memory holds with OFFLOAD_HOST_SPARE to spare (the cut printed): finite
+    losses, exact launches of all nine kernels; step ms, tokens/s, MFU, peak
+    device memory, peak host RSS, the host optimizer's phases, the link's
+    GB/s both ways and the step's link floor."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.optim import offload as off
+    from llama_pipeline_parallel_tpu_torch.train import build_model_config, build_run, train_run
+    from llama_pipeline_parallel_tpu_torch.utils import host_stash
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+    from llama_pipeline_parallel_tpu_torch.utils.metrics import (
+        param_count,
+        peak_flops,
+        train_flops_per_token,
+    )
+
+    card = card_line()
+    mem_total, cpus = host_memory()
+    published = build_model_config(load_config(config)["model"])
+
+    def need(layers: int) -> int:
+        n = param_count(dataclasses.replace(published, num_hidden_layers=layers))
+        return 12 * n + 2 * off.SLOTS * off.PIECE * (4 + 2)
+
+    depth = published.num_hidden_layers
+    while depth > 1 and OFFLOAD_HOST_SPARE * need(depth) > mem_total:
+        depth -= 1
+    log(f"[offload] host: MemTotal {mem_total / 1e9:.2f} GB, {cpus} CPUs; "
+        f"{published.num_hidden_layers} layers need "
+        f"{need(published.num_hidden_layers) / 1e9:.2f} GB of host memory "
+        f"(12 B a parameter and the pinned staging), x {OFFLOAD_HOST_SPARE} to spare: "
+        + ("no cut" if depth == published.num_hidden_layers else
+           f"CUT to {depth} layers ({need(depth) / 1e9:.2f} GB)"))
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "offload", "full")
+    overrides = OFFLOAD_FULL_OVERRIDES + [f"output_dir={out_dir}"]
+    if depth != published.num_hidden_layers:
+        overrides.append(f"model.num_hidden_layers={depth}")
+    release_host_cache()
+    bw = host_stash.measure_transfer_bandwidth(nbytes=1 << 30, reps=3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = build_run(load_config(config, overrides), "cuda")
+    build_s = time.perf_counter() - t0
+    host = run.host
+    reset_kernel_counts()
+    summary = train_run(run)
+    torch.cuda.synchronize()
+    losses = summary["losses"]
+    check_pipeline_launches("[offload] full depth:", run.pipeline, len(losses))
+    # the host phases of each step, from the metrics line (logging_steps=1)
+    phases = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[offload] full depth: non-finite loss {losses}")
+    mcfg = run.model_cfg
+    n = host.numel()
+    steps = summary["step_times"][1:]
+    step_s = statistics.median(steps)
+    tokens = summary["tokens_per_step"]
+    mfu = train_flops_per_token(mcfg, run.seq_length) * tokens / step_s / peak_flops(
+        torch.device("cuda"))
+    norm_ms = statistics.median(p["norm_ms"] for p in phases[1:])
+    stream_ms = statistics.median(p["stream_d2h_update_h2d_ms"] for p in phases[1:])
+    down, up = 4 * n, 2 * n  # fp32 gradients down, the bf16 working copy up
+    floor_s = down / 1e9 / bw["d2h_gbps"] + up / 1e9 / bw["h2d_gbps"]
+    touched = 34 * n  # AdamW reads g, p, m, v and writes p, m, v; the cast reads p, writes bf16
+    log(f"[offload] full depth ({mcfg.num_hidden_layers} layers, {n / 1e9:.3f} B parameters, "
+        f"{card}): build_run {build_s:.1f} s (init on the card, masters to the host, working "
+        f"copy up); losses {losses}")
+    log(f"[offload] full depth ({card}): step {1e3 * step_s:.1f} ms (median of steps "
+        f"2-{len(losses)}: {[round(1e3 * t, 1) for t in steps]}), {tokens / step_s:.0f} tokens/s, "
+        f"MFU {mfu:.4f} (989 TFLOP/s, PaLM accounting); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host peak RSS "
+        f"{peak_rss_gb():.2f} GB; host AdamW ({host.threads} OpenMP threads, torch "
+        f"{torch.get_num_threads()}): norm_ms {norm_ms:.1f}, stream_d2h_update_h2d_ms "
+        f"{stream_ms:.1f} ({touched / 1e9:.1f} GB of host memory touched: "
+        f"{touched / 1e9 / (stream_ms / 1e3):.1f} GB/s); link (pinned, 1 GiB): d2h "
+        f"{bw['d2h_gbps']:.2f} GB/s, h2d {bw['h2d_gbps']:.2f} GB/s; the step's link floor "
+        f"{down / 1e9:.2f} GB down + {up / 1e9:.2f} GB up = {1e3 * floor_s:.1f} ms")
+    del run, host, summary
+    release_host_cache()
+
+
+def offload_checkpoint(config: str) -> None:
+    """(c) The checkpoint phase's run (2 layers) on the host optimizer: run A
+    saves step 4 in the offload_parts layout (three files and meta.json's
+    opt_layout, opt_step_count), run B resumes it and repeats A's steps 5-6
+    bit for bit (losses and final masters); restoring it without offload is
+    refused by name."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import checkpoint as ck
+    from llama_pipeline_parallel_tpu_torch.train import build_run, train_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke", "offload", "ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def cfg(*overrides):
+        return load_config(config, CKPT_OVERRIDES + list(overrides) + [f"output_dir={ckpt_dir}"])
+
+    run_a = build_run(cfg(*OFFLOAD_CKPT_RUN_A), "cuda")
+    losses_a = train_run(run_a)["losses"]
+    save = dict(run_a.ckpt.last_save)
+    meta = json.load(open(os.path.join(ckpt_dir, f"checkpoint-{CKPT_SAVE_STEP}", "meta.json")))
+    files = sorted(meta["integrity"]["files"])
+    log(f"[offload] checkpoint run A losses {losses_a}; blocking save of checkpoint-"
+        f"{CKPT_SAVE_STEP} from host memory: write {gbps(save['bytes'], save['write_s'])}, "
+        f"sha256 {gbps(save['bytes'], save['digest_s'])}; files {files}, opt_layout "
+        f"{meta.get('opt_layout')}, opt_step_count {meta.get('opt_step_count')}")
+    if (files != [ck.OPT_M_FILE, ck.OPT_V_FILE, ck.PARAMS_FILE]
+            or meta.get("opt_layout") != ck.OFFLOAD_LAYOUT
+            or meta.get("opt_step_count") != CKPT_SAVE_STEP):
+        raise AssertionError(f"[offload] checkpoint-{CKPT_SAVE_STEP}: {files}, {meta}")
+    os.environ["LPT_CKPT_VERIFY"] = "0"  # the refusal reads meta.json; A's digests hold
+    try:
+        build_run(cfg("save_steps=0", "save_final=false", "resume=true"), "cuda")
+    except ValueError as e:
+        log(f"[offload] resuming it without offload is refused: {e}")
+        if "opt_layout=offload_parts" not in str(e):
+            raise
+    else:
+        raise AssertionError("[offload] an offload_parts checkpoint resumed without offload")
+    finally:
+        del os.environ["LPT_CKPT_VERIFY"]
+    run_b = build_run(cfg(*OFFLOAD_CKPT_RUN_B), "cuda")
+    losses_b = train_run(run_b)["losses"]
+    same = [k for k, p in run_a.host.masters.items() if torch.equal(p, run_b.host.masters[k])]
+    log(f"[offload] run B from checkpoint-{CKPT_SAVE_STEP}: losses {losses_b} (A's "
+        f"{losses_a[CKPT_SAVE_STEP:]}), final masters bit-equal in {len(same)} of "
+        f"{len(run_a.host.masters)} leaves")
+    if losses_b != losses_a[CKPT_SAVE_STEP:] or len(same) != len(run_a.host.masters):
+        raise AssertionError(f"[offload] resume is not bit-equal")
+    del run_a, run_b
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    release_host_cache()
+
+
+def phase_offload() -> None:
+    """Host offload (module docstring, phase 12): (a) offload_parity and
+    offload_stash, (b) offload_full_depth, (c) offload_checkpoint."""
+    t0 = time.perf_counter()
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    log(f"[offload] {config}; card {card_line()}")
+    offload_parity(config)
+    offload_stash(config)
+    offload_full_depth(config)
+    offload_checkpoint(config)
+    log(f"[offload] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2859,6 +3326,7 @@ def main() -> int:
     phase_preempt(losses_a)
     phase_remat()
     phase_pipeline()
+    phase_offload()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -8,6 +8,9 @@ stored in the safetensors layout (ckpt/tensor_io.py) instead of Orbax's:
                                                   layer leaves [num_layers, ...]
     <root>/checkpoint-<step>/opt.safetensors      `mu.<name>`, `nu.<name>`,
                                                   `count` (full-state saves only)
+    <root>/checkpoint-<step>/opt_m.safetensors    instead of opt.safetensors under the
+    <root>/checkpoint-<step>/opt_v.safetensors    host optimizer (`save_offload`): the
+                                                  moments by name, canonical
     <root>/checkpoint-<step>/meta.json            written last: its presence marks
                                                   a complete checkpoint
     <root>/latest                                 tag naming the newest one
@@ -15,9 +18,13 @@ stored in the safetensors layout (ckpt/tensor_io.py) instead of Orbax's:
 `meta.json` holds the reference's keys with the reference's values (`step`,
 `manifest`, `model_config`, `format_version`, `has_optimizer_state`,
 `integrity`, and the trainer's `topology` and `data_state`) plus `"storage":
-"safetensors"`. A checkpoint whose meta.json lacks that key was written by the
-JAX package (Orbax arrays) and is refused by name: the route between the two
-packages is the HF format (each package's export_hf and convert_hf).
+"safetensors"`; a host optimizer's checkpoint adds the reference's
+`"opt_layout": "offload_parts"` and `opt_step_count`. Each layout is
+resumed only by its own optimizer (both refusals name the remedy); either
+warm-starts the weights (`load_params`). A checkpoint whose meta.json lacks
+`storage` was written by the JAX package (Orbax arrays) and is refused by
+name: the route between the two packages is the HF format (each package's
+export_hf and convert_hf).
 
 Integrity: the commit records each file's sha256 in meta.json; restores
 verify them first and QUARANTINE a corrupt checkpoint to
@@ -59,6 +66,10 @@ _CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
 QUARANTINE_SUFFIX = ".corrupt"
 PARAMS_FILE = "params.safetensors"
 OPT_FILE = "opt.safetensors"
+# the host optimizer's layout: the masters, then each moment, one file each
+OFFLOAD_LAYOUT = "offload_parts"
+OPT_M_FILE = "opt_m.safetensors"
+OPT_V_FILE = "opt_v.safetensors"
 STORAGE = "safetensors"
 HF_ROUTE = ("export it to HF with the JAX package's tools/export_hf.py, then convert "
             "that directory with python -m llama_pipeline_parallel_tpu_torch.tools.convert_hf")
@@ -424,6 +435,42 @@ class CheckpointManager:
         self._pending.start()
         return path
 
+    def save_offload(self, step: int, host: Any, manifest: StageManifest, cfg: LlamaConfig,
+                     canonical: Any = None, keep_last: int | None = None,
+                     extra_meta: dict | None = None) -> str:
+        """The host optimizer's full state (optim/offload.HostOffloadAdamW)
+        in the `offload_parts` layout: params.safetensors from the host
+        masters, then opt_m.safetensors, then opt_v.safetensors, each written
+        leaf by leaf from host memory; meta.json adds `opt_layout` and
+        `opt_step_count`. Always blocking: the next step updates the masters
+        in place. `canonical(tree)` maps the host's tree (named as the run's
+        params) to the canonical one, tensor_io.Lazy entries allowed (None:
+        it is canonical already). `keep_last` and `extra_meta` as in save."""
+        self.finalize()
+        path = self.step_dir(step)
+        canonical = canonical or (lambda tree: tree)
+        t0 = time.perf_counter()
+        if os.path.isdir(path):  # a re-save of this step replaces it whole
+            shutil.rmtree(path)
+        os.makedirs(path)
+        nbytes = 0
+        for filename, tree in ((PARAMS_FILE, host.masters_tree()),
+                               (OPT_M_FILE, host.moments_tree("m")),
+                               (OPT_V_FILE, host.moments_tree("v"))):
+            tensors = canonical(tree)
+            _check_canonical(tensors, manifest)
+            nbytes += tensor_io.write_file(os.path.join(path, filename), tensors)
+        t1 = time.perf_counter()
+        digest_s = self._commit(path, step, manifest, cfg, has_optimizer_state=True,
+                                opt_layout=OFFLOAD_LAYOUT, opt_step_count=int(host.step_count),
+                                **(extra_meta or {}))
+        if keep_last:
+            self.prune(keep_last)
+        self.last_save = {"d2h_s": 0.0, "d2h_bytes": 0, "write_s": t1 - t0,
+                          "digest_s": digest_s, "bytes": nbytes,
+                          "commit_s": time.perf_counter() - t0}
+        return path
+
     def _commit(self, path: str, step: int, manifest: StageManifest,
                 cfg: LlamaConfig, **meta_extra) -> float:
         """Digest the files, then write meta.json (the completeness marker)
@@ -537,12 +584,14 @@ class CheckpointManager:
 
     def load_params(self, step: int, params: dict[str, torch.Tensor],
                     manifest: StageManifest | None = None,
-                    verify: bool | None = None) -> dict[str, torch.Tensor]:
+                    verify: bool | None = None, copy: Any = None) -> dict[str, torch.Tensor]:
         """Module-only warm start: copy checkpoint-<step>'s parameters into
         `params` (in place, on their device) and return them. Both are the
         canonical [num_layers, ...] tree, whatever partition `manifest` (the
         run's) names: a restore across a change of pp, schedule or layer
-        counts is a copy.
+        counts is a copy. Either optimizer layout holds the same params file.
+        `copy(targets, source, what)` copies a file's canonical tensors into
+        targets named otherwise (a pipeline's chunks); None: same names.
 
         `verify` (default: on, unless LPT_CKPT_VERIFY=0): check the commit's
         recorded digests first; corruption quarantines the checkpoint and
@@ -552,9 +601,29 @@ class CheckpointManager:
         if _verify_default() if verify is None else verify:
             self.verify(step)
         self._check_storage(step, self.load_meta(step))
+        copy = copy or _copy_tensors
         self._read(step, PARAMS_FILE,
-                   lambda f: _copy_tensors(params, f, f"checkpoint-{step}/{PARAMS_FILE}"))
+                   lambda f: copy(params, f, f"checkpoint-{step}/{PARAMS_FILE}"))
         return params
+
+    def load_offload_moments(self, step: int, m: dict[str, torch.Tensor],
+                             v: dict[str, torch.Tensor], verify: bool | None = None,
+                             copy: Any = None) -> int:
+        """The host optimizer's moments of an `offload_parts` checkpoint into
+        `m` and `v` in place (one file at a time; `copy` as in load_params);
+        returns its step count. Refuses another layout."""
+        if _verify_default() if verify is None else verify:
+            self.verify(step)
+        meta = self.load_meta(step)
+        self._check_storage(step, meta)
+        if meta.get("opt_layout") != OFFLOAD_LAYOUT:
+            raise ValueError(f"checkpoint-{step} was not written by the offloaded optimizer "
+                             f"(opt_layout={meta.get('opt_layout')!r})")
+        copy = copy or _copy_tensors
+        for filename, targets in ((OPT_M_FILE, m), (OPT_V_FILE, v)):
+            self._read(step, filename, lambda f, targets=targets, filename=filename: copy(
+                targets, f, f"checkpoint-{step}/{filename}"))
+        return int(meta["opt_step_count"])
 
     def load(self, step: int, params: dict[str, torch.Tensor], optimizer: Any,
              manifest: StageManifest | None = None, verify: bool | None = None
@@ -569,6 +638,11 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint-{step} has no optimizer state (module-only / "
                 f"converter output); use load_params for a warm start")
+        if meta.get("opt_layout") == OFFLOAD_LAYOUT:
+            raise ValueError(
+                f"checkpoint-{step} was written by the host-offloaded optimizer "
+                f"(opt_layout={OFFLOAD_LAYOUT}); resume it with optimizer_offload: true, or "
+                f"warm-start module-only via model_name_or_path")
         self.load_params(step, params, manifest, verify=False)
 
         def read_opt(f: tensor_io.TensorFile) -> None:

@@ -12,12 +12,16 @@ Reads are lazy: `TensorFile` maps the file and hands out each tensor by name
 as a view on the mapping, so a 7B file is never read whole into memory.
 Writes go to a temporary file, are fsynced, then renamed over the target, all
 under the shared storage retry policy (utils/retry.py): a crash never leaves
-a torn file under the final name.
+a torn file under the final name. A `Lazy` entry is made only when its bytes
+are written, so a file of tensors assembled on demand holds one of them in
+memory at a time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import mmap
 import os
 import struct
@@ -39,8 +43,26 @@ if sys.byteorder != "little":  # the layout is little-endian; tensors are writte
     raise ImportError("tensor_io writes host memory as is: it needs a little-endian host")
 
 
-def _host_bytes(t: torch.Tensor) -> memoryview:
+@dataclasses.dataclass(frozen=True)
+class Lazy:
+    """A tensor for `write_file` that `make()` builds only when its bytes
+    are written: its shape and dtype stand in for it in the header."""
+
+    shape: tuple
+    dtype: torch.dtype
+    make: Callable[[], torch.Tensor]
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def element_size(self) -> int:
+        return self.dtype.itemsize
+
+
+def _host_bytes(t: torch.Tensor | Lazy) -> memoryview:
     """The tensor's row-major bytes in host memory (a copy off the device)."""
+    if isinstance(t, Lazy):
+        t = t.make()
     flat = t.detach().to("cpu").contiguous().reshape(-1)
     return memoryview(flat.view(torch.uint8).numpy())
 
@@ -71,7 +93,7 @@ def write_atomic(path: str, fill: Callable[[BinaryIO], None]) -> None:
                      describe=f"write {os.path.basename(path)}")
 
 
-def write_file(path: str, tensors: Mapping[str, torch.Tensor],
+def write_file(path: str, tensors: Mapping[str, torch.Tensor | Lazy],
                metadata: Mapping[str, str] | None = None) -> int:
     """Write `tensors` to `path` in the safetensors layout; returns the bytes
     written. Tensors may lie on any device: each is copied to host memory in

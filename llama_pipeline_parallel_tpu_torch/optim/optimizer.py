@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -37,9 +38,11 @@ class OptimizerConfig:
 
 
 def _linear(init: float, end: float, transition_steps: int, count: int) -> float:
-    """optax.linear_schedule at `count`."""
+    """optax.linear_schedule at `count`, in its float32 arithmetic (so the
+    learning rate is the reference's to the bit)."""
     count = min(max(count, 0), transition_steps)
-    return (init - end) * (1.0 - count / transition_steps) + end
+    frac = np.float32(1) - np.float32(count) / np.float32(transition_steps)
+    return float(np.float32(init - end) * frac + np.float32(end))
 
 
 def warmup_decay_schedule(peak_lr: float, total_steps: int, warmup_steps: int

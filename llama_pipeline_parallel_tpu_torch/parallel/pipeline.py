@@ -26,6 +26,13 @@ PyTorch:
   backpropagated from the stashed cotangent into the parameters' fp32
   gradients, in the sequence's order.
 
+Host offload (utils/host_stash.py): `offload_wgrad` (zb1) and a solver
+sequence's `offload_units` push a B unit's (input, cotangent) pair to a
+pinned host ring instead of keeping it on the card, and the W drain brings
+each pair back one W unit ahead of its replay; `offload_activations` does the
+same for the stage-input buffer between a unit's F and its B. The copies move
+bytes: gradients and losses are the same bits with the tiers on or off.
+
 Idle (-1) cells compute nothing. The tick's handoffs go through a
 transport: a stage sends only what a valid unit produced for a valid unit
 of the next tick, and posts a receive only for what a valid unit of the next
@@ -44,7 +51,11 @@ lm_head on the last stage's last chunk, one copy each. This replaces the
 reference's stage-stacked, zero-padded layout and its pp-replicated
 embed/head, whose gradients it psums over pp: the same mathematics.
 `gradient_accumulation_chunks` runs sequential flushes, each normalised by
-the one global token count, so the sum is the full-batch gradient.
+the one global token count, so the sum is the full-batch gradient. Under the
+host optimizer (optim/offload.py) the leaves are the working copy in the
+compute dtype and each gradient accumulates in an fp32 buffer beside it
+(`StageParams(..., grads=...)`), in the same order as into the masters'
+`.grad`.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
+from llama_pipeline_parallel_tpu_torch.optim.offload import bind_fp32_grads
 from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import Mesh
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
@@ -68,6 +80,7 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     head_loss_sum_count,
     microbatches,
 )
+from llama_pipeline_parallel_tpu_torch.utils import host_stash
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -85,14 +98,18 @@ NOT_PORTED_SCHEDULES = {"gpipe": "a later slice (the forward-only schedule diffe
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Schedule knobs, as the reference's PipelineConfig names and checks
-    them (its sequence-parallel and offload knobs are not ported).
+    them (its sequence-parallel knobs are not ported).
 
     `remat` recomputes each layer inside a B or W unit's backward under
     `remat_policy`, on top of the stage-granularity recompute every unit
     schedule pays. `layer_counts`: per-stage layer counts of an uneven
     partition (None: even). `loss_chunks` / `kernel_ce` pick the loss head,
     `kernel_prologue` the decoder layers' prologue, as in the one-device
-    step. `unit_schedule`: the per-flush sequence of `schedule: solver`."""
+    step. `unit_schedule`: the per-flush sequence of `schedule: solver`.
+    `offload_wgrad` (`offload.wgrad_stash`, zb1 only) keeps the W queue in
+    host memory; a solver sequence carries its own per-unit vector instead.
+    `offload_activations` (`offload.activations`) keeps the stage-input
+    buffer there."""
 
     num_stages: int
     num_microbatches: int
@@ -106,6 +123,8 @@ class PipelineConfig:
     kernel_ce: bool = False
     kernel_prologue: bool = False
     unit_schedule: Any = dataclasses.field(default=None, compare=False, repr=False)
+    offload_wgrad: bool = False
+    offload_activations: bool = False
 
     def __post_init__(self) -> None:
         if self.num_microbatches < 1:
@@ -114,6 +133,7 @@ class PipelineConfig:
             raise ValueError("num_stages must be >= 1")
         if self.schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {self.schedule!r}; choose one of {SCHEDULES}")
+        check_offload_tiers(self.schedule, self.offload_wgrad, self.offload_activations)
         if self.schedule in NOT_PORTED_SCHEDULES:
             raise NotImplementedError(
                 f"not ported yet: pipeline_schedule={self.schedule!r} comes with "
@@ -184,12 +204,24 @@ class PipelineConfig:
                     f"unit sequence was generated for stage layer counts {theirs} but this "
                     f"run partitions as {mine or 'even'} — re-emit the sequence for this "
                     f"partition")
-        if us.offloaded_units:
-            raise NotImplementedError(
-                f"not ported yet: the solver sequence offloads {us.offloaded_units} W "
-                f"residuals to host memory; host offload comes with a later slice (emit the "
-                f"sequence with no offloaded units)")
+        if self.offload_wgrad:
+            raise ValueError("schedule: solver carries its own per-unit offload decision vector "
+                             "— drop offload.wgrad_stash (the boolean is the all-or-nothing "
+                             "special case)")
         usched.validate(us)
+
+
+def check_offload_tiers(schedule: str, wgrad: bool, activations: bool) -> None:
+    """The reference's rules for the host tiers: `offload.wgrad_stash`
+    needs zb1 (only the split backward stashes a W queue), and
+    `offload.activations` a schedule with a stage-input buffer (not gpipe)."""
+    if wgrad and schedule not in ("zb1", "solver"):
+        raise ValueError(f"offload.wgrad_stash requires schedule: zb1 (only the split backward "
+                         f"stashes a W queue; got {schedule!r})")
+    if activations and schedule == "gpipe":
+        raise ValueError("offload.activations requires a hand-written-backward schedule (1f1b / "
+                         "interleaved_1f1b / zb1): gpipe's stored activations are AD-internal, "
+                         "there is no explicit ring buffer to tier")
 
 
 def bubble_fraction(pcfg: PipelineConfig) -> float:
@@ -223,7 +255,7 @@ def _unit_schedule_for(pcfg: PipelineConfig) -> usched.UnitSchedule:
     counts = (tuple(pcfg.layer_counts) if pcfg.layer_counts is not None
               and len(set(pcfg.layer_counts)) != 1 else None)
     return _canonical_cached(pcfg.schedule, pcfg.num_microbatches // pcfg.accum_chunks,
-                             pcfg.num_stages, pcfg.virtual_stages, counts)
+                             pcfg.num_stages, pcfg.virtual_stages, pcfg.offload_wgrad, counts)
 
 
 def flush_unit_schedule(pcfg: PipelineConfig) -> usched.UnitSchedule:
@@ -233,9 +265,95 @@ def flush_unit_schedule(pcfg: PipelineConfig) -> usched.UnitSchedule:
 
 
 @functools.lru_cache(maxsize=64)
-def _canonical_cached(schedule: str, m: int, s: int, v: int,
+def _canonical_cached(schedule: str, m: int, s: int, v: int, offload_wgrad: bool = False,
                       stage_costs: tuple | None = None) -> usched.UnitSchedule:
-    return usched.canonical_schedule(schedule, m, s, v, stage_costs=stage_costs)
+    return usched.canonical_schedule(schedule, m, s, v, offload_wgrad=offload_wgrad,
+                                     stage_costs=stage_costs)
+
+
+# ---------------------------------------------------------------------------
+# Byte models of the host tiers (the reference's, per stage)
+# ---------------------------------------------------------------------------
+
+def wgrad_partition(pcfg: PipelineConfig) -> tuple[int, int]:
+    """(hbm_slots, host_slots) of the W queue's residual-pair slots: zb1's
+    offload.wgrad_stash puts the whole queue on one side, a solver sequence's
+    per-unit vector splits it."""
+    if pcfg.schedule == "zb1":
+        peak = (pcfg.num_microbatches // pcfg.accum_chunks) * pcfg.virtual_stages
+        return (0, peak) if pcfg.offload_wgrad else (peak, 0)
+    if pcfg.schedule == "solver" and pcfg.unit_schedule is not None \
+            and pcfg.unit_schedule.split_backward:
+        return pcfg.unit_schedule.wq_hbm_slots, pcfg.unit_schedule.wq_host_slots
+    return 0, 0
+
+
+def wgrad_queue_peak(pcfg: PipelineConfig) -> int:
+    """Peak W-queue occupancy (HBM and host slots together); 0 for fused
+    backward schedules."""
+    return sum(wgrad_partition(pcfg))
+
+
+def wgrad_offloaded_units(pcfg: PipelineConfig) -> int:
+    """Per-flush count of W residual pairs that cross the link (down at B,
+    up at W)."""
+    if pcfg.schedule == "zb1" and pcfg.offload_wgrad:
+        return (pcfg.num_microbatches // pcfg.accum_chunks) * pcfg.virtual_stages
+    if pcfg.schedule == "solver" and pcfg.unit_schedule is not None:
+        return pcfg.unit_schedule.offloaded_units
+    return 0
+
+
+def wgrad_stash_bytes(pcfg: PipelineConfig, mb_rows: int, local_seqlen: int,
+                      hidden_size: int, dtype_bytes: int = 2) -> int:
+    """Bytes of a stage's W queue: two hidden-sized buffers per queued unit."""
+    return 2 * wgrad_queue_peak(pcfg) * mb_rows * local_seqlen * hidden_size * dtype_bytes
+
+
+def activation_ring_slots(pcfg: PipelineConfig) -> int:
+    """Stage-input buffer slots per flush: min(2S - 1, m) flat, min(2vS - 1,
+    mv) chunked (the canonical sequences' ring_slots); 0 where there is none
+    (gpipe, one flat stage)."""
+    s, v = pcfg.num_stages, pcfg.virtual_stages
+    m_flush = pcfg.num_microbatches // pcfg.accum_chunks
+    if pcfg.schedule == "gpipe":
+        return 0
+    if pcfg.schedule == "solver" and pcfg.unit_schedule is not None:
+        us = pcfg.unit_schedule
+        return us.ring_slots if bool(us.has_f.any()) else 0
+    if pcfg.schedule == "1f1b":
+        return min(2 * s - 1, m_flush) if s > 1 else 0
+    return min(2 * v * s - 1, m_flush * v)
+
+
+def activation_ring_bytes(pcfg: PipelineConfig, mb_rows: int, local_seqlen: int,
+                          hidden_size: int, dtype_bytes: int = 2) -> int:
+    """Bytes of a stage's input buffer: what `offload.activations` moves to
+    host memory."""
+    return activation_ring_slots(pcfg) * mb_rows * local_seqlen * hidden_size * dtype_bytes
+
+
+def stash_dims(mb_rows: int, seqlen: int, sp: int, hidden_size: int,
+               dtype: torch.dtype) -> tuple[int, int, int, int]:
+    """The (mb_rows, local_seqlen, hidden_size, dtype_bytes) every byte model
+    here takes; `seqlen` is the row length, split over `sp`."""
+    return (int(mb_rows), int(seqlen) // max(int(sp), 1), int(hidden_size),
+            torch.empty((), dtype=dtype).element_size())
+
+
+def host_stash_bytes(pcfg: PipelineConfig, mb_rows: int, local_seqlen: int,
+                     hidden_size: int, dtype_bytes: int = 2) -> int:
+    """Bytes a stage keeps in host memory under the enabled tiers, each
+    ring's garbage slot included (utils/host_stash.py); 0 with both off."""
+    slot = mb_rows * local_seqlen * hidden_size * dtype_bytes
+    total = 0
+    host_slots = wgrad_partition(pcfg)[1]
+    if host_slots:
+        total += 2 * host_slots * slot + 2 * slot
+    if pcfg.offload_activations and activation_ring_slots(pcfg):
+        total += activation_ring_bytes(pcfg, mb_rows, local_seqlen, hidden_size,
+                                       dtype_bytes) + slot
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +375,7 @@ def chunk_names(manifest: StageManifest, stage: int, chunk: int) -> tuple[str, .
     return names
 
 
-def _chunk_views(params: Params, manifest: StageManifest,
+def chunk_views(params: Params, manifest: StageManifest,
                  stages: tuple[int, ...] | None = None) -> dict[int, list[Params]]:
     """{stage: [chunk trees]} of `stages` (default: all), as views of the
     canonical tree: each chunk's layer leaves are the rows of its layers
@@ -276,12 +394,39 @@ def _chunk_views(params: Params, manifest: StageManifest,
     return out
 
 
+def flatten_chunks(chunks: dict[int, list[Params]]) -> Params:
+    """{`s{stage}c{chunk}/{name}`: leaf} of a chunk structure (the optimizer's
+    naming, StageParams.flat())."""
+    return {f"s{s}c{c}/{name}": leaf for s in sorted(chunks)
+            for c, tree in enumerate(chunks[s]) for name, leaf in tree.items()}
+
+
+def chunks_like(chunks: dict[int, list[Params]], flat: Params) -> dict[int, list[Params]]:
+    """Tensors named as flatten_chunks(chunks) in `chunks`' structure."""
+    return {s: [{name: flat[f"s{s}c{c}/{name}"] for name in tree}
+                for c, tree in enumerate(chunks[s])] for s in sorted(chunks)}
+
+
 def split_params(params: Params, manifest: StageManifest,
                  stages: tuple[int, ...] | None = None) -> dict[int, list[Params]]:
     """The chunk trees of `stages` (default: all), copied out of the
-    canonical tree (_chunk_views)."""
+    canonical tree (chunk_views)."""
     return {s: [{name: leaf.clone() for name, leaf in tree.items()} for tree in chunks]
-            for s, chunks in _chunk_views(params, manifest, stages).items()}
+            for s, chunks in chunk_views(params, manifest, stages).items()}
+
+
+def canonical_leaf(chunks: dict[int, list[Params]], manifest: StageManifest,
+                   name: str) -> torch.Tensor:
+    """One leaf of the canonical tree from every stage's chunks (a copy):
+    a layer leaf concatenated in layer order, another the chunk's own."""
+    cells = sorted(((manifest.layers_of_chunk(s, c).start, tree[name])
+                    for s in chunks for c, tree in enumerate(chunks[s]) if name in tree),
+                   key=lambda cell: cell[0])
+    if not cells:
+        raise KeyError(f"no chunk holds {name}")
+    if name.startswith("layers."):
+        return torch.cat([leaf.detach() for _, leaf in cells])
+    return cells[0][1].detach().clone()
 
 
 def merge_params(chunks: dict[int, list[Params]], manifest: StageManifest) -> Params:
@@ -304,19 +449,44 @@ def merge_params(chunks: dict[int, list[Params]], manifest: StageManifest) -> Pa
 
 
 class StageParams:
-    """The chunks of the stages this process runs (split_params' trees) as
-    fp32 masters that take gradients, under two namings: `chunks[s][c][name]`
-    for the interpreter, and `flat()`, `s{stage}c{chunk}/{name}`, for the
-    optimizer. `to_canonical` / `copy_canonical` carry the params or any
-    tensors named like `flat()` (the optimizer's moments) to and from the
-    canonical [num_layers, ...] tree that checkpoints hold."""
+    """The chunks of the stages this process runs (split_params' trees)
+    under two namings: `chunks[s][c][name]` for the interpreter, and
+    `flat()`, `s{stage}c{chunk}/{name}`, for the optimizer. Without `grads`
+    the leaves are fp32 masters that take their gradients in `.grad`; with
+    `grads` (fp32 tensors in the same chunk structure) they are a working
+    copy whose gradients accumulate there (optim/offload.bind_fp32_grads).
+    `to_canonical` / `copy_canonical` carry the params or any tensors named
+    like `flat()` (the optimizer's moments) to and from the canonical
+    [num_layers, ...] tree that checkpoints hold."""
 
-    def __init__(self, manifest: StageManifest, chunks: dict[int, list[Params]]):
+    def __init__(self, manifest: StageManifest, chunks: dict[int, list[Params]],
+                 grads: dict[int, list[Params]] | None = None):
         self.manifest = manifest
         self.chunks = chunks
-        for tree in self._trees():
-            for leaf in tree.values():
-                leaf.requires_grad_(True)
+        self.grad_sinks = grads
+        if grads is None:
+            for tree in self._trees():
+                for leaf in tree.values():
+                    leaf.requires_grad_(True)
+
+    def train_tree(self, stage: int, chunk: int) -> Params:
+        """Chunk (stage, chunk) as a unit that takes gradients reads it."""
+        tree = self.chunks[stage][chunk]
+        if self.grad_sinks is None:
+            return tree
+        return bind_fp32_grads(tree, self.grad_sinks[stage][chunk])
+
+    def grads(self) -> Params:
+        """The fp32 gradients, named as flat()."""
+        if self.grad_sinks is None:
+            return {name: leaf.grad for name, leaf in self.flat().items()}
+        return flatten_chunks(self.grad_sinks)
+
+    def stage_grads(self, stage: int) -> list[torch.Tensor]:
+        if self.grad_sinks is None:
+            return [leaf.grad for tree in self.chunks[stage] for leaf in tree.values()]
+        return [g for tree in self.grad_sinks[stage] for g in tree.values()]
+
 
     @classmethod
     def from_canonical(cls, params: Params, manifest: StageManifest,
@@ -332,15 +502,10 @@ class StageParams:
             yield from self.chunks[s]
 
     def flat(self) -> Params:
-        return {f"s{s}c{c}/{name}": leaf for s in self.stages
-                for c, tree in enumerate(self.chunks[s]) for name, leaf in tree.items()}
+        return flatten_chunks(self.chunks)
 
     def _as_chunks(self, flat: Params) -> dict[int, list[Params]]:
-        out: dict[int, list[Params]] = {}
-        for s in self.stages:
-            out[s] = [{name: flat[f"s{s}c{c}/{name}"] for name in tree}
-                      for c, tree in enumerate(self.chunks[s])]
-        return out
+        return chunks_like(self.chunks, flat)
 
     def canonical_names(self) -> set[str]:
         return {name for tree in self._trees() for name in tree}
@@ -357,7 +522,7 @@ class StageParams:
         """Copy a canonical tree into the params (or into `flat`, tensors
         named as flat()) in place, refusing a missing or reshaped leaf."""
         targets = self.chunks if flat is None else self._as_chunks(flat)
-        source = _chunk_views(canonical, self.manifest, self.stages)
+        source = chunk_views(canonical, self.manifest, self.stages)
         for s in self.stages:
             for c, tree in enumerate(targets[s]):
                 for name, t in tree.items():
@@ -515,6 +680,7 @@ class _Microbatch:
 
 
 UNIT_KINDS = ("F", "B", "W")
+_IN_RING = object()  # a stage input buffered in the host ring
 
 
 class Pipeline:
@@ -524,7 +690,9 @@ class Pipeline:
     gradients of `stage_params`; `loss_sum_count` is the forward-only pass
     of evaluation. `units[stage]` counts the F, B and W cells each stage
     has executed, and `computed[stage]` those that ran a chunk (see the module docstring for the two kinds of cell
-    that run none)."""
+    that run none). With a host tier on, `stash_trace` lists the last
+    step's W-queue moves in order, ("push" | "pop" | "replay", stage,
+    unit), and `host_stash_bytes()` the pinned rings it holds."""
 
     def __init__(self, cfg: LlamaConfig, pcfg: PipelineConfig, mesh: Mesh,
                  stage_params: StageParams, attn_fn: Callable = attention,
@@ -545,6 +713,15 @@ class Pipeline:
         self.transport = transport if transport is not None else make_transport(mesh)
         self.units = {s: dict.fromkeys(UNIT_KINDS, 0) for s in mesh.stages}
         self.computed = {s: dict.fromkeys(UNIT_KINDS, 0) for s in mesh.stages}
+        self._act_slots = activation_ring_slots(pcfg) if pcfg.offload_activations else 0
+        self._rings: dict[tuple[int, str], torch.Tensor] = {}
+        self.stash_trace: list[tuple[str, int, int]] = []
+        # each stage's W units in the sequence's order: the drain prefetches
+        # the next one's pair while the current one replays
+        self._w_next = {}
+        for s in mesh.stages:
+            order = [int(w) for w in self.us.w_unit[:, s] if w >= 0]
+            self._w_next[s] = dict(zip(order, order[1:]))
 
     # -- one chunk ------------------------------------------------------------
 
@@ -575,6 +752,81 @@ class Pipeline:
             cos, sin = llama.rope_tables(ids, positions, self.cfg)
             out.append(_Microbatch(ids, mask, cos, sin, mb_targets))
         return targets, out
+
+    # -- the host tiers ------------------------------------------------------------
+
+    def _ring(self, stage: int, kind: str, n_slots: int, like: torch.Tensor) -> torch.Tensor:
+        """This stage's `kind` ring ("act", "wq_x", "wq_dy"), kept across
+        flushes and steps while the shape holds."""
+        ring = self._rings.get((stage, kind))
+        shape = (n_slots + 1,) + tuple(like.shape)
+        if ring is None or tuple(ring.shape) != shape or ring.dtype != like.dtype:
+            ring = self._rings[(stage, kind)] = host_stash.stash_init(
+                n_slots, like.shape, like.dtype, like.device)
+        return ring
+
+    def host_stash_bytes(self) -> int:
+        """Bytes of the host rings this pipeline holds (every stage of this
+        process)."""
+        return sum(r.numel() * r.element_size() for r in self._rings.values())
+
+    def _hosted(self, g: int) -> bool:
+        """Whether unit g's W residual pair goes to host memory."""
+        return self.us.split_backward and bool(self.us.offload_units[g])
+
+    def _push_w(self, s: int, g: int, x, dy) -> None:
+        """Queue unit g's (input, cotangent) for its W: pushed to the host
+        rings at the unit's slot when hosted, else kept."""
+        if not self._hosted(g):
+            self._wq[s][g] = (x, dy)
+            return
+        slot = int(self.us.wq_slot[g])
+        for kind, t in (("wq_x", x), ("wq_dy", dy)):
+            if t is not None:
+                host_stash.stash_push(self._ring(s, kind, self.us.wq_host_slots, t), t, slot)
+        self._wq[s][g] = (x is not None, dy is not None)
+        self.stash_trace.append(("push", s, g))
+
+    def _pop_w(self, s: int, g: int) -> tuple:
+        """Start unit g's pair on its way back to the card (a pair of
+        host_stash.stash_pop results, None where the half is absent)."""
+        has_x, has_dy = self._wq[s].pop(g)
+        slot, device = int(self.us.wq_slot[g]), self._device
+        self.stash_trace.append(("pop", s, g))
+        return tuple(host_stash.stash_pop(self._rings[(s, kind)], slot, device) if has else None
+                     for kind, has in (("wq_x", has_x), ("wq_dy", has_dy)))
+
+    def _take_w(self, s: int, g: int) -> tuple:
+        """Unit g's (input, cotangent) for its W: kept, prefetched or fetched
+        now; then the next W unit's hosted pair is started on its way, so its
+        copy runs behind this replay."""
+        if not self._hosted(g):
+            pair = self._wq[s].pop(g)
+        else:
+            pending = self._prefetched[s].pop(g, None) or self._pop_w(s, g)
+            pair = tuple(None if p is None else host_stash.ready(p) for p in pending)
+        nxt = self._w_next[s].get(g)
+        if nxt is not None and self._hosted(nxt) and nxt in self._wq[s]:
+            self._prefetched[s][nxt] = self._pop_w(s, nxt)
+        if self._hosted(g):
+            self.stash_trace.append(("replay", s, g))
+        return pair
+
+    def _keep_input(self, s: int, u: int, x) -> None:
+        """Buffer F unit u's received input for its B: in the host ring at
+        slot u % slots under offload_activations."""
+        if self._act_slots and x is not None:
+            host_stash.stash_push(self._ring(s, "act", self._act_slots, x), x,
+                                  u % self._act_slots)
+            x = _IN_RING
+        self._xbuf[s][u] = x
+
+    def _buffered_input(self, s: int, u: int):
+        x = self._xbuf[s].pop(u, None)
+        if x is _IN_RING:
+            x = host_stash.ready(host_stash.stash_pop(self._rings[(s, "act")],
+                                                      u % self._act_slots, self._device))
+        return x
 
     # -- the grid's handoffs -----------------------------------------------------
 
@@ -617,6 +869,8 @@ class Pipeline:
         c = self.pcfg.accum_chunks
         per = len(mbs) // c
         loss = torch.zeros((), device=targets.device)
+        self._device = targets.device
+        self.stash_trace = []
         for i in range(c):
             loss += self._flush(mbs[i * per:(i + 1) * per], global_count)
         return self.transport.from_last_stage(loss)
@@ -627,8 +881,11 @@ class Pipeline:
         stage)."""
         us, tr = self.us, self.transport
         split = us.split_backward
-        xbuf = {s: {} for s in self.mesh.stages}
-        wq = {s: {} for s in self.mesh.stages}
+        # per stage: F inputs by unit (or _IN_RING), the W queue by unit (a
+        # pair, or which halves are in the host rings), prefetched pairs
+        self._xbuf = {s: {} for s in self.mesh.stages}
+        self._wq = {s: {} for s in self.mesh.stages}
+        self._prefetched = {s: {} for s in self.mesh.stages}
         loss = torch.zeros((), device=mbs[0].ids.device)
         like = torch.empty(mbs[0].ids.shape + (self.cfg.hidden_size,), dtype=self.cfg.dtype,
                            device=mbs[0].ids.device)
@@ -636,22 +893,22 @@ class Pipeline:
             for s in self.mesh.stages:
                 f, g, w = (int(grid[t, s]) for grid in (us.f_unit, us.b_unit, us.w_unit))
                 if f >= 0:
-                    self._forward_unit(s, f, mbs, xbuf[s])
+                    self._forward_unit(s, f, mbs)
                 if g >= 0:
-                    loss += self._backward_unit(s, g, mbs, xbuf[s], wq[s], global_count, split)
+                    loss += self._backward_unit(s, g, mbs, global_count, split)
                 if w >= 0:
-                    loss += self._weight_unit(s, w, mbs, wq[s], global_count)
+                    loss += self._weight_unit(s, w, mbs, global_count)
             tr.exchange(self._expected(t + 1, us.f_unit, us.b_unit), like)
         return loss
 
-    def _forward_unit(self, s: int, u: int, mbs: list[_Microbatch], xbuf: dict) -> None:
+    def _forward_unit(self, s: int, u: int, mbs: list[_Microbatch]) -> None:
         """F: buffer the received input; run the chunk for the next stage,
         unless the unit owns the loss (its output goes nowhere)."""
         us = self.us
         mb, ch = usched.unit_mb_chunk(u, us.num_stages, us.virtual_stages)
         first, last = self._owns(s, ch)
         x = None if first else self.transport.recv(FWD, s)
-        xbuf[u] = x
+        self._keep_input(s, u, x)
         self.units[s]["F"] += 1
         if last:
             return
@@ -660,7 +917,7 @@ class Pipeline:
         self.computed[s]["F"] += 1
         self.transport.send(FWD, s, self._consumer_unit(FWD, s, u), y)
 
-    def _backward_unit(self, s: int, g: int, mbs: list[_Microbatch], xbuf: dict, wq: dict,
+    def _backward_unit(self, s: int, g: int, mbs: list[_Microbatch],
                        global_count: torch.Tensor, split: bool) -> torch.Tensor:
         """B: recompute from the buffered input and backpropagate; returns
         the unit's loss over `global_count` (0 unless it owns the loss)."""
@@ -668,16 +925,17 @@ class Pipeline:
         s_total, v = us.num_stages, us.virtual_stages
         mb, ch = usched.bwd_unit_mb_chunk(g, s_total, v)
         first, last = self._owns(s, ch)
-        x = xbuf.pop(usched.bwd_fwd_unit(g, s_total, v), None)
+        x = self._buffered_input(s, usched.bwd_fwd_unit(g, s_total, v))
         dy = None if last else self.transport.recv(BWD, s)
         self.units[s]["B"] += 1
         if split:
-            wq[g] = (x, dy)
+            self._push_w(s, g, x, dy)
             if first:  # input grads only, and the input is the embedding lookup
                 return torch.zeros((), device=mbs[mb].ids.device)
-        params = self.stage_params.chunks[s][ch]
         if split:
-            params = {name: leaf.detach() for name, leaf in params.items()}
+            params = {name: leaf.detach() for name, leaf in self.stage_params.chunks[s][ch].items()}
+        else:
+            params = self.stage_params.train_tree(s, ch)
         x_in = None if first else x.detach().requires_grad_()
         with torch.enable_grad():
             y, mb_sum = self._chunk(params, x_in, mbs[mb], s, ch, remat=True)
@@ -691,7 +949,7 @@ class Pipeline:
             self.transport.send(BWD, s, self._consumer_unit(BWD, s, g), x_in.grad)
         return mb_loss.detach() if last else torch.zeros((), device=y.device)
 
-    def _weight_unit(self, s: int, g: int, mbs: list[_Microbatch], wq: dict,
+    def _weight_unit(self, s: int, g: int, mbs: list[_Microbatch],
                      global_count: torch.Tensor) -> torch.Tensor:
         """W: recompute from the stashed input (detached) and backpropagate
         the stashed cotangent into the parameters' gradients. Returns the
@@ -700,10 +958,10 @@ class Pipeline:
         us = self.us
         mb, ch = usched.bwd_unit_mb_chunk(g, us.num_stages, us.virtual_stages)
         first, last = self._owns(s, ch)
-        x, dy = wq.pop(g)
+        x, dy = self._take_w(s, g)
         self.units[s]["W"] += 1
         with torch.enable_grad():
-            y, mb_sum = self._chunk(self.stage_params.chunks[s][ch], x, mbs[mb], s, ch,
+            y, mb_sum = self._chunk(self.stage_params.train_tree(s, ch), x, mbs[mb], s, ch,
                                     remat=True)
             if last:
                 mb_loss = mb_sum / global_count
@@ -718,8 +976,8 @@ class Pipeline:
         stage's sum of squares, then the stages' sums added (in stage order
         in one process, by all_reduce across processes)."""
         sp = self.stage_params
-        partial = [torch.stack([leaf.grad.float().square().sum() for tree in sp.chunks[s]
-                                for leaf in tree.values()]).sum() for s in sp.stages]
+        partial = [torch.stack([g.float().square().sum() for g in sp.stage_grads(s)]).sum()
+                   for s in sp.stages]
         return self.transport.all_reduce_sum(torch.stack(partial).sum()).sqrt()
 
     # -- evaluation -------------------------------------------------------------------

@@ -21,8 +21,8 @@ passing through one stage):
        `ring_fwd` / `ring_bwd` tick flags (one value per direction per
        stage per tick)
   offload-push/offload-pop — per-UNIT host-memory tiering of the W residual
-       (`offload_units`; the reference runs it, this package refuses a
-       sequence that offloads until host offload is ported)
+       (`offload_units`: the interpreter pushes the unit's pair to a pinned
+       host ring at B and brings it back for W, utils/host_stash.py)
 
 The grid representation: `f_unit`/`b_unit`/`w_unit` are [num_ticks,
 num_stages] int arrays (-1 = no unit: the stage idles that half-tick), and

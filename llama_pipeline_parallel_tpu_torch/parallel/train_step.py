@@ -18,7 +18,10 @@ pallas`, a fused head on the final-normed hidden states that never builds the
 Metrics are `loss`, `grad_norm` (before clipping, computed once and handed
 to the optimizer), `lr` (the schedule at the step count before its increment)
 and `step`, as in the reference. At pp > 1 the step's forward and backward
-are a parallel/pipeline.Pipeline's.
+are a parallel/pipeline.Pipeline's. Under the host optimizer
+(optim/offload.HostOffloadAdamW) the params are the working copy and the
+gradients accumulate in fp32 buffers beside it (`grads`), microbatch by
+microbatch in the same order (optim/offload.bind_fp32_grads).
 
 `eval_step` is the loss-only pass (the reference's `make_pipeline_eval_fn`,
 parallel/pipeline.py): the same microbatches, head and prologue under
@@ -38,14 +41,15 @@ from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
 from llama_pipeline_parallel_tpu_torch.ops.cross_entropy import fused_ce_sum_count
 from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
+from llama_pipeline_parallel_tpu_torch.optim.offload import HostOffloadAdamW, bind_fp32_grads
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, global_norm
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
-    params: llama.Params  # fp32 masters, requires_grad
-    optimizer: AdamW
+    params: llama.Params  # fp32 masters, requires_grad; or the host optimizer's working copy
+    optimizer: AdamW | HostOffloadAdamW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +97,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
                num_microbatches: int = 1, attn_fn: Callable = attention,
                remat: bool = False, head: LossHead = LossHead(),
                kernel_prologue: bool = False, remat_policy: str = "nothing_saveable",
-               pipeline: Any = None) -> dict:
+               pipeline: Any = None, grads: llama.Params | None = None) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. `kernel_prologue` runs
     each layer's norm -> QKV -> RoPE on the fused prologue kernels
@@ -102,10 +106,16 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     parallel/pipeline.Pipeline whose StageParams.flat() are
     `state.params`) the forward and backward are its schedule's, and the
     other step knobs its config's; the gradient norm then spans every
-    stage. Returns the metrics."""
+    stage. `grads`: the fp32 gradient buffers of a working copy (the host
+    optimizer's; the pipeline's StageParams hold the same tensors), zeroed
+    here; None: the params' own `.grad`. Returns the metrics."""
     params = state.params
-    for p in params.values():
-        p.grad = None
+    if grads is None:
+        for p in params.values():
+            p.grad = None
+    else:
+        for g in grads.values():
+            g.zero_()
     if pipeline is not None:
         loss = pipeline.loss_and_grad(batch)
         grad_norm = pipeline.global_norm()
@@ -114,15 +124,20 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
         global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
         loss = torch.zeros((), device=targets.device)
         for ids, mask, positions, mb_targets in mbs:
-            hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
+            mb_params = params if grads is None else bind_fp32_grads(params, grads)
+            hn = llama.hidden_states(mb_params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
                                      remat=remat, kernel_prologue=kernel_prologue,
                                      remat_policy=remat_policy)
-            mb_loss = head_loss_sum_count(params, hn, mb_targets, cfg, head)[0]
+            mb_loss = head_loss_sum_count(mb_params, hn, mb_targets, cfg, head)[0]
             mb_loss = mb_loss / global_count
             mb_loss.backward()
             loss += mb_loss.detach()
-        grad_norm = global_norm(p.grad for p in params.values())
-    grads = {name: p.grad for name, p in params.items()}
+        if grads is None:
+            grad_norm = global_norm(p.grad for p in params.values())
+        else:
+            grad_norm = global_norm(grads.values())
+    if grads is None:
+        grads = {name: p.grad for name, p in params.items()}
     lr = state.optimizer.step(params, grads, grad_norm)
     state.step += 1
     return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "step": state.step}

@@ -69,6 +69,9 @@ def describe(root: str, step: int | None = None) -> dict:
             "model_config": meta.get("model_config"),
             "optimizer_state": ("none (module-only / converter output)"
                                 if not meta.get("has_optimizer_state")
+                                else f"host AdamW, {meta['opt_layout']} (opt_m, opt_v; step "
+                                     f"count {meta.get('opt_step_count')})"
+                                if meta.get("opt_layout")
                                 else "AdamW (mu, nu, count)"),
             "format_version": meta.get("format_version"),
             "storage": meta.get("storage") or "none (a JAX package checkpoint: Orbax arrays)",

@@ -25,7 +25,14 @@ rows a microbatch) with no autograd graph, and later checkpoints carry it
 (`eval_loss`, `eval_step`). SIGTERM or SIGINT stops the run at the next
 step with a checkpoint there (`preempted_at`); a second signal force-quits.
 `activation_checkpointing` recomputes each layer under `remat_policy`
-(models/llama/model.remat_layer). A fault plan (`fault_plan`, or
+(models/llama/model.remat_layer). `optimizer_offload` keeps the fp32
+masters and Adam moments in host memory (optim/offload.py): the card holds
+the working copy in the compute dtype and fp32 gradients, and each step is
+loss and gradients on the card, then the host AdamW streaming gradients down
+and the working copy up (`offload_device_norm`, true by default, clips by
+the norm taken on the card); its checkpoints take the `offload_parts`
+layout. `offload.wgrad_stash` / `offload.activations` keep a pipeline's W
+queue / stage inputs in host memory (parallel/pipeline.py). A fault plan (`fault_plan`, or
 LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
 `data_read`, `storage_write` and `ckpt_commit`. The metrics line goes to
 `metrics.jsonl` and, with `use_wandb` / `use_tensorboard`, to those sinks. The
@@ -40,6 +47,7 @@ the next slice).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import signal
 import threading
@@ -49,7 +57,9 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
 from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import (
+    OFFLOAD_LAYOUT,
     CheckpointCorruptError,
     CheckpointManager,
     config_from_meta,
@@ -72,12 +82,14 @@ from llama_pipeline_parallel_tpu_torch.models.llama.model import (
     REMAT_POLICIES,
     LlamaForCausalLM,
     init_params,
+    param_shapes,
 )
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
 from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     flash_attention,
 )
+from llama_pipeline_parallel_tpu_torch.optim.offload import HostOffloadAdamW
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
@@ -114,8 +126,7 @@ _PRESETS = {
 
 # config keys that name features of the JAX trainer this one does not have
 # yet, with what ports each
-_NOT_PORTED = {"optimizer_offload": "host offload", "optimizer_offload_zero2": "host offload",
-               "profile_steps": "the profiler", "health_interval": "the health heartbeat"}
+_NOT_PORTED = {"profile_steps": "the profiler", "health_interval": "the health heartbeat"}
 # the fault sites this trainer fires (utils/faults.py); a plan with a rule at
 # any other site is refused
 FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit")
@@ -123,10 +134,9 @@ FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit")
 # that holds one is refused
 _NOT_PORTED_FAULTS = {("step", "grad_nonfinite"): "the numerics observatory",
                       ("step", "oom"): "the memory observatory"}
-# blocks of the JAX trainer (host offload tiers, the observatories, the
-# resilience actions) that ask for their feature when any of their values is
-# set, with what ports each
-_NOT_PORTED_BLOCKS = {"offload": "host offload", "numerics": "the numerics observatory",
+# blocks of the JAX trainer (the observatories, the resilience actions) that
+# ask for their feature when any of their values is set, with what ports each
+_NOT_PORTED_BLOCKS = {"numerics": "the numerics observatory",
                       "timeline": "the schedule observatory", "profiler": "the profiler",
                       "memory": "the memory observatory", "actions": "the resilience actions"}
 # keys that order the pipeline's stages, with their defaults: with one stage
@@ -280,6 +290,43 @@ def select_attention(impl: str, seq_length: int, device: torch.device,
     raise ValueError(f"unknown attention impl {impl!r} (use exact|flash|auto)")
 
 
+def _offload_flags(cfg: dict) -> tuple[bool, bool]:
+    """The `offload.*` block, as the reference's `_offload_flags` parses it:
+    `wgrad_stash` keeps the zb1 W queue, `activations` the stage-input
+    buffer, in host memory (utils/host_stash.py); unknown keys refused.
+    Returns (wgrad_stash, activations)."""
+    node = cfg.get("offload") or {}
+    if not isinstance(node, dict):
+        raise ValueError(f"offload must be a mapping of tier knobs, e.g. "
+                         f"offload: {{wgrad_stash: true}} -- got {node!r}")
+    known = {"wgrad_stash", "activations"}
+    unknown = set(node) - known
+    if unknown:
+        raise ValueError(f"unknown offload.* key(s) {sorted(unknown)}; known: {sorted(known)}")
+    return bool(node.get("wgrad_stash", False)), bool(node.get("activations", False))
+
+
+def _offload_static(pcfg: pl.PipelineConfig, mb_rows: int, local_seqlen: int,
+                    hidden_size: int, dtype_bytes: int) -> dict:
+    """The metrics line's host-stash keys (the reference's): which stores are
+    tiered (`offload_stash`) and the GiB a stage keeps in host memory
+    (`offload_stash_resident_gib`); nothing with both tiers off."""
+    wgrad_off = pl.wgrad_offloaded_units(pcfg)
+    wgrad_name = "wgrad_stash"
+    if pcfg.schedule == "solver" and wgrad_off:
+        total = pcfg.unit_schedule.n_units
+        if wgrad_off < total:
+            wgrad_name = f"wgrad_stash[{wgrad_off}/{total}]"
+    tiers = [name for name, on in ((wgrad_name, wgrad_off > 0),
+                                   ("activations", pcfg.offload_activations)) if on]
+    if not tiers:
+        return {}
+    resident = pl.host_stash_bytes(pcfg, mb_rows, local_seqlen, hidden_size, dtype_bytes)
+    # 6 decimals: KiB resolution, so a tiny model's residency is not 0
+    return {"offload_stash": "+".join(tiers),
+            "offload_stash_resident_gib": round(resident / (1 << 30), 6)}
+
+
 def _kernel_flags(cfg: dict) -> tuple[bool, bool]:
     """The `kernels.*` block, as the reference's `_kernel_flags` parses it:
     `ce` selects the loss head's backend, `prologue` the decoder layers'
@@ -371,6 +418,10 @@ def _check_supported(cfg: dict) -> None:
                              f"{cfg.get('gradient_accumulation_steps', 1)}")
         moot = [key for key, default in _ONE_STAGE_KEYS.items()
                 if cfg.get(key) is not None and cfg.get(key) != default]
+        tiers = _offload_flags(cfg)
+        pl.check_offload_tiers(cfg.get("pipeline_schedule") or "1f1b", *tiers)
+        if any(tiers):
+            moot.append("offload")
         if moot:
             logger.warning("%s: no effect on one device (one pipeline stage runs its "
                            "microbatches in order)", moot)
@@ -431,9 +482,10 @@ def build_manifest(cfg: dict, model_cfg: LlamaConfig, pp: int) -> StageManifest:
 def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManifest
                           ) -> pl.PipelineConfig:
     """The PipelineConfig of the run config (the reference's
-    `build_pipeline_config`, without its offload and sp knobs)."""
+    `build_pipeline_config`, without its sp knobs)."""
     kernel_ce, kernel_prologue = _kernel_flags(cfg)
     remat, remat_policy = _remat(cfg)
+    offload_wgrad, offload_activations = _offload_flags(cfg)
     return pl.PipelineConfig(
         num_stages=mesh_cfg.pp,
         unit_schedule=_load_unit_schedule(cfg),
@@ -444,7 +496,8 @@ def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManife
         accum_chunks=cfg.get("gradient_accumulation_chunks", 1) or 1,
         loss_chunks=cfg.get("loss_vocab_chunks", 1),
         layer_counts=None if manifest.is_even else manifest.stage_layer_counts,
-        kernel_ce=kernel_ce, kernel_prologue=kernel_prologue)
+        kernel_ce=kernel_ce, kernel_prologue=kernel_prologue,
+        offload_wgrad=offload_wgrad, offload_activations=offload_activations)
 
 
 def _configure_faults(cfg: dict) -> None:
@@ -490,7 +543,11 @@ class Run:
     evaluation ({"step", "loss"}), which later checkpoints carry. At pp > 1
     `pipeline` runs the steps: `state.params` are then its StageParams'
     flat() leaves (this process's stages), and `manifest` is the run's
-    partition; checkpoints hold the canonical tree either way."""
+    partition; checkpoints hold the canonical tree either way. Under
+    `optimizer_offload`, `host` is the host AdamW (also `state.optimizer`),
+    `state.params` its working copy and `grads` the fp32 gradient buffers
+    beside it (both named as the params), and `offload_static` the metrics
+    line's host-stash keys."""
 
     cfg: dict
     device: torch.device
@@ -513,16 +570,48 @@ class Run:
     eval_loader: DataLoader | None = None
     last_eval: dict = dataclasses.field(default_factory=dict)
     pipeline: pl.Pipeline | None = None
+    host: HostOffloadAdamW | None = None
+    grads: dict[str, torch.Tensor] | None = None
+    offload_static: dict = dataclasses.field(default_factory=dict)
 
     def canonical_state(self) -> tuple[dict[str, torch.Tensor], Any]:
         """(params, optimizer) in the canonical naming and layout that
         checkpoints hold: the run's own at pp = 1, else the pipeline's
         chunks merged (copies) and their moments seen through
-        pl.CanonicalOptimizer."""
+        pl.CanonicalOptimizer. Not under the host optimizer, whose state
+        moves leaf by leaf (`canonical_of`, `canonical_copy`)."""
+        if self.host is not None:
+            raise ValueError("the host optimizer's state is saved with CheckpointManager."
+                             "save_offload and restored leaf by leaf")
         if self.pipeline is None:
             return self.state.params, self.state.optimizer
         sp = self.pipeline.stage_params
         return sp.to_canonical(), pl.CanonicalOptimizer(self.state.optimizer, sp)
+
+    def canonical_of(self, tree: dict[str, torch.Tensor]) -> Any:
+        """A tree named as the run's params in the canonical naming and
+        layout: itself at pp = 1, else each leaf merged from the chunks when
+        it is written (tensor_io.Lazy: one leaf in memory at a time)."""
+        if self.pipeline is None:
+            return tree
+        chunks = pl.chunks_like(self.pipeline.stage_params.chunks, tree)
+        return {name: tensor_io.Lazy(shape, tree[next(iter(tree))].dtype, functools.partial(
+                    pl.canonical_leaf, chunks, self.manifest, name))
+                for name, shape in param_shapes(self.model_cfg).items()}
+
+    def canonical_copy(self) -> Any:
+        """The `copy` of CheckpointManager.load_params for targets named as
+        the run's params: None (same names) at pp = 1, else the copy of each
+        chunk's rows of the canonical tree."""
+        if self.pipeline is None:
+            return None
+        sp = self.pipeline.stage_params
+
+        def copy(targets, source, what):
+            sp.copy_canonical({name: source[name] for name in source.keys()}, flat=targets,
+                              what=what)
+
+        return copy
 
     def on_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         """A collated batch (numpy) as tensors on the run's device."""
@@ -538,8 +627,12 @@ class Run:
 
     def host_scalars(self) -> dict:
         """The host-side counters of the metrics line: the packed collator's
-        drops and, when the quarantine is armed, the records it skipped."""
-        out = {}
+        drops and, when the quarantine is armed, the records it skipped;
+        under the host optimizer its last step's phases (ms) and the
+        host-stash keys."""
+        out = dict(self.offload_static)
+        if self.host is not None:
+            out.update({k: round(v, 2) for k, v in self.host.last_timings.items()})
         collator = self.loader.collate_fn
         if isinstance(collator, PackedCausalLMCollator):
             out["packing_dropped_total"] = collator.dropped_total
@@ -549,11 +642,15 @@ class Run:
         return out
 
     def step(self, batch: dict[str, torch.Tensor]) -> dict:
-        return train_step(self.state, batch, self.model_cfg,
-                          num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
-                          remat=self.remat, head=self.head,
-                          kernel_prologue=self.kernel_prologue,
-                          remat_policy=self.remat_policy, pipeline=self.pipeline)
+        metrics = train_step(self.state, batch, self.model_cfg,
+                             num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
+                             remat=self.remat, head=self.head,
+                             kernel_prologue=self.kernel_prologue,
+                             remat_policy=self.remat_policy, pipeline=self.pipeline,
+                             grads=self.grads)
+        if self.host is not None:  # the norm the host clipped by
+            metrics["grad_norm"] = self.host.last_grad_norm
+        return metrics
 
     def eval_sum_count(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss sum, valid count) of one eval batch on the training step's
@@ -576,21 +673,30 @@ class Run:
     def save(self, step: int, final: bool = False) -> str:
         """The full state at `step` into `output_dir`: blocking when `final`
         or without `async_save` (the process may exit right after a final
-        save, and a daemon commit thread would die with it)."""
+        save, and a daemon commit thread would die with it). The host
+        optimizer's state is saved blocking whatever `async_save` says: the
+        next step updates its masters in place."""
         cfg = self.cfg
         batch_delta = (self.data_start[0] * max(len(self.loader), 1)
                        + self.data_start[1] - self.start_step)
+        extra_meta = {"topology": self.topology,
+                      "data_state": _data_state(step, self.loader, len(self.loader.dataset),
+                                                cfg.get("seed", 42), batch_delta),
+                      **_eval_meta(self.last_eval)}
+        if self.host is not None:
+            path = self.ckpt.save_offload(step, self.host, self.manifest, self.model_cfg,
+                                          canonical=self.canonical_of,
+                                          keep_last=cfg.get("save_total_limit"),
+                                          extra_meta=extra_meta)
+            _sync_checkpoint(cfg, path)
+            return path
         params, optimizer = self.canonical_state()
         return self.ckpt.save(
             step, params, self.manifest, self.model_cfg,
             optimizer=optimizer,
             blocking=final or not cfg.get("async_save", False),
             on_complete=lambda path: _sync_checkpoint(cfg, path),
-            keep_last=cfg.get("save_total_limit"),
-            extra_meta={"topology": self.topology,
-                        "data_state": _data_state(step, self.loader, len(self.loader.dataset),
-                                                  cfg.get("seed", 42), batch_delta),
-                        **_eval_meta(self.last_eval)})
+            keep_last=cfg.get("save_total_limit"), extra_meta=extra_meta)
 
 
 def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = None) -> Run:
@@ -653,41 +759,63 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
         total_steps=t_total, warmup_steps=warmup)
 
     generator = torch.Generator(device=device).manual_seed(seed)
-    model = LlamaForCausalLM(model_cfg, init_params(model_cfg, device=device,
-                                                    generator=generator))
+    init = init_params(model_cfg, device=device, generator=generator)
     mesh_cfg = _mesh_config(cfg)
     seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
     attn_fn = select_attention(cfg.get("attention", "auto"), seq_length, device,
                                model_cfg=model_cfg, micro_batch=micro_batch,
                                packed=packing > 1)
     mesh = make_mesh(mesh_cfg)  # refuses a process count other than 1 or pp
-    pipeline = None
+    pipeline = pcfg = None
     if mesh_cfg.pp == 1:
-        params = model.params()
         # the canonical layout is the one-stage manifest's
         manifest = StageManifest(num_layers=model_cfg.num_hidden_layers, num_stages=1)
     else:
         manifest = build_manifest(cfg, model_cfg, mesh_cfg.pp)
         pcfg = build_pipeline_config(cfg, mesh_cfg, manifest)
-        stage_params = pl.StageParams.from_canonical(model.params(), manifest, mesh.stages)
+    if cfg.get("optimizer_offload"):
+        host, params, grads, chunks = _offload_state(cfg, ocfg, model_cfg, init, manifest,
+                                                     mesh.stages if pcfg else None, device)
+        if chunks is not None:
+            stage_params = pl.StageParams(manifest, pl.chunks_like(chunks, params),
+                                          grads=pl.chunks_like(chunks, grads))
+        optimizer = host
+    else:
+        host = grads = None
+        model = LlamaForCausalLM(model_cfg, init)
+        del init
+        if pcfg is None:
+            params = model.params()
+        else:
+            stage_params = pl.StageParams.from_canonical(model.params(), manifest, mesh.stages)
+            params = stage_params.flat()
         del model
+        optimizer = AdamW(params, ocfg)
+    offload_static = {}
+    if pcfg is not None:
         pipeline = pl.Pipeline(model_cfg, pcfg, mesh, stage_params, attn_fn)
-        params = stage_params.flat()
         logger.info("pipeline %s: schedule %s, %d microbatches in %d flush(es), stages of %s "
                     "layers (virtual_stages %d), counted bubble %.4f", mesh_cfg.describe(),
                     pcfg.schedule, pcfg.num_microbatches, pcfg.accum_chunks,
                     list(manifest.stage_layer_counts), manifest.virtual_stages,
                     pl.bubble_fraction(pcfg))
-    state = TrainState(step=0, params=params, optimizer=AdamW(params, ocfg))
+        offload_static = _offload_static(pcfg, *pl.stash_dims(
+            micro_batch, seq_length, 1, model_cfg.hidden_size, model_cfg.dtype))
+        if host is not None and distributed.process_count() > 1:
+            host.reduce_norm_sq = functools.partial(_all_reduce_float, pipeline.transport,
+                                                    device)
+    state = TrainState(step=0, params=params, optimizer=optimizer)
     topology = _topology_meta(cfg, manifest)
     mgr = CheckpointManager(cfg["output_dir"])
     run = Run(cfg=cfg, device=device, model_cfg=model_cfg, loader=loader, state=state,
               attn_fn=attn_fn, num_microbatches=num_microbatches, remat=remat, head=head,
               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
               manifest=manifest, ckpt=mgr, topology=topology, remat_policy=remat_policy,
-              eval_loader=eval_loader, pipeline=pipeline)
+              eval_loader=eval_loader, pipeline=pipeline, host=host, grads=grads,
+              offload_static=offload_static)
     if cfg.get("resume", True) and distributed.process_count() == 1:
-        restored = _restore_with_fallback(mgr, lambda s: _restore(run, s))
+        restored = _restore_with_fallback(
+            mgr, lambda s: (_restore_offload if host is not None else _restore)(run, s))
     else:
         restored = None
     if restored is not None:
@@ -700,6 +828,40 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     return run
 
 
+def _offload_state(cfg: dict, ocfg: OptimizerConfig, model_cfg: LlamaConfig,
+                   init: dict[str, torch.Tensor], manifest: StageManifest,
+                   stages: tuple[int, ...] | None, device: torch.device) -> tuple:
+    """The host optimizer's state from the fp32 init (the JAX trainer's
+    `_run_offload` set-up): its masters copied to host memory leaf by leaf
+    (the init's fp32 on the card is then dropped), the working copy in the
+    compute dtype on `device`, and fp32 gradient buffers beside it. Leaves
+    are the canonical tree at pp = 1 (`stages` None), else the chunks of
+    `stages` named as StageParams.flat(). Returns (host, working copy,
+    gradient buffers, the chunk structure or None)."""
+    if cfg.get("optimizer_offload_zero2"):
+        logger.info("optimizer_offload_zero2 has no effect at dp=1; running the plain "
+                    "offload layout")
+    chunks = structure = None
+    if stages is not None:
+        chunks = pl.chunk_views(init, manifest, stages)
+        structure = {s: [dict.fromkeys(tree) for tree in trees] for s, trees in chunks.items()}
+    host = HostOffloadAdamW(ocfg, device_norm=cfg.get("offload_device_norm", True))
+    host.init(init if chunks is None else pl.flatten_chunks(chunks))
+    del chunks
+    init.clear()  # the fp32 init leaves the card before the step's buffers arrive
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    working = host.device_params(model_cfg.dtype, device)
+    grads = {name: torch.zeros(w.shape, dtype=torch.float32, device=device)
+             for name, w in working.items()}
+    return host, working, grads, structure
+
+
+def _all_reduce_float(transport, device: torch.device, x: float) -> float:
+    """`x` summed over the pipeline's processes (the host norm's square)."""
+    return float(transport.all_reduce_sum(torch.tensor(x, dtype=torch.float64, device=device)))
+
+
 def _restore(run: Run, step: int) -> int:
     """Full-state restore of checkpoint-`step` into the run (its canonical
     tree carried into the pipeline's chunks at pp > 1); returns the step."""
@@ -708,6 +870,33 @@ def _restore(run: Run, step: int) -> int:
     if run.pipeline is not None:
         run.pipeline.stage_params.copy_canonical(params)
     return step
+
+
+def _restore_offload(run: Run, step: int) -> int:
+    """Full-state restore of an `offload_parts` checkpoint-`step` into the
+    host optimizer (masters, moments, step count), then its working copy;
+    returns the step. A checkpoint without optimizer state or of the fused
+    layout is refused, naming the way to continue its weights."""
+    meta = run.ckpt.load_meta(step)
+    if not meta.get("has_optimizer_state"):
+        raise ValueError(f"checkpoint-{step} has no optimizer state (module-only / converter "
+                         f"output); point model_name_or_path at it instead")
+    layout = meta.get("opt_layout")
+    if layout != OFFLOAD_LAYOUT:
+        writer = ("the on-device optimizer (opt.safetensors)" if layout is None
+                  else f"an unknown optimizer layout {layout!r}")
+        raise ValueError(
+            f"checkpoint-{step}'s optimizer state was written by {writer}, not the offload "
+            f"layout ({OFFLOAD_LAYOUT}). To continue those weights under the offloaded "
+            f"optimizer, point model_name_or_path at this checkpoint and use a fresh "
+            f"output_dir (module-only warm start; optimizer moments restart)")
+    host, copy = run.host, run.canonical_copy()
+    run.ckpt.load_params(step, host.masters_tree(), copy=copy)  # verifies every file
+    host.step_count = run.ckpt.load_offload_moments(step, host.moments_tree("m"),
+                                                    host.moments_tree("v"), verify=False,
+                                                    copy=copy)
+    host.device_params(out=run.state.params)
+    return int(meta["step"])
 
 
 def _eval_loader(cfg: dict, model_cfg: LlamaConfig, tokenizer: Any,
@@ -765,10 +954,14 @@ def _warm_start(path: str, run: Run) -> None:
             f"model_name_or_path={path} checkpoint-{step} does not fit this run's model "
             f"({', '.join(f'{k}: {a} there, {b} here' for k, (a, b) in differ.items())}): "
             f"re-convert the HF model (tools.convert_hf) or set the model block to match")
-    params = run.canonical_state()[0]
-    warm.load_params(step, params, run.manifest)
-    if run.pipeline is not None:
-        run.pipeline.stage_params.copy_canonical(params)
+    if run.host is not None:
+        warm.load_params(step, run.host.masters_tree(), copy=run.canonical_copy())
+        run.host.device_params(out=run.state.params)
+    else:
+        params = run.canonical_state()[0]
+        warm.load_params(step, params, run.manifest)
+        if run.pipeline is not None:
+            run.pipeline.stage_params.copy_canonical(params)
     logger.info("warm-started module weights from %s (checkpoint-%d)", path, step)
 
 

@@ -583,15 +583,17 @@ def test_topology_meta_equals_reference(ref, tmp_path, overrides):
 @pytest.mark.parametrize("overrides,error,match", [
     (["pipeline_schedule=gpipe"], NotImplementedError, "gpipe"),
     (["mesh.dp=2"], NotImplementedError, "'dp': 2"),
-    (["offload={wgrad_stash: true}"], NotImplementedError, "'offload'"),
-    (["pipeline_schedule=solver", "virtual_stages=2"], NotImplementedError, "offload"),
+    (["offload={wgrad_stash: true}"], ValueError, "offload.wgrad_stash requires schedule: zb1"),
+    (["pipeline_schedule=solver", "virtual_stages=2", "offload={wgrad_stash: true}"],
+     ValueError, "per-unit offload"),
     (["gradient_accumulation_chunks=3"], ValueError, "must divide"),
 ])
 def test_trainer_refuses_at_pp2(tmp_path, overrides, error, match):
     """What the pipeline does not run is refused by name: gpipe, dp > 1,
-    the offload block, a solver sequence that offloads W residuals (written
-    by the reference's list schedule with half its units offloaded), an
-    accumulation-chunk count that does not divide the microbatches."""
+    the offload block's W-queue tier outside zb1, that tier beside a solver
+    sequence (written by the reference's list schedule with half its units
+    offloaded), which carries its own per-unit vector, an accumulation-chunk
+    count that does not divide the microbatches."""
     if "pipeline_schedule=solver" in overrides:
         seq = t_us.list_schedule(2, 2, 2, offload_units=np.array([True, False] * 2))
         (tmp_path / "seq.json").write_text(t_us.to_json(seq))

@@ -471,7 +471,7 @@ _REFUSED_KEYS = [
      r"'actions'.*the resilience actions"),
     ("health_interval=5", NotImplementedError, r"'health_interval'.*the health heartbeat"),
     ("remat_policy=nothing_savable", ValueError, "unknown remat_policy"),
-    ("offload={wgrad_stash: true}", NotImplementedError, "'offload'"),
+    ("offload={wgrad_stash: true}", ValueError, "offload.wgrad_stash requires schedule: zb1"),
     ("gradient_accumulation_chunks=3", ValueError, "must divide"),
     ("pipeline_schedule=zb2", ValueError, "unknown pipeline_schedule"),
     ("fault_plan={faults: [{site: step, op: grad_nonfinite, at_step: 3}]}",
@@ -577,13 +577,13 @@ def test_trainer_refuses_to_skip_a_checkpoint_it_would_resume(tmp_path, entries,
 # what the trainer refuses in each shipped config with the mesh cut to one
 # card (None: it builds)
 _ONE_CARD_REFUSALS = {
-    "codellama_34b_16k.yaml": "optimizer_offload",
+    "codellama_34b_16k.yaml": None,
     "llama2_70b_pp4_tp4_dp2.yaml": None,
     "llama_13b_pp4_dp2.yaml": None,
-    "llama_65b_pp8_tp2_dp2.yaml": "optimizer_offload",
-    "llama_65b_pp8_v2_tp2_dp2.yaml": "optimizer_offload",
-    "llama_65b_pp8_zb1_offload_tp2_dp2.yaml": "'offload'",
-    "llama_65b_pp8_zb1_tp2_dp2.yaml": "optimizer_offload",
+    "llama_65b_pp8_tp2_dp2.yaml": None,
+    "llama_65b_pp8_v2_tp2_dp2.yaml": None,
+    "llama_65b_pp8_zb1_offload_tp2_dp2.yaml": None,
+    "llama_65b_pp8_zb1_tp2_dp2.yaml": None,
     "llama_7b_flan_packed.yaml": None,
     "llama_7b_pp4.yaml": None,
     "tiny_smoke.yaml": None,
