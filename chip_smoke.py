@@ -160,7 +160,8 @@ which raises on failure:
               width cut to 8 layers (two a stage), seq 2048, 8 microbatches of
               1 row (PIPE_OVERRIDES), 3 steps through `run_training` under
               each of PIPE_SCHEDULES (flat 1f1b, interleaved_1f1b with
-              virtual_stages 2, zb1 with virtual_stages 2): every loss finite,
+              virtual_stages 2, zb1 with virtual_stages 2, and the gpipe
+              phase: gpipe with activation checkpointing): every loss finite,
               each of the nine kernels launched exactly as the unit grid
               says (pipeline_launches) and every call on the tensor cores;
               step ms, tokens/s, MFU, max_memory_allocated and the counted
@@ -168,8 +169,9 @@ which raises on failure:
               depth and microbatches with activation checkpointing on. Then
               step 1 again on the same params and batch: the flat pipeline
               against the unpipelined step (bf16 step loss; fp32 compute at
-              4 microbatches: loss and gradients), interleaved and zb1
-              against flat (the same tolerances; bit-equality reported), and
+              4 microbatches: loss and gradients), interleaved, zb1 and gpipe
+              against flat (the same tolerances; bit-equality reported, and
+              required of gpipe's gradients), and
               the flat pipeline with one B unit's received cotangent zeroed
               rejected by the fp32 gradient check.
 12. offload -- the host optimizer (optimizer_offload) and the host stash on
@@ -185,14 +187,34 @@ which raises on failure:
               inputs in pinned host memory against both on the card (loss and
               gradients bit-equal, peak memory not higher, host bytes beside
               the byte model); launches exact in every run. (b) The config as
-              published, 32 layers (or the largest depth whose 12 B a
-              parameter the host's MemTotal holds with 25 % to spare, the cut
-              printed), a warm-up and 3 steps: finite losses, exact launches,
+              published cut to OFFLOAD_FULL_LAYERS of its 32 layers (or the
+              largest depth whose 12 B a parameter the host's MemTotal holds
+              with 25 % to spare, the cut printed), a warm-up and 3 steps:
+              finite losses, exact launches,
               step ms, tokens/s, MFU, peak device memory, peak host RSS, the
               host phases, the link's GB/s each way and the step's link
               floor. (c) The checkpoint phase's run on the host optimizer:
               an offload_parts checkpoint at step 4, resumed bit for bit for
               steps 5-6; resuming it without offload refused by name.
+13. multirank -- pp 2 x dp 2 across 4 processes (this script's
+              `--multirank-worker` mode) sharing card 0 over gloo
+              (LPT_DIST_BACKEND=gloo: every tensor that crosses processes is
+              staged through host memory), launched after the build so that
+              no rank compiles a kernel: conf/llama_7b_pp4.yaml at LLaMA-7B
+              width, 4 layers (2 a stage), seq 2048, 1 row x 4 microbatches a
+              replica, ZeRO-1 moments (MULTI_OVERRIDES). (a) A run that one
+              rank gets SIGTERM in: every rank exits 0 at the same step N
+              (a multiple of MULTI_CHECK_EVERY) with one checkpoint-N. (b) The
+              uninterrupted run to N + 2: step 1's loss and gradients against
+              one process running pp 2 in memory on the same global batch
+              (bf16 loss STEP_LOSS_TOL, gradients GRAD_REL_TOL relative), the
+              ZeRO-1 masters bit-equal to a replicated AdamW fed the same
+              gradients, each rank's launches exactly its stage's share of the
+              unit grid (all on the tensor cores), step ms, tokens/s, bytes a
+              rank and the gloo staging seconds (this one-card mode's cost,
+              not an NCCL figure). (c) checkpoint-N resumed at pp 2 x dp 2 (4
+              processes) and at pp 1 x dp 1 in this process: steps N+1, N+2
+              within RESUME_LOSS_TOL of the uninterrupted run.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -411,6 +433,9 @@ PIPE_SCHEDULES = {
     "1f1b": [],
     "interleaved_1f1b": ["pipeline_schedule=interleaved_1f1b", "virtual_stages=2"],
     "zb1": ["pipeline_schedule=zb1", "virtual_stages=2"],
+    # the forward wave buffers each stage input, M microbatches of them; B
+    # recomputes each chunk from its input, keeping each layer's input
+    "gpipe": ["pipeline_schedule=gpipe", "activation_checkpointing=true"],
 }
 # the fp32 parity runs the first PIPE_FP32_MICROBATCHES rows of the batch (M = S)
 PIPE_FP32_MICROBATCHES = 4
@@ -432,11 +457,14 @@ OFFLOAD_STASH_TIERS = ["offload.wgrad_stash=true", "offload.activations=true"]
 OFFLOAD_GRAD_RTOL = 1e-6
 OFFLOAD_MASTER_RTOL = 2e-5
 OFFLOAD_MASTER_ATOL = 1e-6
-# (b) conf/llama_7b_pp4.yaml as published (pp 4 in one process, 32 layers, seq
-# 512, 4 rows x 16 microbatches, no remat, dp 1) on the host optimizer with the
-# slice's kernels, a warm-up step and 3 more. Host memory: 12 bytes a
-# parameter (fp32 master, two moments) plus the pinned staging, with
-# OFFLOAD_HOST_SPARE to spare, else the depth is cut to what fits.
+# (b) conf/llama_7b_pp4.yaml as published (pp 4 in one process, seq 512, 4 rows
+# x 16 microbatches, no remat, dp 1) on the host optimizer with the slice's
+# kernels, a warm-up step and 3 more, at OFFLOAD_FULL_LAYERS of its 32 layers:
+# the 32-layer cell took ~100 s of the script (16.4-16.8 s a step), and the
+# multirank phase needed the room. Host memory: 12 bytes a parameter (fp32
+# master, two moments) plus the pinned staging, with OFFLOAD_HOST_SPARE to
+# spare, else the depth is cut further to what fits.
+OFFLOAD_FULL_LAYERS = 8
 OFFLOAD_FULL_OVERRIDES = [
     "optimizer_offload=true", "attention=flash", "kernels.ce=pallas", "loss_vocab_chunks=4",
     "kernels.prologue=pallas", "max_steps=4", "save_steps=0", "save_final=false",
@@ -449,6 +477,16 @@ OFFLOAD_CKPT_RUN_A = ["optimizer_offload=true", "save_steps=4", "save_final=fals
                       "resume=false"]
 OFFLOAD_CKPT_RUN_B = ["optimizer_offload=true", "save_steps=0", "save_final=false",
                       "resume=true"]
+# the multirank phase: pp 2 x dp 2, 4 ranks on card 0 over gloo; a replica is
+# 1 row x 4 microbatches, so the global batch is the pipeline phase's 8 rows
+# cut to 4 layers. MULTI_ONE runs the same global batch in one process (dp 1:
+# 8 microbatches), MULTI_ONE_PP1 without the pipeline.
+MULTI_OVERRIDES = PIPE_OVERRIDES + ["model.num_hidden_layers=4", "mesh.pp=2", "mesh.dp=2",
+                                    "gradient_accumulation_steps=4", "total_steps=16"]
+MULTI_ONE = PIPE_OVERRIDES + ["model.num_hidden_layers=4", "mesh.pp=2", "total_steps=16"]
+MULTI_ONE_PP1 = MULTI_ONE + ["mesh.pp=1"]
+MULTI_CHECK_EVERY = 2
+MULTI_RANKS = 4
 
 
 def log(msg: str) -> None:
@@ -2609,10 +2647,11 @@ def phase_remat() -> None:
     log(f"[remat] phase {time.perf_counter() - t0:.1f} s")
 
 
-def pipeline_launches(us, manifest, accum_chunks: int, remat: bool) -> dict:
+def pipeline_launches(us, manifest, accum_chunks: int, remat: bool,
+                      stages: tuple | None = None) -> dict:
     """The launches of each of the nine kernels in one step of the unit
-    sequence `us` (parallel/pipeline.Pipeline's rules), per valid cell of
-    stage s holding a chunk of k layers:
+    sequence `us` (parallel/pipeline.Pipeline's rules) on `stages` (default
+    every stage), per valid cell of stage s holding a chunk of k layers:
     - F: k flash and prologue forwards, none on the chunk that owns the loss
       (its output goes nowhere; its B recomputes it);
     - B: a recompute (k forwards, 2k with `remat`), k flash dq and dk/dv and
@@ -2621,6 +2660,7 @@ def pipeline_launches(us, manifest, accum_chunks: int, remat: bool) -> dict:
       (stage 0, chunk 0), whose input is the embedding lookup;
     - W: the recompute, k dq, dk/dv, dhidden (the norm weight's gradient)
       and dW; on the loss-owning chunk one CE forward, dh and dW.
+    gpipe's grid runs by the same rules (its B is a flat 1F1B B).
     Times `accum_chunks` flushes."""
     from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
 
@@ -2628,7 +2668,7 @@ def pipeline_launches(us, manifest, accum_chunks: int, remat: bool) -> dict:
                        "prologue_dhidden", "prologue_dw"), 0)
     s_total, v = us.num_stages, us.virtual_stages
     for kind, grid in (("F", us.f_unit), ("B", us.b_unit), ("W", us.w_unit)):
-        for s in range(s_total):
+        for s in range(s_total) if stages is None else stages:
             for u in grid[:, s][grid[:, s] >= 0]:
                 ch = (usched.unit_mb_chunk if kind == "F"
                       else usched.bwd_unit_mb_chunk)(int(u), s_total, v)[1]
@@ -2770,11 +2810,12 @@ def pipeline_parity(config: str, run_first_loss: float) -> None:
     against the unpipelined forward and backward (bf16: step loss within
     STEP_LOSS_TOL, and the run's first loss repeated within RUN_REPEAT_TOL;
     fp32 compute on PIPE_FP32_MICROBATCHES rows: loss within
-    FP32_STEP_LOSS_TOL, gradients within GRAD_REL_TOL relative); interleaved
-    and zb1 against flat with the same tolerances, whether the gradients
-    are bit-equal reported (the unpipelined loss is a sum of Python floats,
-    the pipeline's of fp32 tensors, so the losses differ in rounding); a
-    zeroed cotangent (zero_first_cotangent) must fail the fp32 gradient check."""
+    FP32_STEP_LOSS_TOL, gradients within GRAD_REL_TOL relative); interleaved,
+    zb1 and gpipe against flat with the same tolerances, whether the
+    gradients are bit-equal reported (required of gpipe's); the unpipelined
+    loss is a sum of Python floats, the pipeline's of fp32 tensors, so the
+    losses differ in rounding; a zeroed cotangent (zero_first_cotangent)
+    must fail the fp32 gradient check."""
     import dataclasses
     import gc
 
@@ -2871,7 +2912,7 @@ def pipeline_parity(config: str, run_first_loss: float) -> None:
                                      f"({bad_rel})")
             del bad
         del ref
-        for schedule in ("interleaved_1f1b", "zb1"):
+        for schedule in ("interleaved_1f1b", "zb1", "gpipe"):
             got = pipelined(mcfg, schedule, n)
             d_loss, d_grad = abs(got[0] - flat[0]), rel_diff(got[1], flat[1])
             log(f"[pipeline] {tag}: {schedule} vs flat 1f1b: loss |diff| {d_loss:.3e}, gradient "
@@ -2879,6 +2920,11 @@ def pipeline_parity(config: str, run_first_loss: float) -> None:
             if not d_loss <= held_loss or (tag == "fp32" and not d_grad <= GRAD_REL_TOL):
                 raise AssertionError(f"[pipeline] {tag} {schedule} vs flat: loss |diff| "
                                      f"{d_loss}, gradient rel diff {d_grad}")
+            # gpipe's backward wave runs in ascending microbatch order: each
+            # parameter folds its microbatches as flat 1F1B does
+            if schedule == "gpipe" and not same_grads(got, flat):
+                raise AssertionError(f"[gpipe] {tag}: gradients not bit-equal to flat 1f1b "
+                                     f"(rel diff {d_grad})")
             del got
         del flat
         gc.collect()
@@ -3145,9 +3191,9 @@ def offload_stash(config: str) -> None:
 
 
 def offload_full_depth(config: str) -> None:
-    """(b) conf/llama_7b_pp4.yaml at its full 32 layers on the host
-    optimizer (OFFLOAD_FULL_OVERRIDES), or at the largest depth the host's
-    memory holds with OFFLOAD_HOST_SPARE to spare (the cut printed): finite
+    """(b) conf/llama_7b_pp4.yaml at OFFLOAD_FULL_LAYERS of its 32 layers on
+    the host optimizer (OFFLOAD_FULL_OVERRIDES), or at the largest depth the
+    host's memory holds with OFFLOAD_HOST_SPARE to spare (the cut printed): finite
     losses, exact launches of all nine kernels; step ms, tokens/s, MFU, peak
     device memory, peak host RSS, the host optimizer's phases, the link's
     GB/s both ways and the step's link floor."""
@@ -3173,15 +3219,16 @@ def offload_full_depth(config: str) -> None:
         n = param_count(dataclasses.replace(published, num_hidden_layers=layers))
         return 12 * n + 2 * off.SLOTS * off.PIECE * (4 + 2)
 
-    depth = published.num_hidden_layers
+    depth = min(published.num_hidden_layers, OFFLOAD_FULL_LAYERS)
     while depth > 1 and OFFLOAD_HOST_SPARE * need(depth) > mem_total:
         depth -= 1
     log(f"[offload] host: MemTotal {mem_total / 1e9:.2f} GB, {cpus} CPUs; "
         f"{published.num_hidden_layers} layers need "
         f"{need(published.num_hidden_layers) / 1e9:.2f} GB of host memory "
-        f"(12 B a parameter and the pinned staging), x {OFFLOAD_HOST_SPARE} to spare: "
-        + ("no cut" if depth == published.num_hidden_layers else
-           f"CUT to {depth} layers ({need(depth) / 1e9:.2f} GB)"))
+        f"(12 B a parameter and the pinned staging), x {OFFLOAD_HOST_SPARE} to spare; the "
+        f"cell runs {OFFLOAD_FULL_LAYERS} of them for the script's time: "
+        + ("no further cut" if depth == min(published.num_hidden_layers, OFFLOAD_FULL_LAYERS)
+           else f"CUT to {depth} layers ({need(depth) / 1e9:.2f} GB)"))
     out_dir = os.path.join(ROOT, "build", "chip_smoke", "offload", "full")
     overrides = OFFLOAD_FULL_OVERRIDES + [f"output_dir={out_dir}"]
     if depth != published.num_hidden_layers:
@@ -3197,11 +3244,11 @@ def offload_full_depth(config: str) -> None:
     summary = train_run(run)
     torch.cuda.synchronize()
     losses = summary["losses"]
-    check_pipeline_launches("[offload] full depth:", run.pipeline, len(losses))
+    check_pipeline_launches("[offload] deep cell:", run.pipeline, len(losses))
     # the host phases of each step, from the metrics line (logging_steps=1)
     phases = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"[offload] full depth: non-finite loss {losses}")
+        raise AssertionError(f"[offload] deep cell: non-finite loss {losses}")
     mcfg = run.model_cfg
     n = host.numel()
     steps = summary["step_times"][1:]
@@ -3214,10 +3261,10 @@ def offload_full_depth(config: str) -> None:
     down, up = 4 * n, 2 * n  # fp32 gradients down, the bf16 working copy up
     floor_s = down / 1e9 / bw["d2h_gbps"] + up / 1e9 / bw["h2d_gbps"]
     touched = 34 * n  # AdamW reads g, p, m, v and writes p, m, v; the cast reads p, writes bf16
-    log(f"[offload] full depth ({mcfg.num_hidden_layers} layers, {n / 1e9:.3f} B parameters, "
+    log(f"[offload] deep cell ({mcfg.num_hidden_layers} layers, {n / 1e9:.3f} B parameters, "
         f"{card}): build_run {build_s:.1f} s (init on the card, masters to the host, working "
         f"copy up); losses {losses}")
-    log(f"[offload] full depth ({card}): step {1e3 * step_s:.1f} ms (median of steps "
+    log(f"[offload] deep cell ({card}): step {1e3 * step_s:.1f} ms (median of steps "
         f"2-{len(losses)}: {[round(1e3 * t, 1) for t in steps]}), {tokens / step_s:.0f} tokens/s, "
         f"MFU {mfu:.4f} (989 TFLOP/s, PaLM accounting); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host peak RSS "
@@ -3299,6 +3346,334 @@ def phase_offload() -> None:
     log(f"[offload] phase {time.perf_counter() - t0:.1f} s")
 
 
+def multirank_worker(mode: str, out_dir: str, max_steps: str, resume_dir: str = "") -> int:
+    """One rank of the multirank phase (RANK / WORLD_SIZE / MASTER_* and
+    LPT_DIST_BACKEND=gloo in its environment), on conf/llama_7b_pp4.yaml
+    with MULTI_OVERRIDES and `output_dir=out_dir`. Modes: "stop" trains
+    from scratch until a signal stops it (run_training); "run" trains
+    `max_steps` steps uninterrupted, holding step 1 against the one-process
+    reference's gradients (`ref_grads.safetensors` in out_dir) and a
+    replicated AdamW, with the launch counts set to 0 just before the loop
+    and read just after, then resumes `resume_dir`'s checkpoint to
+    `max_steps` in the same processes (a second launch would cost ~15 s).
+    Writes `<mode>-rank<r>.json` into out_dir."""
+    import gc
+    import logging
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW
+    from llama_pipeline_parallel_tpu_torch.parallel import distributed
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.train import build_run, run_training, train_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    distributed.initialize_distributed("cuda")
+    rank = distributed.process_index()
+    if rank:
+        logging.getLogger("llama_pipeline_parallel_tpu_torch").setLevel(logging.WARNING)
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    common = MULTI_OVERRIDES + [f"output_dir={out_dir}", f"max_steps={max_steps}",
+                                f"preempt_check_every={MULTI_CHECK_EVERY}"]
+    result: dict = {"rank": rank}
+    if mode == "stop":
+        from llama_pipeline_parallel_tpu_torch import train as trainer
+
+        def build_measured(*args, **kwargs):
+            """build_run, its save measured: the card's memory across the
+            preemption's save (the pieces go to the host one at a time;
+            nothing is gathered on the card)."""
+            run = build_run(*args, **kwargs)
+            save = run.save
+
+            def measured_save(step, final=False):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t_save = time.perf_counter()
+                path = save(step, final)
+                result.update(save_s=time.perf_counter() - t_save,
+                              save_extra_bytes=torch.cuda.max_memory_allocated() - before,
+                              largest_leaf_bytes=max(t.numel() * 4 for t in
+                                                     run.pipeline.stage_params.flat().values()))
+                return path
+
+            run.save = measured_save
+            return run
+
+        trainer.build_run = build_measured  # run_training's own, handlers and all
+        summary = run_training(load_config(config, common + ["resume=false"]), "cuda")
+    else:
+        run = build_run(load_config(config, common + ["resume=false"]), "cuda")
+        sp = run.pipeline.stage_params
+        inner = run.state.optimizer
+
+        class Parity:
+            """Step 1's gradients against the reference's rows of this
+            stage, and the ZeRO-1 update against a replicated AdamW fed the
+            same gradients and norm, leaf by leaf."""
+
+            def step(self, params, grads, norm):
+                if "grad_sq_ref" in result:
+                    return inner.step(params, grads, norm)
+                with tensor_io.TensorFile(os.path.join(out_dir, "ref_grads.safetensors")) as f:
+                    ref = pl.flatten_chunks(pl.chunk_views(
+                        {name: f.tensor(name) for name in f.keys()}, run.manifest, sp.stages))
+                    diff = total = 0.0
+                    for name, g in grads.items():
+                        r = ref[name].to(g.device)
+                        diff += float((g.double() - r.double()).square().sum())
+                        total += float(r.double().square().sum())
+                result.update(grad_sq_diff=diff, grad_sq_ref=total)
+                before = {k: p.detach().cpu() for k, p in params.items()}
+                lr = inner.step(params, grads, norm)
+                equal = []
+                for name, p in params.items():
+                    plain = {name: before.pop(name).to(p.device)}
+                    AdamW(plain, inner.cfg).step(plain, {name: grads[name]}, norm)
+                    equal.append(torch.equal(plain[name], p))
+                    del plain
+                result.update(masters_bit_equal=all(equal), leaves=len(equal),
+                              moment_bytes=sum(t.numel() * t.element_size() for moment in
+                                               (inner.mu, inner.nu) for t in moment.values()),
+                              full_moment_bytes=2 * sum(p.numel() * 4
+                                                        for p in params.values()),
+                              split_leaves=sum(d is not None for d in inner.dims.values()))
+                return lr
+
+        run.state.optimizer = Parity()
+        for module in (fa, fc, fp):
+            module.reset_launch_counts()
+        summary = train_run(run)
+        run.state.optimizer = inner
+        result.update(launches={**fa.launch_counts, **fc.launch_counts, **fp.launch_counts},
+                      tensor_core={**fa.tensor_core_counts, **fc.tensor_core_counts,
+                                   **fp.tensor_core_counts},
+                      stages=list(sp.stages), replica=run.mesh.replica,
+                      peak_bytes=torch.cuda.max_memory_allocated(),
+                      staging_s=distributed.staging["seconds"],
+                      staging_bytes=distributed.staging["bytes"])
+        del run, sp, inner
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = run_training(load_config(config, MULTI_OVERRIDES + [
+            f"output_dir={resume_dir}", f"max_steps={max_steps}", "resume=true"]), "cuda")
+        result["resume"] = {k: resumed[k] for k in ("losses", "start_step")}
+    result.update({k: summary[k] for k in ("losses", "step_times", "start_step", "preempted_at",
+                                            "final_step", "tokens_per_step")})
+    with open(os.path.join(out_dir, f"{mode}-rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    distributed.shutdown()
+    return 0
+
+
+def launch_ranks(mode: str, out_dir: str, max_steps: int, resume_dir: str = "") -> list:
+    """MULTI_RANKS processes of multirank_worker on card 0 over gloo."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(MULTI_RANKS):
+        env = {**os.environ, "LPT_DIST_BACKEND": "gloo", "RANK": str(rank),
+               "LOCAL_RANK": str(rank), "WORLD_SIZE": str(MULTI_RANKS),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--multirank-worker", mode,
+             out_dir, str(max_steps), resume_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def finish_ranks(tag: str, procs: list, out_dir: str, mode: str, timeout: float = 600) -> list:
+    """Wait for every rank (all killed at the deadline or when one fails);
+    their result dicts in rank order. A rank that fails fails the phase."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+            outs.append((p.returncode, err))
+    finally:
+        for p in procs:
+            p.kill()
+    bad = [(r, rc, err[-3000:]) for r, (rc, err) in enumerate(outs) if rc != 0]
+    if bad:
+        raise AssertionError(f"[multirank] {tag}: ranks failed: {bad}")
+    results = []
+    for rank in range(len(procs)):
+        with open(os.path.join(out_dir, f"{mode}-rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_multirank() -> None:
+    """pp 2 x dp 2 in 4 processes on the one card (module docstring, phase
+    13): the one-process reference's step-1 gradients, then (a) the run a
+    SIGTERM to rank 1 stops, (b) the uninterrupted run with its step-1
+    parity, launches and numbers, (c) the resumes at pp 2 x dp 2 (in (b)'s
+    processes) and pp 1 x dp 1."""
+    import gc
+    import signal
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_model_config,
+        build_pipeline_config,
+        build_run,
+        run_training,
+    )
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "multirank")
+    os.makedirs(out_dir, exist_ok=True)
+    card = card_line()
+    log(f"[multirank] {config} PIPE_OVERRIDES + {MULTI_OVERRIDES[len(PIPE_OVERRIDES):]}, "
+        f"{MULTI_RANKS} ranks on card 0 over gloo ({card})")
+
+    # the reference: one process, pp 2 in memory, the same global batch
+    run = build_run(load_config(config, MULTI_ONE + [f"output_dir={out_dir}/one"]), "cuda")
+    batch = next(run.batches())
+    sp = run.pipeline.stage_params
+    ref_loss = run.pipeline.loss_and_grad(batch).item()
+    run_dir = os.path.join(out_dir, "run")  # the uninterrupted run's, which reads them
+    os.makedirs(run_dir)
+    tensor_io.write_file(os.path.join(run_dir, "ref_grads.safetensors"),
+                         sp.to_canonical(sp.grads()))
+    del run, sp, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[multirank] one process, pp 2, step 1: loss {ref_loss:.6f}; gradients written "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (a) SIGTERM to one rank
+    stop_dir = os.path.join(out_dir, "stopped")
+    os.makedirs(stop_dir)
+    t_a = time.perf_counter()
+    procs = launch_ranks("stop", stop_dir, 16)
+    metrics = os.path.join(stop_dir, "metrics.jsonl")
+    deadline = time.monotonic() + 400
+    logged = 0
+    while logged < 1 and all(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        time.sleep(0.1)
+        if os.path.exists(metrics):
+            with open(metrics) as f:
+                logged = sum(1 for x in f if x.strip())
+    t_signal = time.perf_counter()
+    procs[1].send_signal(signal.SIGTERM)
+    stopped = finish_ranks("stop", procs, stop_dir, "stop")
+    stop_s = time.perf_counter() - t_signal
+    steps = {r["preempted_at"] for r in stopped}
+    saved = sorted(d for d in os.listdir(stop_dir) if d.startswith("checkpoint-"))
+    n = steps.pop() if len(steps) == 1 else None
+    log(f"[multirank] (a) SIGTERM to rank 1 after {logged} logged step(s): every rank exit 0, "
+        f"stopped at steps {[r['preempted_at'] for r in stopped]}, checkpoints {saved}, "
+        f"{stop_s:.1f} s from the signal to the last exit (the save written by process 0 "
+        f"included; run {time.perf_counter() - t_a:.1f} s)")
+    if (n is None or n % MULTI_CHECK_EVERY or saved != [f"checkpoint-{n}"]
+            or CheckpointManager(stop_dir).latest_step() != n):
+        raise AssertionError(f"[multirank] the stop: steps {[r['preempted_at'] for r in stopped]},"
+                             f" checkpoints {saved}")
+    for r in stopped:
+        log(f"[multirank] (a) rank {r['rank']}: the save {r['save_s']:.1f} s, the card's memory "
+            f"{r['save_extra_bytes'] / 2**20:.1f} MiB over what it held before (bound: its "
+            f"largest fp32 leaf, {r['largest_leaf_bytes'] / 2**20:.1f} MiB)")
+        if not r["save_extra_bytes"] < r["largest_leaf_bytes"]:
+            raise AssertionError(f"[multirank] rank {r['rank']}: the save took "
+                                 f"{r['save_extra_bytes']} B more on the card, not less than "
+                                 f"one leaf ({r['largest_leaf_bytes']} B)")
+    end = n + 2
+
+    # (b) the uninterrupted run
+    t_b = time.perf_counter()
+    ranks = finish_ranks("run", launch_ranks("run", run_dir, end, stop_dir), run_dir, "run")
+    cfg = load_config(config, MULTI_OVERRIDES)
+    mcfg = build_model_config(cfg["model"])
+    manifest = build_manifest(cfg, mcfg, 2)
+    pcfg = build_pipeline_config(cfg, MeshConfig(pp=2, dp=2), manifest)
+    us = pl.flush_unit_schedule(pcfg)
+    losses = ranks[0]["losses"]
+    if any(r["losses"] != losses for r in ranks) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[multirank] losses differ across ranks or are not finite: "
+                             f"{[r['losses'] for r in ranks]}")
+    replica0 = [r for r in ranks if r["replica"] == 0]
+    grad_rel = math.sqrt(sum(r["grad_sq_diff"] for r in replica0)
+                         / sum(r["grad_sq_ref"] for r in replica0))
+    loss_diff = abs(losses[0] - ref_loss)
+    log(f"[multirank] (b) step 1 against one process (pp 2, dp 1, same 8 rows): loss "
+        f"{losses[0]:.6f} vs {ref_loss:.6f}, |diff| {loss_diff:.3e} (tol {STEP_LOSS_TOL}); "
+        f"gradient rel diff {grad_rel:.3e} (tol {GRAD_REL_TOL})")
+    if not loss_diff <= STEP_LOSS_TOL or not grad_rel <= GRAD_REL_TOL:
+        raise AssertionError(f"[multirank] step 1: loss |diff| {loss_diff}, gradient rel diff "
+                             f"{grad_rel}")
+    for r in ranks:
+        want = {key: c * end for key, c in pipeline_launches(
+            us, manifest, pcfg.accum_chunks, pcfg.remat, stages=tuple(r["stages"])).items()}
+        log(f"[multirank] rank {r['rank']} (stage {r['stages']}, replica {r['replica']}): ZeRO-1 "
+            f"masters bit-equal to a replicated AdamW {r['masters_bit_equal']} ({r['leaves']} "
+            f"leaves, {r['split_leaves']} split), moments {r['moment_bytes'] / 1e9:.3f} GB of "
+            f"{r['full_moment_bytes'] / 1e9:.3f}; launches {r['launches']} (expected {want}); "
+            f"max_memory_allocated {r['peak_bytes'] / 2**30:.2f} GiB; gloo staging "
+            f"{r['staging_s']:.2f} s, {r['staging_bytes'] / 1e9:.2f} GB over {end} steps")
+        if not r["masters_bit_equal"]:
+            raise AssertionError(f"[multirank] rank {r['rank']}: ZeRO-1 masters not bit-equal")
+        if r["launches"] != want or r["tensor_core"] != want:
+            raise AssertionError(f"[multirank] rank {r['rank']}: launches {r['launches']}, on "
+                                 f"the tensor cores {r['tensor_core']}, expected {want}")
+    step_s = statistics.median(ranks[0]["step_times"][1:])
+    tokens = ranks[0]["tokens_per_step"]
+    log(f"[multirank] (b) {end} steps, pp 2 x dp 2 on one card over gloo (this one-card "
+        f"mode, not an NCCL figure): step {1e3 * step_s:.1f} ms (median of steps 2-{end}), "
+        f"{tokens / step_s:.0f} tokens/s, {tokens} tokens a step; bytes a rank "
+        f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB, "
+        f"{sum(r['peak_bytes'] for r in ranks) / 2**30:.2f} GiB in all; gloo staging "
+        f"{[round(r['staging_s'] / end, 3) for r in ranks]} s a step a rank; losses "
+        f"{[round(x, 5) for x in losses]} ({time.perf_counter() - t_b:.1f} s, {card})")
+
+    # (c) the resumes: in the same 4 processes after (b), and in this one
+    t_c = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the 4 processes' resume verified these files' digests just before
+    os.environ["LPT_CKPT_VERIFY"] = "0"
+    try:
+        one = run_training(load_config(config, MULTI_ONE_PP1 + [
+            "resume=true", f"max_steps={end}", f"output_dir={stop_dir}"]), "cuda")
+    finally:
+        del os.environ["LPT_CKPT_VERIFY"]
+    if any(r["resume"] != ranks[0]["resume"] for r in ranks):
+        raise AssertionError(f"[multirank] the resume differs across ranks: "
+                             f"{[r['resume'] for r in ranks]}")
+    for tag, got, start in (("pp 2 x dp 2, 4 processes", ranks[0]["resume"]["losses"],
+                             ranks[0]["resume"]["start_step"]),
+                            ("pp 1 x dp 1, this process", one["losses"], one["start_step"])):
+        diffs = [abs(a - b) for a, b in zip(got, losses[n:])]
+        log(f"[multirank] (c) resumed at {tag} from step {start}: losses {got} vs the "
+            f"uninterrupted {losses[n:]}, |diff| {diffs} (tol {RESUME_LOSS_TOL})")
+        if start != n or len(diffs) != 2 or not max(diffs) <= RESUME_LOSS_TOL:
+            raise AssertionError(f"[multirank] resume at {tag}: start {start}, |diff| {diffs}")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[multirank] (c) {time.perf_counter() - t_c:.1f} s in this process (the 4 processes' "
+        f"resume is in (b)'s seconds)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[multirank] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3327,6 +3702,7 @@ def main() -> int:
     phase_remat()
     phase_pipeline()
     phase_offload()
+    phase_multirank()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
@@ -3339,4 +3715,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multirank-worker"]:
+        sys.exit(multirank_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -36,6 +36,18 @@ LPT_RETRY_* knobs). Each try of a file write or read fires the
 digests and meta/tag writes (utils/faults.py, where the JAX package fires
 them). `LPT_CKPT_DIGESTS=0` skips the digests at commit,
 `LPT_CKPT_VERIFY=0` the verification at restore.
+
+A run of several processes (parallel/distributed.py) commits as the
+reference's `_commit` does: the tensors are durable before a barrier of
+every process, the `ckpt_commit` fault site fires after it, process 0 alone
+writes the digests, meta.json and the tag, and a second barrier ends the
+commit; an async save stays async (the barriers are on a gloo group of
+their own, so the commit thread waits there while the main thread trains).
+The trainer passes its state as a ckpt/gather.ShardedState: process 0
+writes the files a one-process run reads, one canonical leaf at a time,
+from the pieces every process holds (its own, or sent on request by the
+process that holds them), while the other processes serve those requests.
+Prune runs on process 0 only.
 """
 
 from __future__ import annotations
@@ -52,10 +64,11 @@ from typing import Any
 
 import torch
 
-from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+from llama_pipeline_parallel_tpu_torch.ckpt import gather, tensor_io
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.models.llama.model import param_shapes
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.utils import faults, retry
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
@@ -361,7 +374,8 @@ class CheckpointManager:
             torch.cuda.synchronize()
         return out
 
-    def save(self, step: int, params: dict[str, torch.Tensor], manifest: StageManifest,
+    def save(self, step: int, params: dict[str, torch.Tensor] | gather.ShardedState,
+             manifest: StageManifest,
              cfg: LlamaConfig, optimizer: Any | None = None,
              blocking: bool = True, on_complete: Any = None,
              keep_last: int | None = None,
@@ -374,7 +388,10 @@ class CheckpointManager:
 
         `optimizer=None` produces a module-only checkpoint (the converter's
         output); otherwise its `state_dict()` (AdamW: mu, nu, count) goes to
-        opt.safetensors.
+        opt.safetensors. A trainer's state spread over processes (or over
+        its stages' chunks) is a gather.ShardedState in place of `params`,
+        with no `optimizer`: every process calls `save`, process 0 writes
+        both files from every process's pieces and the others serve them.
 
         `blocking=False`: every tensor is copied to host memory before
         `save` returns (the caller may update its tensors in place at once),
@@ -390,32 +407,54 @@ class CheckpointManager:
         """
         self.finalize()
         path = self.step_dir(step)
-        _check_canonical(params, manifest)
-        items = {PARAMS_FILE: dict(params)}
-        if optimizer is not None:
-            items[OPT_FILE] = _optimizer_tensors(optimizer)
-        if blocking:
-            self.last_save = {"d2h_s": 0.0, "d2h_bytes": 0}
+        writer = distributed.process_index() == 0
+        shards = params if isinstance(params, gather.ShardedState) else None
+        t0 = time.perf_counter()
+        copied = {}
+        if shards is not None:
+            if optimizer is not None:
+                raise ValueError("a ShardedState holds the optimizer's state: pass no optimizer")
+            if not blocking:
+                copied = self._to_host("pieces", shards.owned())
+                shards = shards.with_local(copied)
+            items = dict(zip((PARAMS_FILE, OPT_FILE), shards.files())) if writer else {}
         else:
-            t0 = time.perf_counter()
-            items = {f: self._to_host(f, ts) for f, ts in items.items()}
-            self.last_save = {"d2h_s": time.perf_counter() - t0,
-                              "d2h_bytes": sum(t.numel() * t.element_size()
-                                               for ts in items.values() for t in ts.values())}
-        meta_extra = {"has_optimizer_state": optimizer is not None, **(extra_meta or {})}
+            items = {PARAMS_FILE: dict(params)}
+            if optimizer is not None:
+                items[OPT_FILE] = _optimizer_tensors(optimizer)
+            if not blocking:
+                items = {f: self._to_host(f, ts) for f, ts in items.items()}
+                copied = {f"{f}/{n}": t for f, ts in items.items() for n, t in ts.items()}
+        if writer:
+            _check_canonical(items[PARAMS_FILE], manifest)
+        self.last_save = {"d2h_s": 0.0 if blocking else time.perf_counter() - t0,
+                          "d2h_bytes": sum(t.numel() * t.element_size()
+                                           for t in copied.values())}
+        meta_extra = {"has_optimizer_state": shards is not None or optimizer is not None,
+                      **(extra_meta or {})}
 
         def commit():
             t0 = time.perf_counter()
-            if os.path.isdir(path):  # a re-save of this step replaces it whole
-                shutil.rmtree(path)
-            os.makedirs(path)
-            nbytes = sum(tensor_io.write_file(os.path.join(path, f), ts)
-                         for f, ts in items.items())
+            nbytes = 0
+            if writer:
+                if os.path.isdir(path):  # a re-save of this step replaces it whole
+                    shutil.rmtree(path)
+                os.makedirs(path)
+                ok = False
+                try:
+                    nbytes = sum(tensor_io.write_file(os.path.join(path, f), ts)
+                                 for f, ts in items.items())
+                    ok = True
+                finally:
+                    if shards is not None:
+                        shards.done(ok)
+            elif shards is not None:
+                shards.serve()
             t1 = time.perf_counter()
             digest_s = self._commit(path, step, manifest, cfg, **meta_extra)
-            if on_complete is not None:
+            if writer and on_complete is not None:
                 on_complete(path)
-            if keep_last:  # None/0 both mean "no retention limit"
+            if writer and keep_last:  # None/0 both mean "no retention limit"
                 self.prune(keep_last)
             self.last_save.update(write_s=t1 - t0, digest_s=digest_s, bytes=nbytes,
                                   commit_s=time.perf_counter() - t0)
@@ -474,10 +513,17 @@ class CheckpointManager:
     def _commit(self, path: str, step: int, manifest: StageManifest,
                 cfg: LlamaConfig, **meta_extra) -> float:
         """Digest the files, then write meta.json (the completeness marker)
-        and the `latest` tag; returns the digest seconds. The `ckpt_commit`
-        fault site fires first: a `die` there kills the process after the
-        files are durable but before the completeness marker."""
+        and the `latest` tag; returns the digest seconds. Every process's
+        tensors are durable before the first barrier; the `ckpt_commit`
+        fault site fires after it (a `die` there kills the process after the
+        files are durable but before the completeness marker); process 0
+        alone digests and writes meta.json and the tag, and a second barrier
+        ends the commit (both barriers no-ops alone)."""
+        distributed.barrier(f"ckpt-arrays-{step}")
         faults.fire("ckpt_commit", tag=path, step=step)
+        if distributed.process_index() != 0:
+            distributed.barrier(f"ckpt-commit-{step}")
+            return 0.0
         meta = {
             "step": step,
             "manifest": dataclasses.asdict(manifest),
@@ -495,6 +541,7 @@ class CheckpointManager:
         # latest_step() already recovers from via the directory scan
         _write_file_atomic(os.path.join(path, "meta.json"), json.dumps(meta, indent=2))
         _write_file_atomic(os.path.join(self.root, LATEST_TAG), f"checkpoint-{step}")
+        distributed.barrier(f"ckpt-commit-{step}")
         logger.info("saved checkpoint-%d to %s", step, path)
         return digest_s
 
@@ -539,6 +586,24 @@ class CheckpointManager:
             raise CheckpointCorruptError(
                 f"{name} failed integrity verification: " + "; ".join(bad))
         logger.info("%s verified (%d files)", name, len(integrity.get("files", {})))
+
+    def verify_everywhere(self, step: int) -> None:
+        """`verify(step)` for a restore by every process: alone, verify;
+        under several processes process 0 verifies (quarantining a corrupt
+        checkpoint) and every process raises CheckpointCorruptError on its
+        verdict, so all of them fall back together."""
+        if distributed.process_count() == 1:
+            self.verify(step)
+            return
+        err = None
+        if distributed.process_index() == 0:
+            try:
+                self.verify(step)
+            except CheckpointCorruptError as e:
+                err = e
+        if distributed.should_stop(err is not None):
+            raise err or CheckpointCorruptError(
+                f"checkpoint-{step} failed verification on process 0 (quarantined there)")
 
     # -- load -------------------------------------------------------------
 
@@ -599,7 +664,7 @@ class CheckpointManager:
         if manifest is not None:
             _check_canonical(params, manifest)
         if _verify_default() if verify is None else verify:
-            self.verify(step)
+            self.verify_everywhere(step)
         self._check_storage(step, self.load_meta(step))
         copy = copy or _copy_tensors
         self._read(step, PARAMS_FILE,
@@ -613,7 +678,7 @@ class CheckpointManager:
         `m` and `v` in place (one file at a time; `copy` as in load_params);
         returns its step count. Refuses another layout."""
         if _verify_default() if verify is None else verify:
-            self.verify(step)
+            self.verify_everywhere(step)
         meta = self.load_meta(step)
         self._check_storage(step, meta)
         if meta.get("opt_layout") != OFFLOAD_LAYOUT:
@@ -626,12 +691,14 @@ class CheckpointManager:
         return int(meta["opt_step_count"])
 
     def load(self, step: int, params: dict[str, torch.Tensor], optimizer: Any,
-             manifest: StageManifest | None = None, verify: bool | None = None
-             ) -> tuple[dict[str, torch.Tensor], Any, int]:
+             manifest: StageManifest | None = None, verify: bool | None = None,
+             copy: Any = None) -> tuple[dict[str, torch.Tensor], Any, int]:
         """Full-state resume: params and the optimizer's state (moments and
-        count) in place. One `verify(step)` covers every file in the dir."""
+        count) in place. One `verify(step)` covers every file in the dir.
+        `copy` as in load_params (the params only: the optimizer's
+        `load_state_dict` takes the canonical moments and keeps its own)."""
         if _verify_default() if verify is None else verify:
-            self.verify(step)
+            self.verify_everywhere(step)
         meta = self.load_meta(step)
         self._check_storage(step, meta)
         if not meta.get("has_optimizer_state"):
@@ -643,7 +710,7 @@ class CheckpointManager:
                 f"checkpoint-{step} was written by the host-offloaded optimizer "
                 f"(opt_layout={OFFLOAD_LAYOUT}); resume it with optimizer_offload: true, or "
                 f"warm-start module-only via model_name_or_path")
-        self.load_params(step, params, manifest, verify=False)
+        self.load_params(step, params, manifest, verify=False, copy=copy)
 
         def read_opt(f: tensor_io.TensorFile) -> None:
             if "count" not in f:

@@ -4,10 +4,12 @@
 
 Overrides accept both `key=value` and `--key=value`. The run is on the card
 unless `--device cpu` is given. Under
-`python -m torch.distributed.run --nproc_per_node <pp> -m
+`python -m torch.distributed.run --nproc_per_node <pp*dp | dp> -m
 llama_pipeline_parallel_tpu_torch.cli ...` each process joins the launcher's
-process group first (parallel/distributed.py: gloo on the CPU, nccl on cards)
-and runs one pipeline stage; processes other than 0 log only warnings.
+process group first (parallel/distributed.py: gloo on the CPU, nccl on cards,
+gloo on cards with LPT_DIST_BACKEND=gloo) and runs one pipeline stage of one
+data-parallel replica (pp*dp processes) or every stage of one replica (dp
+processes); processes other than 0 log only warnings.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def main(argv: list[str] | None = None) -> None:
     summary = run_training(cfg, device=args.device)
     if distributed.process_index() == 0:
         print(f"training done: {summary}")
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,9 @@ that chain rather than torch.optim's defaults:
 - the schedule is read at the count BEFORE this update's increment.
 
 Parameters are updated in place (the JAX version returns new arrays).
+`Zero1AdamW` splits the moments over data-parallel replicas (ZeRO-1, the
+reference's `_zero1_leaf_spec` placement): the same arithmetic on each
+replica's slice, then an all-gather of the masters.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 
 Schedule = Callable[[int], float]
 
@@ -73,8 +78,11 @@ class AdamW:
         self.schedule = warmup_decay_schedule(cfg.learning_rate, cfg.total_steps,
                                               cfg.warmup_steps)
         self.count = 0
-        self.mu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        self.shapes = {k: tuple(p.shape) for k, p in params.items()}
+        self.mu = {k: torch.zeros_like(self._part(k, p), dtype=torch.float32)
+                   for k, p in params.items()}
+        self.nu = {k: torch.zeros_like(self._part(k, p), dtype=torch.float32)
+                   for k, p in params.items()}
 
     def state_dict(self) -> dict:
         """{"mu": {name: moment}, "nu": {name: moment}, "count": updates so
@@ -93,11 +101,19 @@ class AdamW:
                 raise ValueError(f"optimizer {moment}: names {sorted(set(theirs.keys()) ^ set(mine))} "
                                  f"are not in both the state and this optimizer")
             for name, t in mine.items():
-                if tuple(theirs[name].shape) != tuple(t.shape):
+                if tuple(theirs[name].shape) != self.shapes[name]:
                     raise ValueError(f"optimizer {moment}.{name}: {tuple(theirs[name].shape)} in "
-                                     f"the state, {tuple(t.shape)} here")
-                t.copy_(theirs[name])
+                                     f"the state, {self.shapes[name]} here")
+                t.copy_(self._part(name, theirs[name]))
         self.count = int(state["count"])
+
+    def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The part of leaf `name` (a parameter, its gradient or a full
+        moment) that this optimizer updates: all of it."""
+        return t
+
+    def _after_step(self, params: dict[str, torch.Tensor]) -> None:
+        """What follows the elementwise update: nothing here."""
 
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
@@ -114,14 +130,74 @@ class AdamW:
         count_inc = self.count + 1
         mu_corr = 1.0 - cfg.beta1 ** count_inc
         nu_corr = 1.0 - cfg.beta2 ** count_inc
-        for name, p in params.items():
-            g = grads[name].float() * clip
+        for name, leaf in params.items():
+            p = self._part(name, leaf)
+            g = self._part(name, grads[name]).float() * clip
             mu, nu = self.mu[name], self.nu[name]
             mu.mul_(cfg.beta1).add_(g, alpha=1.0 - cfg.beta1)
             nu.mul_(cfg.beta2).addcmul_(g, g, value=1.0 - cfg.beta2)
             update = (mu / mu_corr) / ((nu / nu_corr).sqrt_() + cfg.eps)
             update.add_(p, alpha=cfg.weight_decay)
             p.add_(update, alpha=-lr)
+        self._after_step(params)
         self.count = count_inc
         return lr
 
+
+def zero1_dim(shape: tuple[int, ...], dp: int) -> int | None:
+    """The dim a leaf's Adam moments are split over dp on (ZeRO-1): the
+    rightmost one that dp divides, else None (the moments stay replicated).
+    The reference's `_zero1_leaf_spec` (parallel/train_step.py) on a leaf
+    of this package's layout: a chunk's layer leaves are [k, ...], the
+    reference's stage-stacked [S, k, ...] without the stage dim it never
+    splits, and the embedding, norm and lm_head are the same there."""
+    if dp == 1:
+        return None
+    for dim in range(len(shape) - 1, -1, -1):
+        if shape[dim] % dp == 0:
+            return dim
+    return None
+
+
+class Zero1AdamW(AdamW):
+    """AdamW with ZeRO-1 moments: replica `index` of `dp` holds, of each
+    leaf, the slice of mu and nu on zero1_dim (1/dp of the leaf's moment
+    bytes), updates that slice of the fp32 masters, then all-gathers the
+    masters over `group` (the stage's dp group). The gradients it reads are
+    already summed over dp, so every replica computes the same update of its
+    slice as the replicated AdamW, element for element: the masters are
+    bit-equal to that AdamW's. A leaf with no dim dp divides is updated
+    whole on every replica. A checkpoint reads this replica's slices where
+    they lie (ckpt/gather.py: process 0 joins them one leaf at a time), and
+    `load_state_dict` takes full moments and keeps this replica's slices
+    (AdamW.load_state_dict through _part)."""
+
+    def __init__(self, params: dict[str, torch.Tensor], cfg: OptimizerConfig, dp: int,
+                 index: int, group):
+        self.dp, self.index, self.group = dp, index, group
+        self.dims = {k: zero1_dim(tuple(p.shape), dp) for k, p in params.items()}
+        super().__init__(params, cfg)
+
+    def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        dim = self.dims[name]
+        if dim is None:
+            return t
+        n = t.shape[dim] // self.dp
+        return t.narrow(dim, self.index * n, n)
+
+    def _gather(self, name: str, part: torch.Tensor, out: torch.Tensor) -> None:
+        """The full leaf into `out` from every replica's `part`."""
+        dim = self.dims[name]
+        n = out.shape[dim] // self.dp
+        for j, got in enumerate(distributed.all_gather(part, self.group)):
+            out.narrow(dim, j * n, n).copy_(got)
+
+    def _after_step(self, params: dict[str, torch.Tensor]) -> None:
+        for name, p in params.items():
+            if self.dims[name] is not None:
+                self._gather(name, self._part(name, p), p)
+
+    def state_dict(self) -> dict:
+        raise NotImplementedError(
+            "Zero1AdamW holds 1/dp of each split moment; a checkpoint takes its slices "
+            "through ckpt/gather.ShardedState")

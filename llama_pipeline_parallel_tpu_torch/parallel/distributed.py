@@ -1,18 +1,36 @@
-"""Process-group bring-up and the host barrier.
+"""Process-group bring-up, the collectives the trainer uses, the host barrier
+and the stop vote.
 
 The counterpart of llama_pipeline_parallel_tpu/parallel/distributed.py over
 `torch.distributed`: `initialize_distributed` joins the process group that a
 launcher describes in the environment (`python -m torch.distributed.run`
 sets `RANK`, `WORLD_SIZE`, `MASTER_ADDR` and `MASTER_PORT`), with `gloo` on
-the CPU and `nccl` on cards; a lone process initialises nothing. `barrier`
-waits for every process, and raises BarrierTimeoutError when a peer does not
-arrive within its deadline.
+the CPU and `nccl` on cards; a lone process initialises nothing.
+
+`LPT_DIST_BACKEND=gloo` is the one other choice, asked for explicitly: ranks
+on cards then talk over gloo and share card `LOCAL_RANK % device_count`, so a
+run of several processes can be driven on a machine with fewer cards than
+processes. gloo has no CUDA point-to-point, so every tensor on a card that a
+collective or a send carries is staged through pinned host memory; the
+seconds and bytes of that staging are counted in `staging` (this mode's
+cost, not an NCCL figure). Without the variable nothing is staged, and a
+second rank on a card that is taken fails as NCCL fails.
+
+Besides the launcher's group, `initialize_distributed` creates two gloo
+groups over every process: one for host traffic of the main thread (the stop
+vote, a verdict broadcast), one for the checkpoint commit (its barriers, and
+the pieces of the state that process 0 asks the others for: ckpt/gather.py),
+which may run on the commit thread while the main thread trains (`barrier`). `barrier` waits for every process
+and raises BarrierTimeoutError when a peer does not arrive within its
+deadline. `should_stop` is the reference's `_should_stop`: an all-gather of
+each process's flag, true everywhere when any process saw a signal.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -22,6 +40,13 @@ from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 _DEFAULT_BARRIER_TIMEOUT_S = 1800.0
+ENV_BACKEND = "LPT_DIST_BACKEND"
+
+# the gloo groups of initialize_distributed: main-thread host traffic and the
+# commit's barriers (None until then, and in a lone process)
+_groups: dict[str, object] = {}
+# what staging CUDA tensors through host memory for gloo has cost so far
+staging = {"seconds": 0.0, "bytes": 0}
 
 
 class BarrierTimeoutError(RuntimeError):
@@ -37,13 +62,19 @@ def _env_int(name: str) -> int | None:
 
 def initialize_distributed(device: str | torch.device = "cuda") -> None:
     """Join the launcher's process group, once: `gloo` for a CPU run,
-    `nccl` on cards (each rank on card `LOCAL_RANK`). Nothing happens for a
-    lone process (no `WORLD_SIZE`, or 1). A rank without a world size, or a
-    world size without `MASTER_ADDR`, is refused: running N independent
-    copies of one training run is the worst outcome of a half-configured
-    launcher."""
+    `nccl` on cards (each rank on card `LOCAL_RANK`), or gloo on cards with
+    LPT_DIST_BACKEND=gloo (each rank on card `LOCAL_RANK % device_count`,
+    tensors staged through host memory). The choice is logged. Nothing
+    happens for a lone process (no `WORLD_SIZE`, or 1). A rank without a
+    world size, or a world size without `MASTER_ADDR`, is refused: running N
+    independent copies of one training run is the worst outcome of a
+    half-configured launcher."""
     if dist.is_initialized():
         return
+    asked = os.environ.get(ENV_BACKEND) or None
+    if asked not in (None, "gloo"):
+        raise ValueError(f"{ENV_BACKEND}={asked!r}: the only choice is 'gloo' (unset: gloo on "
+                         f"the CPU, nccl on cards)")
     world, rank = _env_int("WORLD_SIZE"), _env_int("RANK")
     if world is None or world == 1:
         if rank:
@@ -54,11 +85,23 @@ def initialize_distributed(device: str | torch.device = "cuda") -> None:
         raise ValueError(f"WORLD_SIZE={world} needs RANK and MASTER_ADDR/MASTER_PORT too "
                          f"(python -m torch.distributed.run sets all of them)")
     device = torch.device(device)
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if backend == "nccl":
-        torch.cuda.set_device(_env_int("LOCAL_RANK") or 0)
+    local = _env_int("LOCAL_RANK") or 0
+    if device.type != "cuda":
+        backend, card = "gloo", None
+    elif asked == "gloo":
+        backend, card = "gloo", local % torch.cuda.device_count()
+    else:
+        backend, card = "nccl", local
+    if card is not None:
+        torch.cuda.set_device(card)
     dist.init_process_group(backend=backend, rank=rank, world_size=world)
-    logger.info("torch.distributed initialised: process %d/%d (%s)", rank, world, backend)
+    _groups["host"] = dist.new_group(backend="gloo")
+    _groups["commit"] = dist.new_group(backend="gloo")
+    where = "" if card is None else f" on card {card}"
+    how = (f" ({ENV_BACKEND}=gloo: tensors on cards staged through host memory)"
+           if asked == "gloo" and card is not None else "")
+    logger.info("torch.distributed initialised: process %d/%d (%s)%s%s", rank, world, backend,
+                where, how)
 
 
 def process_count() -> int:
@@ -69,13 +112,132 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def host_group():
+    """The gloo group over every process for host (CPU) tensors."""
+    return _groups.get("host")
+
+
+def commit_group():
+    """The gloo group over every process of the checkpoint commit."""
+    return _groups.get("commit")
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    t0 = time.perf_counter()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    staging["seconds"] += time.perf_counter() - t0
+    staging["bytes"] += t.numel() * t.element_size()
+    return out
+
+
+def _from_host(t: torch.Tensor, host: torch.Tensor) -> None:
+    t0 = time.perf_counter()
+    t.copy_(host)
+    staging["seconds"] += time.perf_counter() - t0
+    staging["bytes"] += t.numel() * t.element_size()
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over `group` in place (None: nothing to reduce) and return it."""
+    if group is None:
+        return t
+    if _staged(t, group):
+        host = _to_host(t)
+        dist.all_reduce(host, group=group)
+        _from_host(t, host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """`t` from global rank `src` to every process of `group`, in place."""
+    if group is None:
+        return t
+    if _staged(t, group):
+        host = _to_host(t)
+        dist.broadcast(host, src=src, group=group)
+        _from_host(t, host)
+    else:
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every process of `group`'s `t` (same shape everywhere), in group rank
+    order, on `t`'s device."""
+    staged = _staged(t, group)
+    src = _to_host(t) if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    if not staged:
+        return parts
+    out = [torch.empty_like(t) for _ in parts]
+    for o, p in zip(out, parts):
+        _from_host(o, p)
+    return out
+
+
+def batch_p2p(sends: list[tuple[torch.Tensor, int, int]],
+              recvs: list[tuple[torch.Tensor, int, int]], group=None) -> None:
+    """Post every (tensor, global peer rank, tag) send and receive together
+    (`dist.batch_isend_irecv`) and wait for all of them; receives land in
+    their tensors."""
+    staged = any(_staged(t, group) for t, _, _ in sends + recvs)
+    ops, landing = [], []
+    for t, peer, tag in sends:
+        ops.append(dist.P2POp(dist.isend, _to_host(t) if staged else t, peer, group=group,
+                              tag=tag))
+    for t, peer, tag in recvs:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if staged else t
+        landing.append((t, buf))
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group=group, tag=tag))
+    if not ops:
+        return
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for t, buf in landing:
+            _from_host(t, buf)
+
+
+def should_stop(local_flag: bool) -> bool:
+    """Agree on preemption across processes (the reference's `_should_stop`):
+    an all-gather of every process's flag; true on every process when any
+    one saw a signal (or, for any other verdict, raised its flag). Alone:
+    the flag itself. Every process must call it at the same steps (a
+    collective)."""
+    if process_count() == 1:
+        return local_flag
+    flags = all_gather(torch.tensor([int(local_flag)], dtype=torch.int32), host_group())
+    return bool(torch.cat(flags).any())
+
+
+def shutdown() -> None:
+    """Leave the process group at the end of a run (a no-op alone): every
+    process waits for the others, then the groups are destroyed, so no
+    communication thread outlives the interpreter."""
+    if not dist.is_initialized():
+        return
+    barrier("shutdown")
+    dist.destroy_process_group()
+    _groups.clear()
+
+
 def barrier(tag: str = "sync", timeout_s: float = _DEFAULT_BARRIER_TIMEOUT_S) -> None:
-    """Wait for every process of the group (a no-op alone). A peer that has
-    not arrived within `timeout_s` raises BarrierTimeoutError naming `tag`."""
+    """Wait for every process (a no-op alone), over the commit's gloo group,
+    so the checkpoint commit thread can wait here while the main thread's
+    collectives run. A peer that has not arrived within `timeout_s` raises
+    BarrierTimeoutError naming `tag`."""
     if process_count() == 1:
         return
     timeout = float(timeout_s)
-    work = dist.barrier(async_op=True)
+    work = dist.barrier(group=commit_group(), async_op=True)
     try:
         done = work.wait(timeout=datetime.timedelta(seconds=timeout))
     except RuntimeError as e:

@@ -73,6 +73,7 @@ from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
 from llama_pipeline_parallel_tpu_torch.optim.offload import bind_fp32_grads
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import Mesh
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
@@ -88,11 +89,6 @@ logger = get_logger(__name__)
 Params = dict[str, torch.Tensor]
 
 SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver", "gpipe")
-# the schedules this interpreter executes; gpipe (the reference's
-# autodiff-of-the-forward-scan schedule) is not ported
-UNIT_SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver")
-NOT_PORTED_SCHEDULES = {"gpipe": "a later slice (the forward-only schedule differentiated "
-                                 "whole; this package runs the unit-sequence schedules)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,10 +130,6 @@ class PipelineConfig:
         if self.schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {self.schedule!r}; choose one of {SCHEDULES}")
         check_offload_tiers(self.schedule, self.offload_wgrad, self.offload_activations)
-        if self.schedule in NOT_PORTED_SCHEDULES:
-            raise NotImplementedError(
-                f"not ported yet: pipeline_schedule={self.schedule!r} comes with "
-                f"{NOT_PORTED_SCHEDULES[self.schedule]}; choose one of {UNIT_SCHEDULES}")
         if self.loss_chunks < 1:
             raise ValueError("loss_chunks must be >= 1")
         if self.accum_chunks < 1 or self.num_microbatches % self.accum_chunks:
@@ -244,6 +236,8 @@ def _unit_schedule_for(pcfg: PipelineConfig) -> usched.UnitSchedule:
     solver sequence, or the canonical sequence of the named schedule.
     Callers pass a pcfg whose num_microbatches is already the per-flush
     count (accum_chunks=1)."""
+    if pcfg.schedule == "gpipe":
+        return gpipe_schedule(pcfg.num_microbatches // pcfg.accum_chunks, pcfg.num_stages)
     if pcfg.schedule == "solver":
         us = pcfg.unit_schedule
         if ((us.stage_costs is None or len(set(us.stage_costs)) == 1)
@@ -262,6 +256,33 @@ def flush_unit_schedule(pcfg: PipelineConfig) -> usched.UnitSchedule:
     """The per-flush unit sequence this config's interpreter executes."""
     return _unit_schedule_for(dataclasses.replace(
         pcfg, num_microbatches=pcfg.num_microbatches // pcfg.accum_chunks, accum_chunks=1))
+
+
+def gpipe_schedule(m: int, s: int) -> usched.UnitSchedule:
+    """gpipe's per-flush grid, as the reference runs it (the forward scan of
+    `_pipeline_loss_local`, differentiated whole): a forward wave of every
+    microbatch through every stage, m + S - 1 ticks (stage s runs
+    microbatch t - s), then a backward wave of m + S - 1 ticks in ASCENDING
+    microbatch order (stage s runs microbatch t - (S - 1 - s)), so each
+    parameter folds its microbatches' gradients in the order flat 1F1B
+    does. Flat layout only. The interpreter runs it as it runs 1F1B: F
+    buffers its stage input and B recomputes the chunk from it (GPipe's
+    rematerialisation at the stage boundary), so a stage holds O(m) stage
+    inputs (ring_slots = m: no ring). No stage costs: its bubble is the
+    reference's closed form c(S-1) / (M + c(S-1)) on any partition."""
+    ticks = m + s - 1
+    t_idx, st = np.arange(ticks)[:, None], np.arange(s)[None, :]
+    fu, bu = t_idx - st, t_idx - (s - 1 - st)
+    idle = np.full((ticks, s), -1, np.int32)
+    f = np.concatenate([np.where((fu >= 0) & (fu < m), fu, -1).astype(np.int32), idle])
+    b = np.concatenate([idle, np.where((bu >= 0) & (bu < m), bu, -1).astype(np.int32)])
+    fwd = np.concatenate([np.ones(ticks, bool), np.zeros(ticks, bool)])
+    return usched.UnitSchedule(
+        num_stages=s, virtual_stages=1, num_microbatches=m, split_backward=False,
+        f_unit=f, b_unit=b, w_unit=np.full_like(f, -1), has_f=fwd, has_b=~fwd,
+        has_w=np.zeros(2 * ticks, bool), ring_fwd=fwd.copy(), ring_bwd=~fwd, ring_slots=m,
+        offload_units=np.zeros(0, bool), wq_slot=np.zeros(0, np.int32), wq_hbm_slots=0,
+        wq_host_slots=0, label="gpipe")
 
 
 @functools.lru_cache(maxsize=64)
@@ -536,29 +557,28 @@ class StageParams:
 
 
 class CanonicalOptimizer:
-    """An optimizer over StageParams.flat() seen in the canonical naming:
-    `state_dict()` gives the moments as canonical trees (what a checkpoint
-    of the one-stage layout holds), `load_state_dict` copies canonical
-    moments into the chunks'. Every stage must be in this process."""
+    """An optimizer over StageParams.flat() loaded from canonical moments
+    (what a checkpoint holds): `load_state_dict` hands the rows of this
+    process's stages (views of the canonical moments) to the optimizer,
+    which keeps what it holds of them (the whole leaves, or a ZeRO-1
+    slice)."""
 
     def __init__(self, optimizer: Any, stage_params: StageParams):
         self.optimizer, self.stage_params = optimizer, stage_params
 
-    def state_dict(self) -> dict:
-        sd = self.optimizer.state_dict()
-        return {"mu": self.stage_params.to_canonical(sd["mu"]),
-                "nu": self.stage_params.to_canonical(sd["nu"]), "count": sd["count"]}
-
     def load_state_dict(self, state: dict) -> None:
+        sp = self.stage_params
+        flat = {"count": state["count"]}
+        # the canonical tree's names: every stage holds every layer leaf's rows
+        want = ({n for n in sp.canonical_names() if n.startswith("layers.")}
+                | {EMBED, *HEAD})
         for moment in ("mu", "nu"):
             names = set(state[moment])
-            want = self.stage_params.canonical_names()
             if names != want:
                 raise ValueError(f"optimizer {moment}: names {sorted(names ^ want)} are not "
                                  f"in both the state and this optimizer")
-            self.stage_params.copy_canonical(state[moment], getattr(self.optimizer, moment),
-                                             what=f"optimizer {moment}")
-        self.optimizer.count = int(state["count"])
+            flat[moment] = flatten_chunks(chunk_views(state[moment], sp.manifest, sp.stages))
+        self.optimizer.load_state_dict(flat)
 
 
 # ---------------------------------------------------------------------------
@@ -609,61 +629,60 @@ class LocalTransport:
 
 
 class DistTransport:
-    """One stage per process over torch.distributed (rank r runs stage r):
-    `exchange` posts the tick's sends and the next tick's receives together
-    (`dist.batch_isend_irecv`) and waits for them; activations and
-    cotangents carry different tags."""
+    """One stage per process over torch.distributed: stage s of this
+    replica is global rank `ranks[s]`, and `group` is the replica's pp
+    group. `exchange` posts the tick's sends and the next tick's receives
+    together (`dist.batch_isend_irecv`; staged through host memory under
+    gloo on cards) and waits for them; activations and cotangents carry
+    different tags. `all_reduce_sum` sums over the stages (the pp group),
+    `from_last_stage` broadcasts from this replica's last stage."""
 
-    def __init__(self, num_stages: int, rank: int):
-        self.num_stages, self.rank = num_stages, rank
+    def __init__(self, num_stages: int, ranks: tuple[int, ...], group):
+        self.num_stages, self.ranks, self.group = num_stages, ranks, group
         self._sent: list[tuple[str, int, torch.Tensor]] = []
         self._inbox: dict[tuple[str, int], torch.Tensor] = {}
-        dist.barrier()  # a collective first: batch_isend_irecv's first call needs all ranks
+        # a collective first: batch_isend_irecv's first call needs all ranks
+        dist.barrier(group=group)
 
     def send(self, kind: str, stage: int, unit: int, tensor: torch.Tensor) -> None:
         self._sent.append((kind, _peer(kind, stage, self.num_stages, sending=True),
                            tensor.contiguous()))
 
     def exchange(self, expect: list[tuple[str, int, int]], like: torch.Tensor) -> None:
-        ops, inbox = [], {}
+        sends, recvs, inbox = [], [], {}
         for kind in (FWD, BWD):
-            ops += [dist.P2POp(dist.isend, t, dst, tag=_TAGS[kind])
-                    for k, dst, t in self._sent if k == kind]
+            sends += [(t, self.ranks[dst], _TAGS[kind]) for k, dst, t in self._sent if k == kind]
             for k, stage, _ in expect:
                 if k == kind:
                     buf = torch.empty_like(like)
-                    ops.append(dist.P2POp(dist.irecv, buf,
-                                          _peer(kind, stage, self.num_stages, sending=False),
-                                          tag=_TAGS[kind]))
+                    recvs.append((buf, self.ranks[_peer(kind, stage, self.num_stages,
+                                                        sending=False)], _TAGS[kind]))
                     inbox[(kind, stage)] = buf
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+        distributed.batch_p2p(sends, recvs, self.group)
         self._sent, self._inbox = [], inbox
 
     def recv(self, kind: str, stage: int) -> torch.Tensor:
         return self._inbox.pop((kind, stage))
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(t)
-        return t
+        return distributed.all_reduce(t, self.group)
 
     def from_last_stage(self, t: torch.Tensor) -> torch.Tensor:
-        dist.broadcast(t, src=self.num_stages - 1)
-        return t
+        return distributed.broadcast(t, self.ranks[-1], self.group)
 
 
 def make_transport(mesh: Mesh) -> LocalTransport | DistTransport:
     """LocalTransport when this process runs every stage, DistTransport when
-    it runs one stage of `pp` processes (parallel/mesh.make_mesh refuses
-    every other layout). The choice is logged."""
+    it runs one stage (parallel/mesh.make_mesh refuses every other layout).
+    The choice is logged."""
     if mesh.in_process:
         logger.info("pipeline: %d stages in this process, handed over in memory (local "
-                    "transport)", mesh.pp)
+                    "transport)%s", mesh.pp,
+                    f", replica {mesh.replica} of {mesh.dp}" if mesh.dp > 1 else "")
         return LocalTransport(mesh.pp)
-    logger.info("pipeline: stage %d of %d over torch.distributed (%s)", mesh.stages[0],
-                mesh.pp, dist.get_backend())
-    return DistTransport(mesh.pp, mesh.rank)
+    logger.info("pipeline: stage %d of %d, replica %d of %d, over torch.distributed (%s)",
+                mesh.stages[0], mesh.pp, mesh.replica, mesh.dp, dist.get_backend())
+    return DistTransport(mesh.pp, mesh.pp_ranks, mesh.pp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -861,11 +880,18 @@ class Pipeline:
 
     def loss_and_grad(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """One step's forward and backward over `batch` ([num_microbatches *
-        mb, s] on the params' device): accumulates the gradients of the
-        mean token loss into stage_params' `.grad` (which the caller zeroes)
-        and returns that loss (fp32 scalar, the same on every process)."""
+        mb, s] on the params' device; this replica's rows under dp):
+        accumulates the gradients of the mean token loss into stage_params'
+        `.grad` (which the caller zeroes) and returns that loss (fp32
+        scalar, the same on every process). Under dp the valid-target count
+        is summed over the replicas before it divides, and the gradients and
+        the loss are summed over them after (the reference's psums over dp:
+        the embedding, norm and lm_head live on one stage each here, so the
+        dp group is all their sum needs)."""
         targets, mbs = self._microbatches(batch)
-        global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
+        dp_group = self.mesh.dp_group
+        count = (targets != llama.IGNORE_INDEX).sum().float()
+        global_count = distributed.all_reduce(count, dp_group).clamp(min=1)
         c = self.pcfg.accum_chunks
         per = len(mbs) // c
         loss = torch.zeros((), device=targets.device)
@@ -873,7 +899,10 @@ class Pipeline:
         self.stash_trace = []
         for i in range(c):
             loss += self._flush(mbs[i * per:(i + 1) * per], global_count)
-        return self.transport.from_last_stage(loss)
+        if dp_group is not None:
+            for g in self.stage_params.grads().values():
+                distributed.all_reduce(g, dp_group)
+        return distributed.all_reduce(self.transport.from_last_stage(loss), dp_group)
 
     def _flush(self, mbs: list[_Microbatch], global_count: torch.Tensor) -> torch.Tensor:
         """One flush of the per-flush sequence over `mbs`; returns the sum of
@@ -974,7 +1003,9 @@ class Pipeline:
     def global_norm(self) -> torch.Tensor:
         """The global gradient norm over every stage's gradients: each
         stage's sum of squares, then the stages' sums added (in stage order
-        in one process, by all_reduce across processes)."""
+        in one process, by all_reduce over the pp group across processes;
+        not over dp: the gradients are already summed over it, so the world
+        would count each stage's sum dp times)."""
         sp = self.stage_params
         partial = [torch.stack([g.float().square().sum() for g in sp.stage_grads(s)]).sum()
                    for s in sp.stages]
@@ -989,7 +1020,7 @@ class Pipeline:
         every microbatch through every chunk, in the forward order of the
         unit grid (stage s runs unit t - s at tick t), with no autograd
         graph: (token-loss sum fp32, valid-target count) over the whole
-        batch, the same on every process."""
+        batch (every replica's under dp), the same on every process."""
         targets, mbs = self._microbatches(batch)
         s_total, v = self.pcfg.num_stages, self.pcfg.virtual_stages
         n_units = len(mbs) * v
@@ -1014,8 +1045,10 @@ class Pipeline:
                 else:
                     self.transport.send(FWD, s, self._consumer_unit(FWD, s, u), y)
             self.transport.exchange(self._expected(t + 1, f_grid, None), like)
-        return (self.transport.from_last_stage(total),
-                (targets != llama.IGNORE_INDEX).sum())
+        count = (targets != llama.IGNORE_INDEX).sum()
+        dp_group = self.mesh.dp_group
+        return (distributed.all_reduce(self.transport.from_last_stage(total), dp_group),
+                distributed.all_reduce(count, dp_group))
 
 
 def _check_layout(manifest: StageManifest, pcfg: PipelineConfig, cfg: LlamaConfig) -> None:

@@ -27,6 +27,12 @@ microbatch in the same order (optim/offload.bind_fp32_grads).
 parallel/pipeline.py): the same microbatches, head and prologue under
 `torch.no_grad()`, returning the (loss sum, valid count) pair so that the
 evaluator weights batches exactly.
+
+Data parallelism (`dp_group`: the process group of the replicas, None
+alone): each replica runs its own rows; the valid-target count is summed
+over the group before it divides, and the gradients, the loss and the eval
+sums after, so every replica holds the whole batch's gradient (the
+reference's psums over dp).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from llama_pipeline_parallel_tpu_torch.ops.cross_entropy import fused_ce_sum_cou
 from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
 from llama_pipeline_parallel_tpu_torch.optim.offload import HostOffloadAdamW, bind_fp32_grads
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, global_norm
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass
@@ -97,7 +104,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
                num_microbatches: int = 1, attn_fn: Callable = attention,
                remat: bool = False, head: LossHead = LossHead(),
                kernel_prologue: bool = False, remat_policy: str = "nothing_saveable",
-               pipeline: Any = None, grads: llama.Params | None = None) -> dict:
+               pipeline: Any = None, grads: llama.Params | None = None,
+               dp_group: Any = None) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. `kernel_prologue` runs
     each layer's norm -> QKV -> RoPE on the fused prologue kernels
@@ -108,7 +116,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     other step knobs its config's; the gradient norm then spans every
     stage. `grads`: the fp32 gradient buffers of a working copy (the host
     optimizer's; the pipeline's StageParams hold the same tensors), zeroed
-    here; None: the params' own `.grad`. Returns the metrics."""
+    here; None: the params' own `.grad`. `dp_group`: the replicas' process
+    group at pp = 1 (a pipeline has its mesh's). Returns the metrics."""
     params = state.params
     if grads is None:
         for p in params.values():
@@ -121,7 +130,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
         grad_norm = pipeline.global_norm()
     else:
         targets, mbs = microbatches(batch, num_microbatches)
-        global_count = (targets != llama.IGNORE_INDEX).sum().clamp(min=1).float()
+        count = (targets != llama.IGNORE_INDEX).sum().float()
+        global_count = distributed.all_reduce(count, dp_group).clamp(min=1)
         loss = torch.zeros((), device=targets.device)
         for ids, mask, positions, mb_targets in mbs:
             mb_params = params if grads is None else bind_fp32_grads(params, grads)
@@ -132,6 +142,10 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
             mb_loss = mb_loss / global_count
             mb_loss.backward()
             loss += mb_loss.detach()
+        distributed.all_reduce(loss, dp_group)
+        if dp_group is not None:
+            for name, p in params.items():
+                distributed.all_reduce(p.grad if grads is None else grads[name], dp_group)
         if grads is None:
             grad_norm = global_norm(p.grad for p in params.values())
         else:
@@ -147,7 +161,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
 def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
               num_microbatches: int = 1, attn_fn: Callable = attention,
               head: LossHead = LossHead(), kernel_prologue: bool = False,
-              pipeline: Any = None) -> tuple[torch.Tensor, torch.Tensor]:
+              pipeline: Any = None, dp_group: Any = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The loss-only pass over `batch` in `num_microbatches` microbatches, on
     the training step's attention, head and prologue, with no autograd graph:
     (token-loss sum fp32, valid-target count) over the whole batch. With
@@ -160,4 +174,5 @@ def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaCo
         hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
                                  kernel_prologue=kernel_prologue)
         loss_sum += head_loss_sum_count(params, hn, mb_targets, cfg, head)[0].float()
-    return loss_sum, (targets != llama.IGNORE_INDEX).sum()
+    count = (targets != llama.IGNORE_INDEX).sum()
+    return distributed.all_reduce(loss_sum, dp_group), distributed.all_reduce(count, dp_group)

@@ -1,13 +1,15 @@
 """The trainer: config -> model -> data -> step loop.
 
-The counterpart of llama_pipeline_parallel_tpu/train.py at dp = tp = sp = 1:
-one device at pp = 1, or a pipeline of `mesh.pp` stages (parallel/pipeline.py)
+The counterpart of llama_pipeline_parallel_tpu/train.py at tp = sp = 1: one
+device at pp = 1, or a pipeline of `mesh.pp` stages (parallel/pipeline.py)
 under `pipeline_schedule` (1f1b, interleaved_1f1b, zb1, solver with
-`schedule_file`), `virtual_stages`, `layer_counts` / `stage_balance` and
-`gradient_accumulation_chunks`, either with every stage in this process on
-one device or one stage per process of a `torch.distributed` group of `pp`
-processes (cli.py under `python -m torch.distributed.run`; the metrics line
-and the logs come from process 0). The same config keys, the same data for the same
+`schedule_file`, gpipe), `virtual_stages`, `layer_counts` / `stage_balance`
+and `gradient_accumulation_chunks`, with every stage in this process on one
+device or one stage per process; and `mesh.dp` data-parallel replicas, a
+process each (parallel/mesh.py: pp * dp processes of one stage, or dp
+processes of every stage), with ZeRO-1 moments (optim/optimizer.Zero1AdamW).
+Several processes run under `python -m torch.distributed.run` (cli.py); the
+metrics line and the logs come from process 0. The same config keys, the same data for the same
 seed, the same schedule-total rules and the same metrics line keys where they
 apply. Data is the synthetic dataset or a tokenizer-backed one (`dataset:
 {_target_: ...}` with `tokenizer_path`), packed `packing_factor` examples to
@@ -39,9 +41,11 @@ LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
 observatories and the resilience actions are not ported yet; a config that
 asks for a layout or feature this trainer does not have is refused, naming
 its key, and keys that mean nothing with one stage (the pipeline schedule) are
-logged once. A run of several processes saves and resumes nothing, and takes
-no preemption signal (cross-process checkpoints and the stop vote come with
-the next slice).
+logged once. A run of several processes saves through process 0 (which
+writes the canonical tree leaf by leaf from every process's pieces:
+ckpt/gather.py; ckpt/checkpoint.py's commit barriers),
+resumes in every process, and stops every process at the same step on a
+signal to any one of them: the stop vote every `preempt_check_every` steps.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+from llama_pipeline_parallel_tpu_torch.ckpt import gather, tensor_io
 from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import (
     OFFLOAD_LAYOUT,
     CheckpointCorruptError,
@@ -90,11 +94,17 @@ from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
 from llama_pipeline_parallel_tpu_torch.optim.offload import HostOffloadAdamW
-from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig
+from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig, Zero1AdamW
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
 from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
-from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from llama_pipeline_parallel_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshConfig,
+    host_dp_shard,
+    layout_for,
+    make_mesh,
+)
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
     TrainState,
@@ -144,8 +154,9 @@ _NOT_PORTED_BLOCKS = {"numerics": "the numerics observatory",
 _ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None,
                    "gradient_accumulation_chunks": 1}
 PIPELINE_SCHEDULES = pl.SCHEDULES
-# what a run of several processes cannot do yet, by key (value when unset)
-_ONE_PROCESS_KEYS = {"save_steps": 0, "save_final": True, "resume": True, "async_save": False}
+# what the host optimizer cannot do yet in a run of several processes, by key
+# (value when unset)
+_OFFLOAD_ONE_PROCESS_KEYS = {"save_steps": 0, "save_final": True, "resume": True}
 
 
 def build_model_config(node: dict) -> LlamaConfig:
@@ -384,13 +395,14 @@ def _check_supported(cfg: dict) -> None:
     """Refuse what this trainer does not run, naming the keys and what ports
     each; log once the keys that have no effect with one stage."""
     mesh_cfg = _mesh_config(cfg)
-    layout = mesh_cfg.axis_sizes()
-    other = {ax: n for ax, n in layout.items() if ax != "pp" and n != 1}
-    if other:
-        raise NotImplementedError(
-            f"not ported yet: {other} of {mesh_cfg.describe()} (data, tensor and sequence "
-            f"parallelism come with later slices; this trainer runs pp >= 1 with "
-            f"dp = tp = sp = 1)")
+    if mesh_cfg.dp > 1:
+        offload = [key for key in ("optimizer_offload", "optimizer_offload_zero2")
+                   if cfg.get(key)]
+        if offload:
+            raise NotImplementedError(
+                f"not ported yet: {offload} at dp={mesh_cfg.dp} (the host optimizer runs "
+                f"dp = 1; its ZeRO layouts across replicas come with a later slice)")
+    layout_for(mesh_cfg, distributed.process_count())  # tp / sp, or the process count
     schedule = cfg.get("pipeline_schedule") or "1f1b"
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
@@ -402,14 +414,14 @@ def _check_supported(cfg: dict) -> None:
         raise NotImplementedError(
             f"not ported yet: {list(asked)} ("
             + "; ".join(f"{key} comes with {what}" for key, what in asked.items()) + ")")
-    if distributed.process_count() > 1:
-        multi = [key for key, unset in _ONE_PROCESS_KEYS.items()
+    if distributed.process_count() > 1 and cfg.get("optimizer_offload"):
+        multi = [key for key, unset in _OFFLOAD_ONE_PROCESS_KEYS.items()
                  if cfg.get(key, unset)]
         if multi:
             raise NotImplementedError(
-                f"not ported yet: {multi} in a run of {distributed.process_count()} processes "
-                f"(cross-process checkpoints, resume and the preemption stop vote come with "
-                f"the next slice); set save_steps=0 save_final=false resume=false")
+                f"not ported yet: {multi} with optimizer_offload in a run of "
+                f"{distributed.process_count()} processes (the host optimizer's checkpoints "
+                f"are written by one process); set save_steps=0 save_final=false resume=false")
     if mesh_cfg.pp == 1:
         chunks = int(cfg.get("gradient_accumulation_chunks") or 1)
         if chunks < 1 or cfg.get("gradient_accumulation_steps", 1) % chunks:
@@ -547,7 +559,8 @@ class Run:
     `optimizer_offload`, `host` is the host AdamW (also `state.optimizer`),
     `state.params` its working copy and `grads` the fp32 gradient buffers
     beside it (both named as the params), and `offload_static` the metrics
-    line's host-stash keys."""
+    line's host-stash keys. `mesh` is the layout as this process sees it
+    (its stages, its dp replica and the process groups)."""
 
     cfg: dict
     device: torch.device
@@ -573,20 +586,25 @@ class Run:
     host: HostOffloadAdamW | None = None
     grads: dict[str, torch.Tensor] | None = None
     offload_static: dict = dataclasses.field(default_factory=dict)
+    mesh: Mesh = dataclasses.field(default_factory=lambda: Mesh(MeshConfig(), (0,)))
 
-    def canonical_state(self) -> tuple[dict[str, torch.Tensor], Any]:
-        """(params, optimizer) in the canonical naming and layout that
-        checkpoints hold: the run's own at pp = 1, else the pipeline's
-        chunks merged (copies) and their moments seen through
-        pl.CanonicalOptimizer. Not under the host optimizer, whose state
-        moves leaf by leaf (`canonical_of`, `canonical_copy`)."""
+    def sharded_state(self) -> gather.ShardedState:
+        """The params and the device optimizer's state as this process holds
+        them (its stages' chunks, its ZeRO-1 slices of the moments), for
+        CheckpointManager.save: process 0 writes the canonical tree from
+        every process's pieces, one leaf at a time (ckpt/gather.py). Not
+        under the host optimizer, whose state moves leaf by leaf
+        (`canonical_of`, `canonical_copy`)."""
         if self.host is not None:
             raise ValueError("the host optimizer's state is saved with CheckpointManager."
                              "save_offload and restored leaf by leaf")
-        if self.pipeline is None:
-            return self.state.params, self.state.optimizer
-        sp = self.pipeline.stage_params
-        return sp.to_canonical(), pl.CanonicalOptimizer(self.state.optimizer, sp)
+        shapes = {name: torch.empty(shape, device="meta")
+                  for name, shape in param_shapes(self.model_cfg).items()}
+        mesh = self.mesh
+        return gather.ShardedState.of_run(
+            self.state.params, self.state.optimizer, self.manifest,
+            pl.chunk_views(shapes, self.manifest), pipelined=self.pipeline is not None,
+            dp=mesh.dp, rank=mesh.rank, rank_of=mesh.rank_of, group=distributed.commit_group())
 
     def canonical_of(self, tree: dict[str, torch.Tensor]) -> Any:
         """A tree named as the run's params in the canonical naming and
@@ -647,7 +665,7 @@ class Run:
                              remat=self.remat, head=self.head,
                              kernel_prologue=self.kernel_prologue,
                              remat_policy=self.remat_policy, pipeline=self.pipeline,
-                             grads=self.grads)
+                             grads=self.grads, dp_group=self.mesh.dp_group)
         if self.host is not None:  # the norm the host clipped by
             metrics["grad_norm"] = self.host.last_grad_norm
         return metrics
@@ -658,7 +676,7 @@ class Run:
         return eval_step(self.state.params, batch, self.model_cfg,
                          num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                          head=self.head, kernel_prologue=self.kernel_prologue,
-                         pipeline=self.pipeline)
+                         pipeline=self.pipeline, dp_group=self.mesh.dp_group)
 
     def evaluate(self) -> float:
         """eval_loss: the exact token mean over every batch of the eval set
@@ -675,7 +693,9 @@ class Run:
         or without `async_save` (the process may exit right after a final
         save, and a daemon commit thread would die with it). The host
         optimizer's state is saved blocking whatever `async_save` says: the
-        next step updates its masters in place."""
+        next step updates its masters in place. Every process of a run of
+        several must call it: process 0 writes the state from every
+        process's pieces (sharded_state)."""
         cfg = self.cfg
         batch_delta = (self.data_start[0] * max(len(self.loader), 1)
                        + self.data_start[1] - self.start_step)
@@ -690,10 +710,8 @@ class Run:
                                           extra_meta=extra_meta)
             _sync_checkpoint(cfg, path)
             return path
-        params, optimizer = self.canonical_state()
         return self.ckpt.save(
-            step, params, self.manifest, self.model_cfg,
-            optimizer=optimizer,
+            step, self.sharded_state(), self.manifest, self.model_cfg,
             blocking=final or not cfg.get("async_save", False),
             on_complete=lambda path: _sync_checkpoint(cfg, path),
             keep_last=cfg.get("save_total_limit"), extra_meta=extra_meta)
@@ -725,22 +743,27 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     micro_batch = cfg.get("per_device_train_batch_size", 1)
     num_microbatches = cfg.get("gradient_accumulation_steps", 1)
     packing = _packing_factor(cfg)
+    mesh_cfg = _mesh_config(cfg)
+    mesh = make_mesh(mesh_cfg)  # refuses a process count the layout cannot run
     data_node = cfg.get("data") or {}
     ledger = None
-    if data_node.get("log_sample_ids"):
+    if data_node.get("log_sample_ids") and distributed.process_index() == 0:
+        # the ledger covers process 0's replica, as in the JAX trainer
         os.makedirs(cfg["output_dir"], exist_ok=True)
         ledger = os.path.join(cfg["output_dir"], "samples.jsonl")
     # with packing the loader feeds packing_factor examples per emitted row,
-    # and the data position (data_state) counts examples
+    # and the data position (data_state) counts examples; each process loads
+    # its replica's rows (host_dp_shard)
     loader = DataLoader(dataset, collator,
-                        per_replica_batch=micro_batch * num_microbatches * packing, seed=seed,
+                        per_replica_batch=micro_batch * num_microbatches * packing,
+                        dp_size=mesh_cfg.dp, seed=seed, dp_range=host_dp_shard(mesh),
                         quarantine_bad_records=bool(data_node.get("quarantine_bad_shards", False)),
                         sample_ledger=ledger)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"dataset of {len(dataset)} examples yields 0 steps at "
-                         f"batch {loader.per_replica_batch}")
-    eval_loader = _eval_loader(cfg, model_cfg, tokenizer, num_microbatches)
+                         f"batch {loader.per_replica_batch} a replica x dp {mesh_cfg.dp}")
+    eval_loader = _eval_loader(cfg, model_cfg, tokenizer, num_microbatches, mesh)
 
     # `total_steps` (schedule horizon) is separate from `max_steps` (loop end)
     # so an interrupted-then-resumed run sees the uninterrupted run's LR curve
@@ -760,12 +783,10 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
 
     generator = torch.Generator(device=device).manual_seed(seed)
     init = init_params(model_cfg, device=device, generator=generator)
-    mesh_cfg = _mesh_config(cfg)
     seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
     attn_fn = select_attention(cfg.get("attention", "auto"), seq_length, device,
                                model_cfg=model_cfg, micro_batch=micro_batch,
                                packed=packing > 1)
-    mesh = make_mesh(mesh_cfg)  # refuses a process count other than 1 or pp
     pipeline = pcfg = None
     if mesh_cfg.pp == 1:
         # the canonical layout is the one-stage manifest's
@@ -790,7 +811,10 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
             stage_params = pl.StageParams.from_canonical(model.params(), manifest, mesh.stages)
             params = stage_params.flat()
         del model
-        optimizer = AdamW(params, ocfg)
+        if mesh.dp > 1:
+            optimizer = Zero1AdamW(params, ocfg, mesh.dp, mesh.replica, mesh.dp_group)
+        else:
+            optimizer = AdamW(params, ocfg)
     offload_static = {}
     if pcfg is not None:
         pipeline = pl.Pipeline(model_cfg, pcfg, mesh, stage_params, attn_fn)
@@ -812,8 +836,8 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
               manifest=manifest, ckpt=mgr, topology=topology, remat_policy=remat_policy,
               eval_loader=eval_loader, pipeline=pipeline, host=host, grads=grads,
-              offload_static=offload_static)
-    if cfg.get("resume", True) and distributed.process_count() == 1:
+              offload_static=offload_static, mesh=mesh)
+    if cfg.get("resume", True):
         restored = _restore_with_fallback(
             mgr, lambda s: (_restore_offload if host is not None else _restore)(run, s))
     else:
@@ -863,13 +887,13 @@ def _all_reduce_float(transport, device: torch.device, x: float) -> float:
 
 
 def _restore(run: Run, step: int) -> int:
-    """Full-state restore of checkpoint-`step` into the run (its canonical
-    tree carried into the pipeline's chunks at pp > 1); returns the step."""
-    params, optimizer = run.canonical_state()
-    step = run.ckpt.load(step, params, optimizer, run.manifest)[2]
+    """Full-state restore of checkpoint-`step` into the run, in every
+    process: the rows of its stages of the canonical tree (at pp > 1) and,
+    under ZeRO-1, its slices of the moments; returns the step."""
+    optimizer = run.state.optimizer
     if run.pipeline is not None:
-        run.pipeline.stage_params.copy_canonical(params)
-    return step
+        optimizer = pl.CanonicalOptimizer(optimizer, run.pipeline.stage_params)
+    return run.ckpt.load(step, run.state.params, optimizer, copy=run.canonical_copy())[2]
 
 
 def _restore_offload(run: Run, step: int) -> int:
@@ -900,13 +924,14 @@ def _restore_offload(run: Run, step: int) -> int:
 
 
 def _eval_loader(cfg: dict, model_cfg: LlamaConfig, tokenizer: Any,
-                 num_microbatches: int) -> DataLoader | None:
+                 num_microbatches: int, mesh: Mesh) -> DataLoader | None:
     """The held-out set of `eval_dataset` (None without one), as the JAX
     trainer's `_make_evaluator` builds it: the training config's tokenizer
     and collator over that dataset node, in dataset order, a batch of
     `num_microbatches` microbatches of `per_device_eval_batch_size` rows
-    (default: the training micro-batch), times `packing_factor` examples.
-    Refused when the set holds no whole batch."""
+    (default: the training micro-batch), times `packing_factor` examples,
+    for each dp replica (this process loads its own). Refused when the set
+    holds no whole batch."""
     eval_cfg = cfg.get("eval_dataset")
     if eval_cfg is None:
         return None
@@ -915,7 +940,7 @@ def _eval_loader(cfg: dict, model_cfg: LlamaConfig, tokenizer: Any,
     rows = cfg.get("per_device_eval_batch_size", cfg.get("per_device_train_batch_size", 1))
     loader = DataLoader(dataset, collator,
                         per_replica_batch=rows * num_microbatches * _packing_factor(cfg),
-                        shuffle=False)
+                        dp_size=mesh.dp, dp_range=host_dp_shard(mesh), shuffle=False)
     if len(loader) == 0:
         raise ValueError(f"eval dataset too small for one batch ({len(dataset)} examples, "
                          f"batch {loader.per_replica_batch})")
@@ -958,10 +983,7 @@ def _warm_start(path: str, run: Run) -> None:
         warm.load_params(step, run.host.masters_tree(), copy=run.canonical_copy())
         run.host.device_params(out=run.state.params)
     else:
-        params = run.canonical_state()[0]
-        warm.load_params(step, params, run.manifest)
-        if run.pipeline is not None:
-            run.pipeline.stage_params.copy_canonical(params)
+        warm.load_params(step, run.state.params, copy=run.canonical_copy())
     logger.info("warm-started module weights from %s (checkpoint-%d)", path, step)
 
 
@@ -970,7 +992,7 @@ def _topology_meta(cfg: dict, manifest: StageManifest) -> dict:
     `_topology_meta`): the source half of the elastic-restore contract, read
     by a later run to log what changed. `layer_counts` names the partition:
     "even/<k>" or the per-stage list."""
-    mc = MeshConfig(pp=manifest.num_stages)
+    mc = MeshConfig(pp=manifest.num_stages, dp=_mesh_config(cfg).dp)
     return {"pp": mc.pp, "dp": mc.dp, "tp": mc.tp, "sp": mc.sp, "layout": mc.describe(),
             "schedule": cfg.get("pipeline_schedule", "1f1b"),
             "virtual_stages": manifest.virtual_stages,
@@ -1178,14 +1200,11 @@ def _release_preemption_handlers() -> None:
 def run_training(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = None) -> dict:
     """The training run; returns a summary dict for programmatic callers.
     Runs on `device` (the card unless the caller asks for the CPU);
-    `tokenizer` as in build_run. Installs the preemption handlers first; the
-    run's fault plan is cleared and the handlers restored at the end."""
-    if distributed.process_count() == 1:
-        _install_preemption_handlers()
-    else:
-        logger.warning("%d processes: SIGTERM / SIGINT end this process without a checkpoint "
-                       "(the cross-process stop vote comes with the next slice)",
-                       distributed.process_count())
+    `tokenizer` as in build_run. Installs the preemption handlers first (in
+    every process of a run of several: the stop vote carries one process's
+    signal to all); the run's fault plan is cleared and the handlers
+    restored at the end."""
+    _install_preemption_handlers()
     try:
         return train_run(build_run(cfg, device, tokenizer))
     finally:
@@ -1195,9 +1214,12 @@ def run_training(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any 
 
 def train_run(run: Run) -> dict:
     """Steps `run.start_step` .. `run.end_step` (the JAX trainer's
-    `_train_loop` for one process). Each step fires the `step` fault site,
-    then stops the run on a preemption signal: a blocking save at that step,
-    and the summary's `preempted_at` and `final_step` name it. Every
+    `_train_loop`). Each step fires the `step` fault site, then stops the
+    run on a preemption signal: a blocking save at that step, and the
+    summary's `preempted_at` and `final_step` name it. One process reads its
+    flag every step; several vote (distributed.should_stop) at every step
+    that `preempt_check_every` divides, the same steps in every process, so
+    a signal to any one stops all of them at the same step. Every
     `logging_steps` the metrics line: the window's mean loss, tokens/s over
     its wall time (data wait, eval and saves included; `real_tokens_per_sec`
     over the non-pad positions where they differ), and `step_time`, that
@@ -1213,8 +1235,8 @@ def train_run(run: Run) -> dict:
     eval_steps = cfg.get("eval_steps", 0) if run.eval_loader is not None else 0
     # The stop flag is read every step when the run is one process, as in the
     # JAX trainer when process_count() == 1; `preempt_check_every` paces the
-    # cross-process stop vote, which comes with the next slice (a run of
-    # several processes installs no handler, so its flag stays down).
+    # cross-process stop vote, a collective, so it is taken at the same steps
+    # in every process whatever its own flag says.
     process_count = distributed.process_count()
     check_every = max(int(cfg.get("preempt_check_every", 10)), 1)
 
@@ -1225,7 +1247,11 @@ def train_run(run: Run) -> dict:
                             use_wandb=cfg.get("use_wandb", False),
                             use_tensorboard=cfg.get("use_tensorboard", False))
               if distributed.process_index() == 0 else NullMetricsWriter())
-    meter = Throughput(run.model_cfg, run.seq_length, device=device)
+    # the meter counts every replica's rows; its MFU is against the cards the
+    # processes hold (several may share one under LPT_DIST_BACKEND=gloo)
+    cards = (min(process_count, torch.cuda.device_count()) if device.type == "cuda"
+             else process_count)
+    meter = Throughput(run.model_cfg, run.seq_length, n_chips=cards, device=device)
     batches = run.batches()
     losses, step_times, window = [], [], []
     tokens_per_step = 0
@@ -1237,7 +1263,7 @@ def train_run(run: Run) -> dict:
         for step in range(run.start_step, run.end_step):
             faults.fire("step", step=step)
             check_now = process_count == 1 or step % check_every == 0
-            if check_now and _STOP_SIGNALS:
+            if check_now and distributed.should_stop(bool(_STOP_SIGNALS)):
                 logger.warning("preemption signal; checkpointing at step %d and exiting for "
                                "clean resume", step)
                 preempted_at = step
@@ -1245,7 +1271,7 @@ def train_run(run: Run) -> dict:
                 last_saved = run.end_step  # no save_final after it
                 break
             batch = next(batches)
-            tokens_per_step = batch["input_ids"].numel()
+            tokens_per_step = batch["input_ids"].numel() * run.mesh.dp
             t0 = time.perf_counter()
             metrics = run.step(batch)
             if device.type == "cuda":
@@ -1256,7 +1282,8 @@ def train_run(run: Run) -> dict:
             losses.append(float(metrics["loss"]))
             window.append(losses[-1])
             mask = batch.get("attention_mask")
-            meter.update(tokens_per_step, None if mask is None else int((mask != 0).sum()))
+            meter.update(tokens_per_step,
+                         None if mask is None else int((mask != 0).sum()) * run.mesh.dp)
             if (step + 1) % logging_steps == 0 or step + 1 == run.end_step:
                 step_time = max(time.perf_counter() - window_t0 - window_overhead,
                                 0.0) / len(window)

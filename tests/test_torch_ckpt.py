@@ -524,3 +524,129 @@ def test_jax_package_checkpoint_is_refused_by_name(ref, tmp_path):
         mgr.load_params(3, params)
     with pytest.raises(ValueError, match="convert_hf"):
         t_train.build_run(_tiny_cfg(f"output_dir={tmp_path}"), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across processes (pp 2 x dp 2, gloo ranks on the CPU)
+# ---------------------------------------------------------------------------
+
+# tiny_smoke's own pp 2 x dp 2, 6 steps of a 64-row dataset; at dp 1 the
+# replica takes both replicas' rows (the same global batch of 8)
+CROSS = ["dataset.pseudo_dataset_len=64", "logging_steps=1", "total_steps=6",
+         "save_final=false"]
+DP1 = ["mesh.dp=1", "gradient_accumulation_steps=4"]
+
+
+def _metric_losses(out_dir, steps=None):
+    """The metrics lines' losses, or those of the last len(steps) lines, which
+    must be of `steps` (a resume appends to the copied run's file)."""
+    rows = [json.loads(x) for x in open(os.path.join(out_dir, "metrics.jsonl"))]
+    rows = [r for r in rows if "loss" in r]
+    if steps is not None:
+        rows = rows[-len(steps):]
+        assert [r["step"] for r in rows] == list(steps)
+    return [r["loss"] for r in rows]
+
+
+@pytest.fixture(scope="module")
+def cross(tmp_path_factory):
+    """4 processes train 6 steps uninterrupted ("straight"); 4 more save at
+    step 2 and die at step 4's commit (`ckpt_commit` die after the tensors'
+    barrier: "saved"). From copies of the saved run's directory: resumes at
+    pp 2 x dp 2 (4 processes, and 2: every stage in each), pp 2 x dp 1 (2)
+    and pp 1 x dp 1 (this process) to step 6, and a resume that saves step 2 again at once
+    (4 processes, "resaved"). Returns {name: directory} and the resumes'
+    losses and return codes."""
+    from tests.test_torch_dp import cli, finish, launch
+    import shutil
+
+    root = tmp_path_factory.mktemp("cross")
+    die = json.dumps({"faults": [{"site": "ckpt_commit", "op": "die", "at_step": 4}]})
+    straight = launch(4, cli(*CROSS, "max_steps=6", "resume=false", f"output_dir={root}/straight"))
+    saved = launch(4, cli(*CROSS, "max_steps=4", "save_steps=2", "resume=false",
+                          f"output_dir={root}/saved"), env={"LPT_FAULT_PLAN": die})
+    out = {"straight_rc": [r[0] for r in finish(straight)],
+           "saved_rc": [r[0] for r in finish(saved)]}
+    legs = {"pp2xdp2": (4, []), "pp2xdp2-2proc": (2, []), "pp2xdp1": (2, DP1),
+            "resaved": (4, ["max_steps=2", "save_final=true"])}
+    procs = {}
+    for name, (n, extra) in legs.items():
+        shutil.copytree(root / "saved", root / name)
+        extra = extra or ["max_steps=6"]
+        procs[name] = launch(n, cli(*CROSS, "resume=true", *extra, f"output_dir={root}/{name}"))
+    shutil.copytree(root / "saved", root / "pp1xdp1")
+    one = t_train.run_training(t_config.load_config(TINY_SMOKE, CROSS + DP1 + [
+        "mesh.pp=1", "max_steps=6", "resume=true", f"output_dir={root}/pp1xdp1"]), device="cpu")
+    for name, ps in procs.items():
+        res = finish(ps)
+        assert [r[0] for r in res] == [0] * len(ps), [r[2][-2000:] for r in res]
+        out[name] = res
+    out["pp1xdp1"] = one
+    return root, out
+
+
+def test_commit_die_leaves_no_complete_checkpoint_and_resume_takes_the_previous(cross):
+    """A `ckpt_commit` die at step 4 (after every process's tensors are
+    durable, before meta.json) kills all four processes and leaves
+    checkpoint-4 without meta.json; latest_step() is 2, which each resume
+    takes."""
+    root, out = cross
+    assert out["straight_rc"] == [0, 0, 0, 0]
+    assert all(rc != 0 for rc in out["saved_rc"]), out["saved_rc"]
+    assert os.path.isdir(root / "saved" / "checkpoint-4")
+    assert not os.path.exists(root / "saved" / "checkpoint-4" / "meta.json")
+    assert t_ckpt.CheckpointManager(str(root / "saved")).latest_step() == 2
+    assert out["pp1xdp1"]["start_step"] == 2
+
+
+@pytest.mark.parametrize("leg", ["pp2xdp2", "pp2xdp2-2proc", "pp2xdp1", "pp1xdp1"])
+def test_checkpoint_of_four_processes_resumes_in_four_two_and_one(cross, leg):
+    """The pp 2 x dp 2 checkpoint at step 2 resumed at pp 2 x dp 2 (4
+    processes, and 2 with every stage in each: its ZeRO-1 slices and the
+    replicas' collectives over the local transport), pp 2 x dp 1 (2) and
+    pp 1 x dp 1 (1) with the same global
+    batch: the losses of steps 3-6 those of the uninterrupted run within
+    1e-5, and the resume logged as the O(1) data position of step 2."""
+    root, _ = cross
+    straight = _metric_losses(root / "straight", range(1, 7))
+    got = _metric_losses(root / leg, range(3, 7))
+    np.testing.assert_allclose(got, straight[2:], rtol=1e-5, atol=1e-5)
+
+
+def test_restore_then_save_at_once_is_byte_equal(cross):
+    """checkpoint-2 restored by four processes (each its stage's rows and its
+    ZeRO-1 slices) and saved again at once (process 0 writing every
+    process's pieces): every
+    tensor of params.safetensors and opt.safetensors byte-equal."""
+    root, _ = cross
+    for name in ("params.safetensors", "opt.safetensors"):
+        a = tensor_io_load(root / "saved" / "checkpoint-2" / name)
+        b = tensor_io_load(root / "resaved" / "checkpoint-2" / name)
+        assert set(a) == set(b) and len(a) > 1
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (name, k)
+
+
+def tensor_io_load(path):
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+
+    return tensor_io.load_file(str(path))
+
+
+def test_topology_meta_across_processes_equals_reference(ref, cross):
+    """meta.json's topology of the pp 2 x dp 2 save has the reference's keys
+    and values for that layout (`_topology_meta` on MeshConfig(pp=2, dp=2)
+    over the virtual mesh), the process count being the four processes'."""
+    root, _ = cross
+    meta = json.load(open(root / "saved" / "checkpoint-2" / "meta.json"))
+    cfg = t_config.load_config(TINY_SMOKE, CROSS)
+    mesh_cfg = ref.mesh.MeshConfig(pp=2, dp=2)
+    rmodel = ref.train.build_model_config(cfg["model"])
+    rman = ref.train.build_manifest(cfg, rmodel, 2)
+    pcfg = ref.train.build_pipeline_config(cfg, mesh_cfg, rman)
+    want = ref.train._topology_meta(ref.mesh.make_mesh(mesh_cfg), pcfg, rman)
+    got = dict(meta["topology"])
+    assert set(got) == set(want)
+    assert got.pop("process_count") == 4 and want.pop("process_count") == 1
+    assert got == want
+    assert meta["data_state"]["global_batch_examples"] == 8

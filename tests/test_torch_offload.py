@@ -390,10 +390,9 @@ def _tiny(tmp_path, name, *overrides):
 
 def _masters(run):
     """The run's fp32 masters in the canonical tree."""
-    if run.host is not None:
-        tree = run.canonical_of(run.host.masters_tree())
-        return {k: v.make() if isinstance(v, tensor_io.Lazy) else v for k, v in tree.items()}
-    return {k: v.detach() for k, v in run.canonical_state()[0].items()}
+    tree = run.canonical_of(run.host.masters_tree() if run.host is not None
+                            else run.state.params)
+    return {k: v.make() if isinstance(v, tensor_io.Lazy) else v.detach() for k, v in tree.items()}
 
 
 @pytest.mark.parametrize("pp", [1, 2])

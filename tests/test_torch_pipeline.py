@@ -377,7 +377,7 @@ def _worker(out_dir: str, schedule: str) -> None:
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-@pytest.mark.parametrize("schedule", ["1f1b", "zb1"])
+@pytest.mark.parametrize("schedule", ["1f1b", "zb1", "gpipe"])
 def test_two_gloo_processes_equal_in_process(tmp_path, schedule):
     """Two processes (torch.distributed.run, gloo), one stage each, against
     the in-process pipeline on the same params and batch: loss, gradient
@@ -419,8 +419,9 @@ def test_barrier_raises_when_a_peer_does_not_arrive(tmp_path):
 
 def test_mesh_config_matches_reference(ref, monkeypatch):
     """MeshConfig's validation and describe() are the reference's; a lone
-    process runs every stage, dp > 1 is refused by name, and so is a process
-    group whose size is not pp."""
+    process runs every stage; dp > 1 in one process is refused, naming the
+    process counts that run it, tp > 1 by name, and so is a process group
+    whose size is neither pp * dp nor dp."""
     for axes in (dict(pp=4), dict(pp=2, dp=2), dict(pp=8, dp=2, tp=2)):
         assert MeshConfig(**axes).describe() == ref.mesh.MeshConfig(**axes).describe()
     for bad in (dict(pp=0), dict(tp=-1)):
@@ -431,8 +432,10 @@ def test_mesh_config_matches_reference(ref, monkeypatch):
     mesh = make_mesh(MeshConfig(pp=4))
     assert (mesh.stages, mesh.rank, mesh.process_count) == ((0, 1, 2, 3), 0, 1)
     assert make_mesh(MeshConfig()).stages == (0,)
-    with pytest.raises(NotImplementedError, match="'dp': 2"):
+    with pytest.raises(ValueError, match="pp\\*dp=4 processes .* or dp=2 processes"):
         make_mesh(MeshConfig(pp=2, dp=2))
+    with pytest.raises(NotImplementedError, match="'tp': 2"):
+        make_mesh(MeshConfig(pp=2, tp=2))
     from llama_pipeline_parallel_tpu_torch.parallel import mesh as t_mesh
 
     monkeypatch.setattr(t_mesh.dist, "is_initialized", lambda: True)
@@ -581,16 +584,23 @@ def test_topology_meta_equals_reference(ref, tmp_path, overrides):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (["pipeline_schedule=gpipe"], NotImplementedError, "gpipe"),
-    (["mesh.dp=2"], NotImplementedError, "'dp': 2"),
+    (["pipeline_schedule=gpipe", "offload={activations: true}"], ValueError,
+     "offload.activations requires a hand-written-backward schedule"),
+    (["mesh.dp=2", "optimizer_offload=true"], NotImplementedError, "optimizer_offload"),
+    (["mesh.dp=2", "optimizer_offload_zero2=true"], NotImplementedError,
+     "optimizer_offload_zero2"),
+    (["mesh.tp=2"], NotImplementedError, "'tp': 2"),
+    (["mesh.sp=2"], NotImplementedError, "'sp': 2"),
     (["offload={wgrad_stash: true}"], ValueError, "offload.wgrad_stash requires schedule: zb1"),
     (["pipeline_schedule=solver", "virtual_stages=2", "offload={wgrad_stash: true}"],
      ValueError, "per-unit offload"),
     (["gradient_accumulation_chunks=3"], ValueError, "must divide"),
 ])
 def test_trainer_refuses_at_pp2(tmp_path, overrides, error, match):
-    """What the pipeline does not run is refused by name: gpipe, dp > 1,
-    the offload block's W-queue tier outside zb1, that tier beside a solver
+    """What the pipeline does not run is refused by name: gpipe with its
+    stage inputs in host memory, the host optimizer at dp > 1 (either
+    layout), tp and sp > 1, the offload block's W-queue tier outside zb1,
+    that tier beside a solver
     sequence (written by the reference's list schedule with half its units
     offloaded), which carries its own per-unit vector, an accumulation-chunk
     count that does not divide the microbatches."""
@@ -604,8 +614,9 @@ def test_trainer_refuses_at_pp2(tmp_path, overrides, error, match):
 
 @pytest.mark.parametrize("key", ["save_steps=2", "save_final=true", "resume=true"])
 def test_trainer_refuses_saves_across_processes(tmp_path, monkeypatch, key):
-    """In a run of more than one process, saving and resuming are refused by
-    name (cross-process checkpoints come with the next slice)."""
+    """In a run of more than one process, saving and resuming are accepted
+    (the checkpoint goes through process 0), except under the host
+    optimizer, whose checkpoints one process writes: refused by name."""
     from llama_pipeline_parallel_tpu_torch.parallel import distributed
 
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
@@ -613,7 +624,8 @@ def test_trainer_refuses_saves_across_processes(tmp_path, monkeypatch, key):
                 "resume=true": "resume"}
     others = [o for o in ("save_steps=0", "save_final=false", "resume=false")
               if o.split("=")[0] != defaults[key]]
-    cfg = _tiny_cfg(tmp_path, "m", key, *others)
+    t_train._check_supported(_tiny_cfg(tmp_path, "m", key, *others))
+    cfg = _tiny_cfg(tmp_path, "m", key, *others, "optimizer_offload=true")
     with pytest.raises(NotImplementedError, match=defaults[key]):
         t_train._check_supported(cfg)
 

@@ -433,8 +433,13 @@ def test_cli_cpu_run_with_kernel_prologue_and_ce_head(tmp_path):
 def test_trainer_refuses_what_it_does_not_run(tmp_path):
     cfg = t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                [f"output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="'dp': 2"):
-        run_training(cfg, device="cpu")  # tiny_smoke is pp=2 dp=2
+    # tiny_smoke is pp=2 dp=2: a replica a process, so one process is refused
+    with pytest.raises(ValueError, match="1 processes for mesh pp2xdp2"):
+        run_training(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="'tp': 2"):
+        run_training(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
+                                          [f"output_dir={tmp_path}", "mesh.tp=2"]),
+                     device="cpu")
     one = ["mesh.pp=1", "mesh.dp=1", f"output_dir={tmp_path}"]
 
     def build(*overrides):
