@@ -215,6 +215,30 @@ which raises on failure:
               not an NCCL figure). (c) checkpoint-N resumed at pp 2 x dp 2 (4
               processes) and at pp 1 x dp 1 in this process: steps N+1, N+2
               within RESUME_LOSS_TOL of the uninterrupted run.
+14. tp    -- pp 2 x tp 2 x dp 2 at LLaMA-65B width across 8 processes
+              (`--tp-worker`) sharing card 0 over gloo, launched after the
+              build: conf/llama_65b_pp8_tp2_dp2.yaml as published (seq 512, 8
+              rows a microbatch, bf16, optimizer_offload with
+              optimizer_offload_zero2) with TP_OVERRIDES: 2 of 80 layers, pp 2,
+              4 microbatches a replica, TP_STEPS steps, flash attention and
+              the prologue kernels. First the prologue and flash kernels at a
+              tp rank's shapes (TP_PRO, TP_FLASH: d 8192, 32 local heads)
+              against their plain versions, with their readings; then one
+              process at pp 2 x tp 1 x dp 1 on the same 64 rows (TP_ONE): its
+              step-1 loss and gradients, and bf16's own distance from fp32
+              there (TP_BF16_ROWS). The 8 ranks: step 1's loss
+              (STEP_LOSS_TOL) and every rank's slices of the dp-reduced
+              gradient (TP_BF16_GRAD_REL_TOL relative) against it, the same
+              gradients with the prologue's tp all-reduce of dhidden skipped
+              (a planted fault, which must read above that limit), one fp32
+              step's gradients (GRAD_REL_TOL), the same finite
+              losses on every rank, each rank's launches exactly its stage's
+              share of the unit grid (no CE kernel: the vocab-parallel head
+              is a plain product), all on the tensor cores; step ms,
+              tokens/s, max_memory_allocated and peak host RSS (sampled) a rank, the
+              gloo staging and collective seconds of the pp, dp and tp groups
+              apart, the host AdamW's ms (all of it this one-card gloo mode,
+              not a multi-card figure).
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -487,6 +511,36 @@ MULTI_ONE = PIPE_OVERRIDES + ["model.num_hidden_layers=4", "mesh.pp=2", "total_s
 MULTI_ONE_PP1 = MULTI_ONE + ["mesh.pp=1"]
 MULTI_CHECK_EVERY = 2
 MULTI_RANKS = 4
+# phase 14 (tp): conf/llama_65b_pp8_tp2_dp2.yaml (the run of record: LLaMA-65B
+# width, seq 512, 8 rows a microbatch, bf16, optimizer_offload with
+# optimizer_offload_zero2, 1F1B without per-layer remat) cut to 2 of 80
+# layers, pp 8 -> 2 (a layer a stage), 256 -> 4 microbatches a replica and
+# TP_STEPS steps, with flash attention and the prologue kernels: pp 2 x tp 2
+# x dp 2 in TP_RANKS processes on card 0 over gloo. TP_ONE is the one-process
+# reference on the same global batch (the two replicas' rows as 8
+# microbatches, tp 1).
+TP_CONFIG = "llama_65b_pp8_tp2_dp2.yaml"
+TP_RANKS = 8
+TP_STEPS = 2
+TP_OVERRIDES = ["model.num_hidden_layers=2", "mesh.pp=2", "gradient_accumulation_steps=4",
+                "attention=flash", "kernels.prologue=pallas", "total_steps=500",
+                "save_steps=0", "save_final=false", "resume=false", "logging_steps=1"]
+TP_ONE = TP_OVERRIDES + ["mesh.tp=1", "mesh.dp=1", "gradient_accumulation_steps=8"]
+# the tight gradient parity runs in fp32 compute, one step at 4 rows a
+# microbatch (fp32 doubles the activations of eight ranks on one card) ...
+TP_FP32 = ["model.dtype=float32", "per_device_train_batch_size=4", "max_steps=1"]
+# ... and bf16's step-1 gradients are held to the one-process bf16 run more
+# loosely: the tp ranks round their partial products to bf16 before summing
+# them, which moved the gradient by 2.04e-2 relative on an H100 (bf16's own
+# distance from fp32 on TP_FP32's rows, one process, is printed beside it:
+# TP_BF16_ROWS). The planted fault (the prologue's dhidden all-reduce over
+# tp skipped) must read above the limit.
+TP_BF16_GRAD_REL_TOL = 5e-2
+TP_BF16_ROWS = ["per_device_train_batch_size=4", "max_steps=1"]
+# the kernels at a tp rank's shapes of LLaMA-65B: the prologue at [8 x 512
+# tokens, d 8192, 32 + 32 + 32 local heads of 128], flash at 32 local heads
+TP_PRO = dict(b=8, s=512, d=8192, h=32, kv=32, pos0=0)
+TP_FLASH = dict(b=8, h=32, h_kv=32, s=512, hd=128)
 
 
 def log(msg: str) -> None:
@@ -666,7 +720,6 @@ def bounds(b, h, s, hd, elem_bytes, pairs: int | None = None, seg_bytes: int = 0
 
 def phase_kernels() -> dict:
     import torch
-    import torch.nn.functional as F
 
     from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
 
@@ -712,6 +765,18 @@ def phase_kernels() -> dict:
               segments_q=None, segments_kv=None)
     errs = kernel_case(fa, q, k, v, do, kw, fp32=False, route=fa.TENSOR_CORE, plant=True)
 
+    return flash_readings(q, k, v, do, kw, errs, "[kernels]")
+
+
+def flash_readings(q, k, v, do, kw, errs: dict, tag: str) -> dict:
+    """The flash kernels' rows of the kernels line on (q, k, v, do): each
+    kernel's and its plain version's device ms, SDPA's (the one-call
+    yardstick), the bound, and `errs` (kernel_case's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+
     out, lse = fa._fwd_cuda(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     bwd_args = (q, k, v, delta, lse, do)
@@ -736,11 +801,12 @@ def phase_kernels() -> dict:
     o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
     del o
-    log(f"[kernels] yardstick F.scaled_dot_product_attention: fwd {sdpa_fwd:.4f} ms, "
+    log(f"{tag} yardstick F.scaled_dot_product_attention: fwd {sdpa_fwd:.4f} ms, "
         f"bwd {sdpa_bwd:.4f} ms, fwd+bwd {sdpa_both:.4f} ms")
     library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
 
-    bound = bounds(c["b"], c["h"], c["s"], c["hd"], 2)
+    b, h, s, hd = q.shape
+    bound = bounds(b, h, s, hd, 2)
     source = "llama_pipeline_parallel_tpu_torch/csrc/flash_attention.cu"
     replaces = {"fwd": "llama_pipeline_parallel_tpu/ops/flash_attention.py:194",
                 "dq": "llama_pipeline_parallel_tpu/ops/flash_attention.py:343",
@@ -1123,7 +1189,6 @@ def phase_prologue() -> dict:
     import torch
 
     from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
-    from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     sass_counts("fused_prologue")
@@ -1145,6 +1210,18 @@ def phase_prologue() -> dict:
     inp = prologue_inputs(**c, dtype=torch.bfloat16, seed=6)
     errs = prologue_case(inp, fp32=False, route=tc, plant=True)
     torch.cuda.empty_cache()
+    return prologue_readings(inp, errs, "[prologue]")
+
+
+def prologue_readings(inp: dict, errs: dict, tag: str) -> dict:
+    """The prologue kernels' rows of the kernels line on `inp`
+    (prologue_inputs): each kernel's and its plain version's device ms,
+    cuBLAS's on the product it computes (the one-call yardstick), the
+    bound, and `errs` (prologue_case's)."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 
     x, nw, cos, sin, hd = inp["x"], inp["norm_w"], inp["cos"], inp["sin"], inp["hd"]
     w = (inp["wq"], inp["wk"], inp["wv"])
@@ -1166,7 +1243,7 @@ def phase_prologue() -> dict:
                "prologue_dw": cuda_ms(lambda: hidden.T @ dy_all)}
     del w_all, dy_all
     torch.cuda.empty_cache()
-    log(f"[prologue] yardsticks (cuBLAS bf16): hidden @ [wq|wk|wv] "
+    log(f"{tag} yardsticks (cuBLAS bf16): hidden @ [wq|wk|wv] "
         f"{library['prologue_fwd']:.4f} ms, [dq|dk|dv] @ [wq|wk|wv]^T "
         f"{library['prologue_dhidden']:.4f} ms, hidden^T @ [dq|dk|dv] "
         f"{library['prologue_dw']:.4f} ms")
@@ -1527,9 +1604,9 @@ def prologue_parity(run, tag: str) -> None:
 
     good = llama.fused_prologue
 
-    def cut_last_q_head(x, norm_w, wq, wk, wv, cos, sin, *, eps, head_dim):
+    def cut_last_q_head(x, norm_w, wq, wk, wv, cos, sin, *, eps, head_dim, **kw):
         wq = torch.cat([wq[:, :-head_dim], torch.zeros_like(wq[:, -head_dim:])], dim=1)
-        return good(x, norm_w, wq, wk, wv, cos, sin, eps=eps, head_dim=head_dim)
+        return good(x, norm_w, wq, wk, wv, cos, sin, eps=eps, head_dim=head_dim, **kw)
 
     llama.fused_prologue = cut_last_q_head  # what decoder_layer calls
     try:
@@ -2942,10 +3019,48 @@ def host_memory() -> tuple[int, int]:
 
 
 def peak_rss_gb() -> float:
-    """This process's peak resident set (VmHWM), GB."""
+    """This process's peak resident set, GB (getrusage's ru_maxrss; a rank
+    started by this script may report this script's peak, which Linux
+    carries across fork and exec: see rss_gb)."""
     import resource
 
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+class PeakRss:
+    """The largest resident set of this process (rss_gb) from its start to
+    `stop`, sampled every `every` seconds on a thread of its own, GB; None
+    where the system does not say. (Not every kernel's /proc has VmHWM,
+    and ru_maxrss may carry the parent's peak across exec.)"""
+
+    def __init__(self, every: float = 0.1):
+        import threading
+
+        self.peak = rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, args=(every,), daemon=True)
+        self._thread.start()
+
+    def _sample(self, every: float) -> None:
+        while not self._stop.wait(every):
+            now = rss_gb()
+            if now is not None and (self.peak is None or now > self.peak):
+                self.peak = now
+
+    def stop(self) -> float | None:
+        self._stop.set()
+        self._thread.join()
+        return self.peak
+
+
+def rss_gb() -> float | None:
+    """This process's resident set now, GB (/proc/self/statm), or None
+    where the system does not say."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+    except (OSError, ValueError, IndexError):
+        return None
 
 
 def release_host_cache() -> None:
@@ -3471,40 +3586,59 @@ def multirank_worker(mode: str, out_dir: str, max_steps: str, resume_dir: str = 
     return 0
 
 
-def launch_ranks(mode: str, out_dir: str, max_steps: int, resume_dir: str = "") -> list:
-    """MULTI_RANKS processes of multirank_worker on card 0 over gloo."""
+def launch_ranks(n: int, worker: list, out_dir: str, mode: str, env: dict | None = None
+                 ) -> list:
+    """`n` processes of this script's `worker` (its flag and arguments) on
+    card 0 over gloo, each told the host's process count (LOCAL_WORLD_SIZE:
+    a host AdamW takes its share of the CPUs), with `env` added; their
+    output goes to rank_log's files."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     procs = []
-    for rank in range(MULTI_RANKS):
-        env = {**os.environ, "LPT_DIST_BACKEND": "gloo", "RANK": str(rank),
-               "LOCAL_RANK": str(rank), "WORLD_SIZE": str(MULTI_RANKS),
-               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--multirank-worker", mode,
-             out_dir, str(max_steps), resume_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+    for rank in range(n):
+        rank_env = {**os.environ, "LPT_DIST_BACKEND": "gloo", "RANK": str(rank),
+                    "LOCAL_RANK": str(rank), "WORLD_SIZE": str(n), "LOCAL_WORLD_SIZE": str(n),
+                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(port), **(env or {})}
+        with rank_log(out_dir, mode, rank) as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), *worker], cwd=ROOT,
+                env=rank_env, stdout=out, stderr=subprocess.STDOUT))
     return procs
 
 
+def rank_log(out_dir: str, mode: str, rank: int):
+    """The file a rank's output goes to (a pipe could fill while the phase
+    waits on another rank)."""
+    return open(os.path.join(out_dir, f"{mode}-rank{rank}.log"), "w")
+
+
 def finish_ranks(tag: str, procs: list, out_dir: str, mode: str, timeout: float = 600) -> list:
-    """Wait for every rank (all killed at the deadline or when one fails);
-    their result dicts in rank order. A rank that fails fails the phase."""
+    """Wait for every rank; all are killed at the deadline or as soon as one
+    fails (its peers would wait in a collective). Their result dicts in rank
+    order. A rank that fails, or is still running at the deadline, fails the
+    phase."""
     deadline = time.monotonic() + timeout
-    outs = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1))
-            outs.append((p.returncode, err))
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
     finally:
         for p in procs:
-            p.kill()
-    bad = [(r, rc, err[-3000:]) for r, (rc, err) in enumerate(outs) if rc != 0]
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = []
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"{mode}-rank{rank}.log")) as f:
+                bad.append((rank, p.returncode, f.read()[-3000:]))
     if bad:
-        raise AssertionError(f"[multirank] {tag}: ranks failed: {bad}")
+        raise AssertionError(f"[{tag}] ranks failed or were killed at the {timeout:.0f} s "
+                             f"deadline: {bad}")
     results = []
     for rank in range(len(procs)):
         with open(os.path.join(out_dir, f"{mode}-rank{rank}.json")) as f:
@@ -3563,7 +3697,8 @@ def phase_multirank() -> None:
     stop_dir = os.path.join(out_dir, "stopped")
     os.makedirs(stop_dir)
     t_a = time.perf_counter()
-    procs = launch_ranks("stop", stop_dir, 16)
+    procs = launch_ranks(MULTI_RANKS, ["--multirank-worker", "stop", stop_dir, "16"], stop_dir,
+                         "stop")
     metrics = os.path.join(stop_dir, "metrics.jsonl")
     deadline = time.monotonic() + 400
     logged = 0
@@ -3599,7 +3734,8 @@ def phase_multirank() -> None:
 
     # (b) the uninterrupted run
     t_b = time.perf_counter()
-    ranks = finish_ranks("run", launch_ranks("run", run_dir, end, stop_dir), run_dir, "run")
+    ranks = finish_ranks("run", launch_ranks(MULTI_RANKS, [
+        "--multirank-worker", "run", run_dir, str(end), stop_dir], run_dir, "run"), run_dir, "run")
     cfg = load_config(config, MULTI_OVERRIDES)
     mcfg = build_model_config(cfg["model"])
     manifest = build_manifest(cfg, mcfg, 2)
@@ -3674,6 +3810,313 @@ def phase_multirank() -> None:
     log(f"[multirank] phase {time.perf_counter() - t0:.1f} s")
 
 
+def tp_worker(out_dir: str, steps: str) -> int:
+    """One rank of the tp phase (RANK / WORLD_SIZE / MASTER_* and
+    LPT_DIST_BACKEND=gloo in its environment): TP_CONFIG with TP_OVERRIDES
+    for `steps` steps through build_run / train_run, the launch counts set
+    to 0 just before the loop and read just after; then, in the same
+    process, one bf16 step with the prologue's dhidden all-reduce over tp
+    skipped (the planted fault) and one step in fp32 (TP_FP32). Each run's
+    step-1 gradients (this rank's slices of the dp-reduced gradient, as the
+    host optimizer receives them) are held against the one-process
+    reference's (`ref_grads_<dtype>.safetensors` in out_dir). Writes
+    `tp-rank<r>.json`."""
+    import gc
+    import logging
+    import types
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.parallel import distributed
+    from llama_pipeline_parallel_tpu_torch.train import train_run
+
+    distributed.initialize_distributed("cuda")
+    rank = distributed.process_index()
+    if rank:
+        logging.getLogger("llama_pipeline_parallel_tpu_torch").setLevel(logging.WARNING)
+    t0 = time.perf_counter()
+    peak_rss = PeakRss()
+    run, result = tp_rank_run(out_dir, TP_OVERRIDES + [f"max_steps={steps}"], "bf16")
+    result.update(rank=rank, build_s=time.perf_counter() - t0)
+    for module in (fa, fc, fp):
+        module.reset_launch_counts()
+    distributed.staging_by.clear()
+    distributed.collective_s.clear()
+    summary = train_run(run)
+    result.update({k: summary[k] for k in ("losses", "step_times", "tokens_per_step")},
+                  launches={**fa.launch_counts, **fc.launch_counts, **fp.launch_counts},
+                  tensor_core={**fa.tensor_core_counts, **fc.tensor_core_counts,
+                               **fp.tensor_core_counts},
+                  peak_bytes=torch.cuda.max_memory_allocated(), rss_gb=rss_gb(),
+                  peak_rss_gb=peak_rss.stop(),
+                  staging_by=dict(distributed.staging_by),
+                  collective_s=dict(distributed.collective_s), host_numel=run.host.numel(),
+                  host_dims=sum(d is not None for d in (run.host.dims or {}).values()))
+    del run, summary
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the planted fault, on every tp peer alike (the same collectives in the
+    # same order): the dhidden of each rank's local columns goes into the
+    # norm backward unsummed
+    run, planted = tp_rank_run(out_dir, TP_OVERRIDES + ["max_steps=1"], "bf16", "planted")
+    fp.distributed = types.SimpleNamespace(all_reduce=lambda t, group=None: t)
+    try:
+        result["planted"] = {**planted, "losses": train_run(run)["losses"]}
+    finally:
+        fp.distributed = distributed
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    run, fp32 = tp_rank_run(out_dir, TP_OVERRIDES + TP_FP32, "fp32")
+    result["fp32"] = {**fp32, "losses": train_run(run)["losses"]}
+    with open(os.path.join(out_dir, f"tp-rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    del run
+    distributed.shutdown()
+    return 0
+
+
+def tp_rank_run(out_dir: str, overrides: list, tag: str, name: str = "") -> tuple:
+    """A tp rank's run of TP_CONFIG with `overrides` (in out_dir's
+    `run-<tag><name>`), its optimizer wrapped: step 1's gradients against
+    `ref_grads_<tag>.safetensors`'s slices of this rank (sums of squares of
+    the difference and of the reference, split and replicated leaves apart),
+    then the host optimizer, whose phases each step records. Returns (run,
+    the record)."""
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.tp import tp_dim
+    from llama_pipeline_parallel_tpu_torch.train import build_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    run = build_run(load_config(os.path.join(ROOT, "conf", TP_CONFIG), overrides + [
+        f"output_dir={out_dir}/run-{tag}{name}"]), "cuda")
+    mesh, sp, host = run.mesh, run.pipeline.stage_params, run.host
+    result: dict = {"stages": list(mesh.stages), "replica": mesh.replica,
+                    "tp_rank": mesh.tp_rank, "host_ms": [],
+                    "grad_sq": {"split": [0.0, 0.0], "whole": [0.0, 0.0]}}
+
+    class Parity:
+        def step(self, params, grads, norm):
+            if not result["host_ms"]:
+                with tensor_io.TensorFile(os.path.join(out_dir,
+                                                       f"ref_grads_{tag}.safetensors")) as f:
+                    ref = pl.flatten_chunks(pl.chunk_views(
+                        {name: f.tensor(name) for name in f.keys()}, run.manifest, sp.stages,
+                        mesh.tp_rank, mesh.tp))
+                    for name, g in grads.items():
+                        # in pieces: eight ranks share the card
+                        r = ref[name].contiguous().view(-1)
+                        kind = "whole" if tp_dim(name, g.dim()) is None else "split"
+                        for a in range(0, r.numel(), 1 << 24):
+                            rc = r[a:a + (1 << 24)].to(g.device).double()
+                            gc = g.view(-1)[a:a + (1 << 24)].double()
+                            result["grad_sq"][kind][0] += float((gc - rc).square().sum())
+                            result["grad_sq"][kind][1] += float(rc.square().sum())
+                        del r, rc, gc
+            lr = host.step(params, grads, norm)
+            result["host_ms"].append(dict(host.last_timings))
+            return lr
+
+    run.state.optimizer = Parity()
+    return run, result
+
+
+def tp_kernels() -> dict:
+    """The prologue and flash kernels at a tp rank's LLaMA-65B shapes
+    (TP_PRO, TP_FLASH) held to their plain versions at PERF.md section 2's
+    limits, and their readings (ms, plain, yardstick, bound)."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    c = TP_PRO
+    log(f"[tp] prologue kernels at a tp rank's shapes: {c['b'] * c['s']} tokens, d={c['d']}, "
+        f"{c['h']} + {c['kv']} + {c['kv']} local heads of 128, bf16, vs the plain version")
+    inp = prologue_inputs(**c, dtype=torch.bfloat16, seed=14)
+    rows = prologue_readings(inp, prologue_case(inp, fp32=False, route=fp.TENSOR_CORE),
+                             "[tp]")
+    del inp
+    torch.cuda.empty_cache()
+    c = TP_FLASH
+    log(f"[tp] flash kernels at a tp rank's shapes: b={c['b']} h={c['h']} s={c['s']} "
+        f"hd={c['hd']} bf16 causal vs the plain version in fp32")
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h_kv"], c["s"], c["s"], c["hd"],
+                              torch.bfloat16, 15)
+    kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=0, kv_offset=0,
+              segments_q=None, segments_kv=None)
+    errs = kernel_case(fa, q, k, v, do, kw, fp32=False, route=fa.TENSOR_CORE)
+    rows.update(flash_readings(q, k, v, do, kw, errs, "[tp]"))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tp() -> None:
+    """pp 2 x tp 2 x dp 2 at LLaMA-65B width in 8 processes on the one card
+    (module docstring, phase 14): the kernels at a tp rank's shapes, the
+    one-process reference's step 1, then the 8 ranks: step 1 against it,
+    launches, and the one-card gloo mode's numbers."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.train import build_run
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    card = card_line()
+    config = os.path.join(ROOT, "conf", TP_CONFIG)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = tp_kernels()
+    log(f"[tp] kernel readings at a tp rank's LLaMA-65B shapes ({card}): "
+        + json.dumps(list(rows.values())))
+
+    # the reference: one process, pp 2 in memory, tp 1, the same global batch,
+    # in bf16 and in fp32
+    ref = {}
+    for tag, extra in (("bf16", []), ("fp32", TP_FP32)):
+        t_ref = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run = build_run(load_config(config, TP_ONE + extra + [f"output_dir={out_dir}/one"]),
+                        "cuda")
+        batch = next(run.batches())
+        sp = run.pipeline.stage_params
+        ref[tag] = run.pipeline.loss_and_grad(batch).item()
+        ref_peak, ref_rss = torch.cuda.max_memory_allocated(), rss_gb()
+        tensor_io.write_file(os.path.join(out_dir, f"ref_grads_{tag}.safetensors"),
+                             sp.to_canonical(sp.grads()))
+        del run, sp, batch
+        release_host_cache()
+        log(f"[tp] one process, pp 2 x tp 1 x dp 1, 8 microbatches, {tag}, step 1: loss "
+            f"{ref[tag]:.6f}; gradients written; max_memory_allocated "
+            f"{ref_peak / 2**30:.2f} GiB, host RSS {ref_rss and round(ref_rss, 2)} GB after the "
+            f"step "
+            f"({time.perf_counter() - t_ref:.1f} s)")
+    # how far bf16 alone moves this model's gradient: one process in bf16 on
+    # the fp32 reference's rows against it
+    t_ref = time.perf_counter()
+    run = build_run(load_config(config, TP_ONE + TP_BF16_ROWS + [f"output_dir={out_dir}/one"]),
+                    "cuda")
+    sp = run.pipeline.stage_params
+    run.pipeline.loss_and_grad(next(run.batches()))
+    grads = sp.to_canonical(sp.grads())
+    with tensor_io.TensorFile(os.path.join(out_dir, "ref_grads_fp32.safetensors")) as f:
+        sq = [0.0, 0.0]
+        for name in f.keys():
+            want = f.tensor(name).to(grads[name].device).double()
+            sq[0] += float((grads[name].double() - want).square().sum())
+            sq[1] += float(want.square().sum())
+            del want
+    bf16_noise = math.sqrt(sq[0] / sq[1])
+    del run, sp, grads
+    release_host_cache()
+    log(f"[tp] one process, tp 1, bf16 against fp32 on the fp32 step's rows (4 a "
+        f"microbatch): gradient rel diff {bf16_noise:.3e}, bf16's own distance from fp32 "
+        f"without tp ({time.perf_counter() - t_ref:.1f} s)")
+
+    t_ranks = time.perf_counter()
+    # expandable segments: eight ranks' caching allocators share 80 GB
+    procs = launch_ranks(TP_RANKS, ["--tp-worker", out_dir, str(TP_STEPS)], out_dir, "tp",
+                         {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks = finish_ranks("tp", procs, out_dir, "tp", timeout=900)
+    losses = ranks[0]["losses"]
+    if any(r["losses"] != losses for r in ranks) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[tp] losses differ across ranks or are not finite: "
+                             f"{[r['losses'] for r in ranks]}")
+    replica0 = [r for r in ranks if r["replica"] == 0]
+
+    def grad_rel(key):
+        """Every rank's slices of every gradient against the reference's:
+        the split leaves of every replica-0 rank, the replicated ones once."""
+        recs = [r if key == "bf16" else r[key] for r in replica0]
+        diff = sum(x["grad_sq"]["split"][0] for x in recs) + sum(
+            x["grad_sq"]["whole"][0] for x in recs if x["tp_rank"] == 0)
+        total = sum(x["grad_sq"]["split"][1] for x in recs) + sum(
+            x["grad_sq"]["whole"][1] for x in recs if x["tp_rank"] == 0)
+        return math.sqrt(diff / total)
+
+    fp32_losses = ranks[0]["fp32"]["losses"]
+    if any(r["fp32"]["losses"] != fp32_losses for r in ranks):
+        raise AssertionError(f"[tp] fp32 losses differ across ranks: "
+                             f"{[r['fp32']['losses'] for r in ranks]}")
+    loss_diff = abs(losses[0] - ref["bf16"])
+    fp32_diff = abs(fp32_losses[0] - ref["fp32"])
+    rel = {tag: grad_rel(tag) for tag in ("bf16", "planted", "fp32")}
+    log(f"[tp] step 1 against one process (pp 2, tp 1, dp 1, the same rows): bf16 loss "
+        f"{losses[0]:.6f} vs {ref['bf16']:.6f}, |diff| {loss_diff:.3e} (tol "
+        f"{STEP_LOSS_TOL}); fp32 (4 rows a microbatch) loss {fp32_losses[0]:.6f} vs "
+        f"{ref['fp32']:.6f}, |diff| {fp32_diff:.3e} (tol {FP32_STEP_LOSS_TOL}), gradient rel "
+        f"diff "
+        f"{rel['fp32']:.3e} (tol {GRAD_REL_TOL}) over every rank's slices; bf16 gradient rel "
+        f"diff {rel['bf16']:.3e} (tol {TP_BF16_GRAD_REL_TOL}; bf16 against fp32 in one "
+        f"process {bf16_noise:.3e}); planted fault (dhidden not summed over tp), bf16: loss "
+        f"{ranks[0]['planted']['losses'][0]:.6f}, gradient rel diff {rel['planted']:.3e}")
+    if not (loss_diff <= STEP_LOSS_TOL and fp32_diff <= FP32_STEP_LOSS_TOL
+            and rel["fp32"] <= GRAD_REL_TOL and rel["bf16"] <= TP_BF16_GRAD_REL_TOL):
+        raise AssertionError(f"[tp] step 1: bf16 loss |diff| {loss_diff}, fp32 loss |diff| "
+                             f"{fp32_diff}, fp32 gradient rel diff {rel['fp32']}, bf16 "
+                             f"gradient rel diff {rel['bf16']}")
+    if not rel["planted"] > TP_BF16_GRAD_REL_TOL:
+        raise AssertionError(f"[tp] the bf16 gradient check passes a planted fault "
+                             f"({rel['planted']})")
+    cfg = load_config(config, TP_OVERRIDES)
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_model_config,
+        build_pipeline_config,
+    )
+
+    manifest = build_manifest(cfg, build_model_config(cfg["model"]), 2)
+    pcfg = build_pipeline_config(cfg, MeshConfig(pp=2, dp=2, tp=2), manifest)
+    us = pl.flush_unit_schedule(pcfg)
+    steps = len(losses)
+    for r in ranks:
+        per_step = pipeline_launches(us, manifest, pcfg.accum_chunks, pcfg.remat,
+                                     stages=tuple(r["stages"]))
+        # the vocab-parallel CE head is a plain product: no CE kernel under tp
+        want = {key: 0 if key.startswith("ce_") else c * steps for key, c in per_step.items()}
+        staged = {k: round(v["seconds"] / steps, 3) for k, v in r["staging_by"].items()}
+        walls = {k: round(v / steps, 3) for k, v in r["collective_s"].items()}
+        host_ms = [round(sum(h.values()), 1) for h in r["host_ms"]]
+        log(f"[tp] rank {r['rank']} (stage {r['stages']}, replica {r['replica']}, tp rank "
+            f"{r['tp_rank']}): launches {r['launches']} (expected {want}); "
+            f"max_memory_allocated {r['peak_bytes'] / 2**30:.2f} GiB; host RSS after the steps "
+            f"{r['rss_gb'] and round(r['rss_gb'], 2)} GB, peak (sampled "
+            f"every 0.1 s) {r['peak_rss_gb'] and round(r['peak_rss_gb'], 2)} GB; host masters {r['host_numel'] / 1e6:.1f} M elements "
+            f"({r['host_dims']} leaves split over dp); gloo staging s a step by group {staged}, "
+            f"collective wall s a step {walls}; host AdamW ms {host_ms}; build "
+            f"{r['build_s']:.1f} s")
+        if r["launches"] != want or r["tensor_core"] != want:
+            raise AssertionError(f"[tp] rank {r['rank']}: launches {r['launches']}, on the "
+                                 f"tensor cores {r['tensor_core']}, expected {want}")
+    step_s = statistics.median(ranks[0]["step_times"][1:] or ranks[0]["step_times"])
+    tokens = ranks[0]["tokens_per_step"]
+    log(f"[tp] {steps} steps, pp 2 x tp 2 x dp 2 in {TP_RANKS} processes sharing one card over "
+        f"gloo (this one-card gloo mode, not a multi-card figure): step "
+        f"{1e3 * step_s:.1f} ms (median of steps 2-{steps}; step 1 "
+        f"{1e3 * ranks[0]['step_times'][0]:.1f}), {tokens / step_s:.0f} tokens/s, {tokens} "
+        f"tokens a step; max_memory_allocated a rank "
+        f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB, "
+        f"{sum(r['peak_bytes'] for r in ranks) / 2**30:.2f} GiB in all; host RSS a rank after "
+        f"the steps {[r['rss_gb'] and round(r['rss_gb'], 2) for r in ranks]} GB, peak (sampled every "
+        f"0.1 s) {[r['peak_rss_gb'] and round(r['peak_rss_gb'], 2) for r in ranks]} GB; "
+        f"losses "
+        f"{[round(x, 5) for x in losses]} (ranks {time.perf_counter() - t_ranks:.1f} s, "
+        f"{card})")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    log(f"[tp] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3703,6 +4146,7 @@ def main() -> int:
     phase_pipeline()
     phase_offload()
     phase_multirank()
+    phase_tp()
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
@@ -3717,4 +4161,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multirank-worker"]:
         sys.exit(multirank_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(*sys.argv[2:]))
     sys.exit(main())

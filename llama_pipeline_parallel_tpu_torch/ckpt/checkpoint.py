@@ -9,8 +9,9 @@ stored in the safetensors layout (ckpt/tensor_io.py) instead of Orbax's:
     <root>/checkpoint-<step>/opt.safetensors      `mu.<name>`, `nu.<name>`,
                                                   `count` (full-state saves only)
     <root>/checkpoint-<step>/opt_m.safetensors    instead of opt.safetensors under the
-    <root>/checkpoint-<step>/opt_v.safetensors    host optimizer (`save_offload`): the
-                                                  moments by name, canonical
+    <root>/checkpoint-<step>/opt_v.safetensors    host optimizer (a ShardedState of its
+                                                  `offload` layout): the moments by
+                                                  name, canonical
     <root>/checkpoint-<step>/meta.json            written last: its presence marks
                                                   a complete checkpoint
     <root>/latest                                 tag naming the newest one
@@ -43,11 +44,11 @@ every process, the `ckpt_commit` fault site fires after it, process 0 alone
 writes the digests, meta.json and the tag, and a second barrier ends the
 commit; an async save stays async (the barriers are on a gloo group of
 their own, so the commit thread waits there while the main thread trains).
-The trainer passes its state as a ckpt/gather.ShardedState: process 0
-writes the files a one-process run reads, one canonical leaf at a time,
-from the pieces every process holds (its own, or sent on request by the
-process that holds them), while the other processes serve those requests.
-Prune runs on process 0 only.
+The trainer passes its state as a ckpt/gather.ShardedState, in one process
+or several, of either optimizer: process 0 writes the files a one-process
+run reads, one canonical leaf at a time, from the pieces every process holds
+(its own, or sent on request by the process that holds them), while the
+other processes serve those requests. Prune runs on process 0 only.
 """
 
 from __future__ import annotations
@@ -84,6 +85,8 @@ OFFLOAD_LAYOUT = "offload_parts"
 OPT_M_FILE = "opt_m.safetensors"
 OPT_V_FILE = "opt_v.safetensors"
 STORAGE = "safetensors"
+# a ShardedState's file roles (ckpt/gather.ShardedState.files)
+_FILES = {"params": PARAMS_FILE, "opt": OPT_FILE, "opt_m": OPT_M_FILE, "opt_v": OPT_V_FILE}
 HF_ROUTE = ("export it to HF with the JAX package's tools/export_hf.py, then convert "
             "that directory with python -m llama_pipeline_parallel_tpu_torch.tools.convert_hf")
 
@@ -158,7 +161,7 @@ def _optimizer_tensors(optimizer: Any) -> dict[str, torch.Tensor]:
     return out
 
 
-def _copy_tensors(targets: dict[str, torch.Tensor], source: Any, what: str) -> None:
+def copy_tensors(targets: dict[str, torch.Tensor], source: Any, what: str) -> None:
     """Copy source[name] into targets[name] in place (on the targets'
     device) for every name, refusing a missing, extra or reshaped tensor.
     `source` needs `keys()` and `[name]` (a dict, or a TensorFile)."""
@@ -391,7 +394,11 @@ class CheckpointManager:
         opt.safetensors. A trainer's state spread over processes (or over
         its stages' chunks) is a gather.ShardedState in place of `params`,
         with no `optimizer`: every process calls `save`, process 0 writes
-        both files from every process's pieces and the others serve them.
+        the files from every process's pieces and the others serve them.
+        The host optimizer's state (a ShardedState of the `offload` layout)
+        takes the `offload_parts` files, and meta.json adds `opt_layout` and
+        `opt_step_count`; its callers save it blocking (the next step
+        updates its masters in place).
 
         `blocking=False`: every tensor is copied to host memory before
         `save` returns (the caller may update its tensors in place at once),
@@ -417,7 +424,8 @@ class CheckpointManager:
             if not blocking:
                 copied = self._to_host("pieces", shards.owned())
                 shards = shards.with_local(copied)
-            items = dict(zip((PARAMS_FILE, OPT_FILE), shards.files())) if writer else {}
+            items = ({_FILES[role]: ts for role, ts in shards.files().items()} if writer
+                     else {})
         else:
             items = {PARAMS_FILE: dict(params)}
             if optimizer is not None:
@@ -432,6 +440,8 @@ class CheckpointManager:
                                            for t in copied.values())}
         meta_extra = {"has_optimizer_state": shards is not None or optimizer is not None,
                       **(extra_meta or {})}
+        if shards is not None and shards.offload:
+            meta_extra.update(opt_layout=OFFLOAD_LAYOUT, opt_step_count=shards.count)
 
         def commit():
             t0 = time.perf_counter()
@@ -472,42 +482,6 @@ class CheckpointManager:
         self._pending = threading.Thread(target=guarded, name=f"ckpt-commit-{step}",
                                          daemon=True)
         self._pending.start()
-        return path
-
-    def save_offload(self, step: int, host: Any, manifest: StageManifest, cfg: LlamaConfig,
-                     canonical: Any = None, keep_last: int | None = None,
-                     extra_meta: dict | None = None) -> str:
-        """The host optimizer's full state (optim/offload.HostOffloadAdamW)
-        in the `offload_parts` layout: params.safetensors from the host
-        masters, then opt_m.safetensors, then opt_v.safetensors, each written
-        leaf by leaf from host memory; meta.json adds `opt_layout` and
-        `opt_step_count`. Always blocking: the next step updates the masters
-        in place. `canonical(tree)` maps the host's tree (named as the run's
-        params) to the canonical one, tensor_io.Lazy entries allowed (None:
-        it is canonical already). `keep_last` and `extra_meta` as in save."""
-        self.finalize()
-        path = self.step_dir(step)
-        canonical = canonical or (lambda tree: tree)
-        t0 = time.perf_counter()
-        if os.path.isdir(path):  # a re-save of this step replaces it whole
-            shutil.rmtree(path)
-        os.makedirs(path)
-        nbytes = 0
-        for filename, tree in ((PARAMS_FILE, host.masters_tree()),
-                               (OPT_M_FILE, host.moments_tree("m")),
-                               (OPT_V_FILE, host.moments_tree("v"))):
-            tensors = canonical(tree)
-            _check_canonical(tensors, manifest)
-            nbytes += tensor_io.write_file(os.path.join(path, filename), tensors)
-        t1 = time.perf_counter()
-        digest_s = self._commit(path, step, manifest, cfg, has_optimizer_state=True,
-                                opt_layout=OFFLOAD_LAYOUT, opt_step_count=int(host.step_count),
-                                **(extra_meta or {}))
-        if keep_last:
-            self.prune(keep_last)
-        self.last_save = {"d2h_s": 0.0, "d2h_bytes": 0, "write_s": t1 - t0,
-                          "digest_s": digest_s, "bytes": nbytes,
-                          "commit_s": time.perf_counter() - t0}
         return path
 
     def _commit(self, path: str, step: int, manifest: StageManifest,
@@ -666,7 +640,7 @@ class CheckpointManager:
         if _verify_default() if verify is None else verify:
             self.verify_everywhere(step)
         self._check_storage(step, self.load_meta(step))
-        copy = copy or _copy_tensors
+        copy = copy or copy_tensors
         self._read(step, PARAMS_FILE,
                    lambda f: copy(params, f, f"checkpoint-{step}/{PARAMS_FILE}"))
         return params
@@ -684,7 +658,7 @@ class CheckpointManager:
         if meta.get("opt_layout") != OFFLOAD_LAYOUT:
             raise ValueError(f"checkpoint-{step} was not written by the offloaded optimizer "
                              f"(opt_layout={meta.get('opt_layout')!r})")
-        copy = copy or _copy_tensors
+        copy = copy or copy_tensors
         for filename, targets in ((OPT_M_FILE, m), (OPT_V_FILE, v)):
             self._read(step, filename, lambda f, targets=targets, filename=filename: copy(
                 targets, f, f"checkpoint-{step}/{filename}"))

@@ -13,7 +13,9 @@ same parameter tree flattened to dotted names:
     lm_head                  [d, V]
 
 Weights keep the JAX `[in, out]` layout (x @ w), so carrying parameters
-across (convert.py) is a copy. Layer leaves carry a leading `num_hidden_layers`
+across (convert.py) is a copy. Under tensor parallelism (`tp_group`) a layer
+holds its tp rank's columns of q/k/v/gate/up and rows of wo/down
+(parallel/tp.py), and its head counts come from those local widths. Layer leaves carry a leading `num_hidden_layers`
 axis; `run_layers` walks it. Params are fp32 masters, cast to `cfg.dtype`
 (bf16) where they are used; logits come out fp32.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +43,7 @@ from llama_pipeline_parallel_tpu_torch.ops.attention import attention
 from llama_pipeline_parallel_tpu_torch.ops.fused_prologue import fused_prologue
 from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 from llama_pipeline_parallel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from llama_pipeline_parallel_tpu_torch.parallel.tp import tp_copy, tp_reduce
 
 Params = dict[str, torch.Tensor]
 AttnFn = Callable[..., torch.Tensor]
@@ -86,17 +90,45 @@ def param_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
     }
 
 
-def init_params(cfg: LlamaConfig, *, device: str | torch.device = "cuda",
-                generator: torch.Generator | None = None) -> Params:
-    """Random init (normal 0.02, HF default; norms at one) in param_dtype."""
-    params = {}
-    for name, shape in param_shapes(cfg).items():
+def init_params(cfg: LlamaConfig, seed: int = 0, *,
+                device: str | torch.device = "cuda") -> Params:
+    """The trainer's init of the whole tree, every leaf drawn by `init_leaf`
+    (normal 0.02, HF default; norms at one) in param_dtype."""
+    return {n: init_leaf(cfg, n, seed, device=device) for n in param_shapes(cfg)}
+
+
+def init_leaf(cfg: LlamaConfig, name: str, seed: int, layers: range | None = None, *,
+              device: str | torch.device = "cuda",
+              cut: Callable[[torch.Tensor], torch.Tensor] | None = None) -> torch.Tensor:
+    """One leaf of the trainer's init (normal 0.02; norms at one) in
+    param_dtype: rows `layers` of a layer leaf (all of them by default) or
+    the whole of another, each row (or the other leaf) drawn whole on
+    `device` from a generator of its own, seeded by (seed, the leaf, the
+    layer), and kept only as far as `cut` keeps it (a tp slice). Every
+    layout of a run therefore draws the same canonical values: joined, the
+    pieces are one process's init."""
+    shape = param_shapes(cfg)[name]
+    layer_leaf = name.startswith("layers.")
+    rows = (layers if layers is not None else range(shape[0])) if layer_leaf else [None]
+    leaf_id = sorted(param_shapes(cfg)).index(name)
+    cut = cut or (lambda t: t)
+    out = None
+    for i, row in enumerate(rows):
+        one = shape[1:] if layer_leaf else shape
         if name.endswith("norm"):
-            params[name] = torch.ones(shape, dtype=cfg.param_dtype, device=device)
+            t = torch.ones(one, dtype=torch.float32, device=device)
         else:
-            params[name] = (torch.randn(shape, generator=generator, device=device)
-                            * 0.02).to(cfg.param_dtype)
-    return params
+            key = np.random.SeedSequence([seed, leaf_id, 0 if row is None else row + 1])
+            g = torch.Generator(device=device).manual_seed(int(key.generate_state(1)[0]))
+            t = torch.randn(one, generator=g, device=device) * 0.02
+        if not layer_leaf:
+            return cut(t).to(cfg.param_dtype).clone()
+        kept = cut(t[None])
+        if out is None:  # filled row by row: no second copy of the leaf
+            out = torch.empty((len(rows),) + tuple(kept.shape[1:]), dtype=cfg.param_dtype,
+                              device=device)
+        out[i] = kept[0]
+    return out
 
 
 class LlamaForCausalLM(nn.Module):
@@ -144,38 +176,43 @@ def decoder_layer(
     cfg: LlamaConfig,
     attn_fn: AttnFn = attention,
     kernel_prologue: bool = False,
+    tp_group=None,
 ) -> torch.Tensor:
     """One transformer block; `layer` holds one layer's leaves under the
     names without the `layers.` prefix (`attn.wq`, ..., `post_norm`).
 
     `kernel_prologue` (config `kernels.prologue: pallas`) runs rms_norm ->
     q/k/v -> RoPE through the fused prologue kernels (ops/fused_prologue.py);
-    otherwise the composed ops run."""
+    otherwise the composed ops run. `tp_group`: column-parallel q/k/v and
+    row-parallel wo over that group, with tp_copy after the norm (inside the
+    fused prologue's backward on the kernel path) and tp_reduce after wo,
+    where the reference places them."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
     if kernel_prologue:
         q, k, v = fused_prologue(x, layer["input_norm"], layer["attn.wq"].to(dt),
                                  layer["attn.wk"].to(dt), layer["attn.wv"].to(dt), cos, sin,
-                                 eps=cfg.rms_norm_eps, head_dim=hd)
+                                 eps=cfg.rms_norm_eps, head_dim=hd, tp_group=tp_group)
     else:
-        hidden = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
+        hidden = tp_copy(rms_norm(x, layer["input_norm"], cfg.rms_norm_eps), tp_group)
         q = (hidden @ layer["attn.wq"].to(dt)).view(b, s, -1, hd)
         k = (hidden @ layer["attn.wk"].to(dt)).view(b, s, -1, hd)
         v = (hidden @ layer["attn.wv"].to(dt)).view(b, s, -1, hd)
         q, k = apply_rope(q, k, cos, sin)
     attn_out = attn_fn(q, k, v, padding_mask, causal=True)
-    x = x + attn_out.reshape(b, s, -1) @ layer["attn.wo"].to(dt)
-    return mlp_block(layer, x, cfg)
+    x = x + tp_reduce(attn_out.reshape(b, s, -1) @ layer["attn.wo"].to(dt), tp_group)
+    return mlp_block(layer, x, cfg, tp_group)
 
 
-def mlp_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Post-norm SwiGLU half of a decoder block."""
+def mlp_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig, tp_group=None) -> torch.Tensor:
+    """Post-norm SwiGLU half of a decoder block (column-parallel gate / up,
+    row-parallel down under `tp_group`)."""
     dt = cfg.dtype
-    hidden = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
+    hidden = tp_copy(rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), tp_group)
     gate = F.silu(hidden @ layer["mlp.gate"].to(dt))
     up = hidden @ layer["mlp.up"].to(dt)
-    return x + (gate * up) @ layer["mlp.down"].to(dt)
+    return x + tp_reduce((gate * up) @ layer["mlp.down"].to(dt), tp_group)
 
 
 def remat_layer(fn: Callable, policy: str = "nothing_saveable") -> Callable:
@@ -211,6 +248,7 @@ def run_layers(
     remat: bool = False,
     kernel_prologue: bool = False,
     remat_policy: str = "nothing_saveable",
+    tp_group=None,
 ) -> torch.Tensor:
     """Apply a stack of layers (leading layer axis on every leaf; names
     without the `layers.` prefix). `remat=True` recomputes each layer in the
@@ -223,7 +261,7 @@ def run_layers(
     per_layer = {name: leaf.unbind(0) for name, leaf in layers.items()}
     for i in range(len(next(iter(per_layer.values())))):
         layer = {name: leaves[i] for name, leaves in per_layer.items()}
-        x = layer_fn(layer, x, padding_mask, cos, sin, cfg, attn_fn, kernel_prologue)
+        x = layer_fn(layer, x, padding_mask, cos, sin, cfg, attn_fn, kernel_prologue, tp_group)
     return x
 
 
@@ -261,6 +299,7 @@ def chunk_hidden(
     remat: bool = False,
     kernel_prologue: bool = False,
     remat_policy: str = "nothing_saveable",
+    tp_group=None,
 ) -> torch.Tensor:
     """The forward of one pipeline chunk (reference: the chunk body of
     parallel/pipeline.py's interpreter): the embedding of `input_ids` when
@@ -274,7 +313,7 @@ def chunk_hidden(
     layers = {name[len("layers."):]: leaf for name, leaf in params.items()
               if name.startswith("layers.")}
     x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue,
-                   remat_policy)
+                   remat_policy, tp_group)
     return final_norm(params, x, cfg) if last else x
 
 
@@ -289,6 +328,7 @@ def hidden_states(
     remat: bool = False,
     kernel_prologue: bool = False,
     remat_policy: str = "nothing_saveable",
+    tp_group=None,
 ) -> torch.Tensor:
     """Single-device forward up to and including the final norm -> [b, s, d]
     in `cfg.dtype`: what the loss head takes.
@@ -298,7 +338,8 @@ def hidden_states(
     cos, sin = rope_tables(input_ids, position_ids, cfg)
     return chunk_hidden(params, None, input_ids, attention_mask, cos, sin, cfg=cfg, first=True,
                         last=True, attn_fn=attn_fn, remat=remat,
-                        kernel_prologue=kernel_prologue, remat_policy=remat_policy)
+                        kernel_prologue=kernel_prologue, remat_policy=remat_policy,
+                        tp_group=tp_group)
 
 
 def forward(

@@ -44,6 +44,7 @@ import torch
 
 from llama_pipeline_parallel_tpu_torch.ops.fused_ce import SIMT, TENSOR_CORE
 from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 
 KERNEL_HEAD_DIMS = (128,)  # head_dim the kernels take: every LLaMA preset's
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -358,11 +359,11 @@ class _KernelPrologue(torch.autograd.Function):
     kernel where a projection weight does. cos and sin get none."""
 
     @staticmethod
-    def forward(ctx, xN, norm_w, wq, wk, wv, cosN, sinN, eps, head_dim):
+    def forward(ctx, xN, norm_w, wq, wk, wv, cosN, sinN, eps, head_dim, tp_group=None):
         xN, wq, wk, wv, cosN, sinN = (t.contiguous() for t in (xN, wq, wk, wv, cosN, sinN))
         q, k, v = _fwd(xN, norm_w, wq, wk, wv, cosN, sinN, eps, head_dim)
         ctx.save_for_backward(xN, norm_w, wq, wk, wv, cosN, sinN)
-        ctx.eps, ctx.head_dim = eps, head_dim
+        ctx.eps, ctx.head_dim, ctx.tp_group = eps, head_dim, tp_group
         return q, k, v
 
     @staticmethod
@@ -372,14 +373,16 @@ class _KernelPrologue(torch.autograd.Function):
         dqN, dkN, dvN = (g.to(xN.dtype).contiguous() for g in (dq, dk, dv))
         dx = dnw = None
         if need[0] or need[1]:
-            dh = _dhidden(dqN, dkN, dvN, wq, wk, wv, cosN, sinN, hd)
+            # the local columns' dhidden in the compute dtype, summed over the
+            # tp ranks before the norm backward (the reference's cast, then psum)
+            dh = distributed.all_reduce(
+                _dhidden(dqN, dkN, dvN, wq, wk, wv, cosN, sinN, hd).to(xN.dtype), ctx.tp_group)
             # the norm backward: the autograd of ops/rmsnorm.py itself
             with torch.enable_grad():
                 xx = xN.detach().requires_grad_(need[0])
                 ww = norm_w.detach().requires_grad_(need[1])
                 wanted = [t for t in (xx, ww) if t.requires_grad]
-                grads = iter(torch.autograd.grad(rms_norm(xx, ww, eps), wanted,
-                                                 dh.to(xN.dtype)))
+                grads = iter(torch.autograd.grad(rms_norm(xx, ww, eps), wanted, dh))
             dx = next(grads) if need[0] else None
             dnw = next(grads) if need[1] else None
         dws = [None] * 3
@@ -387,19 +390,23 @@ class _KernelPrologue(torch.autograd.Function):
             dws = [g.to(w.dtype) if want else None for g, w, want in
                    zip(_dw(xN, norm_w, dqN, dkN, dvN, cosN, sinN, eps, hd), (wq, wk, wv),
                        need[2:5])]
-        return (dx, dnw, *dws, None, None, None, None)
+        return (dx, dnw, *dws, None, None, None, None, None)
 
 
 def fused_prologue(x: torch.Tensor, norm_w: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                    wv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *, eps: float,
-                   head_dim: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   head_dim: int, tp_group=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused rms_norm(x) -> (q|k|v) projection -> RoPE(q, k), on the kernels:
     `pallas_prologue.fused_prologue`'s semantics (`kernels.prologue: pallas`).
 
     x: [b, s, d] in the compute dtype (fp32 or bf16 on the card); norm_w: [d]
     (the fp32 master); wq: [d, h * hd]; wk, wv: [d, kv * hd], in x's dtype;
     cos, sin: [b, s, hd] in x's dtype. Returns q [b, s, h, hd], k and v
-    [b, s, kv, hd] with RoPE applied to q and k.
+    [b, s, kv, hd] with RoPE applied to q and k. Under tensor parallelism
+    the weights are this tp rank's columns and `tp_group` its group: the
+    backward sums the hidden states' gradient over it between the dhidden
+    kernel and the norm backward (the reference's tp_axis psum); the kernels
+    run at the local widths.
     """
     b, s, d = x.shape
     if wq.shape[1] % head_dim or wk.shape[1] % head_dim:
@@ -412,6 +419,6 @@ def fused_prologue(x: torch.Tensor, norm_w: torch.Tensor, wq: torch.Tensor, wk: 
     n = b * s
     q, k, v = _KernelPrologue.apply(x.reshape(n, d), norm_w, wq, wk, wv,
                                     cos.reshape(n, head_dim), sin.reshape(n, head_dim), eps,
-                                    head_dim)
+                                    head_dim, tp_group)
     return (q.view(b, s, -1, head_dim), k.view(b, s, -1, head_dim),
             v.view(b, s, -1, head_dim))

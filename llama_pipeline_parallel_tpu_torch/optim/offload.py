@@ -47,6 +47,20 @@ first leaf's AdamW need not wait for every gradient to come down; otherwise
 pieces' sums of squares added in order) and again for the update, which
 keeps host memory at two slots rather than a full gradient tree.
 
+Data parallelism (dp > 1): the gradients the step reads are already summed
+over the replicas. Without `dims` every replica keeps its whole leaves and
+applies the same update (the replicated layout). With `dims` (the ZeRO-2
+layout, `optimizer_offload_zero2`; the reference's `zero2_param_specs`,
+whose placement is ZeRO-1's, optim/optimizer.zero1_dims) each replica keeps
+of a split leaf only its 1/dp slice of the masters and moments, brings down
+only that slice of the gradient, steps it, uploads its slice of the working
+copy and all-gathers the leaf over `group` (the stage's dp group) once a
+step; a leaf with no dim dp divides is kept whole on every replica. The
+host-path norm counts each element once over the processes:
+`counts_in_norm(name)` says whether this process counts a leaf (its own
+slice, or a whole leaf on one replica and one tp rank), and `reduce_norm_sq`
+adds the processes' sums.
+
 `bind_fp32_grads` lets a model run on the working copy while each
 parameter's gradient accumulates in fp32 on the card, over its microbatches
 in order, as it does into the fp32 masters' `.grad` on the on-device path.
@@ -62,16 +76,18 @@ import os
 import subprocess
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from llama_pipeline_parallel_tpu_torch.ops import kernel_build
 from llama_pipeline_parallel_tpu_torch.optim.optimizer import (
     OptimizerConfig,
+    dp_part,
     global_norm,
     warmup_decay_schedule,
 )
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -152,7 +168,12 @@ def load_native() -> ctypes.CDLL:
 
 
 def default_threads() -> int:
-    return len(os.sched_getaffinity(0))
+    """This process's share of the CPUs it may run on: the affinity divided
+    by the processes of the run on this host (LOCAL_WORLD_SIZE, which
+    torch.distributed.run sets), so that several ranks do not each start a
+    team of every core."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE") or 1)
+    return max(1, len(os.sched_getaffinity(0)) // max(local, 1))
 
 
 def adamw_plain(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
@@ -242,12 +263,26 @@ class HostOffloadAdamW:
     `update` steps without refreshing. `last_timings` holds the last step's
     phases in ms, `last_grad_norm` and `last_lr` its norm and learning rate.
     `reduce_norm_sq` adds a host-path norm's square over processes (None:
-    this process holds every leaf)."""
+    this process holds every leaf) and `counts_in_norm` picks the leaves
+    this process adds (None: all). `dims` (the ZeRO-2 layout: a dim a leaf,
+    None for a whole leaf), `dp`, `index` and `group`: this replica's slices
+    (module docstring); the masters and moments are then the slices, while
+    the gradients and the working copy stay whole leaves."""
 
     cfg: OptimizerConfig
     device_norm: bool = False
     threads: int | None = None
     reduce_norm_sq: Callable[[float], float] | None = None
+    counts_in_norm: Callable[[str], bool] | None = None
+    dims: dict[str, int | None] | None = None
+    dp: int = 1
+    index: int = 0
+    group: Any = None
+
+    def part(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This replica's slice of a whole leaf `t` (a view; `t` itself
+        outside the ZeRO-2 layout or where the leaf is not split)."""
+        return dp_part(t, (self.dims or {}).get(name), self.dp, self.index)
 
     def init(self, params: Params) -> None:
         self._native = load_native()
@@ -256,9 +291,10 @@ class HostOffloadAdamW:
         self.m: Params = {}
         self.v: Params = {}
         for name, t in params.items():  # one leaf at a time: the card frees as it goes
-            self.masters[name] = t.detach().to("cpu", torch.float32, copy=True).contiguous()
-            self.m[name] = torch.zeros(t.shape, dtype=torch.float32)
-            self.v[name] = torch.zeros(t.shape, dtype=torch.float32)
+            part = self.part(name, t.detach())
+            self.masters[name] = part.to("cpu", torch.float32, copy=True).contiguous()
+            self.m[name] = torch.zeros(part.shape, dtype=torch.float32)
+            self.v[name] = torch.zeros(part.shape, dtype=torch.float32)
         self.step_count = 0
         self._schedule = warmup_decay_schedule(self.cfg.learning_rate, self.cfg.total_steps,
                                                self.cfg.warmup_steps)
@@ -278,15 +314,18 @@ class HostOffloadAdamW:
 
     # -- master access ----------------------------------------------------
 
-    def _check_tree(self, tree) -> None:
+    def _check_tree(self, tree, whole: bool = False) -> None:
+        """`tree` has the masters' names and shapes (`whole`: whole leaves,
+        of which the masters are this replica's slices)."""
         names = set(tree.keys())
         if names != set(self.masters):
             raise ValueError(f"tree does not match the initialized param tree: "
                              f"{sorted(names ^ set(self.masters))} are not in both")
         for name, t in self.masters.items():
-            if tuple(tree[name].shape) != tuple(t.shape):
+            got = self.part(name, tree[name]) if whole else tree[name]
+            if tuple(got.shape) != tuple(t.shape):
                 raise ValueError(f"tree does not match the initialized param tree: {name} is "
-                                 f"{tuple(tree[name].shape)}, initialized {tuple(t.shape)}")
+                                 f"{tuple(got.shape)}, initialized {tuple(t.shape)}")
 
     @torch.no_grad()
     def _load(self, targets: Params, tree) -> None:
@@ -383,17 +422,46 @@ class HostOffloadAdamW:
         new tensors (`dtype` and `device` then are `out`'s)."""
         t0 = time.perf_counter()
         if out is None:
-            out = {name: torch.empty(t.shape, dtype=dtype, device=device)
-                   for name, t in self.masters.items()}
+            out = {name: torch.empty(self._whole_shape(name), dtype=dtype, device=device)
+                   for name in self.masters}
         else:
-            self._check_tree(out)
+            self._check_tree(out, whole=True)
         device = next(iter(out.values())).device
         up = self._begin(device)
+        targets = self._upload_targets(out)
         for i, piece in enumerate(self._pieces()):
-            self._upload(i, piece, out[piece[0]], up)
+            self._upload(i, piece, targets[piece[0]], up)
         self._end(device, up)
+        self._gather(out, targets)
         self.last_timings["h2d_ms"] = 1e3 * (time.perf_counter() - t0)
         return out
+
+    def _whole_shape(self, name: str) -> tuple[int, ...]:
+        shape = list(self.masters[name].shape)
+        dim = (self.dims or {}).get(name)
+        if dim is not None:
+            shape[dim] *= self.dp
+        return tuple(shape)
+
+    def _upload_targets(self, working: Params) -> Params:
+        """Where each leaf's stepped slice is uploaded: the working leaf
+        itself when it is whole here, else a buffer of the slice beside it
+        (gathered into the leaf by `_gather`)."""
+        return {name: w if self.part(name, w) is w else
+                torch.empty(self.masters[name].shape, dtype=w.dtype, device=w.device)
+                for name, w in working.items()}
+
+    def _gather(self, working: Params, targets: Params) -> None:
+        """Each split leaf of the working copy from every replica's slice,
+        all-gathered over the dp group (after the uploads: `_end`)."""
+        for name, w in working.items():
+            part = targets[name]
+            if part is w:
+                continue
+            dim = self.dims[name]
+            n = part.shape[dim]
+            for j, got in enumerate(distributed.all_gather(part, self.group)):
+                w.narrow(dim, j * n, n).copy_(got)
 
     def _begin(self, device: torch.device):
         """The upload stream, ordered after every kernel queued so far on the
@@ -410,31 +478,38 @@ class HostOffloadAdamW:
         if up is not None:
             torch.cuda.current_stream(device).wait_stream(up)
 
-    def _grads_down(self, grads: Params):
+    def _grads_down(self, grads: Params, names=None):
         """Yields (i, piece, the piece's host fp32 gradient, flat) piece by
-        piece: on the card each through pinned slot i % SLOTS, the next
-        piece's copy queued on the download stream before this one is handed
-        out; on the CPU a view of the gradient itself."""
+        piece (of the leaves in `names`, default all), each of this
+        replica's slice of the leaf: on the card each through pinned slot i %
+        SLOTS, the next piece's copy queued on the download stream before
+        this one is handed out (a split leaf's slice made contiguous on that
+        stream first); on the CPU a view of the gradient itself."""
         for name, g in grads.items():
             if g.dtype != torch.float32:
                 raise ValueError(f"{name}: the host AdamW takes fp32 gradients, got {g.dtype}")
-        pieces = self._pieces()
+        pieces = [p for p in self._pieces() if names is None or p[0] in names]
         first = grads[pieces[0][0]] if pieces else None
         if first is None or not first.is_cuda:
             for i, (name, a, b) in enumerate(pieces):
-                yield i, (name, a, b), grads[name].detach().contiguous().view(-1)[a:b]
+                g = self.part(name, grads[name].detach())
+                yield i, (name, a, b), g.contiguous().view(-1)[a:b]
             return
         device = first.device
         down = self._stream("down", device)
         down.wait_stream(torch.cuda.current_stream(device))
         staging = self._down_staging()
         events = {}
+        sources: dict[str, torch.Tensor] = {}
 
         def fetch(i):
             name, a, b = pieces[i]
             slot = staging.take(i, b - a)
             with torch.cuda.stream(down):
-                slot.copy_(grads[name].view(-1)[a:b], non_blocking=True)
+                if name not in sources:  # the leaf's slice, made on (and freed by) this stream
+                    sources.clear()
+                    sources[name] = self.part(name, grads[name]).contiguous()
+                slot.copy_(sources[name].view(-1)[a:b], non_blocking=True)
             events[i] = (slot, staging.copied(i, down))
 
         fetch(0)
@@ -461,8 +536,10 @@ class HostOffloadAdamW:
     def _host_norm(self, grads: Params) -> float:
         """The fp64 global norm of `grads`, streamed down once, piece by piece
         in order (added over processes by `reduce_norm_sq`)."""
+        names = None if self.counts_in_norm is None else {
+            name for name in self.masters if self.counts_in_norm(name)}
         norm_sq = 0.0
-        for _, _, g in self._grads_down(grads):
+        for _, _, g in self._grads_down(grads, names):
             self._team(g.numel())
             norm_sq += self._native.l2_norm_sq(_ptr(g), g.numel())
         if self.reduce_norm_sq is not None:
@@ -482,7 +559,7 @@ class HostOffloadAdamW:
     def update(self, grads: Params) -> None:
         """One clipped AdamW step of every master (host-path norm), without
         refreshing a working copy."""
-        self._check_tree(grads)
+        self._check_tree(grads, whole=True)
         t0 = time.perf_counter()
         lr, grad_scale = self._clip_and_advance(self._host_norm(grads))
         t1 = time.perf_counter()
@@ -502,8 +579,8 @@ class HostOffloadAdamW:
         None) and phases read `norm_ms` / `stream_d2h_update_h2d_ms`;
         otherwise from the host fp64 norm, `d2h_norm_ms` / `update_h2d_ms`.
         Returns `working`."""
-        self._check_tree(grads)
-        self._check_tree(working)
+        self._check_tree(grads, whole=True)
+        self._check_tree(working, whole=True)
         t0 = time.perf_counter()
         if self.device_norm:
             if norm is None:
@@ -515,10 +592,12 @@ class HostOffloadAdamW:
         t1 = time.perf_counter()
         device = next(iter(working.values())).device
         up = self._begin(device)
+        targets = self._upload_targets(working)
         for i, piece, g in self._grads_down(grads):
             self._apply(piece, g, lr, grad_scale)
-            self._upload(i, piece, working[piece[0]], up)
+            self._upload(i, piece, targets[piece[0]], up)
         self._end(device, up)
+        self._gather(working, targets)
         t2 = time.perf_counter()
         phases = (("norm_ms", "stream_d2h_update_h2d_ms") if self.device_norm
                   else ("d2h_norm_ms", "update_h2d_ms"))

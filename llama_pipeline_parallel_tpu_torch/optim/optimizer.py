@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
+from llama_pipeline_parallel_tpu_torch.parallel.tp import tp_dim
 
 Schedule = Callable[[int], float]
 
@@ -144,26 +145,47 @@ class AdamW:
         return lr
 
 
-def zero1_dim(shape: tuple[int, ...], dp: int) -> int | None:
+def zero1_dim(shape: tuple[int, ...], dp: int, skip: int | None = None) -> int | None:
     """The dim a leaf's Adam moments are split over dp on (ZeRO-1): the
-    rightmost one that dp divides, else None (the moments stay replicated).
-    The reference's `_zero1_leaf_spec` (parallel/train_step.py) on a leaf
-    of this package's layout: a chunk's layer leaves are [k, ...], the
-    reference's stage-stacked [S, k, ...] without the stage dim it never
-    splits, and the embedding, norm and lm_head are the same there."""
+    rightmost one that dp divides, other than `skip` (the dim tp already
+    splits), else None (the moments stay replicated). The reference's
+    `_zero1_leaf_spec` (parallel/train_step.py) on a leaf of this package's
+    layout: a chunk's layer leaves are [k, ...], the reference's
+    stage-stacked [S, k, ...] without the stage dim it never splits, and the
+    embedding, norm and lm_head are the same there; a tp rank's slice has
+    the global sizes on every dim but `skip`, which the reference never
+    picks."""
     if dp == 1:
         return None
     for dim in range(len(shape) - 1, -1, -1):
-        if shape[dim] % dp == 0:
+        if dim != skip and shape[dim] % dp == 0:
             return dim
     return None
+
+
+def zero1_dims(shapes: dict[str, tuple[int, ...]], dp: int, tp: int = 1
+               ) -> dict[str, int | None]:
+    """zero1_dim of each leaf (named canonically or as a chunk's), skipping
+    the dim tp splits when tp > 1 (parallel/tp.tp_dim)."""
+    return {name: zero1_dim(shape, dp, tp_dim(name, len(shape)) if tp > 1 else None)
+            for name, shape in shapes.items()}
+
+
+def dp_part(t: torch.Tensor, dim: int | None, dp: int, index: int) -> torch.Tensor:
+    """Replica `index`'s slice of `t` on `dim` among `dp` (a view; `t`
+    itself when `dim` is None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // dp
+    return t.narrow(dim, index * n, n)
 
 
 class Zero1AdamW(AdamW):
     """AdamW with ZeRO-1 moments: replica `index` of `dp` holds, of each
     leaf, the slice of mu and nu on zero1_dim (1/dp of the leaf's moment
     bytes), updates that slice of the fp32 masters, then all-gathers the
-    masters over `group` (the stage's dp group). The gradients it reads are
+    masters over `group` (the stage's dp group). Under tp (`tp` > 1) the
+    leaves are a tp rank's slices and the split never takes the tp dim. The gradients it reads are
     already summed over dp, so every replica computes the same update of its
     slice as the replicated AdamW, element for element: the masters are
     bit-equal to that AdamW's. A leaf with no dim dp divides is updated
@@ -173,17 +195,13 @@ class Zero1AdamW(AdamW):
     (AdamW.load_state_dict through _part)."""
 
     def __init__(self, params: dict[str, torch.Tensor], cfg: OptimizerConfig, dp: int,
-                 index: int, group):
+                 index: int, group, tp: int = 1):
         self.dp, self.index, self.group = dp, index, group
-        self.dims = {k: zero1_dim(tuple(p.shape), dp) for k, p in params.items()}
+        self.dims = zero1_dims({k: tuple(p.shape) for k, p in params.items()}, dp, tp)
         super().__init__(params, cfg)
 
     def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        dim = self.dims[name]
-        if dim is None:
-            return t
-        n = t.shape[dim] // self.dp
-        return t.narrow(dim, self.index * n, n)
+        return dp_part(t, self.dims[name], self.dp, self.index)
 
     def _gather(self, name: str, part: torch.Tensor, out: torch.Tensor) -> None:
         """The full leaf into `out` from every replica's `part`."""

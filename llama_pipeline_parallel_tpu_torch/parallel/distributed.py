@@ -45,8 +45,12 @@ ENV_BACKEND = "LPT_DIST_BACKEND"
 # the gloo groups of initialize_distributed: main-thread host traffic and the
 # commit's barriers (None until then, and in a lone process)
 _groups: dict[str, object] = {}
-# what staging CUDA tensors through host memory for gloo has cost so far
+# what staging CUDA tensors through host memory for gloo has cost so far, in
+# all and by group label; the wall seconds of the collectives by group label
 staging = {"seconds": 0.0, "bytes": 0}
+staging_by: dict[str, dict] = {}
+collective_s: dict[str, float] = {}
+_labels: dict = {}
 
 
 class BarrierTimeoutError(RuntimeError):
@@ -122,36 +126,61 @@ def commit_group():
     return _groups.get("commit")
 
 
+def label_group(group, label: str) -> None:
+    """Name `group` in `staging_by` and `collective_s`."""
+    if group is not None:
+        _labels[group] = label
+
+
+def _label(group) -> str:
+    return _labels.get(group, "other")
+
+
 def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _to_host(t: torch.Tensor) -> torch.Tensor:
+def _count(group, t0: float, nbytes: int) -> None:
+    seconds = time.perf_counter() - t0
+    staging["seconds"] += seconds
+    staging["bytes"] += nbytes
+    by = staging_by.setdefault(_label(group), {"seconds": 0.0, "bytes": 0})
+    by["seconds"] += seconds
+    by["bytes"] += nbytes
+
+
+def _to_host(t: torch.Tensor, group=None) -> torch.Tensor:
     t0 = time.perf_counter()
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     out.copy_(t)
-    staging["seconds"] += time.perf_counter() - t0
-    staging["bytes"] += t.numel() * t.element_size()
+    _count(group, t0, t.numel() * t.element_size())
     return out
 
 
-def _from_host(t: torch.Tensor, host: torch.Tensor) -> None:
+def _from_host(t: torch.Tensor, host: torch.Tensor, group=None) -> None:
     t0 = time.perf_counter()
     t.copy_(host)
-    staging["seconds"] += time.perf_counter() - t0
-    staging["bytes"] += t.numel() * t.element_size()
+    _count(group, t0, t.numel() * t.element_size())
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum `t` over `group` in place (None: nothing to reduce) and return it."""
+def _timed(group, t0: float) -> None:
+    label = _label(group)
+    collective_s[label] = collective_s.get(label, 0.0) + time.perf_counter() - t0
+
+
+def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce `t` over `group` in place by `op` (the sum by default; None:
+    nothing to reduce) and return it."""
     if group is None:
         return t
+    t0 = time.perf_counter()
     if _staged(t, group):
-        host = _to_host(t)
-        dist.all_reduce(host, group=group)
-        _from_host(t, host)
+        host = _to_host(t, group)
+        dist.all_reduce(host, op=op, group=group)
+        _from_host(t, host, group)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
+    _timed(group, t0)
     return t
 
 
@@ -159,28 +188,32 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """`t` from global rank `src` to every process of `group`, in place."""
     if group is None:
         return t
+    t0 = time.perf_counter()
     if _staged(t, group):
-        host = _to_host(t)
+        host = _to_host(t, group)
         dist.broadcast(host, src=src, group=group)
-        _from_host(t, host)
+        _from_host(t, host, group)
     else:
         dist.broadcast(t, src=src, group=group)
+    _timed(group, t0)
     return t
 
 
 def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     """Every process of `group`'s `t` (same shape everywhere), in group rank
     order, on `t`'s device."""
+    t0 = time.perf_counter()
     staged = _staged(t, group)
-    src = _to_host(t) if staged else t.contiguous()
+    src = _to_host(t, group) if staged else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    if not staged:
-        return parts
-    out = [torch.empty_like(t) for _ in parts]
-    for o, p in zip(out, parts):
-        _from_host(o, p)
-    return out
+    if staged:
+        out = [torch.empty_like(t) for _ in parts]
+        for o, p in zip(out, parts):
+            _from_host(o, p, group)
+        parts = out
+    _timed(group, t0)
+    return parts
 
 
 def batch_p2p(sends: list[tuple[torch.Tensor, int, int]],
@@ -188,11 +221,12 @@ def batch_p2p(sends: list[tuple[torch.Tensor, int, int]],
     """Post every (tensor, global peer rank, tag) send and receive together
     (`dist.batch_isend_irecv`) and wait for all of them; receives land in
     their tensors."""
+    t0 = time.perf_counter()
     staged = any(_staged(t, group) for t, _, _ in sends + recvs)
     ops, landing = [], []
     for t, peer, tag in sends:
-        ops.append(dist.P2POp(dist.isend, _to_host(t) if staged else t, peer, group=group,
-                              tag=tag))
+        ops.append(dist.P2POp(dist.isend, _to_host(t, group) if staged else t, peer,
+                              group=group, tag=tag))
     for t, peer, tag in recvs:
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if staged else t
         landing.append((t, buf))
@@ -203,7 +237,8 @@ def batch_p2p(sends: list[tuple[torch.Tensor, int, int]],
         work.wait()
     if staged:
         for t, buf in landing:
-            _from_host(t, buf)
+            _from_host(t, buf, group)
+    _timed(group, t0)
 
 
 def should_stop(local_flag: bool) -> bool:

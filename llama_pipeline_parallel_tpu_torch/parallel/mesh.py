@@ -7,20 +7,24 @@ validation and `describe()`) and a `Mesh` that knows the pipeline's size,
 the stages this process runs, its data-parallel replica and the process
 groups it talks over:
 
-- one process (dp = 1): every stage in this process, handing tensors over
-  in memory (parallel/pipeline.LocalTransport), on one device;
-- `world == pp * dp`: one stage per process. Rank r runs stage `r // dp` of
-  replica `r % dp` (the reference's device order), its stages talk over
+- one process (dp = tp = 1): every stage in this process, handing tensors
+  over in memory (parallel/pipeline.LocalTransport), on one device;
+- `world == pp * dp * tp` with pp > 1: one (stage, replica, tp rank) per
+  process, in the reference's row-major `(pp, dp, sp, tp)` device order:
+  rank `(stage * dp + replica) * tp + t`; stages talk over
   `torch.distributed` point-to-point (parallel/pipeline.DistTransport);
-- `world == dp` with pp > 1: every stage in each process over the local
-  transport, one replica a process.
+- `world == dp * tp` (pp = 1 under tp > 1): every stage in each process over
+  the local transport, one (replica, tp rank) a process, rank
+  `replica * tp + t`.
 
 The groups are built once, on every process in the same order: this
-replica's pp group (the stage handoffs, the gradient norm's stage sums, the
-loss from the last stage), this stage's dp group (the gradient and ZeRO-1
-collectives, the valid-target count) and, for the stop vote, the whole world
-(parallel/distributed.py). A group of one process is None: nothing to
-reduce. tp and sp > 1, and any other process count, are refused by name.
+replica's pp group of its tp rank (the stage handoffs, the gradient norm's
+stage sums, the loss from the last stage), this stage's dp group of its tp
+rank (the gradient and ZeRO-1 collectives, the valid-target count), this
+stage's tp group of its replica (parallel/tp.py's collectives) and, for the
+stop vote, the whole world (parallel/distributed.py). A group of one process
+is None: nothing to reduce. sp > 1, and any other process count, are refused
+by name.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import dataclasses
 from typing import Any
 
 import torch.distributed as dist
+
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
 
 AXIS_PP = "pp"
 AXIS_DP = "dp"
@@ -65,10 +71,12 @@ class Mesh:
     """The layout as this process sees it: `stages` are the pipeline stages
     it runs, `replica` its data-parallel replica, `rank` and
     `process_count` its place in the process group (0 and 1 alone).
-    `pp_ranks[s]` is the global rank that runs stage s of this replica
-    (under one stage a process); `pp_group` / `dp_group` are the process
-    groups of this replica's stages and of this stage's replicas, None
-    where the group is this process alone."""
+    `pp_ranks[s]` is the global rank that runs stage s of this replica at
+    this tp rank (under one stage a process); `pp_group` / `dp_group` /
+    `tp_group` are the process groups of this replica's stages, of this
+    stage's replicas and of this stage's tp ranks, None where the group is
+    this process alone; `tp_rank` is this process's place among its tp
+    ranks."""
 
     config: MeshConfig
     stages: tuple[int, ...]
@@ -78,6 +86,8 @@ class Mesh:
     pp_ranks: tuple[int, ...] = ()
     pp_group: Any = None
     dp_group: Any = None
+    tp_rank: int = 0
+    tp_group: Any = None
 
     @property
     def pp(self) -> int:
@@ -88,67 +98,102 @@ class Mesh:
         return self.config.dp
 
     @property
+    def tp(self) -> int:
+        return self.config.tp
+
+    @property
     def in_process(self) -> bool:
         """Whether every stage runs in this process."""
         return len(self.stages) == self.pp
 
-    def rank_of(self, stage: int, replica: int) -> int:
-        """The process that runs `stage` of `replica`."""
+    def rank_of(self, stage: int, replica: int, tp_rank: int = 0) -> int:
+        """The process that runs `stage` of `replica` at `tp_rank`."""
         if self.process_count == 1:
             return 0
-        return replica if self.in_process else stage * self.dp + replica
+        stage = 0 if self.in_process else stage
+        return (stage * self.dp + replica) * self.tp + tp_rank
 
 
 def layout_for(config: MeshConfig, world: int) -> str:
     """Which layout `world` processes run `config` in: "in_process" (one
-    process, dp = 1), "stage_per_process" (world = pp * dp, pp > 1),
-    "replica_per_process" (world = dp > 1); refuses tp / sp > 1 and any
-    other process count by name."""
-    other = {ax: n for ax, n in config.axis_sizes().items() if ax in (AXIS_TP, AXIS_SP) and n != 1}
-    if other:
+    process, dp = tp = 1), "stage_per_process" (world = pp * dp * tp, pp >
+    1), "replica_per_process" (world = dp * tp, every stage in each process;
+    pp = 1 under tp > 1); refuses sp > 1 and any other process count by
+    name."""
+    if config.sp != 1:
         raise NotImplementedError(
-            f"not ported yet: {other} of {config.describe()} (tensor and sequence parallelism "
-            f"come with later slices; this package runs pp x dp)")
-    if world == 1 and config.dp == 1:
+            f"not ported yet: {{'sp': {config.sp}}} of {config.describe()} (sequence "
+            f"parallelism comes with a later slice; this package runs pp x tp x dp)")
+    pp, dp, tp = config.pp, config.dp, config.tp
+    if world == 1 and dp == 1 and tp == 1:
         return "in_process"
-    if config.pp > 1 and world == config.pp * config.dp:
+    if pp > 1 and world == pp * dp * tp:
         return "stage_per_process"
-    if world == config.dp:
+    if world == dp * tp and (pp == 1 or tp == 1):
         return "replica_per_process"
+    axes = "dp" if tp == 1 else "dp*tp"
+    ways = [f"pp*{axes}={pp * dp * tp} processes (one stage each)"]
+    if pp == 1 and tp > 1:
+        ways = [f"{axes}={dp * tp} processes"]
+    elif pp > 1 and tp == 1:
+        ways.append(f"dp={dp} processes (every stage in each)")
     raise ValueError(
-        f"{world} processes for mesh {config.describe()}: run it in pp*dp={config.pp * config.dp} "
-        f"processes (one stage each)"
-        + (f" or dp={config.dp} processes (every stage in each)" if config.pp > 1 else "")
+        f"{world} processes for mesh {config.describe()}: run it in " + " or ".join(ways)
         + (" under python -m torch.distributed.run" if world == 1 else "")
-        + ("; dp=1 also runs in one process" if config.dp == 1 else ""))
+        + ("; dp=1 also runs in one process" if dp == 1 and tp == 1 else ""))
 
 
 def make_mesh(config: MeshConfig) -> Mesh:
     """The layout for this process (layout_for), with its process groups.
     Every process of the group must call it at the same point: the groups
-    are created collectively."""
+    are created collectively, all of them on every process in one order."""
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     layout = layout_for(config, world)
     if layout == "in_process":
         return Mesh(config=config, stages=tuple(range(config.pp)))
     rank = dist.get_rank()
-    pp, dp = config.pp, config.dp
-    if layout == "replica_per_process":
-        return Mesh(config=config, stages=tuple(range(pp)), rank=rank, process_count=world,
-                    replica=rank, dp_group=dist.group.WORLD)
-    stage, replica = divmod(rank, dp)
-    pp_groups = [dist.new_group([s * dp + j for s in range(pp)]) for j in range(dp)]
-    dp_groups = [dist.new_group([stage_ * dp + j for j in range(dp)]) if dp > 1 else None
-                 for stage_ in range(pp)]
-    return Mesh(config=config, stages=(stage,), rank=rank, process_count=world,
-                replica=replica, pp_ranks=tuple(s * dp + replica for s in range(pp)),
-                pp_group=pp_groups[replica], dp_group=dp_groups[stage])
+    pp, dp, tp = config.pp, config.dp, config.tp
+    per_stage = layout == "stage_per_process"
+    n_stages = pp if per_stage else 1
+
+    def rank_at(s, j, t):
+        return (s * dp + j) * tp + t
+
+    cell, t = divmod(rank, tp)
+    stage, replica = divmod(cell, dp)
+
+    def groups(size, members):
+        """Every such group (created on every process, in one order) and
+        this process's: None where the groups are single processes."""
+        if size == 1:
+            return None
+        mine = None
+        for ranks in members:
+            group = dist.new_group(ranks) if len(ranks) < world else dist.group.WORLD
+            if rank in ranks:
+                mine = group
+        return mine
+
+    pp_group = groups(n_stages, [[rank_at(s, j, u) for s in range(n_stages)]
+                                 for j in range(dp) for u in range(tp)])
+    dp_group = groups(dp, [[rank_at(s, j, u) for j in range(dp)]
+                           for s in range(n_stages) for u in range(tp)])
+    tp_group = groups(tp, [[rank_at(s, j, u) for u in range(tp)]
+                           for s in range(n_stages) for j in range(dp)])
+    for group, label in ((pp_group, "pp"), (dp_group, "dp"), (tp_group, "tp")):
+        distributed.label_group(group, label)
+    stages = (stage,) if per_stage else tuple(range(pp))
+    return Mesh(config=config, stages=stages, rank=rank, process_count=world,
+                replica=replica, pp_ranks=tuple(rank_at(s, replica, t) for s in range(pp))
+                if per_stage else (), pp_group=pp_group, dp_group=dp_group, tp_rank=t,
+                tp_group=tp_group)
 
 
 def host_dp_shard(mesh: Mesh) -> tuple[int, int]:
     """(first_dp_index, count) of the dp replicas THIS process loads data
     for (the reference's `host_dp_shard`): its own replica under several
-    processes, every replica alone. The loader's `dp_range`."""
+    processes (the same rows for its tp ranks), every replica alone. The
+    loader's `dp_range`."""
     if mesh.process_count == 1:
         return 0, mesh.dp
     return mesh.replica, 1

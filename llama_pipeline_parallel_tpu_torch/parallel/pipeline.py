@@ -76,6 +76,7 @@ from llama_pipeline_parallel_tpu_torch.optim.offload import bind_fp32_grads
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import Mesh
+from llama_pipeline_parallel_tpu_torch.parallel.tp import check_tp, grad_sq_sum, tp_shard
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
     head_loss_sum_count,
@@ -397,11 +398,13 @@ def chunk_names(manifest: StageManifest, stage: int, chunk: int) -> tuple[str, .
 
 
 def chunk_views(params: Params, manifest: StageManifest,
-                 stages: tuple[int, ...] | None = None) -> dict[int, list[Params]]:
+                stages: tuple[int, ...] | None = None, tp_rank: int = 0,
+                tp: int = 1) -> dict[int, list[Params]]:
     """{stage: [chunk trees]} of `stages` (default: all), as views of the
     canonical tree: each chunk's layer leaves are the rows of its layers
     (manifest.layers_of_chunk: a contiguous range); the embedding, norm and
-    lm_head go to the chunk that owns them (chunk_names)."""
+    lm_head go to the chunk that owns them (chunk_names); of each leaf that
+    tp splits, tp rank `tp_rank`'s slice (parallel/tp.tp_shard)."""
     out = {}
     for s in range(manifest.num_stages) if stages is None else stages:
         chunks = []
@@ -410,7 +413,8 @@ def chunk_views(params: Params, manifest: StageManifest,
             tree = {name: leaf.detach()[rows.start:rows.stop]
                     for name, leaf in params.items() if name.startswith("layers.")}
             tree.update({name: params[name].detach() for name in chunk_names(manifest, s, c)})
-            chunks.append(tree)
+            chunks.append({name: tp_shard(name, leaf, tp_rank, tp)
+                           for name, leaf in tree.items()})
         out[s] = chunks
     return out
 
@@ -429,11 +433,12 @@ def chunks_like(chunks: dict[int, list[Params]], flat: Params) -> dict[int, list
 
 
 def split_params(params: Params, manifest: StageManifest,
-                 stages: tuple[int, ...] | None = None) -> dict[int, list[Params]]:
+                 stages: tuple[int, ...] | None = None, tp_rank: int = 0,
+                 tp: int = 1) -> dict[int, list[Params]]:
     """The chunk trees of `stages` (default: all), copied out of the
     canonical tree (chunk_views)."""
     return {s: [{name: leaf.clone() for name, leaf in tree.items()} for tree in chunks]
-            for s, chunks in chunk_views(params, manifest, stages).items()}
+            for s, chunks in chunk_views(params, manifest, stages, tp_rank, tp).items()}
 
 
 def canonical_leaf(chunks: dict[int, list[Params]], manifest: StageManifest,
@@ -478,13 +483,18 @@ class StageParams:
     copy whose gradients accumulate there (optim/offload.bind_fp32_grads).
     `to_canonical` / `copy_canonical` carry the params or any tensors named
     like `flat()` (the optimizer's moments) to and from the canonical
-    [num_layers, ...] tree that checkpoints hold."""
+    [num_layers, ...] tree that checkpoints hold. Under tensor parallelism
+    the leaves are tp rank `tp_rank`'s slices among `tp` (parallel/tp.py),
+    which `copy_canonical` cuts (a process of one stage holds no canonical
+    tree: ckpt/gather.py joins the pieces)."""
 
     def __init__(self, manifest: StageManifest, chunks: dict[int, list[Params]],
-                 grads: dict[int, list[Params]] | None = None):
+                 grads: dict[int, list[Params]] | None = None, tp_rank: int = 0,
+                 tp: int = 1):
         self.manifest = manifest
         self.chunks = chunks
         self.grad_sinks = grads
+        self.tp_rank, self.tp = tp_rank, tp
         if grads is None:
             for tree in self._trees():
                 for leaf in tree.values():
@@ -503,16 +513,18 @@ class StageParams:
             return {name: leaf.grad for name, leaf in self.flat().items()}
         return flatten_chunks(self.grad_sinks)
 
-    def stage_grads(self, stage: int) -> list[torch.Tensor]:
-        if self.grad_sinks is None:
-            return [leaf.grad for tree in self.chunks[stage] for leaf in tree.values()]
-        return [g for tree in self.grad_sinks[stage] for g in tree.values()]
-
+    def stage_grads(self, stage: int) -> Params:
+        """The fp32 gradients of one stage's chunks, named as flat()."""
+        trees = self.chunks[stage] if self.grad_sinks is None else self.grad_sinks[stage]
+        return {f"s{stage}c{c}/{name}": leaf.grad if self.grad_sinks is None else leaf
+                for c, tree in enumerate(trees) for name, leaf in tree.items()}
 
     @classmethod
     def from_canonical(cls, params: Params, manifest: StageManifest,
-                       stages: tuple[int, ...] | None = None) -> "StageParams":
-        return cls(manifest, split_params(params, manifest, stages))
+                       stages: tuple[int, ...] | None = None, tp_rank: int = 0,
+                       tp: int = 1) -> "StageParams":
+        return cls(manifest, split_params(params, manifest, stages, tp_rank, tp),
+                   tp_rank=tp_rank, tp=tp)
 
     @property
     def stages(self) -> tuple[int, ...]:
@@ -539,15 +551,19 @@ class StageParams:
 
     @torch.no_grad()
     def copy_canonical(self, canonical: Params, flat: Params | None = None,
-                       what: str = "params") -> None:
+                       what: str = "params", part: Callable | None = None) -> None:
         """Copy a canonical tree into the params (or into `flat`, tensors
-        named as flat()) in place, refusing a missing or reshaped leaf."""
+        named as flat()) in place: each chunk's rows and this tp rank's
+        slice, and of that `part(flat name, tensor)` where given (an
+        optimizer's dp slice); refusing a missing or reshaped leaf."""
         targets = self.chunks if flat is None else self._as_chunks(flat)
-        source = chunk_views(canonical, self.manifest, self.stages)
+        source = chunk_views(canonical, self.manifest, self.stages, self.tp_rank, self.tp)
         for s in self.stages:
             for c, tree in enumerate(targets[s]):
                 for name, t in tree.items():
                     src = source[s][c].get(name)
+                    if src is not None and part is not None:
+                        src = part(f"s{s}c{c}/{name}", src)
                     if src is None or tuple(src.shape) != tuple(t.shape):
                         raise ValueError(
                             f"{what}: {name} of stage {s} chunk {c} is "
@@ -577,7 +593,8 @@ class CanonicalOptimizer:
             if names != want:
                 raise ValueError(f"optimizer {moment}: names {sorted(names ^ want)} are not "
                                  f"in both the state and this optimizer")
-            flat[moment] = flatten_chunks(chunk_views(state[moment], sp.manifest, sp.stages))
+            flat[moment] = flatten_chunks(chunk_views(state[moment], sp.manifest, sp.stages,
+                                                      sp.tp_rank, sp.tp))
         self.optimizer.load_state_dict(flat)
 
 
@@ -720,6 +737,7 @@ class Pipeline:
             raise ValueError(f"PipelineConfig.num_stages={pcfg.num_stages} does not match "
                              f"the mesh's pp={mesh.pp}")
         _check_layout(stage_params.manifest, pcfg, cfg)
+        check_tp(cfg, mesh.tp, pcfg.loss_chunks, pcfg.kernel_ce)
         if tuple(stage_params.stages) != tuple(mesh.stages):
             raise ValueError(f"this process runs stages {mesh.stages}; the params hold "
                              f"{stage_params.stages}")
@@ -755,14 +773,15 @@ class Pipeline:
         None)."""
         first, last = self._owns(stage, chunk)
         pcfg = self.pcfg
+        tp_group = self.mesh.tp_group
         h = llama.chunk_hidden(params, x, mb.ids, mb.mask, mb.cos, mb.sin, cfg=self.cfg,
                                first=first, last=last, attn_fn=self.attn_fn,
                                remat=remat and pcfg.remat,
                                kernel_prologue=pcfg.kernel_prologue,
-                               remat_policy=pcfg.remat_policy)
+                               remat_policy=pcfg.remat_policy, tp_group=tp_group)
         if not last:
             return h, None
-        return h, head_loss_sum_count(params, h, mb.targets, self.cfg, self.head)[0]
+        return h, head_loss_sum_count(params, h, mb.targets, self.cfg, self.head, tp_group)[0]
 
     def _microbatches(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, list]:
         targets, mbs = microbatches(batch, self.pcfg.num_microbatches)
@@ -1002,13 +1021,14 @@ class Pipeline:
 
     def global_norm(self) -> torch.Tensor:
         """The global gradient norm over every stage's gradients: each
-        stage's sum of squares, then the stages' sums added (in stage order
-        in one process, by all_reduce over the pp group across processes;
-        not over dp: the gradients are already summed over it, so the world
-        would count each stage's sum dp times)."""
+        stage's sum of squares (under tp, its split leaves' slices summed
+        over the tp group and its replicated leaves counted once:
+        parallel/tp.grad_sq_sum), then the stages' sums added (in stage
+        order in one process, by all_reduce over the pp group across
+        processes; not over dp: the gradients are already summed over it,
+        so the world would count each stage's sum dp times)."""
         sp = self.stage_params
-        partial = [torch.stack([g.float().square().sum() for g in sp.stage_grads(s)]).sum()
-                   for s in sp.stages]
+        partial = [grad_sq_sum(sp.stage_grads(s), self.mesh.tp_group) for s in sp.stages]
         return self.transport.all_reduce_sum(torch.stack(partial).sum()).sqrt()
 
     # -- evaluation -------------------------------------------------------------------

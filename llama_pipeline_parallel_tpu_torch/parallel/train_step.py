@@ -33,6 +33,14 @@ alone): each replica runs its own rows; the valid-target count is summed
 over the group before it divides, and the gradients, the loss and the eval
 sums after, so every replica holds the whole batch's gradient (the
 reference's psums over dp).
+
+Tensor parallelism (`tp_group`: the process group of this replica's tp
+ranks, None at tp = 1): each process holds its tp rank's slice of the split
+leaves (parallel/tp.py), the layers run column- and row-parallel, the loss
+head is the reference's vocab-parallel CE, and the gradient norm counts
+each split leaf's slices over the group and each replicated leaf once.
+`init_params_sharded` draws only the leaves (and rows, and tp slices) that a
+process holds, with the same canonical values in every layout.
 """
 
 from __future__ import annotations
@@ -48,8 +56,14 @@ from llama_pipeline_parallel_tpu_torch.ops.attention import attention
 from llama_pipeline_parallel_tpu_torch.ops.cross_entropy import fused_ce_sum_count
 from llama_pipeline_parallel_tpu_torch.ops.fused_ce import kernel_ce_sum_count
 from llama_pipeline_parallel_tpu_torch.optim.offload import HostOffloadAdamW, bind_fp32_grads
-from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, global_norm
+from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
+from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
+from llama_pipeline_parallel_tpu_torch.parallel.tp import (
+    grad_sq_sum,
+    tp_shard,
+    vocab_parallel_loss_sum_count,
+)
 
 
 @dataclasses.dataclass
@@ -69,13 +83,44 @@ class LossHead:
 
 
 def head_loss_sum_count(params: llama.Params, hn: torch.Tensor, targets: torch.Tensor,
-                        cfg: LlamaConfig, head: LossHead) -> tuple[torch.Tensor, torch.Tensor]:
+                        cfg: LlamaConfig, head: LossHead, tp_group: Any = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss sum, valid count) of the final-normed hidden states `hn` against
-    next-token `targets`, through `head` (reference: pipeline.py's `head`)."""
+    next-token `targets`, through `head` (reference: pipeline.py's `head`),
+    or, under `tp_group`, the vocab-parallel CE of this rank's lm_head
+    columns."""
+    if tp_group is not None:
+        return vocab_parallel_loss_sum_count(hn, params["lm_head"].to(cfg.dtype), targets,
+                                             tp_group, llama.IGNORE_INDEX)
     if head.loss_chunks > 1 or head.kernel_ce:
         op = kernel_ce_sum_count if head.kernel_ce else fused_ce_sum_count
         return op(hn, params["lm_head"].to(cfg.dtype), targets, head.loss_chunks)
     return llama.token_loss_sum_and_count_preshifted(llama.lm_head(params, hn, cfg), targets)
+
+
+def init_params_sharded(cfg: LlamaConfig, seed: int, manifest: StageManifest,
+                        stages: tuple[int, ...], *, tp_rank: int = 0, tp: int = 1,
+                        device: str | torch.device = "cuda") -> dict[int, list[llama.Params]]:
+    """The trainer's init of what one process holds (the reference's
+    `init_params_sharded`): {stage: [chunk trees]} of `stages`, each chunk's
+    layer leaves only its layers' rows, its embedding / final norm / lm_head
+    where the chunk owns them (parallel/pipeline.chunk_names), and of each
+    split leaf only tp rank `tp_rank`'s slice. Each row is drawn whole from
+    its own seed (model.init_leaf), so the pieces of every layout join into
+    one process's init."""
+    from llama_pipeline_parallel_tpu_torch.parallel.pipeline import chunk_names
+
+    out = {}
+    for s in stages:
+        out[s] = []
+        for c in range(manifest.virtual_stages):
+            rows = manifest.layers_of_chunk(s, c)
+            names = [n for n in llama.param_shapes(cfg) if n.startswith("layers.")]
+            out[s].append({n: llama.init_leaf(
+                cfg, n, seed, range(rows.start, rows.stop) if n.startswith("layers.") else None,
+                device=device, cut=lambda t, n=n: tp_shard(n, t, tp_rank, tp))
+                for n in names + list(chunk_names(manifest, s, c))})
+    return out
 
 
 def shift_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -105,7 +150,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
                remat: bool = False, head: LossHead = LossHead(),
                kernel_prologue: bool = False, remat_policy: str = "nothing_saveable",
                pipeline: Any = None, grads: llama.Params | None = None,
-               dp_group: Any = None) -> dict:
+               dp_group: Any = None, tp_group: Any = None) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. `kernel_prologue` runs
     each layer's norm -> QKV -> RoPE on the fused prologue kernels
@@ -117,7 +162,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     stage. `grads`: the fp32 gradient buffers of a working copy (the host
     optimizer's; the pipeline's StageParams hold the same tensors), zeroed
     here; None: the params' own `.grad`. `dp_group`: the replicas' process
-    group at pp = 1 (a pipeline has its mesh's). Returns the metrics."""
+    group at pp = 1 (a pipeline has its mesh's), `tp_group` its tp ranks'.
+    Returns the metrics."""
     params = state.params
     if grads is None:
         for p in params.values():
@@ -137,8 +183,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
             mb_params = params if grads is None else bind_fp32_grads(params, grads)
             hn = llama.hidden_states(mb_params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
                                      remat=remat, kernel_prologue=kernel_prologue,
-                                     remat_policy=remat_policy)
-            mb_loss = head_loss_sum_count(mb_params, hn, mb_targets, cfg, head)[0]
+                                     remat_policy=remat_policy, tp_group=tp_group)
+            mb_loss = head_loss_sum_count(mb_params, hn, mb_targets, cfg, head, tp_group)[0]
             mb_loss = mb_loss / global_count
             mb_loss.backward()
             loss += mb_loss.detach()
@@ -146,10 +192,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
         if dp_group is not None:
             for name, p in params.items():
                 distributed.all_reduce(p.grad if grads is None else grads[name], dp_group)
-        if grads is None:
-            grad_norm = global_norm(p.grad for p in params.values())
-        else:
-            grad_norm = global_norm(grads.values())
+        named = {name: p.grad for name, p in params.items()} if grads is None else grads
+        grad_norm = grad_sq_sum(named, tp_group).sqrt()
     if grads is None:
         grads = {name: p.grad for name, p in params.items()}
     lr = state.optimizer.step(params, grads, grad_norm)
@@ -161,7 +205,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
 def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
               num_microbatches: int = 1, attn_fn: Callable = attention,
               head: LossHead = LossHead(), kernel_prologue: bool = False,
-              pipeline: Any = None, dp_group: Any = None) -> tuple[torch.Tensor, torch.Tensor]:
+              pipeline: Any = None, dp_group: Any = None, tp_group: Any = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The loss-only pass over `batch` in `num_microbatches` microbatches, on
     the training step's attention, head and prologue, with no autograd graph:
     (token-loss sum fp32, valid-target count) over the whole batch. With
@@ -172,7 +217,7 @@ def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaCo
     loss_sum = torch.zeros((), device=targets.device)
     for ids, mask, positions, mb_targets in mbs:
         hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
-                                 kernel_prologue=kernel_prologue)
-        loss_sum += head_loss_sum_count(params, hn, mb_targets, cfg, head)[0].float()
+                                 kernel_prologue=kernel_prologue, tp_group=tp_group)
+        loss_sum += head_loss_sum_count(params, hn, mb_targets, cfg, head, tp_group)[0].float()
     count = (targets != llama.IGNORE_INDEX).sum()
     return distributed.all_reduce(loss_sum, dp_group), distributed.all_reduce(count, dp_group)

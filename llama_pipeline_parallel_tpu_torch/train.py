@@ -1,13 +1,17 @@
 """The trainer: config -> model -> data -> step loop.
 
-The counterpart of llama_pipeline_parallel_tpu/train.py at tp = sp = 1: one
+The counterpart of llama_pipeline_parallel_tpu/train.py at sp = 1: one
 device at pp = 1, or a pipeline of `mesh.pp` stages (parallel/pipeline.py)
 under `pipeline_schedule` (1f1b, interleaved_1f1b, zb1, solver with
 `schedule_file`, gpipe), `virtual_stages`, `layer_counts` / `stage_balance`
 and `gradient_accumulation_chunks`, with every stage in this process on one
-device or one stage per process; and `mesh.dp` data-parallel replicas, a
+device or one stage per process; `mesh.dp` data-parallel replicas, a
 process each (parallel/mesh.py: pp * dp processes of one stage, or dp
-processes of every stage), with ZeRO-1 moments (optim/optimizer.Zero1AdamW).
+processes of every stage), with ZeRO-1 moments (optim/optimizer.Zero1AdamW);
+and `mesh.tp` tensor-parallel ranks, a process each (pp * dp * tp processes;
+Megatron layers and the vocab-parallel CE head: parallel/tp.py), each
+process initialising only the leaves, rows and tp slices it holds
+(parallel/train_step.init_params_sharded).
 Several processes run under `python -m torch.distributed.run` (cli.py); the
 metrics line and the logs come from process 0. The same config keys, the same data for the same
 seed, the same schedule-total rules and the same metrics line keys where they
@@ -33,7 +37,11 @@ the working copy in the compute dtype and fp32 gradients, and each step is
 loss and gradients on the card, then the host AdamW streaming gradients down
 and the working copy up (`offload_device_norm`, true by default, clips by
 the norm taken on the card); its checkpoints take the `offload_parts`
-layout. `offload.wgrad_stash` / `offload.activations` keep a pipeline's W
+layout. At dp > 1 the host optimizer runs
+replicated (every replica steps its leaves on the dp-summed gradients) or,
+with `optimizer_offload_zero2`, in the ZeRO-2 layout (a replica's 1/dp of
+each leaf's masters and moments; the working copy all-gathered over dp).
+`offload.wgrad_stash` / `offload.activations` keep a pipeline's W
 queue / stage inputs in host memory (parallel/pipeline.py). A fault plan (`fault_plan`, or
 LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
 `data_read`, `storage_write` and `ckpt_commit`. The metrics line goes to
@@ -67,6 +75,7 @@ from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import (
     CheckpointCorruptError,
     CheckpointManager,
     config_from_meta,
+    copy_tensors,
 )
 from llama_pipeline_parallel_tpu_torch.data.collator import (
     CausalLMCollator,
@@ -85,7 +94,6 @@ from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifes
 from llama_pipeline_parallel_tpu_torch.models.llama.model import (
     REMAT_POLICIES,
     LlamaForCausalLM,
-    init_params,
     param_shapes,
 )
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
@@ -94,7 +102,12 @@ from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
 from llama_pipeline_parallel_tpu_torch.optim.offload import HostOffloadAdamW
-from llama_pipeline_parallel_tpu_torch.optim.optimizer import AdamW, OptimizerConfig, Zero1AdamW
+from llama_pipeline_parallel_tpu_torch.optim.optimizer import (
+    AdamW,
+    OptimizerConfig,
+    Zero1AdamW,
+    zero1_dims,
+)
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
 from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
@@ -105,10 +118,12 @@ from llama_pipeline_parallel_tpu_torch.parallel.mesh import (
     layout_for,
     make_mesh,
 )
+from llama_pipeline_parallel_tpu_torch.parallel.tp import check_tp, tp_dim, tp_shard
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
     TrainState,
     eval_step,
+    init_params_sharded,
     train_step,
 )
 from llama_pipeline_parallel_tpu_torch.utils import faults
@@ -154,9 +169,6 @@ _NOT_PORTED_BLOCKS = {"numerics": "the numerics observatory",
 _ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None,
                    "gradient_accumulation_chunks": 1}
 PIPELINE_SCHEDULES = pl.SCHEDULES
-# what the host optimizer cannot do yet in a run of several processes, by key
-# (value when unset)
-_OFFLOAD_ONE_PROCESS_KEYS = {"save_steps": 0, "save_final": True, "resume": True}
 
 
 def build_model_config(node: dict) -> LlamaConfig:
@@ -395,14 +407,10 @@ def _check_supported(cfg: dict) -> None:
     """Refuse what this trainer does not run, naming the keys and what ports
     each; log once the keys that have no effect with one stage."""
     mesh_cfg = _mesh_config(cfg)
-    if mesh_cfg.dp > 1:
-        offload = [key for key in ("optimizer_offload", "optimizer_offload_zero2")
-                   if cfg.get(key)]
-        if offload:
-            raise NotImplementedError(
-                f"not ported yet: {offload} at dp={mesh_cfg.dp} (the host optimizer runs "
-                f"dp = 1; its ZeRO layouts across replicas come with a later slice)")
-    layout_for(mesh_cfg, distributed.process_count())  # tp / sp, or the process count
+    model_cfg = build_model_config(cfg["model"])
+    head = _loss_head(cfg, model_cfg)
+    check_tp(model_cfg, mesh_cfg.tp, head.loss_chunks, head.kernel_ce)
+    layout_for(mesh_cfg, distributed.process_count())  # sp, or the process count
     schedule = cfg.get("pipeline_schedule") or "1f1b"
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
@@ -414,14 +422,6 @@ def _check_supported(cfg: dict) -> None:
         raise NotImplementedError(
             f"not ported yet: {list(asked)} ("
             + "; ".join(f"{key} comes with {what}" for key, what in asked.items()) + ")")
-    if distributed.process_count() > 1 and cfg.get("optimizer_offload"):
-        multi = [key for key, unset in _OFFLOAD_ONE_PROCESS_KEYS.items()
-                 if cfg.get(key, unset)]
-        if multi:
-            raise NotImplementedError(
-                f"not ported yet: {multi} with optimizer_offload in a run of "
-                f"{distributed.process_count()} processes (the host optimizer's checkpoints "
-                f"are written by one process); set save_steps=0 save_final=false resume=false")
     if mesh_cfg.pp == 1:
         chunks = int(cfg.get("gradient_accumulation_chunks") or 1)
         if chunks < 1 or cfg.get("gradient_accumulation_steps", 1) % chunks:
@@ -589,27 +589,39 @@ class Run:
     mesh: Mesh = dataclasses.field(default_factory=lambda: Mesh(MeshConfig(), (0,)))
 
     def sharded_state(self) -> gather.ShardedState:
-        """The params and the device optimizer's state as this process holds
-        them (its stages' chunks, its ZeRO-1 slices of the moments), for
-        CheckpointManager.save: process 0 writes the canonical tree from
-        every process's pieces, one leaf at a time (ckpt/gather.py). Not
-        under the host optimizer, whose state moves leaf by leaf
-        (`canonical_of`, `canonical_copy`)."""
-        if self.host is not None:
-            raise ValueError("the host optimizer's state is saved with CheckpointManager."
-                             "save_offload and restored leaf by leaf")
+        """The params and the optimizer's state as this process holds them
+        (its stages' chunks and tp slices; its ZeRO-1 slices of the moments,
+        or the host optimizer's masters and moments, whole or in ZeRO-2
+        slices), for CheckpointManager.save: process 0 writes the canonical
+        tree from every process's pieces, one leaf at a time
+        (ckpt/gather.py)."""
+        mesh = self.mesh
         shapes = {name: torch.empty(shape, device="meta")
                   for name, shape in param_shapes(self.model_cfg).items()}
-        mesh = self.mesh
+        if self.host is not None:
+            host = self.host
+            local = {"params": host.masters_tree(), "m": host.moments_tree("m"),
+                     "v": host.moments_tree("v")}
+            dims = None if host.dims is None else dict.fromkeys(local, host.dims)
+            count = host.step_count
+        else:
+            opt = self.state.optimizer
+            local = {"params": self.state.params, "mu": opt.mu, "nu": opt.nu}
+            split = getattr(opt, "dims", None)  # Zero1AdamW's
+            dims = None if split is None else {"mu": split, "nu": split}
+            count = opt.count
         return gather.ShardedState.of_run(
-            self.state.params, self.state.optimizer, self.manifest,
-            pl.chunk_views(shapes, self.manifest), pipelined=self.pipeline is not None,
-            dp=mesh.dp, rank=mesh.rank, rank_of=mesh.rank_of, group=distributed.commit_group())
+            local, dims, count, self.manifest,
+            pl.chunk_views(shapes, self.manifest, tp_rank=0, tp=mesh.tp),
+            pipelined=self.pipeline is not None, dp=mesh.dp, rank=mesh.rank,
+            rank_of=mesh.rank_of, group=distributed.commit_group(), tp=mesh.tp,
+            offload=self.host is not None)
 
     def canonical_of(self, tree: dict[str, torch.Tensor]) -> Any:
-        """A tree named as the run's params in the canonical naming and
-        layout: itself at pp = 1, else each leaf merged from the chunks when
-        it is written (tensor_io.Lazy: one leaf in memory at a time)."""
+        """A tree named as the run's params, held whole by this process (one
+        process, tp = 1), in the canonical naming and layout: itself at pp =
+        1, else each leaf merged from the chunks when it is written
+        (tensor_io.Lazy: one leaf in memory at a time)."""
         if self.pipeline is None:
             return tree
         chunks = pl.chunks_like(self.pipeline.stage_params.chunks, tree)
@@ -617,17 +629,32 @@ class Run:
                     pl.canonical_leaf, chunks, self.manifest, name))
                 for name, shape in param_shapes(self.model_cfg).items()}
 
-    def canonical_copy(self) -> Any:
+    def canonical_copy(self, part: Any = None) -> Any:
         """The `copy` of CheckpointManager.load_params for targets named as
-        the run's params: None (same names) at pp = 1, else the copy of each
-        chunk's rows of the canonical tree."""
-        if self.pipeline is None:
+        the run's params: of each canonical leaf this process's rows (at pp >
+        1), its tp slice and, with `part(name, tensor)`, an optimizer's dp
+        slice of that; None where that is the leaf itself (pp = tp = 1, no
+        part)."""
+        if self.pipeline is not None:
+            sp = self.pipeline.stage_params
+
+            def copy(targets, source, what):
+                sp.copy_canonical({name: source[name] for name in source.keys()},
+                                  flat=targets, what=what, part=part)
+
+            return copy
+        if self.mesh.tp == 1 and part is None:
             return None
-        sp = self.pipeline.stage_params
+        tp_rank, tp = self.mesh.tp_rank, self.mesh.tp
+
+        def cut(name, t):
+            t = tp_shard(name, t, tp_rank, tp)
+            return t if part is None else part(name, t)
 
         def copy(targets, source, what):
-            sp.copy_canonical({name: source[name] for name in source.keys()}, flat=targets,
-                              what=what)
+            # views: a file's tensor is read only where its slice is copied
+            copy_tensors(targets, {name: cut(name, source[name]) for name in source.keys()},
+                         what)
 
         return copy
 
@@ -665,7 +692,8 @@ class Run:
                              remat=self.remat, head=self.head,
                              kernel_prologue=self.kernel_prologue,
                              remat_policy=self.remat_policy, pipeline=self.pipeline,
-                             grads=self.grads, dp_group=self.mesh.dp_group)
+                             grads=self.grads, dp_group=self.mesh.dp_group,
+                             tp_group=self.mesh.tp_group)
         if self.host is not None:  # the norm the host clipped by
             metrics["grad_norm"] = self.host.last_grad_norm
         return metrics
@@ -676,7 +704,8 @@ class Run:
         return eval_step(self.state.params, batch, self.model_cfg,
                          num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                          head=self.head, kernel_prologue=self.kernel_prologue,
-                         pipeline=self.pipeline, dp_group=self.mesh.dp_group)
+                         pipeline=self.pipeline, dp_group=self.mesh.dp_group,
+                         tp_group=self.mesh.tp_group)
 
     def evaluate(self) -> float:
         """eval_loss: the exact token mean over every batch of the eval set
@@ -703,16 +732,9 @@ class Run:
                       "data_state": _data_state(step, self.loader, len(self.loader.dataset),
                                                 cfg.get("seed", 42), batch_delta),
                       **_eval_meta(self.last_eval)}
-        if self.host is not None:
-            path = self.ckpt.save_offload(step, self.host, self.manifest, self.model_cfg,
-                                          canonical=self.canonical_of,
-                                          keep_last=cfg.get("save_total_limit"),
-                                          extra_meta=extra_meta)
-            _sync_checkpoint(cfg, path)
-            return path
         return self.ckpt.save(
             step, self.sharded_state(), self.manifest, self.model_cfg,
-            blocking=final or not cfg.get("async_save", False),
+            blocking=final or not cfg.get("async_save", False) or self.host is not None,
             on_complete=lambda path: _sync_checkpoint(cfg, path),
             keep_last=cfg.get("save_total_limit"), extra_meta=extra_meta)
 
@@ -781,8 +803,6 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
         max_grad_norm=cfg.get("max_grad_norm", 5.0),
         total_steps=t_total, warmup_steps=warmup)
 
-    generator = torch.Generator(device=device).manual_seed(seed)
-    init = init_params(model_cfg, device=device, generator=generator)
     seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
     attn_fn = select_attention(cfg.get("attention", "auto"), seq_length, device,
                                model_cfg=model_cfg, micro_batch=micro_batch,
@@ -794,25 +814,34 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     else:
         manifest = build_manifest(cfg, model_cfg, mesh_cfg.pp)
         pcfg = build_pipeline_config(cfg, mesh_cfg, manifest)
+    # what this process holds, drawn leaf by leaf: its stages' chunks (all of
+    # them at pp = 1: the canonical tree, in its order) and its tp slices
+    chunks = init_params_sharded(model_cfg, seed, manifest, mesh.stages, tp_rank=mesh.tp_rank,
+                                 tp=mesh.tp, device=device)
+    if pcfg is None:
+        init = {name: chunks[0][0][name] for name in param_shapes(model_cfg)}
+    else:
+        init = pl.flatten_chunks(chunks)
+    structure = {s: [dict.fromkeys(tree) for tree in trees] for s, trees in chunks.items()}
+    del chunks
+    stage_kw = dict(tp_rank=mesh.tp_rank, tp=mesh.tp)
     if cfg.get("optimizer_offload"):
-        host, params, grads, chunks = _offload_state(cfg, ocfg, model_cfg, init, manifest,
-                                                     mesh.stages if pcfg else None, device)
-        if chunks is not None:
-            stage_params = pl.StageParams(manifest, pl.chunks_like(chunks, params),
-                                          grads=pl.chunks_like(chunks, grads))
+        host, params, grads = _offload_state(cfg, ocfg, model_cfg, init, mesh, device)
+        if pcfg is not None:
+            stage_params = pl.StageParams(manifest, pl.chunks_like(structure, params),
+                                          grads=pl.chunks_like(structure, grads), **stage_kw)
         optimizer = host
     else:
         host = grads = None
-        model = LlamaForCausalLM(model_cfg, init)
-        del init
         if pcfg is None:
-            params = model.params()
+            params = LlamaForCausalLM(model_cfg, init).params()
         else:
-            stage_params = pl.StageParams.from_canonical(model.params(), manifest, mesh.stages)
+            stage_params = pl.StageParams(manifest, pl.chunks_like(structure, init), **stage_kw)
             params = stage_params.flat()
-        del model
+        del init
         if mesh.dp > 1:
-            optimizer = Zero1AdamW(params, ocfg, mesh.dp, mesh.replica, mesh.dp_group)
+            optimizer = Zero1AdamW(params, ocfg, mesh.dp, mesh.replica, mesh.dp_group,
+                                   tp=mesh.tp)
         else:
             optimizer = AdamW(params, ocfg)
     offload_static = {}
@@ -825,9 +854,6 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
                     pl.bubble_fraction(pcfg))
         offload_static = _offload_static(pcfg, *pl.stash_dims(
             micro_batch, seq_length, 1, model_cfg.hidden_size, model_cfg.dtype))
-        if host is not None and distributed.process_count() > 1:
-            host.reduce_norm_sq = functools.partial(_all_reduce_float, pipeline.transport,
-                                                    device)
     state = TrainState(step=0, params=params, optimizer=optimizer)
     topology = _topology_meta(cfg, manifest)
     mgr = CheckpointManager(cfg["output_dir"])
@@ -847,53 +873,90 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
         logger.info("resumed full state from checkpoint-%d", run.start_step)
         _note_topology_change(mgr, run.start_step, topology)
         run.data_start = _resume_data_position(mgr, run.start_step, loader, len(dataset), seed)
+        # every process has read the checkpoint before process 0 may replace
+        # it (a final save of the step resumed at rewrites its directory)
+        distributed.barrier(f"resumed-{run.start_step}")
     elif cfg.get("model_name_or_path"):
         _warm_start(cfg["model_name_or_path"], run)
     return run
 
 
 def _offload_state(cfg: dict, ocfg: OptimizerConfig, model_cfg: LlamaConfig,
-                   init: dict[str, torch.Tensor], manifest: StageManifest,
-                   stages: tuple[int, ...] | None, device: torch.device) -> tuple:
-    """The host optimizer's state from the fp32 init (the JAX trainer's
-    `_run_offload` set-up): its masters copied to host memory leaf by leaf
-    (the init's fp32 on the card is then dropped), the working copy in the
-    compute dtype on `device`, and fp32 gradient buffers beside it. Leaves
-    are the canonical tree at pp = 1 (`stages` None), else the chunks of
-    `stages` named as StageParams.flat(). Returns (host, working copy,
-    gradient buffers, the chunk structure or None)."""
-    if cfg.get("optimizer_offload_zero2"):
+                   init: dict[str, torch.Tensor], mesh: Mesh, device: torch.device) -> tuple:
+    """The host optimizer's state from this process's fp32 init (the JAX
+    trainer's `_run_offload` set-up; `init` is named as the run's params):
+    its masters copied to host memory leaf by leaf (the init's fp32 on the
+    card is then dropped), the working copy in the compute dtype on
+    `device`, and fp32 gradient buffers beside it. At dp > 1 the replicas
+    keep whole leaves, or under `optimizer_offload_zero2` their ZeRO-2
+    slices (optim/offload.py). The host-path norm counts each element once
+    over the processes. Returns (host, working copy, gradient buffers)."""
+    zero2 = bool(cfg.get("optimizer_offload_zero2"))
+    if zero2 and mesh.dp == 1:
         logger.info("optimizer_offload_zero2 has no effect at dp=1; running the plain "
                     "offload layout")
-    chunks = structure = None
-    if stages is not None:
-        chunks = pl.chunk_views(init, manifest, stages)
-        structure = {s: [dict.fromkeys(tree) for tree in trees] for s, trees in chunks.items()}
-    host = HostOffloadAdamW(ocfg, device_norm=cfg.get("offload_device_norm", True))
-    host.init(init if chunks is None else pl.flatten_chunks(chunks))
-    del chunks
+        zero2 = False
+    dims = (zero1_dims({name: tuple(t.shape) for name, t in init.items()}, mesh.dp, mesh.tp)
+            if zero2 else None)
+    ndims = {name: t.dim() for name, t in init.items()}
+
+    def counts_in_norm(name: str) -> bool:
+        """Whether this process adds leaf `name` to the host norm: its own
+        dp slice, or a leaf whole over dp on replica 0; a leaf replicated
+        over tp on tp rank 0."""
+        whole_over_dp = dims is None or dims[name] is None
+        replicated_over_tp = tp_dim(name, ndims[name]) is None
+        return ((not whole_over_dp or mesh.replica == 0)
+                and (not replicated_over_tp or mesh.tp_rank == 0))
+
+    several = distributed.process_count() > 1
+    host = HostOffloadAdamW(ocfg, device_norm=cfg.get("offload_device_norm", True),
+                            reduce_norm_sq=_all_reduce_float if several else None,
+                            counts_in_norm=counts_in_norm if several else None,
+                            dims=dims, dp=mesh.dp, index=mesh.replica, group=mesh.dp_group)
+    host.init(init)
     init.clear()  # the fp32 init leaves the card before the step's buffers arrive
     if device.type == "cuda":
         torch.cuda.empty_cache()
     working = host.device_params(model_cfg.dtype, device)
     grads = {name: torch.zeros(w.shape, dtype=torch.float32, device=device)
              for name, w in working.items()}
-    return host, working, grads, structure
+    return host, working, grads
 
 
-def _all_reduce_float(transport, device: torch.device, x: float) -> float:
-    """`x` summed over the pipeline's processes (the host norm's square)."""
-    return float(transport.all_reduce_sum(torch.tensor(x, dtype=torch.float64, device=device)))
+def _all_reduce_float(x: float) -> float:
+    """`x` summed over every process (the host norm's square), over the
+    host group."""
+    return float(distributed.all_reduce(torch.tensor(x, dtype=torch.float64),
+                                        distributed.host_group()))
 
 
 def _restore(run: Run, step: int) -> int:
     """Full-state restore of checkpoint-`step` into the run, in every
-    process: the rows of its stages of the canonical tree (at pp > 1) and,
-    under ZeRO-1, its slices of the moments; returns the step."""
+    process: the rows of its stages of the canonical tree (at pp > 1) and its
+    tp slices and, under ZeRO-1, its slices of the moments; returns the
+    step."""
     optimizer = run.state.optimizer
     if run.pipeline is not None:
         optimizer = pl.CanonicalOptimizer(optimizer, run.pipeline.stage_params)
+    elif run.mesh.tp > 1:
+        optimizer = _TpSliceOptimizer(optimizer, run.mesh.tp_rank, run.mesh.tp)
     return run.ckpt.load(step, run.state.params, optimizer, copy=run.canonical_copy())[2]
+
+
+@dataclasses.dataclass
+class _TpSliceOptimizer:
+    """An optimizer of one tp rank's slices (pp = 1) loaded from canonical
+    moments: `load_state_dict` hands it this rank's slice of each."""
+
+    optimizer: Any
+    tp_rank: int
+    tp: int
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict({"count": state["count"], **{
+            moment: {name: tp_shard(name, t, self.tp_rank, self.tp)
+                     for name, t in state[moment].items()} for moment in ("mu", "nu")}})
 
 
 def _restore_offload(run: Run, step: int) -> int:
@@ -914,7 +977,7 @@ def _restore_offload(run: Run, step: int) -> int:
             f"layout ({OFFLOAD_LAYOUT}). To continue those weights under the offloaded "
             f"optimizer, point model_name_or_path at this checkpoint and use a fresh "
             f"output_dir (module-only warm start; optimizer moments restart)")
-    host, copy = run.host, run.canonical_copy()
+    host, copy = run.host, run.canonical_copy(part=run.host.part)
     run.ckpt.load_params(step, host.masters_tree(), copy=copy)  # verifies every file
     host.step_count = run.ckpt.load_offload_moments(step, host.moments_tree("m"),
                                                     host.moments_tree("v"), verify=False,
@@ -980,7 +1043,8 @@ def _warm_start(path: str, run: Run) -> None:
             f"({', '.join(f'{k}: {a} there, {b} here' for k, (a, b) in differ.items())}): "
             f"re-convert the HF model (tools.convert_hf) or set the model block to match")
     if run.host is not None:
-        warm.load_params(step, run.host.masters_tree(), copy=run.canonical_copy())
+        warm.load_params(step, run.host.masters_tree(),
+                         copy=run.canonical_copy(part=run.host.part))
         run.host.device_params(out=run.state.params)
     else:
         warm.load_params(step, run.state.params, copy=run.canonical_copy())
@@ -992,7 +1056,7 @@ def _topology_meta(cfg: dict, manifest: StageManifest) -> dict:
     `_topology_meta`): the source half of the elastic-restore contract, read
     by a later run to log what changed. `layer_counts` names the partition:
     "even/<k>" or the per-stage list."""
-    mc = MeshConfig(pp=manifest.num_stages, dp=_mesh_config(cfg).dp)
+    mc = MeshConfig(pp=manifest.num_stages, dp=_mesh_config(cfg).dp, tp=_mesh_config(cfg).tp)
     return {"pp": mc.pp, "dp": mc.dp, "tp": mc.tp, "sp": mc.sp, "layout": mc.describe(),
             "schedule": cfg.get("pipeline_schedule", "1f1b"),
             "virtual_stages": manifest.virtual_stages,

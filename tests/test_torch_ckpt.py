@@ -69,8 +69,7 @@ def _tiny_cfg(*overrides):
 
 def _params(seed=0):
     cfg = TConfig.tiny()
-    return cfg, t_llama.init_params(cfg, device="cpu",
-                                    generator=torch.Generator().manual_seed(seed))
+    return cfg, t_llama.init_params(cfg, seed, device="cpu")
 
 
 def _one_stage(cfg):
@@ -650,3 +649,124 @@ def test_topology_meta_across_processes_equals_reference(ref, cross):
     assert got.pop("process_count") == 4 and want.pop("process_count") == 1
     assert got == want
     assert meta["data_state"]["global_batch_examples"] == 8
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across pp x tp x dp (device AdamW with ZeRO-1, and the host
+# optimizer's ZeRO-2 layout), through tests/torch_tp_worker.py
+# ---------------------------------------------------------------------------
+
+TP_CROSS = CROSS + ["mesh.tp=2"]
+TP_OPTIMIZERS = {"zero1": [], "zero2": ["optimizer_offload=true",
+                                        "optimizer_offload_zero2=true"]}
+
+
+@pytest.fixture(scope="module")
+def tp_cross(tmp_path_factory):
+    """For each optimizer (TP_OPTIMIZERS), in one launch of 8 processes at
+    pp 2 x tp 2 x dp 2: 4 steps saving at 2 ("straight"), then from copies
+    of its checkpoint-2: a resume to step 4 in the same 8 ("pp2xtp2xdp2")
+    and a resume that saves step 2 again at once ("resaved", into
+    "resaved_again"). Then, from
+    more copies: the ZeRO-1 checkpoint resumed at pp 2 x dp 1 (2
+    processes), and both resumed in this process at pp 1 x dp 1. Returns
+    the root and each run's losses."""
+    import shutil
+    import sys
+
+    from tests.test_torch_dp import finish, launch
+
+    root = tmp_path_factory.mktemp("tp_cross")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_worker.py")
+    torch.save({}, root / "inputs.pt")
+    jobs = []
+    for opt, keys in TP_OPTIMIZERS.items():
+        d = root / opt
+
+        def job(kind, name, *extra):
+            return dict(kind=kind, name=f"{opt}-{name}", config=TINY_SMOKE,
+                        overrides=TP_CROSS + keys + list(extra))
+
+        jobs += [job("train", "straight", "max_steps=4", "save_steps=2", "resume=false",
+                     f"output_dir={d}/straight"),
+                 dict(kind="copy", name=f"{opt}-copy", pairs=[
+                     (str(d / "straight" / "checkpoint-2"), str(d / leg / "checkpoint-2"))
+                     for leg in ("pp2xtp2xdp2", "resaved", "pp2xdp1", "pp1xdp1")]),
+                 job("train", "pp2xtp2xdp2", "max_steps=4", "resume=true",
+                     f"output_dir={d}/pp2xtp2xdp2"),
+                 dict(job("resave", "resaved", "resume=true", f"output_dir={d}/resaved"),
+                      save_dir=str(d / "resaved_again"))]
+    torch.save(jobs, root / "jobs.pt")
+    for rc, _, stderr in finish(launch(8, [sys.executable, worker, str(root)])):
+        assert rc == 0, stderr[-3000:]
+    out = {f"{opt}-{leg}": torch.load(root / f"{opt}-{leg}-rank0.pt")["losses"]
+           for opt in TP_OPTIMIZERS for leg in ("straight", "pp2xtp2xdp2")}
+    two = root / "two"
+    two.mkdir()
+    torch.save({}, two / "inputs.pt")
+    torch.save([dict(kind="train", name="pp2xdp1", config=TINY_SMOKE,
+                     overrides=CROSS + DP1 + ["max_steps=4", "resume=true",
+                                              f"output_dir={root}/zero1/pp2xdp1"])],
+               two / "jobs.pt")
+    procs = launch(2, [sys.executable, worker, str(two)])
+    for opt, keys in TP_OPTIMIZERS.items():
+        (root / opt / "pp1xdp1" / "latest").write_text("checkpoint-2")
+        one = t_train.run_training(t_config.load_config(TINY_SMOKE, CROSS + DP1 + keys + [
+            "mesh.pp=1", "max_steps=4", "resume=true", f"output_dir={root}/{opt}/pp1xdp1"]),
+            device="cpu")
+        out[f"{opt}-pp1xdp1"] = one["losses"]
+    for rc, _, stderr in finish(procs):
+        assert rc == 0, stderr[-3000:]
+    out["zero1-pp2xdp1"] = torch.load(two / "pp2xdp1-rank0.pt")["losses"]
+    return root, out
+
+
+@pytest.mark.parametrize("leg", ["zero1-pp2xtp2xdp2", "zero1-pp2xdp1", "zero1-pp1xdp1",
+                                 "zero2-pp2xtp2xdp2", "zero2-pp1xdp1"])
+def test_tp_checkpoint_resumes_across_layouts(tp_cross, leg):
+    """A pp 2 x tp 2 x dp 2 checkpoint at step 2 (8 processes: each its
+    stage's rows, tp slices and ZeRO-1 moment slices, or its host ZeRO-2
+    slices of the masters and moments) resumed in 8 processes, at pp 2 x
+    dp 1 (2) and in one process, on the same global batch: steps 3-4 within
+    1e-5 of the uninterrupted run's."""
+    _, out = tp_cross
+    straight = out[leg.split("-")[0] + "-straight"]
+    assert len(straight) == 4 and len(out[leg]) == 2
+    np.testing.assert_allclose(out[leg], straight[2:], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("opt", list(TP_OPTIMIZERS))
+def test_tp_restore_then_save_at_once_is_byte_equal(tp_cross, opt):
+    """checkpoint-2 of 8 processes restored by 8 (each cutting its rows, tp
+    slice and dp slice out of the canonical tree) and saved again at once
+    (process 0 joining every process's pieces): every tensor of every file
+    byte-equal, the host optimizer's offload_parts files included."""
+    root, _ = tp_cross
+    files = (("params.safetensors", "opt.safetensors") if opt == "zero1" else
+             ("params.safetensors", "opt_m.safetensors", "opt_v.safetensors"))
+    for name in files:
+        a = tensor_io_load(root / opt / "straight" / "checkpoint-2" / name)
+        b = tensor_io_load(root / opt / "resaved_again" / "checkpoint-2" / name)
+        assert set(a) == set(b) and len(a) > 1
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (name, k)
+    meta = json.load(open(root / opt / "resaved_again" / "checkpoint-2" / "meta.json"))
+    assert (meta.get("opt_layout") == "offload_parts") == (opt == "zero2")
+
+
+def test_tp_topology_meta_equals_reference(ref, tp_cross):
+    """meta.json's topology of the pp 2 x tp 2 x dp 2 save has the
+    reference's keys and values for that layout (`_topology_meta` over the
+    virtual mesh), the process count being the eight processes'."""
+    root, _ = tp_cross
+    meta = json.load(open(root / "zero1" / "straight" / "checkpoint-2" / "meta.json"))
+    cfg = t_config.load_config(TINY_SMOKE, TP_CROSS)
+    mesh_cfg = ref.mesh.MeshConfig(pp=2, dp=2, tp=2)
+    rmodel = ref.train.build_model_config(cfg["model"])
+    rman = ref.train.build_manifest(cfg, rmodel, 2)
+    pcfg = ref.train.build_pipeline_config(cfg, mesh_cfg, rman)
+    want = ref.train._topology_meta(ref.mesh.make_mesh(mesh_cfg), pcfg, rman)
+    got = dict(meta["topology"])
+    assert set(got) == set(want)
+    assert got.pop("process_count") == 8 and want.pop("process_count") == 1
+    assert got == want and got["tp"] == 2 and got["layout"] == "pp2xdp2xtp2xsp1"

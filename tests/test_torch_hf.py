@@ -76,8 +76,7 @@ def offline(monkeypatch):
 def _port_checkpoint(root, seed=0):
     """A module-only checkpoint-0 of the port at tiny, with its params."""
     cfg = TConfig.tiny()
-    params = t_llama.init_params(cfg, device="cpu",
-                                 generator=torch.Generator().manual_seed(seed))
+    params = t_llama.init_params(cfg, seed, device="cpu")
     t_ckpt.CheckpointManager(str(root)).save(
         0, params, TManifest(num_layers=cfg.num_hidden_layers, num_stages=1), cfg)
     return cfg, params
@@ -375,7 +374,7 @@ def test_convert_hf_expands_the_vocabulary_as_the_reference(ref, tmp_path, offli
         monkeypatch.setenv(key, value)
     n_tok = _trained_tokenizer(tmp_path / "hf")
     cfg = TConfig.tiny(vocab_size=n_tok)
-    params = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    params = t_llama.init_params(cfg, device="cpu", seed=6)
     t_ckpt.CheckpointManager(str(tmp_path / "port")).save(
         0, params, TManifest(num_layers=cfg.num_hidden_layers, num_stages=1), cfg)
     export_hf.export(str(tmp_path / "port"), str(tmp_path / "hf"))

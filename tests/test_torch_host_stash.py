@@ -27,6 +27,7 @@ from llama_pipeline_parallel_tpu_torch import convert
 from llama_pipeline_parallel_tpu_torch import train as t_train
 from llama_pipeline_parallel_tpu_torch.data.collator import IGNORE_INDEX
 from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig as TConfig
+from llama_pipeline_parallel_tpu_torch.models.llama import model as t_llama
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest as TManifest
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention as t_attention
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as t_pl
@@ -327,8 +328,7 @@ def test_w_drain_prefetch_order_on_card():
         pytest.skip("needs a CUDA device")
     cfg = TConfig.tiny()
     manifest = TManifest(num_layers=cfg.num_hidden_layers, num_stages=2, virtual_stages=2)
-    params = {k: v.cuda() for k, v in t_train.init_params(
-        cfg, device="cpu", generator=torch.Generator().manual_seed(0)).items()}
+    params = {k: v.cuda() for k, v in t_llama.init_params(cfg, device="cpu").items()}
     batch = {k: torch.from_numpy(x).cuda() for k, x in _batch().items()}
     runs = []
     for offload in (False, True):

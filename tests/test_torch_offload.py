@@ -352,7 +352,7 @@ def test_bf16_working_copy_takes_the_masters_fp32_gradients():
     are moved off 1.0 to values bf16 holds exactly, so that both paths read
     the same weights while a bf16 rounding of their gradients would show."""
     cfg = TConfig.tiny(dtype=torch.bfloat16)
-    masters = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    masters = t_llama.init_params(cfg, device="cpu", seed=0)
     for k in ("layers.input_norm", "layers.post_norm", "norm"):
         moved = masters[k] + 0.05 * torch.randn(masters[k].shape)
         masters[k] = moved.to(torch.bfloat16).float()

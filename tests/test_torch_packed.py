@@ -174,7 +174,7 @@ def test_packed_logits_match_the_examples_run_alone(data_dir, impl, prologue):
     alone (positions from 0, no segment ids), within 2e-5: the segment mask
     and the per-token positions hold packed examples apart."""
     cfg = TConfig.tiny()
-    params = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
+    params = t_llama.init_params(cfg, device="cpu", seed=4)
     batch = _packed_batches(data_dir, 1, rows=2)[0]
     attn = select_attention(impl, 64, torch.device("cpu"), packed=True)
     with torch.no_grad():

@@ -364,7 +364,7 @@ def _worker(out_dir: str, schedule: str) -> None:
     distributed.initialize_distributed("cpu")
     rank = distributed.process_index()
     cfg = TConfig.tiny()
-    params = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    params = t_llama.init_params(cfg, device="cpu", seed=0)
     mesh = make_mesh(MeshConfig(pp=2))
     manifest = _manifest(cfg.num_hidden_layers, 2)
     sp = t_pl.StageParams.from_canonical(params, manifest, mesh.stages)
@@ -390,7 +390,7 @@ def test_two_gloo_processes_equal_in_process(tmp_path, schedule):
                          timeout=PROCESS_TIMEOUT_S, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-3000:]
     cfg = TConfig.tiny()
-    params = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    params = t_llama.init_params(cfg, device="cpu", seed=0)
     pipe, sp = _port_pipeline(params, 2, 4, schedule=schedule)
     loss = pipe.loss_and_grad(_torch_batch(_batch()))
     norm = pipe.global_norm()
@@ -419,9 +419,10 @@ def test_barrier_raises_when_a_peer_does_not_arrive(tmp_path):
 
 def test_mesh_config_matches_reference(ref, monkeypatch):
     """MeshConfig's validation and describe() are the reference's; a lone
-    process runs every stage; dp > 1 in one process is refused, naming the
-    process counts that run it, tp > 1 by name, and so is a process group
-    whose size is neither pp * dp nor dp."""
+    process runs every stage; dp > 1 or tp > 1 in one process is refused,
+    naming the process counts that run it (tp: pp * dp * tp, one stage
+    each), sp > 1 by name, and so is a process group whose size is neither
+    pp * dp * tp nor dp * tp."""
     for axes in (dict(pp=4), dict(pp=2, dp=2), dict(pp=8, dp=2, tp=2)):
         assert MeshConfig(**axes).describe() == ref.mesh.MeshConfig(**axes).describe()
     for bad in (dict(pp=0), dict(tp=-1)):
@@ -434,8 +435,10 @@ def test_mesh_config_matches_reference(ref, monkeypatch):
     assert make_mesh(MeshConfig()).stages == (0,)
     with pytest.raises(ValueError, match="pp\\*dp=4 processes .* or dp=2 processes"):
         make_mesh(MeshConfig(pp=2, dp=2))
-    with pytest.raises(NotImplementedError, match="'tp': 2"):
+    with pytest.raises(ValueError, match="pp\\*dp\\*tp=4 processes \\(one stage each\\)"):
         make_mesh(MeshConfig(pp=2, tp=2))
+    with pytest.raises(NotImplementedError, match="'sp': 2"):
+        make_mesh(MeshConfig(pp=2, sp=2))
     from llama_pipeline_parallel_tpu_torch.parallel import mesh as t_mesh
 
     monkeypatch.setattr(t_mesh.dist, "is_initialized", lambda: True)
@@ -586,10 +589,12 @@ def test_topology_meta_equals_reference(ref, tmp_path, overrides):
 @pytest.mark.parametrize("overrides,error,match", [
     (["pipeline_schedule=gpipe", "offload={activations: true}"], ValueError,
      "offload.activations requires a hand-written-backward schedule"),
-    (["mesh.dp=2", "optimizer_offload=true"], NotImplementedError, "optimizer_offload"),
-    (["mesh.dp=2", "optimizer_offload_zero2=true"], NotImplementedError,
-     "optimizer_offload_zero2"),
-    (["mesh.tp=2"], NotImplementedError, "'tp': 2"),
+    (["mesh.dp=2", "optimizer_offload=true"], ValueError,
+     "1 processes for mesh pp2xdp2xtp1xsp1: run it in pp\\*dp=4 processes"),
+    (["mesh.dp=2", "optimizer_offload=true", "optimizer_offload_zero2=true"], ValueError,
+     "1 processes for mesh pp2xdp2xtp1xsp1: run it in pp\\*dp=4 processes"),
+    (["mesh.tp=2"], ValueError, "1 processes for mesh pp2xdp1xtp2xsp1: run it in "
+                                "pp\\*dp\\*tp=4 processes"),
     (["mesh.sp=2"], NotImplementedError, "'sp': 2"),
     (["offload={wgrad_stash: true}"], ValueError, "offload.wgrad_stash requires schedule: zb1"),
     (["pipeline_schedule=solver", "virtual_stages=2", "offload={wgrad_stash: true}"],
@@ -598,8 +603,10 @@ def test_topology_meta_equals_reference(ref, tmp_path, overrides):
 ])
 def test_trainer_refuses_at_pp2(tmp_path, overrides, error, match):
     """What the pipeline does not run is refused by name: gpipe with its
-    stage inputs in host memory, the host optimizer at dp > 1 (either
-    layout), tp and sp > 1, the offload block's W-queue tier outside zb1,
+    stage inputs in host memory, sp > 1, one process for a layout of several
+    (the host optimizer at dp > 1, in either layout, and tp > 1 are run, in
+    pp * dp * tp processes, and only the process count is refused here),
+    the offload block's W-queue tier outside zb1,
     that tier beside a solver
     sequence (written by the reference's list schedule with half its units
     offloaded), which carries its own per-unit vector, an accumulation-chunk
@@ -615,8 +622,8 @@ def test_trainer_refuses_at_pp2(tmp_path, overrides, error, match):
 @pytest.mark.parametrize("key", ["save_steps=2", "save_final=true", "resume=true"])
 def test_trainer_refuses_saves_across_processes(tmp_path, monkeypatch, key):
     """In a run of more than one process, saving and resuming are accepted
-    (the checkpoint goes through process 0), except under the host
-    optimizer, whose checkpoints one process writes: refused by name."""
+    (the checkpoint goes through process 0, which writes it from every
+    process's pieces), under the host optimizer too."""
     from llama_pipeline_parallel_tpu_torch.parallel import distributed
 
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
@@ -625,9 +632,11 @@ def test_trainer_refuses_saves_across_processes(tmp_path, monkeypatch, key):
     others = [o for o in ("save_steps=0", "save_final=false", "resume=false")
               if o.split("=")[0] != defaults[key]]
     t_train._check_supported(_tiny_cfg(tmp_path, "m", key, *others))
-    cfg = _tiny_cfg(tmp_path, "m", key, *others, "optimizer_offload=true")
-    with pytest.raises(NotImplementedError, match=defaults[key]):
-        t_train._check_supported(cfg)
+    for offload in (["optimizer_offload=true"],
+                    ["optimizer_offload=true", "optimizer_offload_zero2=true"]):
+        cfg = _tiny_cfg(tmp_path, "m", key, *others, *offload)
+        assert t_train._check_supported(cfg) is None and cfg[defaults[key]] == (
+            2 if key == "save_steps=2" else True)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

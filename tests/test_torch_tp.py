@@ -1,0 +1,420 @@
+"""The port's tensor parallelism (pp x tp x dp across processes: the
+Megatron layers, the prologue's tp all-reduce, the vocab-parallel CE, ZeRO-1
+under tp, the init by shard) against the JAX package's, on the CPU at the
+`tiny` preset in fp32 (4 heads, 2 kv heads, FFN 128, vocab 256: tp = 2
+divides them all; the one tp = 4 step runs it with 4 kv heads).
+
+The processes are gloo ranks started here (tests/torch_tp_worker.py, or the
+CLI), each with RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT and a join
+timeout; the reference runs the same layouts on tests/conftest.py's 8
+virtual CPU devices. Parameters are the reference's init carried over by
+convert.py; batches are numpy from a seed, a different pad tail on every row.
+
+Tolerances (tests/test_torch_pipeline.py's): the loss within rtol 1e-5 of
+the reference's, each gradient leaf (a rank's slice) within 1e-4 of the
+largest element of the reference's slice; trainer losses 1e-5 and final
+params 1e-4 against the reference's run_training. The tp sums run in fp32
+here, where tp = 2 adds two numbers in either package's order alike; at
+tp = 4 the order of four may differ, a rounding of fp32 well inside 1e-4
+(in bf16 it would not be: these tolerances hold in fp32 only). Where
+both sides are this package (ZeRO-1 against the replicated AdamW on the same
+gradients, the joined init against one process's) the test says bit-equal.
+"""
+
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llama_pipeline_parallel_tpu_torch import convert
+from llama_pipeline_parallel_tpu_torch import train as t_train
+from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+from llama_pipeline_parallel_tpu_torch.models.llama import model as t_llama
+from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig as TConfig
+from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest as TManifest
+from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
+from llama_pipeline_parallel_tpu_torch.parallel import pipeline as t_pl
+from llama_pipeline_parallel_tpu_torch.parallel import tp as t_tp
+from llama_pipeline_parallel_tpu_torch.utils import config as t_config
+from tests.test_torch_dp import OPT, _dp_batch, _warm_checkpoints, finish, launch
+from tests.test_torch_pipeline import (
+    GRAD_RTOL,
+    LOSS_RTOL,
+    _assert_grads_close,
+    _free_port,
+    _tree,
+    ref,  # noqa: F401  (the reference fixture)
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(REPO, "tests", "torch_tp_worker.py")
+MICROBATCHES = 4
+# (pp, dp, tp, schedule, virtual stages, kernel prologue) of each step job
+STEPS = {
+    "pp2xtp2": (2, 1, 2, "1f1b", 1, False),
+    "pp1xtp2xdp2": (1, 2, 2, "1f1b", 1, False),
+    "pp2xtp2xdp2": (2, 2, 2, "1f1b", 1, False),
+    "pp2xtp2xdp2-prologue": (2, 2, 2, "1f1b", 1, True),
+    "pp2xtp2xdp2-interleaved": (2, 2, 2, "interleaved_1f1b", 2, False),
+    "pp2xtp2xdp2-zb1": (2, 2, 2, "zb1", 1, False),
+    "pp1xtp4": (1, 1, 4, "1f1b", 1, False),
+}
+# tp 4 needs 4 kv heads (the tiny preset has 2): that step job runs the tiny
+# preset with 4, from a tree of its own (inputs.pt's "params_kv4")
+KV_HEADS = {"pp1xtp4": 4}
+# the trainer's 3 steps at each layout, all on tiny_smoke's 8 rows a step
+# (dp 1 takes them as 4 microbatches), warm-started from the same weights
+TRAIN_LAYOUTS = {"pp2xtp2": ["mesh.dp=1", "gradient_accumulation_steps=4"],
+                 "pp1xtp2xdp2": ["mesh.pp=1"], "pp2xtp2xdp2": []}
+TRAIN_ARGS = ["mesh.tp=2", "max_steps=3", "logging_steps=1", "save_final=true",
+              "resume=false", "dataset.pseudo_dataset_len=64"]
+INIT_SEED = 11
+
+
+def _job_step(name):
+    pp, dp, tp, schedule, v, prologue = STEPS[name]
+    return dict(kind="step", name=name, pp=pp, dp=dp, tp=tp, schedule=schedule, v=v,
+                prologue=prologue, microbatches=MICROBATCHES, kv_heads=KV_HEADS.get(name, 2))
+
+
+def _params_key(name):
+    return "params" if name not in KV_HEADS else f"params_kv{KV_HEADS[name]}"
+
+
+def _ranks(name):
+    pp, dp, tp = STEPS[name][:3]
+    return pp * dp * tp
+
+
+def _write_jobs(out, jobs, inputs):
+    torch.save(inputs, out / "inputs.pt")
+    torch.save(jobs, out / "jobs.pt")
+
+
+def _results(out, name, n):
+    return [torch.load(out / f"{name}-rank{r}.pt") for r in range(n)]
+
+
+def _ref_loss_and_grad(ref, tree, batch, pp, dp, tp, schedule, v, prologue, kv_heads=2):
+    cfg = ref.config.LlamaConfig.tiny(num_key_value_heads=kv_heads)
+    manifest = ref.manifest.StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp,
+                                          virtual_stages=v)
+    pcfg = ref.pl.PipelineConfig(num_stages=pp, num_microbatches=MICROBATCHES,
+                                 schedule=schedule, virtual_stages=v, remat=True,
+                                 kernel_prologue=prologue)
+    mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=pp, dp=dp, tp=tp))
+    stacked = ref.pl.stack_stages(tree, manifest)
+    fn = jax.jit(ref.pl.make_pipeline_loss_and_grad(mesh, cfg, pcfg, stacked,
+                                                    attn_fn=ref.attn.attention))
+    loss, grads = fn(stacked, {k: jnp.asarray(x) for k, x in batch.items()})
+    canonical = convert.unstack_stages(jax.device_get(grads), TManifest(
+        num_layers=cfg.num_hidden_layers, num_stages=pp, virtual_stages=v))
+    return float(loss), convert.params_from_jax(canonical)
+
+
+def _slices(canonical, res, pp, v, tp):
+    """A rank's tp slices of a canonical tree, named as its optimizer names
+    its leaves (chunk names at pp > 1)."""
+    if pp == 1:
+        return {k: t_tp.tp_shard(k, x, res["tp_rank"], tp) for k, x in canonical.items()}
+    manifest = TManifest(num_layers=4, num_stages=pp, virtual_stages=v)
+    return t_pl.flatten_chunks(t_pl.chunk_views(canonical, manifest, tuple(res["stages"]),
+                                                res["tp_rank"], tp))
+
+
+@pytest.fixture(scope="module")
+def tp_runs(ref, tmp_path_factory):
+    """Every step job of STEPS, the init job, the operator job and the
+    trainer's 3 steps at each layout (run_training, warm-started from the
+    reference's init), in one launch of 4 processes (the 4-process layouts
+    and the ops) and one of 8, started together, while the reference
+    computes its side: its pipeline at each step job's layout and its
+    run_training at pp 2 x tp 2 x dp 2."""
+    tree = _tree(ref)
+    trees = {4: jax.device_get(ref.llama.init_params(
+        jax.random.PRNGKey(1), ref.config.LlamaConfig.tiny(num_key_value_heads=4)))}
+    batch = _dp_batch()
+    rng = np.random.RandomState(5)
+    inputs = {"params": convert.params_from_jax(tree),
+              "params_kv4": convert.params_from_jax(trees[4]),
+              "batch": {k: torch.from_numpy(x) for k, x in batch.items()},
+              "optimizer": OPT,
+              "x": torch.from_numpy(rng.randn(2, 3, 5).astype(np.float32)),
+              "g": torch.from_numpy(rng.randn(2, 3, 5).astype(np.float32)),
+              "h": torch.from_numpy(rng.randn(2, 6, 64).astype(np.float32)),
+              "lm_head": torch.from_numpy(0.3 * rng.randn(64, 256).astype(np.float32)),
+              "targets": torch.from_numpy(np.where(rng.rand(2, 6) < 0.2, -100,
+                                                   rng.randint(0, 256, (2, 6)))
+                                          .astype(np.int64))}
+    four, eight = tmp_path_factory.mktemp("tp4"), tmp_path_factory.mktemp("tp8")
+    train_dir = tmp_path_factory.mktemp("tp_train")
+    _warm_checkpoints(ref, train_dir)
+    conf = os.path.join(REPO, "conf", "tiny_smoke.yaml")
+    trains = {name: dict(kind="train", name=f"train-{name}", config=conf, overrides=TRAIN_ARGS + extra + [
+        f"output_dir={train_dir}/{name}", f"model_name_or_path={train_dir}/warm_port"])
+        for name, extra in TRAIN_LAYOUTS.items()}
+    _write_jobs(four, [_job_step(n) for n in STEPS if _ranks(n) == 4]
+                + [dict(kind="ops", name="ops", pp=2, dp=1, tp=2),
+                       trains["pp2xtp2"], trains["pp1xtp2xdp2"]], inputs)
+    _write_jobs(eight, [_job_step(n) for n in STEPS if _ranks(n) == 8]
+                + [dict(kind="init", name="init", pp=2, dp=2, tp=2, seed=INIT_SEED),
+                   trains["pp2xtp2xdp2"]], inputs)
+    procs = {4: launch(4, [sys.executable, WORKER, str(four)]),
+             8: launch(8, [sys.executable, WORKER, str(eight)])}
+    want = {name: _ref_loss_and_grad(ref, trees.get(KV_HEADS.get(name), tree), batch,
+                                     *STEPS[name], KV_HEADS.get(name, 2)) for name in STEPS}
+    ref.train.run_training(t_config.load_config(conf, TRAIN_ARGS + [
+        f"output_dir={train_dir}/ref", f"model_name_or_path={train_dir}/warm_ref"]))
+    for p in procs.values():
+        for rc, _, stderr in finish(p):
+            assert rc == 0, stderr[-3000:]
+    results = {name: _results(four if _ranks(name) == 4 else eight, name, _ranks(name))
+               for name in STEPS}
+    return dict(tree=tree, inputs=inputs, want=want, results=results,
+                ops=_results(four, "ops", 4), init=_results(eight, "init", 8),
+                train_dir=train_dir)
+
+
+@pytest.mark.parametrize("name", list(STEPS))
+def test_step_matches_reference_pipeline(tp_runs, name):
+    """One step at each layout (and, at pp 2 x tp 2 x dp 2, with the
+    prologue kernels' plain twins against the reference's interpret-mode
+    Pallas prologue, and under interleaved v2 and zb1) against the
+    reference's make_pipeline_loss_and_grad on the same layout: the loss on
+    every rank, and every rank's slice of every gradient."""
+    pp, dp, tp, _, v, _ = STEPS[name]
+    want_loss, want_grads = tp_runs["want"][name]
+    for res in tp_runs["results"][name]:
+        np.testing.assert_allclose(float(res["loss"]), want_loss, rtol=LOSS_RTOL)
+        _assert_grads_close(res["grads"], _slices(want_grads, res, pp, v, tp))
+
+
+@pytest.mark.parametrize("name", ["pp2xtp2", "pp1xtp2xdp2", "pp2xtp2xdp2", "pp1xtp4"])
+def test_norm_and_zero1_masters_under_tp(tp_runs, name):
+    """The gradient norm each rank clips by is the reference gradient's
+    whole norm (each split leaf's slices added over tp, each replicated leaf
+    once), and each rank's masters after the step (ZeRO-1 at dp 2: its
+    slice updated, then gathered over dp) are bit-equal to a replicated
+    AdamW fed its gradients and norm; no moment is split on the tp dim."""
+    pp, dp, tp, _, v, _ = STEPS[name]
+    want_grads = tp_runs["want"][name][1]
+    want_norm = float(torch.stack([g.double().square().sum()
+                                   for g in want_grads.values()]).sum().sqrt())
+    for res in tp_runs["results"][name]:
+        np.testing.assert_allclose(float(res["norm"]), want_norm, rtol=1e-5)
+        start = _slices(tp_runs["inputs"][_params_key(name)], res, pp, v, tp)
+        plain = {k: x.clone() for k, x in start.items()}
+        t_optim.AdamW(plain, t_optim.OptimizerConfig(**OPT)).step(plain, res["grads"],
+                                                                    res["norm"])
+        for k in plain:
+            assert torch.equal(res["masters"][k], plain[k]), k
+        for k, dim in (res["dims"] or {}).items():
+            assert dim != t_tp.tp_dim(k, res["grads"][k].dim()) or dim is None, k
+            full = res["grads"][k].numel()
+            assert res["mu"][k].numel() == (full if dim is None else full // dp), k
+
+
+def test_tp_operators_against_one_process(tp_runs):
+    """tp_copy (identity; backward the sum over the ranks), tp_reduce (the
+    sum; backward identity) and tp_max (the max; zero gradient) on each
+    rank of a tp group of 2, against the one-process sums."""
+    x, g = tp_runs["inputs"]["x"], tp_runs["inputs"]["g"]
+    for res in tp_runs["ops"]:
+        t = res["tp_rank"]
+        torch.testing.assert_close(res["copy"], x[t], rtol=0, atol=0)
+        torch.testing.assert_close(res["copy_grad"], g.sum(0), rtol=0, atol=0)
+        torch.testing.assert_close(res["reduce"], x.sum(0), rtol=0, atol=0)
+        torch.testing.assert_close(res["reduce_grad"], g[t], rtol=0, atol=0)
+        torch.testing.assert_close(res["max"], x.max(0).values, rtol=0, atol=0)
+        assert not res["max_grad"].any()
+
+
+def test_vocab_parallel_ce_matches_reference(ref, tp_runs):
+    """The vocab-parallel CE (parallel/tp.vocab_parallel_loss_sum_count) on
+    each rank of a tp group of 2 against the reference's
+    _vocab_parallel_token_loss in a shard_map over a tp = 2 mesh, on the
+    same preshifted targets (a fifth of them ignored): the loss sum, the
+    count, dh and each rank's columns of dW."""
+    from jax.sharding import PartitionSpec as P
+
+    inp = tp_runs["inputs"]
+    cfg = ref.config.LlamaConfig.tiny()
+    mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(tp=2))
+    h, w, labels = (jnp.asarray(inp[k].numpy()) for k in ("h", "lm_head", "targets"))
+    labels = labels.astype(jnp.int32)
+
+    def local(h_, w_):
+        """The loss and its gradients on each tp device, as the reference's
+        pipeline takes them (inside the shard_map)."""
+        def loss_of(a, b):
+            return ref.pl._vocab_parallel_token_loss({"lm_head": b}, a, labels, cfg,
+                                                     preshifted=True)
+
+        (loss_, count_), (dh_, dw_) = jax.value_and_grad(loss_of, argnums=(0, 1),
+                                                         has_aux=True)(h_, w_)
+        return loss_, count_, dh_, dw_
+
+    fn = jax.shard_map(local, mesh=mesh, in_specs=(P(), P(None, "tp")),
+                       out_specs=(P(), P(), P(), P(None, "tp")), check_vma=False)
+    loss, count, dh, dw = fn(h, w)
+    dw = np.asarray(dw)
+    for res in tp_runs["ops"]:
+        t = res["tp_rank"]
+        np.testing.assert_allclose(float(res["ce_loss"]), float(loss), rtol=1e-6)
+        assert int(res["ce_count"]) == int(count)
+        np.testing.assert_allclose(res["ce_dh"].numpy(), np.asarray(dh), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(res["ce_dw"].numpy(), dw[:, t * 128:(t + 1) * 128],
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_init_by_shard_joins_into_one_process_init(tp_runs):
+    """The trainer's init at pp 2 x tp 2 x dp 2: every rank holds only its
+    stage's chunk and its tp slices; the replicas hold the same; joined over
+    tp and stages, bit-equal to one process's init (model.init_params)
+    from the same seed."""
+    cfg = TConfig.tiny()
+    one = t_llama.init_params(cfg, INIT_SEED, device="cpu")
+    manifest = TManifest(num_layers=4, num_stages=2)
+    by_cell = {}
+    for res in tp_runs["init"]:
+        (stage, chunks), = res["chunks"].items()
+        key = (stage, res["tp_rank"])
+        if key in by_cell:  # the other replica: the same tensors
+            for k, x in chunks[0].items():
+                assert torch.equal(x, by_cell[key][0][k]), k
+        by_cell[key] = chunks
+    joined = {}
+    for stage in range(2):
+        for name in by_cell[(stage, 0)][0]:
+            parts = [by_cell[(stage, t)][0][name] for t in range(2)]
+            dim = t_tp.tp_dim(name, parts[0].dim())
+            joined.setdefault(stage, [{}])[0][name] = (parts[0] if dim is None
+                                                       else torch.cat(parts, dim))
+    merged = t_pl.merge_params(joined, manifest)
+    assert set(merged) == set(one)
+    for k in one:
+        assert torch.equal(merged[k], one[k]), k
+
+
+def test_trainer_layouts_match_reference_run_training(ref, tp_runs):
+    """tiny_smoke with mesh.tp=2 through run_training at pp 2 x tp 2 (4
+    processes; 4 microbatches of 2 rows), pp 1 x tp 2 x dp 2 (4) and pp 2 x
+    tp 2 x dp 2 (8), warm-started from the reference's init, 3 steps,
+    against the reference's run_training at pp 2 x tp 2 x dp 2 over the
+    virtual mesh: the metrics line's loss at each step (1e-5) and the final
+    params (1e-4)."""
+    d = tp_runs["train_dir"]
+    want = [json.loads(x)["loss"] for x in open(d / "ref" / "metrics.jsonl")
+            if "loss" in json.loads(x)]
+    cfg_j = ref.config.LlamaConfig.tiny()
+    manifest = ref.manifest.StageManifest.for_config(cfg_j, 2)
+    tree = ref.llama.init_params(jax.random.PRNGKey(4), cfg_j)
+    ref_final = ref.ckpt.CheckpointManager(str(d / "ref")).load_params(
+        3, ref.pl.stack_stages(tree, manifest), manifest)
+    want_params = convert.params_from_jax(convert.unstack_stages(
+        jax.device_get(ref_final), TManifest(num_layers=4, num_stages=2)))
+    for name in TRAIN_LAYOUTS:
+        got = [json.loads(x)["loss"] for x in open(d / name / "metrics.jsonl")]
+        assert len(got) == len(want) == 3, name
+        np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, err_msg=name)
+        got_params = tensor_io.load_file(str(d / name / "checkpoint-3" / "params.safetensors"))
+        _assert_grads_close(got_params, want_params, rtol=1e-4)
+        meta = json.load(open(d / name / "checkpoint-3" / "meta.json"))
+        assert meta["topology"]["tp"] == 2, meta["topology"]
+
+
+# ---------------------------------------------------------------------------
+# placement, refusals, the run of record's config
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("preset", ["tiny", "llama_65b", "llama2_70b"])
+@pytest.mark.parametrize("tp,dp", [(2, 2), (4, 2), (2, 4)])
+def test_zero1_placement_under_tp_matches_reference(ref, preset, tp, dp):
+    """zero1_dims on each leaf of a tp rank (a chunk's [k, ...] layer leaves
+    and the embedding, norm and lm_head, at the local widths) puts the dp
+    split where the reference's _zero1_leaf_spec puts it on the
+    stage-stacked global leaf under stage_param_specs(tp=True), called
+    directly, at pp 4: never on the tp dim; the column-parallel weights on
+    their input dim, the vocab-parallel lm_head on dim 0."""
+    from llama_pipeline_parallel_tpu.parallel.train_step import _zero1_leaf_spec
+
+    cfg_j = getattr(ref.config.LlamaConfig, preset)()
+    tree = jax.eval_shape(lambda: ref.pl.stack_stages(
+        ref.llama.init_params(jax.random.PRNGKey(0), cfg_j),
+        ref.manifest.StageManifest.for_config(cfg_j, 4)))
+    specs = ref.pl.stage_param_specs(tree, tp=True)
+    flat_specs = dict(jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0])
+    checked = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        name = ".".join(str(getattr(k, "key", k)) for k in path)
+        stacked = name.startswith("layers.")
+        spec = _zero1_leaf_spec(flat_specs[path], tuple(leaf.shape), dp)
+        dims = [i for i, ax in enumerate(tuple(spec)) if ax == "dp"]
+        want = (dims[0] - 1 if stacked else dims[0]) if dims else None
+        mine = tuple(leaf.shape[1:]) if stacked else tuple(leaf.shape)
+        local = tuple(t_tp.tp_shard(name, torch.empty(mine, device="meta"), 0, tp).shape)
+        assert t_optim.zero1_dims({name: local}, dp, tp)[name] == want, (name, spec)
+        checked += 1
+    assert checked >= 10
+
+
+@pytest.mark.parametrize("bad,overrides", [
+    ("loss_chunks", ["loss_vocab_chunks=4"]),
+    ("kernel_ce", ["kernels.ce=pallas"]),
+    ("heads", ["model.num_attention_heads=2", "model.num_key_value_heads=1"]),
+    ("ffn", ["model.intermediate_size=129"]),
+    ("vocab", ["model.vocab_size=255"]),
+])
+def test_tp_refusals_match_reference(ref, tmp_path, bad, overrides):
+    """Under tp = 2 the trainer refuses what the reference's pipeline build
+    refuses (a chunked or kernel CE head, a tp that does not divide the
+    heads, kv heads, FFN width or vocabulary), with the reference's words."""
+    cfg_j = ref.config.LlamaConfig.tiny()
+    node = {"loss_chunks": {}, "kernel_ce": {}, "heads": dict(num_attention_heads=2,
+                                                               num_key_value_heads=1),
+            "ffn": dict(intermediate_size=129), "vocab": dict(vocab_size=255)}[bad]
+    import dataclasses
+
+    cfg_j = dataclasses.replace(cfg_j, **node)
+    manifest = ref.manifest.StageManifest(num_layers=4, num_stages=2)
+    pcfg = ref.pl.PipelineConfig(num_stages=2, num_microbatches=2,
+                                 loss_chunks=4 if bad == "loss_chunks" else 1,
+                                 kernel_ce=bad == "kernel_ce")
+    stacked = jax.eval_shape(lambda: ref.pl.stack_stages(
+        ref.llama.init_params(jax.random.PRNGKey(0), cfg_j), manifest))
+    mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=2, tp=2))
+    with pytest.raises(ValueError) as want:
+        ref.pl.make_pipeline_loss_and_grad(mesh, cfg_j, pcfg, stacked)
+    cfg = t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
+                               ["mesh.tp=2", f"output_dir={tmp_path}", *overrides])
+    with pytest.raises(ValueError) as got:
+        t_train.build_run(cfg, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_run_of_record_config_runs_through_the_cli(tmp_path):
+    """conf/llama_65b_pp8_tp2_dp2.yaml through the CLI under
+    torch.distributed.run in 8 processes on the CPU, with only the model cut
+    to the tiny preset and pp to 2 (its tp 2 x dp 2, optimizer_offload,
+    optimizer_offload_zero2, schedule and data keys as written) and a few
+    steps: exit 0, finite losses."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "8",
+           "--master_addr", "localhost", "--master_port", str(_free_port()),
+           "-m", "llama_pipeline_parallel_tpu_torch.cli", "--config",
+           "conf/llama_65b_pp8_tp2_dp2.yaml", "--device", "cpu", "model.preset=tiny",
+           "mesh.pp=2", "max_steps=1", "total_steps=500", "save_final=false",
+           "resume=false", f"output_dir={tmp_path}"]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    losses = [json.loads(x)["loss"] for x in open(tmp_path / "metrics.jsonl")]
+    assert len(losses) == 1 and all(np.isfinite(losses)), losses
+    assert "pipeline pp2xdp2xtp2xsp1" in res.stderr

@@ -201,7 +201,7 @@ def _forward_backward(params, batch, cfg, remat, policy):
 
 def _remat_inputs():
     cfg = TConfig.tiny()
-    params = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    params = t_llama.init_params(cfg, device="cpu", seed=0)
     g = torch.Generator().manual_seed(1)
     ids = torch.randint(3, cfg.vocab_size, (2, 32), generator=g)
     mask = torch.ones_like(ids)

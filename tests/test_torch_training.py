@@ -436,9 +436,15 @@ def test_trainer_refuses_what_it_does_not_run(tmp_path):
     # tiny_smoke is pp=2 dp=2: a replica a process, so one process is refused
     with pytest.raises(ValueError, match="1 processes for mesh pp2xdp2"):
         run_training(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="'tp': 2"):
+    # tp runs a process a (stage, replica, tp rank): one process is refused
+    with pytest.raises(ValueError, match="1 processes for mesh pp2xdp2xtp2xsp1: run it in "
+                                         "pp\\*dp\\*tp=8 processes"):
         run_training(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                           [f"output_dir={tmp_path}", "mesh.tp=2"]),
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="'sp': 2"):
+        run_training(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
+                                          [f"output_dir={tmp_path}", "mesh.sp=2"]),
                      device="cpu")
     one = ["mesh.pp=1", "mesh.dp=1", f"output_dir={tmp_path}"]
 
@@ -648,7 +654,7 @@ def test_train_step_on_card_matches_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     cfg = TConfig.tiny(hidden_size=256, num_attention_heads=2, num_key_value_heads=1)
-    init = t_llama.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    init = t_llama.init_params(cfg, device="cpu", seed=0)
     batches = [_batch(cfg.vocab_size, 4, 64, seed=s, pad_tail=7) for s in (1, 2)]
     runs = []
     for device in ("cpu", "cuda"):
