@@ -239,6 +239,33 @@ which raises on failure:
               gloo staging and collective seconds of the pp, dp and tp groups
               apart, the host AdamW's ms (all of it this one-card gloo mode,
               not a multi-card figure).
+15. sp    -- pp 2 x tp 2 x sp 2 at CodeLlama-34B width across 8 processes
+              (`--sp-worker`) sharing card 0 over gloo, launched after the
+              build: conf/codellama_34b_16k.yaml as published (16,384-token
+              rows of 1 row a microbatch, ring attention, flash, bf16,
+              optimizer_offload, nothing_saveable remat) with SP_OVERRIDES: 2
+              of 48 layers, pp 2, 4 microbatches, SP_STEPS steps, the
+              prologue kernels; 8,192-token slabs. First the flash kernels at
+              an sp rank's slab (SP_FLASH, real offsets) against their plain
+              versions on the ring's three kinds of slab: diagonal, fully
+              visible, fully masked (out 0, lse NEG_INF, dq / dk / dv 0,
+              exactly), and the prologue kernels at a slab whose positions
+              start at 8,192 (SP_PRO); with their readings. Then one process
+              at pp 2 x tp 1 x sp 1 on the same rows (SP_ONE): its step-1 loss
+              and gradients in bf16 and, at SP_FP32's shorter rows, fp32.
+              The 8 ranks: step 1's loss (STEP_LOSS_TOL) and gradients
+              (TP_BF16_GRAD_REL_TOL relative) against it, every rank alike;
+              the same with every slab's kv_offset 0 (a planted fault: the
+              gradient check must reject it); Ulysses in place of the ring on
+              the same params and rows under the bf16 gates; an fp32 run's
+              step-1 gradients at SP_FP32's shorter rows (GRAD_REL_TOL); each
+              rank's launches exactly its stage's share of the
+              unit grid times the slab calls of an attention (sp for each
+              flash kernel under the ring, 1 under Ulysses; the prologue
+              kernels once; no CE kernel), all on the tensor cores; step ms,
+              tokens/s, max_memory_allocated and peak host RSS a rank, the
+              gloo staging and collective seconds by group (this one-card
+              gloo mode, not a multi-card figure).
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -281,7 +308,8 @@ TRAIN_OVERRIDES = [
 ]
 # the packed phase: conf/llama_7b_flan_packed.yaml (max_seq_length 512,
 # packing_factor 4, 8 rows a microbatch, loss_vocab_chunks 4) at LLaMA-7B
-# width, cut to 4 layers, 2 microbatches and one card, 4 steps, on a JSONL of
+# width, cut to 2 layers (4 before the sp phase needed the time), 2
+# microbatches and one card, 4 steps, on a JSONL of
 # synthetic {"inputs", "targets"} rows written from PACKED_SEED and a
 # SentencePiece-Unigram tokenizer trained on it in the process (tokenizers +
 # transformers)
@@ -485,10 +513,13 @@ OFFLOAD_MASTER_ATOL = 1e-6
 # x 16 microbatches, no remat, dp 1) on the host optimizer with the slice's
 # kernels, a warm-up step and 3 more, at OFFLOAD_FULL_LAYERS of its 32 layers:
 # the 32-layer cell took ~100 s of the script (16.4-16.8 s a step), and the
-# multirank phase needed the room. Host memory: 12 bytes a parameter (fp32
-# master, two moments) plus the pinned staging, with OFFLOAD_HOST_SPARE to
-# spare, else the depth is cut further to what fits.
-OFFLOAD_FULL_LAYERS = 8
+# multirank phase needed the room; 8 -> 4 for the sp phase (the script ran
+# 1,102.3 s of its 1,200 s with 8 on a 700 W H100; every layer runs the same
+# code, so 4 leave no path out, but its step ms and MFU are not those of 8).
+# Host memory: 12 bytes a parameter (fp32 master, two moments) plus the pinned
+# staging, with OFFLOAD_HOST_SPARE to spare, else the depth is cut further to
+# what fits.
+OFFLOAD_FULL_LAYERS = 4
 OFFLOAD_FULL_OVERRIDES = [
     "optimizer_offload=true", "attention=flash", "kernels.ce=pallas", "loss_vocab_chunks=4",
     "kernels.prologue=pallas", "max_steps=4", "save_steps=0", "save_final=false",
@@ -541,6 +572,31 @@ TP_BF16_ROWS = ["per_device_train_batch_size=4", "max_steps=1"]
 # tokens, d 8192, 32 + 32 + 32 local heads of 128], flash at 32 local heads
 TP_PRO = dict(b=8, s=512, d=8192, h=32, kv=32, pos0=0)
 TP_FLASH = dict(b=8, h=32, h_kv=32, s=512, hd=128)
+
+
+# conf/codellama_34b_16k.yaml (CodeLlama-34B: d 8192, 64 heads of 128, 8 kv
+# heads, FFN 22016, vocab 32000, rope theta 1e6; 16,384-token rows, 1 row a
+# microbatch, bf16, optimizer_offload, ring attention, flash, nothing_saveable
+# remat) cut to 2 of 48 layers, pp 4 -> 2, 32 -> 4 microbatches and SP_STEPS
+# steps, with the prologue kernels: pp 2 x tp 2 x sp 2 in SP_RANKS processes
+# on card 0 over gloo, 8,192-token slabs. SP_ONE is the one-process reference
+# on the same rows (pp 2 in memory, tp 1, sp 1).
+SP_CONFIG = "codellama_34b_16k.yaml"
+SP_RANKS = 8
+SP_STEPS = 2
+SP_OVERRIDES = ["model.num_hidden_layers=2", "mesh.pp=2", "gradient_accumulation_steps=4",
+                "attention=flash", "kernels.prologue=pallas", "total_steps=500",
+                "save_steps=0", "save_final=false", "resume=false", "logging_steps=1"]
+SP_ONE = SP_OVERRIDES + ["mesh.tp=1", "mesh.sp=1"]
+# the fp32 gradient parity at 4,096-token rows (2,048-token slabs): fp32
+# doubles eight ranks' state on one card, and the fp32 kernels are SIMT
+SP_FP32 = ["model.dtype=float32", "dataset.seq_length=4096"]
+# the kernels at an sp rank's slab of CodeLlama-34B: flash at 32 local heads
+# (kv expanded) on 8,192-token slabs, the prologue at 32 + 4 + 4 local heads
+# with positions from 8,192 (sp rank 1's slab)
+SP_FLASH = dict(b=1, h=32, s=8192, hd=128)
+SP_SLABS = {"diagonal": (8192, 8192), "visible": (8192, 0), "masked": (0, 8192)}
+SP_PRO = dict(b=1, s=8192, d=8192, h=32, kv=4, pos0=8192)
 
 
 def log(msg: str) -> None:
@@ -701,15 +757,19 @@ def bounds(b, h, s, hd, elem_bytes, pairs: int | None = None, seg_bytes: int = 0
     input read once, each output written once) over the memory rate and its
     operations (the (q, k) pairs this run needs: every causal pair, or the
     `pairs` the segment ids leave visible) over the bf16 peak. `seg_bytes`:
-    the segment ids read."""
+    the segment ids read. With no visible pair (a fully masked slab) the
+    outputs do not depend on the inputs: only the outputs are written."""
     tensor = b * h * s * hd * elem_bytes
     rows = b * h * s * 4
     pairs = causal_pairs(b, h, s) if pairs is None else pairs
-    work = {  # (bytes moved, operations)
-        "fwd": (4 * tensor + rows + seg_bytes, 2 * 2 * hd * pairs),     # q k v in, out + lse
-        "dq": (5 * tensor + 2 * rows + seg_bytes, 3 * 2 * hd * pairs),  # q k v dO lse delta, dq
-        "dkv": (6 * tensor + 2 * rows + seg_bytes, 4 * 2 * hd * pairs),  # ..., dk dv
-    }
+    if pairs == 0:
+        work = {"fwd": (tensor + rows, 0), "dq": (tensor, 0), "dkv": (2 * tensor, 0)}
+    else:
+        work = {  # (bytes moved, operations)
+            "fwd": (4 * tensor + rows + seg_bytes, 2 * 2 * hd * pairs),  # q k v in, out + lse
+            "dq": (5 * tensor + 2 * rows + seg_bytes, 3 * 2 * hd * pairs),  # q k v dO lse delta, dq
+            "dkv": (6 * tensor + 2 * rows + seg_bytes, 4 * 2 * hd * pairs),  # ..., dk dv
+        }
     out = {}
     for name, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
@@ -768,10 +828,13 @@ def phase_kernels() -> dict:
     return flash_readings(q, k, v, do, kw, errs, "[kernels]")
 
 
-def flash_readings(q, k, v, do, kw, errs: dict, tag: str) -> dict:
+def flash_readings(q, k, v, do, kw, errs: dict, tag: str, pairs: int | None = None,
+                   library_causal: bool | None = True, label: str = "") -> dict:
     """The flash kernels' rows of the kernels line on (q, k, v, do): each
     kernel's and its plain version's device ms, SDPA's (the one-call
-    yardstick), the bound, and `errs` (kernel_case's)."""
+    yardstick: causal, or not with `library_causal` False, or none with
+    None), the bound (on every causal pair, or `pairs`), and `errs`
+    (kernel_case's); `label` is added to each row's name."""
     import torch
     import torch.nn.functional as F
 
@@ -788,25 +851,29 @@ def flash_readings(q, k, v, do, kw, errs: dict, tag: str) -> dict:
         "dkv": (cuda_ms(lambda: fa._bwd_dkv_cuda(*bwd_args, **kw)),
                 cuda_ms(lambda: fa._bwd_dkv_plain(*bwd_args, **kw))),
     }
-    # yardstick only: one PyTorch call computing the same forward
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    library = dict.fromkeys(("fwd", "dq", "dkv"))
+    if library_causal is not None:
+        # yardstick only: one PyTorch call computing the same forward
+        causal = library_causal
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(o, (qg, kg, vg), do)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            torch.autograd.grad(o, (qg, kg, vg), do)
 
-    sdpa_both = cuda_ms(sdpa_fwd_bwd)
-    # its backward alone (dq, dk and dv in one call), the forward run once outside the timing
-    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
-    del o
-    log(f"{tag} yardstick F.scaled_dot_product_attention: fwd {sdpa_fwd:.4f} ms, "
-        f"bwd {sdpa_bwd:.4f} ms, fwd+bwd {sdpa_both:.4f} ms")
-    library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
+        sdpa_both = cuda_ms(sdpa_fwd_bwd)
+        # its backward alone (dq, dk and dv in one call), the forward run once outside the
+        # timing
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+        del o, qg, kg, vg
+        log(f"{tag} yardstick F.scaled_dot_product_attention (is_causal={causal}): fwd "
+            f"{sdpa_fwd:.4f} ms, bwd {sdpa_bwd:.4f} ms, fwd+bwd {sdpa_both:.4f} ms")
+        library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
 
     b, h, s, hd = q.shape
-    bound = bounds(b, h, s, hd, 2)
+    bound = bounds(b, h, s, hd, 2, pairs)
     source = "llama_pipeline_parallel_tpu_torch/csrc/flash_attention.cu"
     replaces = {"fwd": "llama_pipeline_parallel_tpu/ops/flash_attention.py:194",
                 "dq": "llama_pipeline_parallel_tpu/ops/flash_attention.py:343",
@@ -815,11 +882,11 @@ def flash_readings(q, k, v, do, kw, errs: dict, tag: str) -> dict:
     rows = {}
     for key in ("fwd", "dq", "dkv"):
         ms, plain_ms = timings[key]
-        rows[key] = {"name": names[key], "route": "cuda", "source": source,
+        rows[key] = {"name": names[key] + label, "route": "cuda", "source": source,
                      "replaces": replaces[key], "launches": None,
                      "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
                      **bound[key], "library_ms": library[key]}
-        log(f"  {names[key]}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        log(f"  {names[key]}{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{bound[key]['bound_ms']:.4f} ms by {bound[key]['bound_by']})")
     return rows
 
@@ -3879,8 +3946,9 @@ def tp_worker(out_dir: str, steps: str) -> int:
     return 0
 
 
-def tp_rank_run(out_dir: str, overrides: list, tag: str, name: str = "") -> tuple:
-    """A tp rank's run of TP_CONFIG with `overrides` (in out_dir's
+def tp_rank_run(out_dir: str, overrides: list, tag: str, name: str = "",
+                config: str = TP_CONFIG) -> tuple:
+    """A rank's run of `config` with `overrides` (in out_dir's
     `run-<tag><name>`), its optimizer wrapped: step 1's gradients against
     `ref_grads_<tag>.safetensors`'s slices of this rank (sums of squares of
     the difference and of the reference, split and replicated leaves apart),
@@ -3892,37 +3960,52 @@ def tp_rank_run(out_dir: str, overrides: list, tag: str, name: str = "") -> tupl
     from llama_pipeline_parallel_tpu_torch.train import build_run
     from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
-    run = build_run(load_config(os.path.join(ROOT, "conf", TP_CONFIG), overrides + [
+    run = build_run(load_config(os.path.join(ROOT, "conf", config), overrides + [
         f"output_dir={out_dir}/run-{tag}{name}"]), "cuda")
-    mesh, sp, host = run.mesh, run.pipeline.stage_params, run.host
+    mesh, host = run.mesh, run.host
+    # grad_sq is filled in place: callers may copy the record before its step
     result: dict = {"stages": list(mesh.stages), "replica": mesh.replica,
-                    "tp_rank": mesh.tp_rank, "host_ms": [],
-                    "grad_sq": {"split": [0.0, 0.0], "whole": [0.0, 0.0]}}
+                    "tp_rank": mesh.tp_rank, "sp_rank": mesh.sp_rank, "host_ms": [],
+                    "grad_sq": {}}
 
     class Parity:
         def step(self, params, grads, norm):
             if not result["host_ms"]:
-                with tensor_io.TensorFile(os.path.join(out_dir,
-                                                       f"ref_grads_{tag}.safetensors")) as f:
-                    ref = pl.flatten_chunks(pl.chunk_views(
-                        {name: f.tensor(name) for name in f.keys()}, run.manifest, sp.stages,
-                        mesh.tp_rank, mesh.tp))
-                    for name, g in grads.items():
-                        # in pieces: eight ranks share the card
-                        r = ref[name].contiguous().view(-1)
-                        kind = "whole" if tp_dim(name, g.dim()) is None else "split"
-                        for a in range(0, r.numel(), 1 << 24):
-                            rc = r[a:a + (1 << 24)].to(g.device).double()
-                            gc = g.view(-1)[a:a + (1 << 24)].double()
-                            result["grad_sq"][kind][0] += float((gc - rc).square().sum())
-                            result["grad_sq"][kind][1] += float(rc.square().sum())
-                        del r, rc, gc
+                result["grad_sq"].update(grad_sq(out_dir, tag, run, grads))
             lr = host.step(params, grads, norm)
             result["host_ms"].append(dict(host.last_timings))
             return lr
 
     run.state.optimizer = Parity()
     return run, result
+
+
+def grad_sq(out_dir: str, tag: str, run, grads: dict) -> dict:
+    """A rank's gradients (its stage's chunks and tp slices, named as the
+    optimizer names them) against `ref_grads_<tag>.safetensors`'s pieces of
+    this rank: sums of squares of the difference and of the reference,
+    split and replicated leaves apart."""
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.tp import tp_dim
+
+    mesh = run.mesh
+    out = {"split": [0.0, 0.0], "whole": [0.0, 0.0]}
+    with tensor_io.TensorFile(os.path.join(out_dir, f"ref_grads_{tag}.safetensors")) as f:
+        ref = pl.flatten_chunks(pl.chunk_views(
+            {name: f.tensor(name) for name in f.keys()}, run.manifest,
+            run.pipeline.stage_params.stages, mesh.tp_rank, mesh.tp))
+        for name, g in grads.items():
+            # in pieces: eight ranks share the card
+            r = ref[name].contiguous().view(-1)
+            kind = "whole" if tp_dim(name, g.dim()) is None else "split"
+            for a in range(0, r.numel(), 1 << 24):
+                rc = r[a:a + (1 << 24)].to(g.device).double()
+                gc = g.reshape(-1)[a:a + (1 << 24)].double()
+                out[kind][0] += float((gc - rc).square().sum())
+                out[kind][1] += float(rc.square().sum())
+            del r, rc, gc
+    return out
 
 
 def tp_kernels() -> dict:
@@ -4117,6 +4200,328 @@ def phase_tp() -> None:
     log(f"[tp] phase {time.perf_counter() - t0:.1f} s")
 
 
+def sp_worker(out_dir: str, steps: str) -> int:
+    """One rank of the sp phase (RANK / WORLD_SIZE / MASTER_* and
+    LPT_DIST_BACKEND=gloo in its environment): SP_CONFIG with SP_OVERRIDES
+    built once; on its first batch, the pipeline's loss and gradients with
+    every slab's kv_offset 0 (the planted fault) and with Ulysses in place
+    of the ring (its launches counted); then `steps` steps through
+    train_run, the launch counts set to 0 just before the loop and read just
+    after; then an fp32 run's (SP_FP32) pipeline loss and gradients on its
+    first batch. Each step-1
+    gradient (this rank's pieces of the (dp, sp)-reduced gradient, as the
+    host optimizer receives them) is held against the one-process
+    reference's (`ref_grads_<dtype>.safetensors` in out_dir). Writes
+    `sp-rank<r>.json`."""
+    import gc
+    import logging
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.parallel import distributed
+    from llama_pipeline_parallel_tpu_torch.ops.flash_attention import flash_attention
+    from llama_pipeline_parallel_tpu_torch.parallel import ring_attention as ra
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import sp_slab
+    from llama_pipeline_parallel_tpu_torch.parallel.sp import make_sp_attention
+    from llama_pipeline_parallel_tpu_torch.train import train_run
+
+    distributed.initialize_distributed("cuda")
+    rank = distributed.process_index()
+    if rank:
+        logging.getLogger("llama_pipeline_parallel_tpu_torch").setLevel(logging.WARNING)
+
+    def counts() -> dict:
+        return {"launches": {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts},
+                "tensor_core": {**fa.tensor_core_counts, **fc.tensor_core_counts,
+                                **fp.tensor_core_counts}}
+
+    def released():
+        gc.collect()
+        release_host_cache()
+
+    def direct_step(run, batch, what: str, tag: str = "bf16") -> dict:
+        """Step 1's loss and gradients by the pipeline alone (no optimizer
+        step), against the `tag` reference; the gradients zeroed after."""
+        loss = run.pipeline.loss_and_grad(sp_slab(batch, run.mesh)).item()
+        grads = run.pipeline.stage_params.grads()
+        out = {"losses": [loss], "grad_sq": grad_sq(out_dir, tag, run, grads)}
+        for g in grads.values():
+            g.zero_()
+        log(f"[sp] rank {rank} {what}: loss {loss:.6f}")
+        return out
+
+    t0 = time.perf_counter()
+    peak_rss = PeakRss()
+    run, result = tp_rank_run(out_dir, SP_OVERRIDES + [f"max_steps={steps}"], "bf16",
+                              config=SP_CONFIG)
+    result.update(rank=rank, build_s=time.perf_counter() - t0)
+    batch = next(run.batches())  # the first batch of the run's own stream
+    # the planted fault, on every rank alike: each slab's keys taken to start
+    # at position 0 (the forward and backward calls of every slab)
+    slab_fwd, slab_bwd = ra._slab_fwd, ra._slab_bwd
+    ra._slab_fwd = lambda *a, **kw: slab_fwd(*a, **{**kw, "kv_offset": 0})
+    ra._slab_bwd = lambda *a, **kw: slab_bwd(*a, **{**kw, "kv_offset": 0})
+    try:
+        result["planted"] = direct_step(run, batch, "planted fault (kv_offset 0)")
+    finally:
+        ra._slab_fwd, ra._slab_bwd = slab_fwd, slab_bwd
+    # Ulysses on the same params and rows: the pipeline's attention re-wrapped
+    ring_attn = run.pipeline.attn_fn
+    run.pipeline.attn_fn = make_sp_attention("ulysses", flash_attention, run.mesh.sp_group)
+    reset_kernel_counts()
+    try:
+        result["ulysses"] = {**direct_step(run, batch, "Ulysses"), **counts()}
+    finally:
+        run.pipeline.attn_fn = ring_attn
+    del batch
+    released()
+    reset_kernel_counts()
+    distributed.staging_by.clear()
+    distributed.collective_s.clear()
+    summary = train_run(run)
+    result.update({k: summary[k] for k in ("losses", "step_times", "tokens_per_step")},
+                  **counts(), peak_bytes=torch.cuda.max_memory_allocated(), rss_gb=rss_gb(),
+                  peak_rss_gb=peak_rss.stop(), staging_by=dict(distributed.staging_by),
+                  collective_s=dict(distributed.collective_s), host_numel=run.host.numel())
+    del run, summary
+    released()
+    run = tp_rank_run(out_dir, SP_OVERRIDES + SP_FP32, "fp32", config=SP_CONFIG)[0]
+    result["fp32"] = direct_step(run, next(run.batches()), "fp32", "fp32")
+    with open(os.path.join(out_dir, f"sp-rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    del run
+    distributed.shutdown()
+    return 0
+
+
+def sp_masked_slab(fa, q, k, v, do, kw: dict, lse) -> dict:
+    """The fully masked slab (every key after every query): out 0 and lse
+    NEG_INF from the forward, and dq, dk, dv 0 from the backward given the
+    row's global lse (finite, from another slab, as the ring gives it), each
+    exactly and equal to the plain version's; returns the kernels' ms."""
+    import torch
+
+    out, lse_slab = fa._fwd_cuda(q, k, v, **kw)
+    ref_out, ref_lse = fa._fwd_plain(q.float(), k.float(), v.float(), **kw)
+    delta = (do.float() * torch.randn_like(do, dtype=torch.float32)).sum(-1, keepdim=True)
+    dq = fa._bwd_dq_cuda(q, k, v, delta, lse, do, **kw)
+    dk, dv = fa._bwd_dkv_cuda(q, k, v, delta, lse, do, **kw)
+    ref_dq = fa._bwd_dq_plain(q, k, v, delta, lse, do, **kw)
+    ref_dk, ref_dv = fa._bwd_dkv_plain(q, k, v, delta, lse, do, **kw)
+    exact = {"out": (out, ref_out.to(out.dtype)), "lse": (lse_slab, ref_lse), "dq": (dq, ref_dq),
+             "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
+    for name, (got, ref) in exact.items():
+        want_value = fa.NEG_INF if name == "lse" else 0.0
+        if not (torch.equal(got, ref) and bool((got == want_value).all())):
+            raise AssertionError(f"[sp] fully masked slab: {name} is not {want_value} "
+                                 f"everywhere (max |x| {got.float().abs().max().item()})")
+    log(f"  fully masked slab: out 0, lse {fa.NEG_INF}, dq / dk / dv 0, exactly, as the plain "
+        f"version")
+    return {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+
+
+def sp_kernels() -> dict:
+    """The flash kernels at an sp rank's slab (SP_FLASH) on the ring's three
+    kinds of slab (SP_SLABS: q and kv offsets) and the prologue kernels at a
+    slab whose positions start at SP_PRO's pos0, held to their plain
+    versions at PERF.md section 2's limits (the masked slab exactly), with
+    their readings (ms, plain, yardstick, bound)."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    c = SP_PRO
+    log(f"[sp] prologue kernels at an sp rank's slab: {c['b'] * c['s']} tokens at positions "
+        f"{c['pos0']}.., d={c['d']}, {c['h']} + {c['kv']} + {c['kv']} local heads of 128, bf16, "
+        f"vs the plain version")
+    inp = prologue_inputs(**c, dtype=torch.bfloat16, seed=16)
+    rows = prologue_readings(inp, prologue_case(inp, fp32=False, route=fp.TENSOR_CORE), "[sp]")
+    del inp
+    torch.cuda.empty_cache()
+    c = SP_FLASH
+    q, k, v, do = make_inputs(c["b"], c["h"], c["h"], c["s"], c["s"], c["hd"], torch.bfloat16,
+                              17)
+    lse_global = None
+    for kind, (q_off, kv_off) in SP_SLABS.items():
+        log(f"[sp] flash kernels on a {kind} slab: b={c['b']} h={c['h']} sq=skv={c['s']} "
+            f"hd={c['hd']} bf16 causal, q_offset={q_off} kv_offset={kv_off}, vs the plain "
+            f"version in fp32")
+        kw = dict(causal=True, scale=c["hd"] ** -0.5, q_offset=q_off, kv_offset=kv_off,
+                  segments_q=None, segments_kv=None)
+        if kind == "masked":
+            errs = sp_masked_slab(fa, q, k, v, do, kw, lse_global)
+            pairs, library = 0, None
+        else:
+            errs = kernel_case(fa, q, k, v, do, kw, fp32=False, route=fa.TENSOR_CORE)
+            pairs = causal_pairs(c["b"], c["h"], c["s"]) if q_off == kv_off else \
+                c["b"] * c["h"] * c["s"] * c["s"]
+            library = q_off == kv_off
+            if lse_global is None:
+                lse_global = fa._fwd_cuda(q, k, v, **kw)[1]
+        rows.update({f"{key}-{kind}": row for key, row in flash_readings(
+            q, k, v, do, kw, errs, "[sp]", pairs=pairs, library_causal=library,
+            label=f" ({kind} slab)").items()})
+    del q, k, v, do, lse_global
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sp_grad_rel(ranks: list, key: str) -> float:
+    """Every rank's pieces of every gradient against the reference's: the
+    split leaves of each (replica 0, sp rank 0) rank, the replicated ones
+    once (tp rank 0); sp peers hold the same sums (checked)."""
+    recs = [r if key == "bf16" else r[key] for r in ranks]
+    by_cell = {}
+    for r, x in zip(ranks, recs):
+        cell = (tuple(r["stages"]), r["replica"], r["tp_rank"])
+        if cell in by_cell and by_cell[cell]["grad_sq"] != x["grad_sq"]:
+            raise AssertionError(f"[sp] {key}: sp peers of {cell} hold different gradients: "
+                                 f"{by_cell[cell]['grad_sq']} vs {x['grad_sq']}")
+        by_cell.setdefault(cell, x)
+    first = [(t, x["grad_sq"]) for (_, replica, t), x in by_cell.items() if replica == 0]
+    diff = sum(sq["split"][0] for _, sq in first) + sum(
+        sq["whole"][0] for t, sq in first if t == 0)
+    total = sum(sq["split"][1] for _, sq in first) + sum(
+        sq["whole"][1] for t, sq in first if t == 0)
+    return math.sqrt(diff / total)
+
+
+def phase_sp() -> None:
+    """pp 2 x tp 2 x sp 2 at CodeLlama-34B width in 8 processes on the one
+    card (module docstring, phase 15): the kernels at an sp rank's slab, the
+    one-process reference's step 1, then the 8 ranks: step 1 against it,
+    the planted fault, Ulysses, fp32, launches, and the one-card gloo
+    mode's numbers."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt import tensor_io
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_model_config,
+        build_pipeline_config,
+        build_run,
+    )
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    card = card_line()
+    config = os.path.join(ROOT, "conf", SP_CONFIG)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "sp")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = sp_kernels()
+    log(f"[sp] kernel readings at an sp rank's slab of CodeLlama-34B ({card}): "
+        + json.dumps(list(rows.values())))
+
+    # the reference: one process, pp 2 in memory, tp 1, sp 1, the same rows, in
+    # bf16 and (at SP_FP32's rows) fp32
+    ref = {}
+    for tag, extra in (("bf16", []), ("fp32", SP_FP32)):
+        t_ref = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run = build_run(load_config(config, SP_ONE + extra + [f"output_dir={out_dir}/one"]),
+                        "cuda")
+        batch = next(run.batches())
+        sp = run.pipeline.stage_params
+        ref[tag] = run.pipeline.loss_and_grad(batch).item()
+        ref_peak, ref_rss = torch.cuda.max_memory_allocated(), rss_gb()
+        tensor_io.write_file(os.path.join(out_dir, f"ref_grads_{tag}.safetensors"),
+                             sp.to_canonical(sp.grads()))
+        del run, sp, batch
+        release_host_cache()
+        log(f"[sp] one process, pp 2 x tp 1 x sp 1, 4 microbatches, {tag}, step 1: loss "
+            f"{ref[tag]:.6f}; gradients written; max_memory_allocated "
+            f"{ref_peak / 2**30:.2f} GiB, host RSS {ref_rss and round(ref_rss, 2)} GB after the "
+            f"step ({time.perf_counter() - t_ref:.1f} s)")
+
+    t_ranks = time.perf_counter()
+    procs = launch_ranks(SP_RANKS, ["--sp-worker", out_dir, str(SP_STEPS)], out_dir, "sp",
+                         {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks = finish_ranks("sp", procs, out_dir, "sp", timeout=900)
+    for key in ("bf16", "planted", "ulysses", "fp32"):
+        got = [r["losses"] if key == "bf16" else r[key]["losses"] for r in ranks]
+        if any(x != got[0] for x in got) or not all(math.isfinite(x) for x in got[0]):
+            raise AssertionError(f"[sp] {key} losses differ across ranks or are not finite: "
+                                 f"{got}")
+    losses = ranks[0]["losses"]
+    diffs = {"bf16": abs(losses[0] - ref["bf16"]),
+             "ulysses": abs(ranks[0]["ulysses"]["losses"][0] - ref["bf16"]),
+             "fp32": abs(ranks[0]["fp32"]["losses"][0] - ref["fp32"])}
+    rel = {key: sp_grad_rel(ranks, key) for key in ("bf16", "planted", "ulysses", "fp32")}
+    log(f"[sp] step 1 against one process (pp 2, tp 1, sp 1, the same rows): bf16 loss "
+        f"{losses[0]:.6f} vs {ref['bf16']:.6f}, |diff| {diffs['bf16']:.3e} (tol "
+        f"{STEP_LOSS_TOL}), gradient rel diff {rel['bf16']:.3e} (tol {TP_BF16_GRAD_REL_TOL}); "
+        f"Ulysses bf16 loss |diff| {diffs['ulysses']:.3e}, gradient rel diff "
+        f"{rel['ulysses']:.3e}; fp32 (4,096-token rows) loss {ranks[0]['fp32']['losses'][0]:.6f}"
+        f" vs {ref['fp32']:.6f}, |diff| {diffs['fp32']:.3e} (tol {FP32_STEP_LOSS_TOL}), "
+        f"gradient rel diff {rel['fp32']:.3e} (tol {GRAD_REL_TOL}); planted fault (every "
+        f"slab's kv_offset 0), bf16: loss {ranks[0]['planted']['losses'][0]:.6f}, gradient "
+        f"rel diff {rel['planted']:.3e}")
+    if not (diffs["bf16"] <= STEP_LOSS_TOL and diffs["ulysses"] <= STEP_LOSS_TOL
+            and diffs["fp32"] <= FP32_STEP_LOSS_TOL and rel["fp32"] <= GRAD_REL_TOL
+            and rel["bf16"] <= TP_BF16_GRAD_REL_TOL
+            and rel["ulysses"] <= TP_BF16_GRAD_REL_TOL):
+        raise AssertionError(f"[sp] step 1: loss |diff| {diffs}, gradient rel diff {rel}")
+    if not rel["planted"] > TP_BF16_GRAD_REL_TOL:
+        raise AssertionError(f"[sp] the bf16 gradient check passes a planted fault "
+                             f"({rel['planted']})")
+    cfg = load_config(config, SP_OVERRIDES)
+    manifest = build_manifest(cfg, build_model_config(cfg["model"]), 2)
+    pcfg = build_pipeline_config(cfg, MeshConfig(pp=2, tp=2, sp=2), manifest)
+    us = pl.flush_unit_schedule(pcfg)
+    steps = len(losses)
+    n_slabs = int(cfg["mesh"]["sp"])
+    for r in ranks:
+        per_step = pipeline_launches(us, manifest, pcfg.accum_chunks, pcfg.remat,
+                                     stages=tuple(r["stages"]))
+        # the vocab-parallel CE head is a plain product: no CE kernel under tp;
+        # the ring calls each flash kernel once a slab (sp times an attention)
+        want = {key: 0 if key.startswith("ce_")
+                else c * steps * (n_slabs if key in ("fwd", "dq", "dkv") else 1)
+                for key, c in per_step.items()}
+        want_uly = {key: 0 if key.startswith("ce_") else c for key, c in per_step.items()}
+        staged = {k: round(v["seconds"] / steps, 3) for k, v in r["staging_by"].items()}
+        walls = {k: round(v / steps, 3) for k, v in r["collective_s"].items()}
+        host_ms = [round(sum(h.values()), 1) for h in r["host_ms"]]
+        log(f"[sp] rank {r['rank']} (stage {r['stages']}, tp rank {r['tp_rank']}, sp rank "
+            f"{r['sp_rank']}): launches {r['launches']} (expected {want}); Ulysses "
+            f"{r['ulysses']['launches']} (expected {want_uly}); max_memory_allocated "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; host RSS after the steps "
+            f"{r['rss_gb'] and round(r['rss_gb'], 2)} GB, peak (sampled every 0.1 s) "
+            f"{r['peak_rss_gb'] and round(r['peak_rss_gb'], 2)} GB; host masters "
+            f"{r['host_numel'] / 1e6:.1f} M elements; gloo staging s a step by group {staged}, "
+            f"collective wall s a step {walls}; host AdamW ms {host_ms}; build "
+            f"{r['build_s']:.1f} s")
+        for got, expected, tag in ((r, want, "ring"), (r["ulysses"], want_uly, "ulysses")):
+            if got["launches"] != expected or got["tensor_core"] != expected:
+                raise AssertionError(f"[sp] rank {r['rank']} {tag}: launches "
+                                     f"{got['launches']}, on the tensor cores "
+                                     f"{got['tensor_core']}, expected {expected}")
+    step_s = statistics.median(ranks[0]["step_times"][1:] or ranks[0]["step_times"])
+    tokens = ranks[0]["tokens_per_step"]
+    log(f"[sp] {steps} steps, pp 2 x tp 2 x sp 2 in {SP_RANKS} processes sharing one card over "
+        f"gloo (this one-card gloo mode, not a multi-card figure): step "
+        f"{1e3 * step_s:.1f} ms (median of steps 2-{steps}; step 1 "
+        f"{1e3 * ranks[0]['step_times'][0]:.1f}), {tokens / step_s:.0f} tokens/s, {tokens} "
+        f"tokens a step; max_memory_allocated a rank "
+        f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB, "
+        f"{sum(r['peak_bytes'] for r in ranks) / 2**30:.2f} GiB in all; host RSS a rank after "
+        f"the steps {[r['rss_gb'] and round(r['rss_gb'], 2) for r in ranks]} GB, peak (sampled "
+        f"every 0.1 s) {[r['peak_rss_gb'] and round(r['peak_rss_gb'], 2) for r in ranks]} GB; "
+        f"losses {[round(x, 5) for x in losses]} (ranks {time.perf_counter() - t_ranks:.1f} s, "
+        f"{card})")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    log(f"[sp] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4133,23 +4538,32 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
-    phase_build()
-    rows = phase_kernels()
-    rows.update(phase_ce())
-    rows.update(phase_prologue())
-    launches, train_losses = phase_trainer()
-    losses_a = phase_checkpoint()
-    phase_packed()
-    phase_eval(train_losses)
-    phase_preempt(losses_a)
-    phase_remat()
-    phase_pipeline()
-    phase_offload()
-    phase_multirank()
-    phase_tp()
+    seconds = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed(phase_build)
+    rows = timed(phase_kernels)
+    rows.update(timed(phase_ce))
+    rows.update(timed(phase_prologue))
+    launches, train_losses = timed(phase_trainer)
+    losses_a = timed(phase_checkpoint)
+    timed(phase_packed)
+    timed(phase_eval, train_losses)
+    timed(phase_preempt, losses_a)
+    timed(phase_remat)
+    timed(phase_pipeline)
+    timed(phase_offload)
+    timed(phase_multirank)
+    timed(phase_tp)
+    timed(phase_sp)
     for key, row in rows.items():
         row["launches"] = launches[key]
-    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    log(f"[done] {time.perf_counter() - t0:.1f} s; seconds by phase {seconds}")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4163,4 +4577,6 @@ if __name__ == "__main__":
         sys.exit(multirank_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(*sys.argv[2:]))
     sys.exit(main())

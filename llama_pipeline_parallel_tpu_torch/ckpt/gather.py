@@ -7,7 +7,9 @@ optimizer's state, which under ZeRO-1 (the moments) or the host optimizer's
 ZeRO-2 layout (its masters and moments) are split further, replica j
 holding slice j of a leaf on its `zero1_dim` (optim/optimizer.zero1_dims);
 under tensor parallelism every piece of a split leaf is one tp rank's slice
-(parallel/tp.py), and tp rank 0 holds the replicated ones. `ShardedState`
+(parallel/tp.py), and tp rank 0 holds the replicated ones; under sequence
+parallelism every sp peer holds the same pieces, and sp rank 0's are
+catalogued (`rank_of` names it), each piece once. `ShardedState`
 names every piece the same way on every process (a catalogue built from the
 manifest and the leaf shapes) and knows which process holds it. Process 0
 writes the canonical tree as tensor_io.Lazy leaves: writing a leaf fetches

@@ -58,8 +58,11 @@ copy and all-gathers the leaf over `group` (the stage's dp group) once a
 step; a leaf with no dim dp divides is kept whole on every replica. The
 host-path norm counts each element once over the processes:
 `counts_in_norm(name)` says whether this process counts a leaf (its own
-slice, or a whole leaf on one replica and one tp rank), and `reduce_norm_sq`
-adds the processes' sums.
+slice, or a whole leaf on one replica and one tp rank, and on sp rank 0
+only), and `reduce_norm_sq` adds the processes' sums. Sequence parallelism
+adds no split: the sp peers of a stage hold the same masters and moments
+and step them on the same sp-summed gradients; the ZeRO-2 layout stays
+over dp.
 
 `bind_fp32_grads` lets a model run on the working copy while each
 parameter's gradient accumulates in fp32 on the card, over its microbatches

@@ -14,7 +14,9 @@ that chain rather than torch.optim's defaults:
 Parameters are updated in place (the JAX version returns new arrays).
 `Zero1AdamW` splits the moments over data-parallel replicas (ZeRO-1, the
 reference's `_zero1_leaf_spec` placement): the same arithmetic on each
-replica's slice, then an all-gather of the masters.
+replica's slice, then an all-gather of the masters. The split is over dp
+only: the sp peers of a replica hold identical parameters and moments, as
+the reference's ZeRO-1 specs replicate them over sp.
 """
 
 from __future__ import annotations

@@ -24,6 +24,12 @@ which may run on the commit thread while the main thread trains (`barrier`). `ba
 and raises BarrierTimeoutError when a peer does not arrive within its
 deadline. `should_stop` is the reference's `_should_stop`: an all-gather of
 each process's flag, true everywhere when any process saw a signal.
+
+Sequence parallelism's collectives (parallel/ring_attention.py,
+parallel/ulysses.py) are `ring_shift` (each process of a group sends to the
+next and receives from the previous, over `batch_p2p`), `all_to_all` (the
+tiled all-to-all, split along one dim and joined along another) and
+`all_gather_dim` (the tiled all-gather along a dim); staged like the rest.
 """
 
 from __future__ import annotations
@@ -239,6 +245,61 @@ def batch_p2p(sends: list[tuple[torch.Tensor, int, int]],
         for t, buf in landing:
             _from_host(t, buf, group)
     _timed(group, t0)
+
+
+def group_place(group) -> tuple[int, int]:
+    """(this process's index in `group`, the group's size); (0, 1) for no
+    group."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def ring_shift(tensors: list[torch.Tensor], group, shift: int = 1) -> list[torch.Tensor]:
+    """Each process of `group` sends its `tensors` to the process `shift`
+    places on in the group's order (i -> (i + shift) % n) and returns what
+    the process `shift` places back sent, in new tensors (batch_p2p, one tag
+    a tensor). Without a group, the tensors themselves."""
+    i, n = group_place(group)
+    if n == 1 or shift % n == 0:
+        return list(tensors)
+    ranks = dist.get_process_group_ranks(group)
+    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+    out = [torch.empty_like(t) for t in tensors]
+    batch_p2p([(t.contiguous(), dst, tag) for tag, t in enumerate(tensors)],
+              [(o, src, tag) for tag, o in enumerate(out)], group)
+    return out
+
+
+def all_to_all(t: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all of `jax.lax.all_to_all(..., tiled=True)`: `t`
+    cut into n equal blocks along `split_dim`, block j sent to the group's
+    j-th process, and the blocks received from processes 0..n-1 joined
+    along `concat_dim` (`dist.all_to_all_single` on the blocks stacked)."""
+    _, n = group_place(group)
+    if n == 1:
+        return t
+    t0 = time.perf_counter()
+    send = torch.stack(t.chunk(n, dim=split_dim))
+    staged = _staged(send, group)
+    if staged:
+        send = _to_host(send, group)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if staged:
+        out = torch.empty(recv.shape, dtype=recv.dtype, device=t.device)
+        _from_host(out, recv, group)
+        recv = out
+    _timed(group, t0)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every process of `group`'s `t` joined along `dim` in group order
+    (the tiled all-gather); `t` itself without a group."""
+    if group_place(group)[1] == 1:
+        return t
+    return torch.cat(all_gather(t, group), dim=dim)
 
 
 def should_stop(local_flag: bool) -> bool:

@@ -7,24 +7,27 @@ validation and `describe()`) and a `Mesh` that knows the pipeline's size,
 the stages this process runs, its data-parallel replica and the process
 groups it talks over:
 
-- one process (dp = tp = 1): every stage in this process, handing tensors
-  over in memory (parallel/pipeline.LocalTransport), on one device;
-- `world == pp * dp * tp` with pp > 1: one (stage, replica, tp rank) per
-  process, in the reference's row-major `(pp, dp, sp, tp)` device order:
-  rank `(stage * dp + replica) * tp + t`; stages talk over
+- one process (dp = tp = sp = 1): every stage in this process, handing
+  tensors over in memory (parallel/pipeline.LocalTransport), on one device;
+- `world == pp * dp * sp * tp` with pp > 1: one (stage, replica, sp rank, tp
+  rank) per process, in the reference's row-major `(pp, dp, sp, tp)` device
+  order: rank `((stage * dp + replica) * sp + s) * tp + t`; stages talk over
   `torch.distributed` point-to-point (parallel/pipeline.DistTransport);
-- `world == dp * tp` (pp = 1 under tp > 1): every stage in each process over
-  the local transport, one (replica, tp rank) a process, rank
-  `replica * tp + t`.
+- `world == dp * sp * tp` (pp = 1, or pp > 1 with sp = tp = 1): every stage
+  in each process over the local transport, one (replica, sp rank, tp rank)
+  a process, rank `(replica * sp + s) * tp + t`.
 
 The groups are built once, on every process in the same order: this
-replica's pp group of its tp rank (the stage handoffs, the gradient norm's
-stage sums, the loss from the last stage), this stage's dp group of its tp
-rank (the gradient and ZeRO-1 collectives, the valid-target count), this
-stage's tp group of its replica (parallel/tp.py's collectives) and, for the
-stop vote, the whole world (parallel/distributed.py). A group of one process
-is None: nothing to reduce. sp > 1, and any other process count, are refused
-by name.
+replica's pp group of its sp and tp ranks (the stage handoffs, the gradient
+norm's stage sums, the loss from the last stage), this stage's dp group of
+its sp and tp ranks (the gradient and ZeRO-1 collectives, the valid-target
+count), this stage's tp group of its replica and sp rank (parallel/tp.py's
+collectives), this stage's sp group of its replica and tp rank (the ring,
+Ulysses, the label shift and the sums over the sequence slabs:
+parallel/sp.py) and, for the stop vote, the whole world
+(parallel/distributed.py). A group of one process is None: nothing to
+reduce. Every stage in one process at sp > 1, and any other process count,
+are refused by name.
 """
 
 from __future__ import annotations
@@ -73,10 +76,11 @@ class Mesh:
     `process_count` its place in the process group (0 and 1 alone).
     `pp_ranks[s]` is the global rank that runs stage s of this replica at
     this tp rank (under one stage a process); `pp_group` / `dp_group` /
-    `tp_group` are the process groups of this replica's stages, of this
-    stage's replicas and of this stage's tp ranks, None where the group is
-    this process alone; `tp_rank` is this process's place among its tp
-    ranks."""
+    `tp_group` / `sp_group` are the process groups of this replica's
+    stages, of this stage's replicas, of this stage's tp ranks and of its
+    sequence slabs, None where the group is this process alone; `tp_rank`
+    and `sp_rank` are this process's places among its tp ranks and among
+    its slabs."""
 
     config: MeshConfig
     stages: tuple[int, ...]
@@ -88,6 +92,8 @@ class Mesh:
     dp_group: Any = None
     tp_rank: int = 0
     tp_group: Any = None
+    sp_rank: int = 0
+    sp_group: Any = None
 
     @property
     def pp(self) -> int:
@@ -102,45 +108,53 @@ class Mesh:
         return self.config.tp
 
     @property
+    def sp(self) -> int:
+        return self.config.sp
+
+    @property
     def in_process(self) -> bool:
         """Whether every stage runs in this process."""
         return len(self.stages) == self.pp
 
-    def rank_of(self, stage: int, replica: int, tp_rank: int = 0) -> int:
-        """The process that runs `stage` of `replica` at `tp_rank`."""
+    def rank_of(self, stage: int, replica: int, tp_rank: int = 0, sp_rank: int = 0) -> int:
+        """The process that runs `stage` of `replica` at `tp_rank` and
+        `sp_rank`."""
         if self.process_count == 1:
             return 0
         stage = 0 if self.in_process else stage
-        return (stage * self.dp + replica) * self.tp + tp_rank
+        return ((stage * self.dp + replica) * self.sp + sp_rank) * self.tp + tp_rank
 
 
 def layout_for(config: MeshConfig, world: int) -> str:
     """Which layout `world` processes run `config` in: "in_process" (one
-    process, dp = tp = 1), "stage_per_process" (world = pp * dp * tp, pp >
-    1), "replica_per_process" (world = dp * tp, every stage in each process;
-    pp = 1 under tp > 1); refuses sp > 1 and any other process count by
-    name."""
-    if config.sp != 1:
-        raise NotImplementedError(
-            f"not ported yet: {{'sp': {config.sp}}} of {config.describe()} (sequence "
-            f"parallelism comes with a later slice; this package runs pp x tp x dp)")
-    pp, dp, tp = config.pp, config.dp, config.tp
-    if world == 1 and dp == 1 and tp == 1:
+    process, dp = tp = sp = 1), "stage_per_process" (world = pp * dp * sp *
+    tp, pp > 1), "replica_per_process" (world = dp * sp * tp, every stage in
+    each process; pp = 1 under tp or sp > 1); refuses every stage in one
+    process at sp > 1, and any other process count, by name."""
+    pp, dp, tp, sp = config.pp, config.dp, config.tp, config.sp
+    if world == 1 and dp == 1 and tp == 1 and sp == 1:
         return "in_process"
-    if pp > 1 and world == pp * dp * tp:
+    if pp > 1 and world == pp * dp * sp * tp:
         return "stage_per_process"
-    if world == dp * tp and (pp == 1 or tp == 1):
+    if world == dp * sp * tp and (pp == 1 or (tp == 1 and sp == 1)):
         return "replica_per_process"
-    axes = "dp" if tp == 1 else "dp*tp"
-    ways = [f"pp*{axes}={pp * dp * tp} processes (one stage each)"]
-    if pp == 1 and tp > 1:
-        ways = [f"{axes}={dp * tp} processes"]
-    elif pp > 1 and tp == 1:
+    if pp > 1 and sp > 1 and world == dp * sp * tp:
+        raise ValueError(
+            f"{world} processes for mesh {config.describe()}: every stage in one process "
+            f"is not run at sp={sp} (a slab's collectives would interleave across the "
+            f"process's stages); run it in pp*dp*sp*tp={pp * dp * sp * tp} processes, one "
+            f"stage each")
+    axes = "*".join(ax for ax, n in (("dp", dp), ("sp", sp), ("tp", tp))
+                    if n > 1 or ax == "dp")
+    ways = [f"pp*{axes}={pp * dp * sp * tp} processes (one stage each)"]
+    if pp == 1 and (tp > 1 or sp > 1):
+        ways = [f"{axes}={dp * sp * tp} processes"]
+    elif pp > 1 and tp == 1 and sp == 1:
         ways.append(f"dp={dp} processes (every stage in each)")
     raise ValueError(
         f"{world} processes for mesh {config.describe()}: run it in " + " or ".join(ways)
         + (" under python -m torch.distributed.run" if world == 1 else "")
-        + ("; dp=1 also runs in one process" if dp == 1 and tp == 1 else ""))
+        + ("; dp=1 also runs in one process" if dp == 1 and tp == 1 and sp == 1 else ""))
 
 
 def make_mesh(config: MeshConfig) -> Mesh:
@@ -152,14 +166,15 @@ def make_mesh(config: MeshConfig) -> Mesh:
     if layout == "in_process":
         return Mesh(config=config, stages=tuple(range(config.pp)))
     rank = dist.get_rank()
-    pp, dp, tp = config.pp, config.dp, config.tp
+    pp, dp, tp, sp = config.pp, config.dp, config.tp, config.sp
     per_stage = layout == "stage_per_process"
     n_stages = pp if per_stage else 1
 
-    def rank_at(s, j, t):
-        return (s * dp + j) * tp + t
+    def rank_at(s, j, q, t):
+        return ((s * dp + j) * sp + q) * tp + t
 
     cell, t = divmod(rank, tp)
+    cell, q = divmod(cell, sp)
     stage, replica = divmod(cell, dp)
 
     def groups(size, members):
@@ -174,19 +189,24 @@ def make_mesh(config: MeshConfig) -> Mesh:
                 mine = group
         return mine
 
-    pp_group = groups(n_stages, [[rank_at(s, j, u) for s in range(n_stages)]
-                                 for j in range(dp) for u in range(tp)])
-    dp_group = groups(dp, [[rank_at(s, j, u) for j in range(dp)]
-                           for s in range(n_stages) for u in range(tp)])
-    tp_group = groups(tp, [[rank_at(s, j, u) for u in range(tp)]
-                           for s in range(n_stages) for j in range(dp)])
-    for group, label in ((pp_group, "pp"), (dp_group, "dp"), (tp_group, "tp")):
+    cells = [(s, j, c, u) for s in range(n_stages) for j in range(dp) for c in range(sp)
+             for u in range(tp)]
+    pp_group = groups(n_stages, [[rank_at(s, j, c, u) for s in range(n_stages)]
+                                 for (s0, j, c, u) in cells if s0 == 0])
+    dp_group = groups(dp, [[rank_at(s, j, c, u) for j in range(dp)]
+                           for (s, j0, c, u) in cells if j0 == 0])
+    tp_group = groups(tp, [[rank_at(s, j, c, u) for u in range(tp)]
+                           for (s, j, c, u0) in cells if u0 == 0])
+    sp_group = groups(sp, [[rank_at(s, j, c, u) for c in range(sp)]
+                           for (s, j, c0, u) in cells if c0 == 0])
+    for group, label in ((pp_group, "pp"), (dp_group, "dp"), (tp_group, "tp"),
+                         (sp_group, "sp")):
         distributed.label_group(group, label)
     stages = (stage,) if per_stage else tuple(range(pp))
     return Mesh(config=config, stages=stages, rank=rank, process_count=world,
-                replica=replica, pp_ranks=tuple(rank_at(s, replica, t) for s in range(pp))
+                replica=replica, pp_ranks=tuple(rank_at(s, replica, q, t) for s in range(pp))
                 if per_stage else (), pp_group=pp_group, dp_group=dp_group, tp_rank=t,
-                tp_group=tp_group)
+                tp_group=tp_group, sp_rank=q, sp_group=sp_group)
 
 
 def host_dp_shard(mesh: Mesh) -> tuple[int, int]:
@@ -197,3 +217,17 @@ def host_dp_shard(mesh: Mesh) -> tuple[int, int]:
     if mesh.process_count == 1:
         return 0, mesh.dp
     return mesh.replica, 1
+
+
+def sp_slab(batch: dict, mesh: Mesh) -> dict:
+    """This process's column slab of every [rows, seq] field of `batch` (the
+    reference's batch spec shards the sequence dim over sp): columns
+    [sp_rank * seq / sp, (sp_rank + 1) * seq / sp); the batch itself at sp
+    = 1."""
+    if mesh.sp == 1:
+        return batch
+    out = {}
+    for key, x in batch.items():
+        n = x.shape[1] // mesh.sp
+        out[key] = x[:, mesh.sp_rank * n:(mesh.sp_rank + 1) * n]
+    return out

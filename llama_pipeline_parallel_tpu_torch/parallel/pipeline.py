@@ -56,6 +56,19 @@ host optimizer (optim/offload.py) the leaves are the working copy in the
 compute dtype and each gradient accumulates in an fp32 buffer beside it
 (`StageParams(..., grads=...)`), in the same order as into the masters'
 `.grad`.
+
+Sequence parallelism (the mesh's sp group): every process of a stage's sp
+group runs the same grid on its column slab of the rows, with the attention
+wrapped by parallel/sp.make_sp_attention (`sequence_parallel`: ring or
+ulysses) and the reference's sp terms: the label shift across slabs and
+the slab's position base (train_step.microbatches), the valid-target count
+summed over (dp, sp) before it divides, the loss over (pp, dp, sp) and every
+gradient over (dp, sp) after. A decoder layer holds collectives under tp or
+sp, so every sp peer must call the same ones in the same order: the grid
+is the same on each, and the cells that compute nothing (the last stage's
+F, zb1's B on the embedding chunk) compute nothing on every peer alike. The
+reference's `_slot_valid` cond-skip has no counterpart here: the chunks
+hold only their real layers.
 """
 
 from __future__ import annotations
@@ -76,11 +89,17 @@ from llama_pipeline_parallel_tpu_torch.optim.offload import bind_fp32_grads
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import Mesh
+from llama_pipeline_parallel_tpu_torch.parallel.sp import (
+    SP_STRATEGIES,
+    check_sp,
+    make_sp_attention,
+)
 from llama_pipeline_parallel_tpu_torch.parallel.tp import check_tp, grad_sq_sum, tp_shard
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
     head_loss_sum_count,
     microbatches,
+    sum_over,
 )
 from llama_pipeline_parallel_tpu_torch.utils import host_stash
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
@@ -95,7 +114,7 @@ SCHEDULES = ("1f1b", "interleaved_1f1b", "zb1", "solver", "gpipe")
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Schedule knobs, as the reference's PipelineConfig names and checks
-    them (its sequence-parallel knobs are not ported).
+    them.
 
     `remat` recomputes each layer inside a B or W unit's backward under
     `remat_policy`, on top of the stage-granularity recompute every unit
@@ -106,7 +125,9 @@ class PipelineConfig:
     `offload_wgrad` (`offload.wgrad_stash`, zb1 only) keeps the W queue in
     host memory; a solver sequence carries its own per-unit vector instead.
     `offload_activations` (`offload.activations`) keeps the stage-input
-    buffer there."""
+    buffer there. `sequence_parallel` (ring or ulysses) is the attention
+    strategy at sp > 1, `packed` whether the batches carry packing segment
+    ids (the ring then rotates them with k / v); neither acts at sp = 1."""
 
     num_stages: int
     num_microbatches: int
@@ -122,8 +143,13 @@ class PipelineConfig:
     unit_schedule: Any = dataclasses.field(default=None, compare=False, repr=False)
     offload_wgrad: bool = False
     offload_activations: bool = False
+    sequence_parallel: str = "ring"
+    packed: bool = False
 
     def __post_init__(self) -> None:
+        if self.sequence_parallel not in SP_STRATEGIES:
+            raise ValueError(f"unknown sequence_parallel {self.sequence_parallel!r}; "
+                             f"choose one of {SP_STRATEGIES}")
         if self.num_microbatches < 1:
             raise ValueError("num_microbatches must be >= 1")
         if self.num_stages < 1:
@@ -737,12 +763,16 @@ class Pipeline:
             raise ValueError(f"PipelineConfig.num_stages={pcfg.num_stages} does not match "
                              f"the mesh's pp={mesh.pp}")
         _check_layout(stage_params.manifest, pcfg, cfg)
+        check_sp(cfg, mesh.tp, mesh.sp, pcfg.sequence_parallel)
         check_tp(cfg, mesh.tp, pcfg.loss_chunks, pcfg.kernel_ce)
         if tuple(stage_params.stages) != tuple(mesh.stages):
             raise ValueError(f"this process runs stages {mesh.stages}; the params hold "
                              f"{stage_params.stages}")
         self.cfg, self.pcfg, self.mesh = cfg, pcfg, mesh
         self.stage_params = stage_params
+        if mesh.sp > 1:
+            attn_fn = make_sp_attention(pcfg.sequence_parallel, attn_fn, mesh.sp_group,
+                                        packed=pcfg.packed)
         self.attn_fn = attn_fn
         self.head = LossHead(loss_chunks=pcfg.loss_chunks, kernel_ce=pcfg.kernel_ce)
         self.us = flush_unit_schedule(pcfg)
@@ -784,7 +814,7 @@ class Pipeline:
         return h, head_loss_sum_count(params, h, mb.targets, self.cfg, self.head, tp_group)[0]
 
     def _microbatches(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, list]:
-        targets, mbs = microbatches(batch, self.pcfg.num_microbatches)
+        targets, mbs = microbatches(batch, self.pcfg.num_microbatches, self.mesh.sp_group)
         out = []
         for ids, mask, positions, mb_targets in mbs:
             cos, sin = llama.rope_tables(ids, positions, self.cfg)
@@ -906,11 +936,12 @@ class Pipeline:
         is summed over the replicas before it divides, and the gradients and
         the loss are summed over them after (the reference's psums over dp:
         the embedding, norm and lm_head live on one stage each here, so the
-        dp group is all their sum needs)."""
+        dp group is all their sum needs); under sp the same over the slabs
+        (`batch` is then this process's column slab)."""
         targets, mbs = self._microbatches(batch)
-        dp_group = self.mesh.dp_group
+        dp_group, sp_group = self.mesh.dp_group, self.mesh.sp_group
         count = (targets != llama.IGNORE_INDEX).sum().float()
-        global_count = distributed.all_reduce(count, dp_group).clamp(min=1)
+        global_count = sum_over(count, sp_group, dp_group).clamp(min=1)
         c = self.pcfg.accum_chunks
         per = len(mbs) // c
         loss = torch.zeros((), device=targets.device)
@@ -918,10 +949,9 @@ class Pipeline:
         self.stash_trace = []
         for i in range(c):
             loss += self._flush(mbs[i * per:(i + 1) * per], global_count)
-        if dp_group is not None:
-            for g in self.stage_params.grads().values():
-                distributed.all_reduce(g, dp_group)
-        return distributed.all_reduce(self.transport.from_last_stage(loss), dp_group)
+        for g in self.stage_params.grads().values():
+            sum_over(g, sp_group, dp_group)
+        return sum_over(self.transport.from_last_stage(loss), sp_group, dp_group)
 
     def _flush(self, mbs: list[_Microbatch], global_count: torch.Tensor) -> torch.Tensor:
         """One flush of the per-flush sequence over `mbs`; returns the sum of
@@ -1040,7 +1070,8 @@ class Pipeline:
         every microbatch through every chunk, in the forward order of the
         unit grid (stage s runs unit t - s at tick t), with no autograd
         graph: (token-loss sum fp32, valid-target count) over the whole
-        batch (every replica's under dp), the same on every process."""
+        batch (every replica's under dp, every slab's under sp), the same on
+        every process."""
         targets, mbs = self._microbatches(batch)
         s_total, v = self.pcfg.num_stages, self.pcfg.virtual_stages
         n_units = len(mbs) * v
@@ -1066,9 +1097,9 @@ class Pipeline:
                     self.transport.send(FWD, s, self._consumer_unit(FWD, s, u), y)
             self.transport.exchange(self._expected(t + 1, f_grid, None), like)
         count = (targets != llama.IGNORE_INDEX).sum()
-        dp_group = self.mesh.dp_group
-        return (distributed.all_reduce(self.transport.from_last_stage(total), dp_group),
-                distributed.all_reduce(count, dp_group))
+        groups = (self.mesh.sp_group, self.mesh.dp_group)
+        return (sum_over(self.transport.from_last_stage(total), *groups),
+                sum_over(count, *groups))
 
 
 def _check_layout(manifest: StageManifest, pcfg: PipelineConfig, cfg: LlamaConfig) -> None:

@@ -41,6 +41,15 @@ head is the reference's vocab-parallel CE, and the gradient norm counts
 each split leaf's slices over the group and each replicated leaf once.
 `init_params_sharded` draws only the leaves (and rows, and tp slices) that a
 process holds, with the same canonical values in every layout.
+
+Sequence parallelism (`sp_group`: the processes of this replica's sequence
+slabs, None at sp = 1): each process holds a column slab of every row
+(parallel/mesh.sp_slab) and the attention is the sp-wrapped one
+(parallel/sp.py). The next-token shift crosses the slab boundary (one ring
+shift of each row's first label: `shift_labels`), rows without position ids
+take positions from the slab's global start, and the valid-target count,
+the loss, the gradients and the eval sums are summed over the slabs too (the
+reference's psums over (dp, sp)); sp peers then hold the same gradients.
 """
 
 from __future__ import annotations
@@ -123,23 +132,39 @@ def init_params_sharded(cfg: LlamaConfig, seed: int, manifest: StageManifest,
     return out
 
 
-def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+def shift_labels(labels: torch.Tensor, sp_group: Any = None) -> torch.Tensor:
     """Next-token targets aligned with each position; the last position has
-    none (IGNORE_INDEX)."""
-    tail = torch.full_like(labels[:, :1], llama.IGNORE_INDEX)
+    none (IGNORE_INDEX). Under `sp_group` (the reference's
+    `_sp_shift_labels`) `labels` is this process's slab: the target of its
+    last position is the next slab's first label, fetched with one ring
+    shift over the group, and only the last slab's last position has none."""
+    rank, n = distributed.group_place(sp_group)
+    ignore = torch.full_like(labels[:, :1], llama.IGNORE_INDEX)
+    if n == 1:
+        tail = ignore
+    else:
+        tail, = distributed.ring_shift([labels[:, :1].contiguous()], sp_group, shift=-1)
+        if rank == n - 1:
+            tail = ignore
     return torch.cat([labels[:, 1:], tail], dim=1)
 
 
-def microbatches(batch: dict[str, torch.Tensor], num_microbatches: int):
+def microbatches(batch: dict[str, torch.Tensor], num_microbatches: int, sp_group: Any = None):
     """(next-token targets [bsz, s], [(ids, mask, positions, targets) for each
-    microbatch of `batch`]); mask and positions None where the batch has none."""
+    microbatch of `batch`]); mask and positions None where the batch has none,
+    except that under `sp_group` a slab's rows without positions take them
+    from the slab's global start (sp rank x slab length)."""
     ids = batch["input_ids"]
-    bsz = ids.shape[0]
+    bsz, seqlen = ids.shape
     if bsz % num_microbatches:
         raise ValueError(f"batch {bsz} not divisible by microbatches {num_microbatches}")
     mb = bsz // num_microbatches
-    targets = shift_labels(batch["labels"])
+    targets = shift_labels(batch["labels"], sp_group)
     mask, positions = batch.get("attention_mask"), batch.get("position_ids")
+    sp_rank, sp = distributed.group_place(sp_group)
+    if positions is None and sp > 1:
+        positions = (sp_rank * seqlen + torch.arange(seqlen, device=ids.device)).expand(
+            bsz, seqlen)
     rows = [slice(i * mb, (i + 1) * mb) for i in range(num_microbatches)]
     return targets, [(ids[r], None if mask is None else mask[r],
                       None if positions is None else positions[r], targets[r]) for r in rows]
@@ -150,7 +175,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
                remat: bool = False, head: LossHead = LossHead(),
                kernel_prologue: bool = False, remat_policy: str = "nothing_saveable",
                pipeline: Any = None, grads: llama.Params | None = None,
-               dp_group: Any = None, tp_group: Any = None) -> dict:
+               dp_group: Any = None, tp_group: Any = None, sp_group: Any = None) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. `kernel_prologue` runs
     each layer's norm -> QKV -> RoPE on the fused prologue kernels
@@ -162,7 +187,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     stage. `grads`: the fp32 gradient buffers of a working copy (the host
     optimizer's; the pipeline's StageParams hold the same tensors), zeroed
     here; None: the params' own `.grad`. `dp_group`: the replicas' process
-    group at pp = 1 (a pipeline has its mesh's), `tp_group` its tp ranks'.
+    group at pp = 1 (a pipeline has its mesh's), `tp_group` its tp ranks',
+    `sp_group` its sequence slabs' (`attn_fn` is then the sp-wrapped one).
     Returns the metrics."""
     params = state.params
     if grads is None:
@@ -175,9 +201,9 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
         loss = pipeline.loss_and_grad(batch)
         grad_norm = pipeline.global_norm()
     else:
-        targets, mbs = microbatches(batch, num_microbatches)
+        targets, mbs = microbatches(batch, num_microbatches, sp_group)
         count = (targets != llama.IGNORE_INDEX).sum().float()
-        global_count = distributed.all_reduce(count, dp_group).clamp(min=1)
+        global_count = sum_over(count, sp_group, dp_group).clamp(min=1)
         loss = torch.zeros((), device=targets.device)
         for ids, mask, positions, mb_targets in mbs:
             mb_params = params if grads is None else bind_fp32_grads(params, grads)
@@ -188,10 +214,9 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
             mb_loss = mb_loss / global_count
             mb_loss.backward()
             loss += mb_loss.detach()
-        distributed.all_reduce(loss, dp_group)
-        if dp_group is not None:
-            for name, p in params.items():
-                distributed.all_reduce(p.grad if grads is None else grads[name], dp_group)
+        sum_over(loss, sp_group, dp_group)
+        for name, p in params.items():
+            sum_over(p.grad if grads is None else grads[name], sp_group, dp_group)
         named = {name: p.grad for name, p in params.items()} if grads is None else grads
         grad_norm = grad_sq_sum(named, tp_group).sqrt()
     if grads is None:
@@ -205,19 +230,27 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
 def eval_step(params: llama.Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, *,
               num_microbatches: int = 1, attn_fn: Callable = attention,
               head: LossHead = LossHead(), kernel_prologue: bool = False,
-              pipeline: Any = None, dp_group: Any = None, tp_group: Any = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              pipeline: Any = None, dp_group: Any = None, tp_group: Any = None,
+              sp_group: Any = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The loss-only pass over `batch` in `num_microbatches` microbatches, on
     the training step's attention, head and prologue, with no autograd graph:
     (token-loss sum fp32, valid-target count) over the whole batch. With
     `pipeline`, its forward-only pass through every stage."""
     if pipeline is not None:
         return pipeline.loss_sum_count(batch)
-    targets, mbs = microbatches(batch, num_microbatches)
+    targets, mbs = microbatches(batch, num_microbatches, sp_group)
     loss_sum = torch.zeros((), device=targets.device)
     for ids, mask, positions, mb_targets in mbs:
         hn = llama.hidden_states(params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
                                  kernel_prologue=kernel_prologue, tp_group=tp_group)
         loss_sum += head_loss_sum_count(params, hn, mb_targets, cfg, head, tp_group)[0].float()
     count = (targets != llama.IGNORE_INDEX).sum()
-    return distributed.all_reduce(loss_sum, dp_group), distributed.all_reduce(count, dp_group)
+    return sum_over(loss_sum, sp_group, dp_group), sum_over(count, sp_group, dp_group)
+
+
+def sum_over(t: torch.Tensor, *groups: Any) -> torch.Tensor:
+    """`t` summed in place over each of `groups` in turn (None: nothing to
+    sum), and returned."""
+    for group in groups:
+        distributed.all_reduce(t, group)
+    return t

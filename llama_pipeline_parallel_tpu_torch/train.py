@@ -1,6 +1,6 @@
 """The trainer: config -> model -> data -> step loop.
 
-The counterpart of llama_pipeline_parallel_tpu/train.py at sp = 1: one
+The counterpart of llama_pipeline_parallel_tpu/train.py: one
 device at pp = 1, or a pipeline of `mesh.pp` stages (parallel/pipeline.py)
 under `pipeline_schedule` (1f1b, interleaved_1f1b, zb1, solver with
 `schedule_file`, gpipe), `virtual_stages`, `layer_counts` / `stage_balance`
@@ -11,7 +11,10 @@ processes of every stage), with ZeRO-1 moments (optim/optimizer.Zero1AdamW);
 and `mesh.tp` tensor-parallel ranks, a process each (pp * dp * tp processes;
 Megatron layers and the vocab-parallel CE head: parallel/tp.py), each
 process initialising only the leaves, rows and tp slices it holds
-(parallel/train_step.init_params_sharded).
+(parallel/train_step.init_params_sharded); and `mesh.sp` sequence slabs, a
+process each (pp * dp * sp * tp processes; `sequence_parallel`: ring or
+ulysses attention, parallel/sp.py), each process stepping on its column
+slab of its replica's rows (parallel/mesh.sp_slab).
 Several processes run under `python -m torch.distributed.run` (cli.py); the
 metrics line and the logs come from process 0. The same config keys, the same data for the same
 seed, the same schedule-total rules and the same metrics line keys where they
@@ -117,7 +120,9 @@ from llama_pipeline_parallel_tpu_torch.parallel.mesh import (
     host_dp_shard,
     layout_for,
     make_mesh,
+    sp_slab,
 )
+from llama_pipeline_parallel_tpu_torch.parallel.sp import check_sp, make_sp_attention
 from llama_pipeline_parallel_tpu_torch.parallel.tp import check_tp, tp_dim, tp_shard
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     LossHead,
@@ -278,8 +283,7 @@ def _measure_attention(model_cfg: LlamaConfig, seq_len: int, micro_batch: int,
         return (time.perf_counter() - t0) / 3
 
     t_exact, t_flash = time_one(attention), time_one(flash_attention)
-    flash = flash_attention if packed else _flash_without_mask
-    winner = flash if t_flash < t_exact else attention
+    winner = flash_attention if t_flash < t_exact else attention
     logger.info("attention=auto @ batch %d seq %d packed=%s: exact %.2fms, flash %.2fms -> %s",
                 b, seq_len, packed, 1e3 * t_exact, 1e3 * t_flash,
                 "exact" if winner is attention else "flash")
@@ -288,18 +292,28 @@ def _measure_attention(model_cfg: LlamaConfig, seq_len: int, micro_batch: int,
 
 def select_attention(impl: str, seq_length: int, device: torch.device,
                      model_cfg: LlamaConfig | None = None, micro_batch: int = 1,
-                     packed: bool = False) -> Any:
+                     packed: bool = False, sp: int = 1,
+                     sequence_parallel: str = "ring") -> Any:
     """'exact' | 'flash' | 'auto'. `auto` (needs `model_cfg`) measures both
-    paths on the card at the run's (microbatch, seq) shape, with segment ids
-    when `packed`, and keeps the faster; off the card it takes the exact path
-    (the flash kernels' plain version is slower there). Flash takes the
-    batch's segment ids when the run packs; otherwise it drops them
-    (`_flash_without_mask`): unpacked batches are right-padded."""
-    flash = flash_attention if packed else _flash_without_mask
+    paths on the card at the run's (microbatch, kernel length) shape, with
+    segment ids when `packed`, and keeps the faster; off the card it takes
+    the exact path (the flash kernels' plain version is slower there). The
+    kernel length under sp is the ring's slab, seq / sp (Ulysses re-shards
+    to the full sequence). Flash takes the batch's segment ids when the run
+    packs; otherwise, at sp = 1, it drops them (`_flash_without_mask`:
+    unpacked batches are right-padded). Under sp > 1 the mask is never
+    dropped here: parallel/sp.make_sp_attention picks the ring's backend by
+    the identity of `flash_attention`, and the ring drops the mask itself."""
+
+    def finish(fn):
+        if fn is flash_attention and not packed and sp == 1:
+            return _flash_without_mask
+        return fn
+
     if impl == "exact":
         return attention
     if impl == "flash":
-        return flash
+        return finish(flash_attention)
     if impl == "auto":
         if device.type != "cuda":
             return attention
@@ -309,7 +323,9 @@ def select_attention(impl: str, seq_length: int, device: torch.device,
             logger.warning("attention=auto: head_dim %d has no flash kernel; using "
                            "the exact path", model_cfg.head_dim)
             return attention
-        return _measure_attention(model_cfg, seq_length, micro_batch, device, packed)
+        kernel_len = seq_length // sp if (sp > 1 and sequence_parallel == "ring") \
+            else seq_length
+        return finish(_measure_attention(model_cfg, kernel_len, micro_batch, device, packed))
     raise ValueError(f"unknown attention impl {impl!r} (use exact|flash|auto)")
 
 
@@ -409,8 +425,9 @@ def _check_supported(cfg: dict) -> None:
     mesh_cfg = _mesh_config(cfg)
     model_cfg = build_model_config(cfg["model"])
     head = _loss_head(cfg, model_cfg)
+    check_sp(model_cfg, mesh_cfg.tp, mesh_cfg.sp, cfg.get("sequence_parallel", "ring"))
     check_tp(model_cfg, mesh_cfg.tp, head.loss_chunks, head.kernel_ce)
-    layout_for(mesh_cfg, distributed.process_count())  # sp, or the process count
+    layout_for(mesh_cfg, distributed.process_count())  # the process count
     schedule = cfg.get("pipeline_schedule") or "1f1b"
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
@@ -494,7 +511,7 @@ def build_manifest(cfg: dict, model_cfg: LlamaConfig, pp: int) -> StageManifest:
 def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManifest
                           ) -> pl.PipelineConfig:
     """The PipelineConfig of the run config (the reference's
-    `build_pipeline_config`, without its sp knobs)."""
+    `build_pipeline_config`)."""
     kernel_ce, kernel_prologue = _kernel_flags(cfg)
     remat, remat_policy = _remat(cfg)
     offload_wgrad, offload_activations = _offload_flags(cfg)
@@ -509,7 +526,9 @@ def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManife
         loss_chunks=cfg.get("loss_vocab_chunks", 1),
         layer_counts=None if manifest.is_even else manifest.stage_layer_counts,
         kernel_ce=kernel_ce, kernel_prologue=kernel_prologue,
-        offload_wgrad=offload_wgrad, offload_activations=offload_activations)
+        offload_wgrad=offload_wgrad, offload_activations=offload_activations,
+        sequence_parallel=cfg.get("sequence_parallel", "ring"),
+        packed=_packing_factor(cfg) > 1)
 
 
 def _configure_faults(cfg: dict) -> None:
@@ -687,13 +706,15 @@ class Run:
         return out
 
     def step(self, batch: dict[str, torch.Tensor]) -> dict:
-        metrics = train_step(self.state, batch, self.model_cfg,
+        """One step on a batch of this replica's rows (this process's
+        column slab of them under sp)."""
+        metrics = train_step(self.state, sp_slab(batch, self.mesh), self.model_cfg,
                              num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                              remat=self.remat, head=self.head,
                              kernel_prologue=self.kernel_prologue,
                              remat_policy=self.remat_policy, pipeline=self.pipeline,
                              grads=self.grads, dp_group=self.mesh.dp_group,
-                             tp_group=self.mesh.tp_group)
+                             tp_group=self.mesh.tp_group, sp_group=self.mesh.sp_group)
         if self.host is not None:  # the norm the host clipped by
             metrics["grad_norm"] = self.host.last_grad_norm
         return metrics
@@ -701,11 +722,11 @@ class Run:
     def eval_sum_count(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss sum, valid count) of one eval batch on the training step's
         attention, head and prologue, without an autograd graph."""
-        return eval_step(self.state.params, batch, self.model_cfg,
+        return eval_step(self.state.params, sp_slab(batch, self.mesh), self.model_cfg,
                          num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                          head=self.head, kernel_prologue=self.kernel_prologue,
                          pipeline=self.pipeline, dp_group=self.mesh.dp_group,
-                         tp_group=self.mesh.tp_group)
+                         tp_group=self.mesh.tp_group, sp_group=self.mesh.sp_group)
 
     def evaluate(self) -> float:
         """eval_loss: the exact token mean over every batch of the eval set
@@ -804,9 +825,14 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
         total_steps=t_total, warmup_steps=warmup)
 
     seq_length = int(collator([dataset[0]])["input_ids"].shape[1])
+    if seq_length % mesh_cfg.sp:
+        raise ValueError(f"sequence length {seq_length} must divide into "
+                         f"sp={mesh_cfg.sp} equal slabs")
+    sequence_parallel = cfg.get("sequence_parallel", "ring")
     attn_fn = select_attention(cfg.get("attention", "auto"), seq_length, device,
                                model_cfg=model_cfg, micro_batch=micro_batch,
-                               packed=packing > 1)
+                               packed=packing > 1, sp=mesh_cfg.sp,
+                               sequence_parallel=sequence_parallel)
     pipeline = pcfg = None
     if mesh_cfg.pp == 1:
         # the canonical layout is the one-stage manifest's
@@ -853,7 +879,10 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
                     list(manifest.stage_layer_counts), manifest.virtual_stages,
                     pl.bubble_fraction(pcfg))
         offload_static = _offload_static(pcfg, *pl.stash_dims(
-            micro_batch, seq_length, 1, model_cfg.hidden_size, model_cfg.dtype))
+            micro_batch, seq_length, mesh_cfg.sp, model_cfg.hidden_size, model_cfg.dtype))
+    elif mesh.sp > 1:  # the pipeline wraps its own
+        attn_fn = make_sp_attention(sequence_parallel, attn_fn, mesh.sp_group,
+                                    packed=packing > 1)
     state = TrainState(step=0, params=params, optimizer=optimizer)
     topology = _topology_meta(cfg, manifest)
     mgr = CheckpointManager(cfg["output_dir"])
@@ -889,8 +918,9 @@ def _offload_state(cfg: dict, ocfg: OptimizerConfig, model_cfg: LlamaConfig,
     card is then dropped), the working copy in the compute dtype on
     `device`, and fp32 gradient buffers beside it. At dp > 1 the replicas
     keep whole leaves, or under `optimizer_offload_zero2` their ZeRO-2
-    slices (optim/offload.py). The host-path norm counts each element once
-    over the processes. Returns (host, working copy, gradient buffers)."""
+    slices (optim/offload.py), the same on every sp peer. The host-path norm
+    counts each element once over the processes. Returns (host, working
+    copy, gradient buffers)."""
     zero2 = bool(cfg.get("optimizer_offload_zero2"))
     if zero2 and mesh.dp == 1:
         logger.info("optimizer_offload_zero2 has no effect at dp=1; running the plain "
@@ -903,11 +933,12 @@ def _offload_state(cfg: dict, ocfg: OptimizerConfig, model_cfg: LlamaConfig,
     def counts_in_norm(name: str) -> bool:
         """Whether this process adds leaf `name` to the host norm: its own
         dp slice, or a leaf whole over dp on replica 0; a leaf replicated
-        over tp on tp rank 0."""
+        over tp on tp rank 0; every leaf on sp rank 0 only (sp peers hold
+        the same masters, moments and summed gradients)."""
         whole_over_dp = dims is None or dims[name] is None
         replicated_over_tp = tp_dim(name, ndims[name]) is None
         return ((not whole_over_dp or mesh.replica == 0)
-                and (not replicated_over_tp or mesh.tp_rank == 0))
+                and (not replicated_over_tp or mesh.tp_rank == 0) and mesh.sp_rank == 0)
 
     several = distributed.process_count() > 1
     host = HostOffloadAdamW(ocfg, device_norm=cfg.get("offload_device_norm", True),
@@ -1056,7 +1087,8 @@ def _topology_meta(cfg: dict, manifest: StageManifest) -> dict:
     `_topology_meta`): the source half of the elastic-restore contract, read
     by a later run to log what changed. `layer_counts` names the partition:
     "even/<k>" or the per-stage list."""
-    mc = MeshConfig(pp=manifest.num_stages, dp=_mesh_config(cfg).dp, tp=_mesh_config(cfg).tp)
+    mesh = _mesh_config(cfg)
+    mc = MeshConfig(pp=manifest.num_stages, dp=mesh.dp, tp=mesh.tp, sp=mesh.sp)
     return {"pp": mc.pp, "dp": mc.dp, "tp": mc.tp, "sp": mc.sp, "layout": mc.describe(),
             "schedule": cfg.get("pipeline_schedule", "1f1b"),
             "virtual_stages": manifest.virtual_stages,

@@ -437,7 +437,7 @@ def test_mesh_config_matches_reference(ref, monkeypatch):
         make_mesh(MeshConfig(pp=2, dp=2))
     with pytest.raises(ValueError, match="pp\\*dp\\*tp=4 processes \\(one stage each\\)"):
         make_mesh(MeshConfig(pp=2, tp=2))
-    with pytest.raises(NotImplementedError, match="'sp': 2"):
+    with pytest.raises(ValueError, match="pp\\*dp\\*sp=4 processes \\(one stage each\\)"):
         make_mesh(MeshConfig(pp=2, sp=2))
     from llama_pipeline_parallel_tpu_torch.parallel import mesh as t_mesh
 
@@ -595,7 +595,8 @@ def test_topology_meta_equals_reference(ref, tmp_path, overrides):
      "1 processes for mesh pp2xdp2xtp1xsp1: run it in pp\\*dp=4 processes"),
     (["mesh.tp=2"], ValueError, "1 processes for mesh pp2xdp1xtp2xsp1: run it in "
                                 "pp\\*dp\\*tp=4 processes"),
-    (["mesh.sp=2"], NotImplementedError, "'sp': 2"),
+    (["mesh.sp=2"], ValueError, "1 processes for mesh pp2xdp1xtp1xsp2: run it in "
+                                "pp\\*dp\\*sp=4 processes"),
     (["offload={wgrad_stash: true}"], ValueError, "offload.wgrad_stash requires schedule: zb1"),
     (["pipeline_schedule=solver", "virtual_stages=2", "offload={wgrad_stash: true}"],
      ValueError, "per-unit offload"),

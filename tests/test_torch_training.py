@@ -442,7 +442,9 @@ def test_trainer_refuses_what_it_does_not_run(tmp_path):
         run_training(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                           [f"output_dir={tmp_path}", "mesh.tp=2"]),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="'sp': 2"):
+    # sp runs a process a (stage, replica, sp rank): one process is refused
+    with pytest.raises(ValueError, match="1 processes for mesh pp2xdp2xtp1xsp2: run it in "
+                                         "pp\\*dp\\*sp=8 processes"):
         run_training(t_config.load_config(os.path.join(REPO, "conf", "tiny_smoke.yaml"),
                                           [f"output_dir={tmp_path}", "mesh.sp=2"]),
                      device="cpu")
