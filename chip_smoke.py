@@ -74,7 +74,17 @@ which raises on failure:
               launches of each flash and each prologue kernel and
               microbatches x steps of each CE kernel, every flash forward, dq
               and dk/dv call, every CE forward, dh and dW call and every
-              prologue forward, dhidden and dW call on the tensor cores.
+              prologue forward, dhidden and dW call on the tensor cores; with
+              the observability layer on (numerics by default, OBS_OVERRIDES:
+              the memory watch, a one-step profile window, the heartbeat):
+              spans.jsonl, health.json, numerics.jsonl, memory.jsonl,
+              perf.jsonl and the torch.profiler trace parsed and checked
+              (check_observability), and the step timed with the numerics
+              stats on and off (numerics_cost). Then the observability drills
+              at one layer (phase_observability): a grad_nonfinite step
+              skipped with the params and moments bit-equal, the halt on a
+              nonfinite step after a final checkpoint, the OOM snapshot and
+              capture.
               Then step 1 again on the
               same params and batch (each time on the run's prologue) with
               flash and with exact attention: per-token losses and gradients
@@ -166,7 +176,9 @@ which raises on failure:
               says (pipeline_launches) and every call on the tensor cores;
               step ms, tokens/s, MFU, max_memory_allocated and the counted
               bubble per schedule, beside the unpipelined step at the same
-              depth and microbatches with activation checkpointing on. Then
+              depth and microbatches with activation checkpointing on; flat
+              1f1b with the timeline on (one record a step, the plan's
+              segments, the measured bubble: check_timeline). Then
               step 1 again on the same params and batch: the flat pipeline
               against the unpipelined step (bf16 step loss; fp32 compute at
               4 microbatches: loss and gradients), interleaved, zb1 and gpipe
@@ -214,7 +226,9 @@ which raises on failure:
               rank and the gloo staging seconds (this one-card mode's cost,
               not an NCCL figure). (c) checkpoint-N resumed at pp 2 x dp 2 (4
               processes) and at pp 1 x dp 1 in this process: steps N+1, N+2
-              within RESUME_LOSS_TOL of the uninterrupted run.
+              within RESUME_LOSS_TOL of the uninterrupted run. Process 0's
+              numerics.jsonl of (b): one record a step, per-stage vectors of
+              length pp, nothing nonfinite.
 14. tp    -- pp 2 x tp 2 x dp 2 at LLaMA-65B width across 8 processes
               (`--tp-worker`) sharing card 0 over gloo, launched after the
               build: conf/llama_65b_pp8_tp2_dp2.yaml as published (seq 512, 8
@@ -306,6 +320,17 @@ TRAIN_OVERRIDES = [
     "attention=flash", "activation_checkpointing=false", "kernels.ce=pallas",
     "loss_vocab_chunks=4", "kernels.prologue=pallas", "save_final=false", "resume=false",
 ]
+# the trainer phase's observability on the card: numerics (on by default),
+# the memory watch, a one-step torch.profiler window on the last step and the
+# heartbeat every second; the files the run must write, and the steps the
+# cost of the numerics stats is timed over (each on, then off, alternately)
+OBS_OVERRIDES = ["memory={enabled: true}", "profile_steps=[3,4]", "health_interval=1"]
+OBS_FILES = ("spans.jsonl", "health.json", "numerics.jsonl", "memory.jsonl", "perf.jsonl",
+             "metrics.jsonl")
+NUMERICS_COST_STEPS = 3
+# the observability phase's drills: the slice cut to one layer (the guard,
+# the halt's checkpoint of ~5.6 GB, the OOM snapshot)
+DRILL_OVERRIDES = TRAIN_OVERRIDES + ["model.num_hidden_layers=1", "logging_steps=1"]
 # the packed phase: conf/llama_7b_flan_packed.yaml (max_seq_length 512,
 # packing_factor 4, 8 rows a microbatch, loss_vocab_chunks 4) at LLaMA-7B
 # width, cut to 2 layers (4 before the sp phase needed the time), 2
@@ -1351,7 +1376,7 @@ def phase_trainer() -> tuple[dict, list]:
 
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
-    cfg = load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/flash"])
+    cfg = load_config(config, TRAIN_OVERRIDES + OBS_OVERRIDES + [f"output_dir={out_dir}/flash"])
     layers = cfg["model"]["num_hidden_layers"]
     microbatches = cfg["gradient_accumulation_steps"] * cfg["max_steps"]
     expected = {**{key: layers * microbatches for key in fa.launch_counts},
@@ -1393,6 +1418,7 @@ def phase_trainer() -> tuple[dict, list]:
     if abs(losses[0] - expected_loss) > 0.1:
         raise AssertionError(f"first loss {losses[0]} far from {expected_loss:.3f}, "
                              f"the expectation at random init")
+    check_observability(os.path.join(out_dir, "flash"), cfg["max_steps"], 1, "[trainer]")
     del summary
     gc.collect()
     torch.cuda.empty_cache()
@@ -1400,10 +1426,205 @@ def phase_trainer() -> tuple[dict, list]:
     run = build_run(load_config(config, TRAIN_OVERRIDES + [f"output_dir={out_dir}/parity"]),
                     "cuda")
     step_parity(run, (f"last {PLANT_CUT} keys hidden", hide_last_keys), losses[0], "[trainer]")
+    numerics_cost(run, "[trainer]")
     del run
     gc.collect()
     torch.cuda.empty_cache()
     return launches, losses
+
+
+def check_observability(run_dir: str, steps: int, stages: int, tag: str) -> None:
+    """The files a run with OBS_OVERRIDES writes, parsed: the spans of the
+    loop, health.json's last step and goodput in (0, 1], a numerics record
+    a step with per-stage vectors of `stages` and nothing nonfinite, the
+    memory watch's first-step record and a sample a step read from the
+    card's allocator, the perf rows, goodput on the metrics lines, and the
+    profile window's torch.profiler trace with the card's kernels in it."""
+    from llama_pipeline_parallel_tpu_torch.tools import trace_summary
+
+    def jsonl(name):
+        with open(os.path.join(run_dir, name)) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    missing = [f for f in OBS_FILES + ("profile",) if not os.path.exists(
+        os.path.join(run_dir, f))]
+    if missing:
+        raise AssertionError(f"{tag} {run_dir} lacks {missing}")
+    spans = {r["name"] for r in jsonl("spans.jsonl")}
+    want = {"init", "compile_block", "data_wait", "step_dispatch", "device_step"}
+    with open(os.path.join(run_dir, "health.json")) as f:
+        health = json.load(f)
+    numerics = jsonl("numerics.jsonl")
+    memory = jsonl("memory.jsonl")
+    samples = [r for r in memory if r["kind"] == "sample"]
+    first = [r for r in memory if r["kind"] == "compiled"]
+    perf_rows = {r["metric"] for r in jsonl("perf.jsonl")}
+    goodput = [r["goodput"] for r in jsonl("metrics.jsonl") if "goodput" in r]
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(run_dir, "profile"))
+              for f in fs if f.endswith(".trace.json")]
+    kernels = 0
+    if traces:
+        _, trace = trace_summary.load_latest_trace(os.path.join(run_dir, "profile"))
+        kernels = sum(1 for e in trace.get("traceEvents", []) if e.get("cat") == "kernel")
+    log(f"{tag} observability: spans {sorted(spans)}; health last_step {health.get('last_step')}"
+        f" goodput {health.get('goodput')}; {len(numerics)} numerics records, the last "
+        f"{ {k: v for k, v in numerics[-1].items() if k.endswith('_per_stage')} }; first-step "
+        f"memory {first}; {len(samples)} samples, device peak "
+        f"{samples[-1].get('device_peak_bytes', 0) / 2**30:.2f} GiB; perf rows "
+        f"{sorted(perf_rows)}; metrics goodput {goodput}; profile {len(traces)} trace(s), "
+        f"{kernels} kernel events")
+    if not want <= spans:
+        raise AssertionError(f"{tag} spans {sorted(spans)} lack {sorted(want - spans)}")
+    if health.get("last_step") != steps or not 0 < health.get("goodput", 0) <= 1:
+        raise AssertionError(f"{tag} health.json {health}")
+    if (len(numerics) != steps or any(r["nonfinite"] for r in numerics)
+            or any(len(r[k]) != stages for r in numerics for k in r if k.endswith("_per_stage"))):
+        raise AssertionError(f"{tag} numerics.jsonl {numerics}")
+    if (len(first) != 1 or len(samples) != steps
+            or not all(r.get("device_peak_bytes") for r in samples)):
+        raise AssertionError(f"{tag} memory.jsonl {memory}")
+    if "mem_peak_gib" not in perf_rows or not all(0 < g <= 1 for g in goodput[1:]):
+        raise AssertionError(f"{tag} perf rows {perf_rows}, goodput {goodput}")
+    if len(traces) != 1 or not kernels:
+        raise AssertionError(f"{tag} profile window: traces {traces}, {kernels} kernel events")
+
+
+def numerics_cost(run, tag: str) -> None:
+    """The step with the numerics stats on (their nonfinite guard's read
+    included) and off, NUMERICS_COST_STEPS steps each, alternately, on `run`
+    (synchronised; ms, median of each)."""
+    import dataclasses
+
+    import torch
+
+    batches = run.batches()
+    times = {True: [], False: []}
+    kept = run.numerics
+    for _ in range(NUMERICS_COST_STEPS):
+        for on in (True, False):
+            run.numerics = dataclasses.replace(kept, enabled=on)
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = run.step(batch)
+            torch.cuda.synchronize()
+            times[on].append(1e3 * (time.perf_counter() - t))
+            if on and bool(metrics["numerics"]["nonfinite"]):
+                raise AssertionError(f"{tag} a finite step read as nonfinite")
+    run.numerics = kept
+    on_ms, off_ms = statistics.median(times[True]), statistics.median(times[False])
+    log(f"{tag} step with numerics on {on_ms:.1f} ms, off {off_ms:.1f} ms (median of "
+        f"{NUMERICS_COST_STEPS} each, alternately; {on_ms - off_ms:+.1f} ms, "
+        f"{100 * (on_ms / off_ms - 1):+.2f} %) ({card_line()})")
+
+
+def phase_observability() -> None:
+    """The trainer's slice cut to one layer (DRILL_OVERRIDES): (a) a
+    `grad_nonfinite` rule at step 2, driven step by step: the params and
+    AdamW moments after it bit-equal to those before it, the count held,
+    the step counter advanced, the monitor counting 1 nonfinite step; (b)
+    with `numerics.halt_on_nonfinite` and the rule at step 1, run_training
+    raises NonfiniteHaltError (the CLI's nonzero exit) after a final
+    checkpoint of the last step; (c) an `oom` rule with the memory watch
+    on: the run raises the allocation failure after a snapshot under oom/
+    with the card's allocator reading and an `oom` profiler capture."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from llama_pipeline_parallel_tpu_torch.train import build_run, run_training
+    from llama_pipeline_parallel_tpu_torch.utils import faults, memwatch, numerics
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "observability")
+    rule = "fault_plan={faults: [{site: step, op: grad_nonfinite, at_step: %d}]}"
+    log(f"[observability] {config} TRAIN_OVERRIDES + "
+        f"{DRILL_OVERRIDES[len(TRAIN_OVERRIDES):]}")
+
+    # (a) the guard, step by step
+    run = build_run(load_config(config, DRILL_OVERRIDES + [
+        rule % 1, "max_steps=3", f"output_dir={out_dir}/drill"]), "cuda")
+    monitor = numerics.NumericsMonitor(os.path.join(out_dir, "drill"), run.numerics)
+    opt = run.state.optimizer
+    batches = run.batches()
+    kept = {}
+    for step in range(3):
+        fault = faults.fire("step", step=step)
+        if fault:
+            kept = {"params": {k: p.detach().clone() for k, p in run.state.params.items()},
+                    "mu": {k: t.clone() for k, t in opt.mu.items()},
+                    "nu": {k: t.clone() for k, t in opt.nu.items()}, "count": opt.count,
+                    "step": run.state.step}
+        metrics = run.step(next(batches), fault)
+        monitor.observe(step + 1, metrics["loss"], metrics["grad_norm"], metrics["numerics"])
+        if fault:
+            torch.cuda.synchronize()
+            same = (all(torch.equal(p.detach(), kept["params"][k])
+                        for k, p in run.state.params.items())
+                    and all(torch.equal(opt.mu[k], kept["mu"][k]) and
+                            torch.equal(opt.nu[k], kept["nu"][k]) for k in opt.mu))
+            log(f"[observability] (a) {fault} at step {step + 1}: grad_norm "
+                f"{float(metrics['grad_norm'])}, params and moments bit-equal to before "
+                f"{same}, count {kept['count']} -> {opt.count}, step {kept['step']} -> "
+                f"{run.state.step}")
+            if not same or opt.count != kept["count"] or run.state.step != kept["step"] + 1:
+                raise AssertionError("[observability] the skipped step changed the state")
+            kept = {}
+    monitor.flush()
+    monitor.close()
+    faults.configure(None)
+    if monitor.nonfinite_steps != 1 or not all(
+            torch.isfinite(p).all() for p in run.state.params.values()):
+        raise AssertionError(f"[observability] nonfinite_steps {monitor.nonfinite_steps}")
+    del run, opt, kept, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the halt
+    t_b = time.perf_counter()
+    halt_dir = os.path.join(out_dir, "halt")
+    try:
+        run_training(load_config(config, DRILL_OVERRIDES + [
+            rule % 0, "max_steps=2", "numerics={halt_on_nonfinite: true}",
+            f"output_dir={halt_dir}"]), "cuda")
+        raise AssertionError("[observability] halt_on_nonfinite did not halt")
+    except numerics.NonfiniteHaltError as e:
+        halted = str(e)
+    saved = CheckpointManager(halt_dir).latest_step()
+    log(f"[observability] (b) halted: {halted!r}; final checkpoint-{saved} "
+        f"({time.perf_counter() - t_b:.1f} s with the save)")
+    if saved != 2:
+        raise AssertionError(f"[observability] the halt saved checkpoint-{saved}, not 2")
+    shutil.rmtree(halt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the OOM drill
+    oom_dir = os.path.join(out_dir, "oom")
+    try:
+        run_training(load_config(config, DRILL_OVERRIDES + [
+            "fault_plan={faults: [{site: step, op: oom, at_step: 1}]}", "max_steps=2",
+            "memory={enabled: true}", f"output_dir={oom_dir}"]), "cuda")
+        raise AssertionError("[observability] the oom rule raised nothing")
+    except RuntimeError as e:
+        if not memwatch.is_resource_exhausted(e):
+            raise
+    snaps = memwatch.read_oom_snapshots(oom_dir)
+    captures = [d for d in os.listdir(os.path.join(oom_dir, "captures")) if d.endswith("-oom")]
+    traces = [f for d in captures for f in os.listdir(os.path.join(oom_dir, "captures", d))
+              if f.endswith(".trace.json")]
+    log(f"[observability] (c) oom at step 2: {len(snaps)} snapshot(s), live "
+        f"{snaps[0]['live'] if snaps else None}, captures {captures} ({len(traces)} trace)")
+    if (len(snaps) != 1 or not snaps[0]["live"].get("device_peak_bytes")
+            or len(traces) != 1):
+        raise AssertionError(f"[observability] oom forensics: {snaps}, {captures}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[observability] phase {time.perf_counter() - t0:.1f} s")
 
 
 def hide_last_keys(q, k, v, padding_mask=None, *, causal=True):
@@ -2869,7 +3090,10 @@ def phase_pipeline() -> None:
     for name, extra in {**PIPE_SCHEDULES, "unpipelined": ["mesh.pp=1",
                                                           "activation_checkpointing=true"]
                         }.items():
-        cfg = load_config(config, PIPE_OVERRIDES + extra + [f"output_dir={out_dir}/{name}"])
+        # the schedule observatory on flat 1F1B: its segment marks each step
+        timeline = ["timeline={enabled: true}"] if name == "1f1b" else []
+        cfg = load_config(config, PIPE_OVERRIDES + extra + timeline
+                          + [f"output_dir={out_dir}/{name}"])
         mcfg = build_model_config(cfg["model"])
         pp = cfg["mesh"]["pp"]
         steps = cfg["max_steps"]
@@ -2912,6 +3136,8 @@ def phase_pipeline() -> None:
             raise AssertionError(f"[pipeline] {name}: calls on the tensor cores {tensor_core}, "
                                  f"expected every launch {want}")
         first_loss = losses[0] if first_loss is None else first_loss
+        if timeline:
+            check_timeline(os.path.join(out_dir, name), pcfg, steps)
     card = card_line()
     log(f"[pipeline] card {card}: per schedule, {steps} steps at LLaMA-7B width, 8 layers, seq "
         f"2048, 8 microbatches of 1 row; step ms the median of steps 2-{steps}; MFU against "
@@ -2925,6 +3151,27 @@ def phase_pipeline() -> None:
     torch.cuda.empty_cache()
     pipeline_parity(config, first_loss)
     log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+
+
+def check_timeline(run_dir: str, pcfg, steps: int) -> None:
+    """timeline.jsonl of a pipeline run with the timeline on: one record a
+    step, segments named as the plan names them (utils/timeline.SegmentPlan
+    of the run's config), a measured bubble beside the analytic one."""
+    from llama_pipeline_parallel_tpu_torch.utils import timeline as tl
+
+    plan = tl.SegmentPlan(pcfg)
+    labels = {st["label"] for st in plan.stats}
+    with open(os.path.join(run_dir, "timeline.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    for r in records:
+        log(f"[pipeline] timeline step {r['step']}: wall {r['wall_s']:.4f} s, segments "
+            f"{ {k: v['dur_s'] for k, v in r.get('segments', {}).items()} }, optimizer "
+            f"{r.get('optimizer_s')} s, bubble measured {r.get('bubble_fraction_measured')} "
+            f"(analytic {r['bubble_fraction_analytic']}), stage times {r.get('stage_time_s')} "
+            f"({card_line()})")
+    if (len(records) != steps or any(set(r.get("segments", {})) != labels for r in records)
+            or any(r.get("bubble_fraction_measured") is None for r in records)):
+        raise AssertionError(f"[pipeline] timeline.jsonl: {records} (plan labels {labels})")
 
 
 def zero_first_cotangent(num_stages: int):
@@ -3873,6 +4120,13 @@ def phase_multirank() -> None:
     torch.cuda.empty_cache()
     log(f"[multirank] (c) {time.perf_counter() - t_c:.1f} s in this process (the 4 processes' "
         f"resume is in (b)'s seconds)")
+    with open(os.path.join(run_dir, "numerics.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    log(f"[multirank] process 0's numerics.jsonl: {len(records)} records, the first "
+        f"{ {k: v for k, v in records[0].items() if k.endswith('_per_stage')} }")
+    if (len(records) != end or any(r["nonfinite"] for r in records)
+            or any(len(r[k]) != 2 for r in records for k in r if k.endswith("_per_stage"))):
+        raise AssertionError(f"[multirank] numerics.jsonl: {records}")
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"[multirank] phase {time.perf_counter() - t0:.1f} s")
 
@@ -4551,6 +4805,7 @@ def main() -> int:
     rows.update(timed(phase_ce))
     rows.update(timed(phase_prologue))
     launches, train_losses = timed(phase_trainer)
+    timed(phase_observability)
     losses_a = timed(phase_checkpoint)
     timed(phase_packed)
     timed(phase_eval, train_losses)

@@ -49,6 +49,12 @@ or several, of either optimizer: process 0 writes the files a one-process
 run reads, one canonical leaf at a time, from the pieces every process holds
 (its own, or sent on request by the process that holds them), while the
 other processes serve those requests. Prune runs on process 0 only.
+
+Spans (utils/trace.py, the reference's names): `ckpt_save` around a save as
+the caller pays for it, `ckpt_commit` around an async commit on its thread,
+`ckpt_digest` around the commit's digests, `ckpt_verify` around a
+verification, and `ckpt_restore` (item params, opt or offload_moments)
+around each restored file.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
 from llama_pipeline_parallel_tpu_torch.models.llama.model import param_shapes
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
-from llama_pipeline_parallel_tpu_torch.utils import faults, retry
+from llama_pipeline_parallel_tpu_torch.utils import faults, retry, trace
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -413,6 +419,18 @@ class CheckpointManager:
         merged into meta.json (the trainer's `topology` and `data_state`).
         """
         self.finalize()
+        # the span covers what the training loop pays for: the copies and,
+        # when blocking, the full commit; the async tail is its own
+        # `ckpt_commit` span on the commit thread (outside the RunClock's
+        # buckets)
+        with trace.span("ckpt_save", step=step, blocking=blocking,
+                        **({"offload": True} if isinstance(params, gather.ShardedState)
+                           and params.offload else {})):
+            return self._save(step, params, manifest, cfg, optimizer, blocking, on_complete,
+                              keep_last, extra_meta)
+
+    def _save(self, step, params, manifest, cfg, optimizer, blocking, on_complete, keep_last,
+              extra_meta) -> str:
         path = self.step_dir(step)
         writer = distributed.process_index() == 0
         shards = params if isinstance(params, gather.ShardedState) else None
@@ -475,7 +493,8 @@ class CheckpointManager:
 
         def guarded():
             try:
-                commit()
+                with trace.span("ckpt_commit", step=step):
+                    commit()
             except BaseException as e:  # surfaced by finalize()
                 self._pending_error = e
 
@@ -508,7 +527,8 @@ class CheckpointManager:
         }
         t0 = time.perf_counter()
         if _digests_enabled():
-            meta["integrity"] = {"algo": "sha256", "files": _dir_digests(path)}
+            with trace.span("ckpt_digest", step=step):
+                meta["integrity"] = {"algo": "sha256", "files": _dir_digests(path)}
         digest_s = time.perf_counter() - t0
         # atomic + retried: a crash between these two writes leaves a
         # complete, verifiable checkpoint with a stale tag -- which
@@ -528,6 +548,10 @@ class CheckpointManager:
         on any mismatch or missing file, so a restore can never silently
         consume a bit-flipped or truncated file. A meta.json without
         `integrity` (LPT_CKPT_DIGESTS=0 at save) passes with a log line."""
+        with trace.span("ckpt_verify", step=step):
+            self._verify(step)
+
+    def _verify(self, step: int) -> None:
         path = self.step_dir(step)
         name = os.path.basename(path)
         try:
@@ -641,8 +665,9 @@ class CheckpointManager:
             self.verify_everywhere(step)
         self._check_storage(step, self.load_meta(step))
         copy = copy or copy_tensors
-        self._read(step, PARAMS_FILE,
-                   lambda f: copy(params, f, f"checkpoint-{step}/{PARAMS_FILE}"))
+        with trace.span("ckpt_restore", step=step, item="params"):
+            self._read(step, PARAMS_FILE,
+                       lambda f: copy(params, f, f"checkpoint-{step}/{PARAMS_FILE}"))
         return params
 
     def load_offload_moments(self, step: int, m: dict[str, torch.Tensor],
@@ -659,9 +684,10 @@ class CheckpointManager:
             raise ValueError(f"checkpoint-{step} was not written by the offloaded optimizer "
                              f"(opt_layout={meta.get('opt_layout')!r})")
         copy = copy or copy_tensors
-        for filename, targets in ((OPT_M_FILE, m), (OPT_V_FILE, v)):
-            self._read(step, filename, lambda f, targets=targets, filename=filename: copy(
-                targets, f, f"checkpoint-{step}/{filename}"))
+        with trace.span("ckpt_restore", step=step, item="offload_moments"):
+            for filename, targets in ((OPT_M_FILE, m), (OPT_V_FILE, v)):
+                self._read(step, filename, lambda f, targets=targets, filename=filename: copy(
+                    targets, f, f"checkpoint-{step}/{filename}"))
         return int(meta["opt_step_count"])
 
     def load(self, step: int, params: dict[str, torch.Tensor], optimizer: Any,
@@ -695,7 +721,8 @@ class CheckpointManager:
                                  if k.startswith(moment + ".")}
             optimizer.load_state_dict(state)
 
-        self._read(step, OPT_FILE, read_opt)
+        with trace.span("ckpt_restore", step=step, item="opt"):
+            self._read(step, OPT_FILE, read_opt)
         return params, optimizer, int(meta["step"])
 
 

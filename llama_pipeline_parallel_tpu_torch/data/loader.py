@@ -27,7 +27,7 @@ from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 
-from llama_pipeline_parallel_tpu_torch.utils import faults, retry
+from llama_pipeline_parallel_tpu_torch.utils import faults, retry, trace
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -209,7 +209,8 @@ class DataLoader:
 class PrefetchIterator:
     """Background-thread prefetch of the next batches, so host-side
     collation overlaps device compute. `depth` bounds the buffered batches;
-    an exception in the producer re-raises on the consumer's side."""
+    an exception in the producer re-raises on the consumer's side. A get
+    that finds the buffer empty is a `prefetch_stall` span (utils/trace.py)."""
 
     _DONE = object()
 
@@ -241,7 +242,11 @@ class PrefetchIterator:
             if self._err:
                 raise self._err[0]
             raise StopIteration
-        item = self._queue.get()
+        if self._queue.empty():  # producer behind: the blocked get is a stall
+            with trace.span("prefetch_stall"):
+                item = self._queue.get()
+        else:
+            item = self._queue.get()
         if item is self._DONE:
             self._finished = True
             if self._err:

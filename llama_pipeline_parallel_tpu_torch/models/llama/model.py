@@ -300,6 +300,7 @@ def chunk_hidden(
     kernel_prologue: bool = False,
     remat_policy: str = "nothing_saveable",
     tp_group=None,
+    act_tap: Callable[[torch.Tensor], None] | None = None,
 ) -> torch.Tensor:
     """The forward of one pipeline chunk (reference: the chunk body of
     parallel/pipeline.py's interpreter): the embedding of `input_ids` when
@@ -307,13 +308,17 @@ def chunk_hidden(
     the received hidden states `x`; then the chunk's `layers.*` leaves (a
     leading axis of its layers) through run_layers; then, when `last` (the
     chunk that holds `norm`), the final norm, giving what the loss head
-    takes. The whole model is the one chunk that is both."""
+    takes. The whole model is the one chunk that is both. `act_tap`, when
+    given, sees the layers' output before the final norm (the numerics
+    observatory's stage-boundary activation, utils/numerics.act_fold)."""
     if first:
         x = embed(params, input_ids, cfg)
     layers = {name[len("layers."):]: leaf for name, leaf in params.items()
               if name.startswith("layers.")}
     x = run_layers(layers, x, attention_mask, cos, sin, cfg, attn_fn, remat, kernel_prologue,
                    remat_policy, tp_group)
+    if act_tap is not None:
+        act_tap(x)
     return final_norm(params, x, cfg) if last else x
 
 
@@ -329,9 +334,10 @@ def hidden_states(
     kernel_prologue: bool = False,
     remat_policy: str = "nothing_saveable",
     tp_group=None,
+    act_tap: Callable[[torch.Tensor], None] | None = None,
 ) -> torch.Tensor:
     """Single-device forward up to and including the final norm -> [b, s, d]
-    in `cfg.dtype`: what the loss head takes.
+    in `cfg.dtype`: what the loss head takes (`act_tap` as in chunk_hidden).
 
     `attention_mask` is per-token [b, s] SEGMENT IDS (0 = pad; packed batches
     number each example 1..k), never a materialised [b, 1, L, L] tensor."""
@@ -339,7 +345,7 @@ def hidden_states(
     return chunk_hidden(params, None, input_ids, attention_mask, cos, sin, cfg=cfg, first=True,
                         last=True, attn_fn=attn_fn, remat=remat,
                         kernel_prologue=kernel_prologue, remat_policy=remat_policy,
-                        tp_group=tp_group)
+                        tp_group=tp_group, act_tap=act_tap)
 
 
 def forward(

@@ -265,6 +265,12 @@ class HostOffloadAdamW:
     signature) steps the masters and refreshes the working copy in place;
     `update` steps without refreshing. `last_timings` holds the last step's
     phases in ms, `last_grad_norm` and `last_lr` its norm and learning rate.
+    `skip_nonfinite` (the numerics guard, the reference's): a nonfinite
+    global norm leaves masters, moments and step count untouched, and the
+    working copy is not refreshed (it already holds the masters' cast);
+    `last_nonfinite` flags the verdict either way and `nonfinite_count`
+    counts the skips. The norm is global (over every process), so every
+    process skips the same step, at dp > 1 and in the ZeRO-2 layout too.
     `reduce_norm_sq` adds a host-path norm's square over processes (None:
     this process holds every leaf) and `counts_in_norm` picks the leaves
     this process adds (None: all). `dims` (the ZeRO-2 layout: a dim a leaf,
@@ -274,6 +280,7 @@ class HostOffloadAdamW:
 
     cfg: OptimizerConfig
     device_norm: bool = False
+    skip_nonfinite: bool = False
     threads: int | None = None
     reduce_norm_sq: Callable[[float], float] | None = None
     counts_in_norm: Callable[[str], bool] | None = None
@@ -304,6 +311,8 @@ class HostOffloadAdamW:
         self.last_timings: dict[str, float] = {}
         self.last_grad_norm = float("nan")
         self.last_lr = float(self._schedule(0))
+        self.last_nonfinite = False
+        self.nonfinite_count = 0
         self._streams: dict = {}
         self._down: _Staging | None = None
         self._up: dict[torch.dtype, _Staging] = {}
@@ -527,14 +536,26 @@ class HostOffloadAdamW:
 
     def _clip_and_advance(self, norm: float) -> tuple[float, float]:
         """The clip factor from the global norm, the step count, the lr
-        sample (the schedule at the count before the increment)."""
+        sample (the schedule at the count before the increment). A
+        nonfinite norm under `skip_nonfinite` advances nothing (the callers
+        then apply nothing: `_skipping`)."""
+        self.last_nonfinite = not math.isfinite(norm)
         self.last_grad_norm = norm
+        if self._skipping():
+            self.nonfinite_count += 1
+            self.last_lr = float(self._schedule(self.step_count))
+            logger.warning("nonfinite global grad norm (%r); skipping the optimizer step "
+                           "(%d skipped so far)", norm, self.nonfinite_count)
+            return self.last_lr, 0.0
         clip = self.cfg.max_grad_norm
         grad_scale = clip / norm if (clip and norm > clip) else 1.0
         self.step_count += 1
         lr = float(self._schedule(self.step_count - 1))
         self.last_lr = lr
         return lr, grad_scale
+
+    def _skipping(self) -> bool:
+        return self.skip_nonfinite and self.last_nonfinite
 
     def _host_norm(self, grads: Params) -> float:
         """The fp64 global norm of `grads`, streamed down once, piece by piece
@@ -566,8 +587,9 @@ class HostOffloadAdamW:
         t0 = time.perf_counter()
         lr, grad_scale = self._clip_and_advance(self._host_norm(grads))
         t1 = time.perf_counter()
-        for _, piece, g in self._grads_down(grads):
-            self._apply(piece, g, lr, grad_scale)
+        if not self._skipping():
+            for _, piece, g in self._grads_down(grads):
+                self._apply(piece, g, lr, grad_scale)
         self.last_timings = {"d2h_norm_ms": 1e3 * (t1 - t0),
                              "update_ms": 1e3 * (time.perf_counter() - t1)}
 
@@ -593,14 +615,15 @@ class HostOffloadAdamW:
             norm = self._host_norm(grads)
         lr, grad_scale = self._clip_and_advance(norm)
         t1 = time.perf_counter()
-        device = next(iter(working.values())).device
-        up = self._begin(device)
-        targets = self._upload_targets(working)
-        for i, piece, g in self._grads_down(grads):
-            self._apply(piece, g, lr, grad_scale)
-            self._upload(i, piece, targets[piece[0]], up)
-        self._end(device, up)
-        self._gather(working, targets)
+        if not self._skipping():
+            device = next(iter(working.values())).device
+            up = self._begin(device)
+            targets = self._upload_targets(working)
+            for i, piece, g in self._grads_down(grads):
+                self._apply(piece, g, lr, grad_scale)
+                self._upload(i, piece, targets[piece[0]], up)
+            self._end(device, up)
+            self._gather(working, targets)
         t2 = time.perf_counter()
         phases = (("norm_ms", "stream_d2h_update_h2d_ms") if self.device_norm
                   else ("d2h_norm_ms", "update_h2d_ms"))

@@ -118,13 +118,25 @@ class AdamW:
     def _after_step(self, params: dict[str, torch.Tensor]) -> None:
         """What follows the elementwise update: nothing here."""
 
+    def _owns_update(self, name: str) -> bool:
+        """Whether this optimizer's update of leaf `name` counts in a
+        global update norm (every leaf here: it updates them whole)."""
+        return True
+
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
-             norm: torch.Tensor | None = None) -> float:
+             norm: torch.Tensor | None = None, *, apply: bool = True,
+             update_sq: dict[str, torch.Tensor] | None = None) -> float:
         """Apply one update in place; returns the learning rate it used.
         `norm` is the global gradient norm when the caller has it (the train
         step reports it; under several pipeline processes it spans every
-        stage's gradients, not just `grads`); otherwise it is computed here."""
+        stage's gradients, not just `grads`); otherwise it is computed here.
+        `update_sq` (a dict) receives, for each leaf whose update this
+        optimizer owns, the fp32 sum of squares of the update it applies
+        (-lr times the Adam direction plus decay: optax's `updates`).
+        `apply=False` computes those updates from copies of the moments and
+        changes nothing: the numerics guard's skipped step, whose update
+        norms the reference still reports."""
         cfg = self.cfg
         if norm is None:
             norm = global_norm(grads.values())
@@ -137,13 +149,19 @@ class AdamW:
             p = self._part(name, leaf)
             g = self._part(name, grads[name]).float() * clip
             mu, nu = self.mu[name], self.nu[name]
+            if not apply:
+                mu, nu = mu.clone(), nu.clone()
             mu.mul_(cfg.beta1).add_(g, alpha=1.0 - cfg.beta1)
             nu.mul_(cfg.beta2).addcmul_(g, g, value=1.0 - cfg.beta2)
             update = (mu / mu_corr) / ((nu / nu_corr).sqrt_() + cfg.eps)
             update.add_(p, alpha=cfg.weight_decay)
-            p.add_(update, alpha=-lr)
-        self._after_step(params)
-        self.count = count_inc
+            if update_sq is not None and self._owns_update(name):
+                update_sq[name] = torch.linalg.vector_norm(update).square() * (lr * lr)
+            if apply:
+                p.add_(update, alpha=-lr)
+        if apply:
+            self._after_step(params)
+            self.count = count_inc
         return lr
 
 
@@ -204,6 +222,11 @@ class Zero1AdamW(AdamW):
 
     def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
         return dp_part(t, self.dims[name], self.dp, self.index)
+
+    def _owns_update(self, name: str) -> bool:
+        # a split leaf's slice is this replica's alone; a whole leaf counts
+        # on replica 0
+        return self.dims[name] is not None or self.index == 0
 
     def _gather(self, name: str, part: torch.Tensor, out: torch.Tensor) -> None:
         """The full leaf into `out` from every replica's `part`."""

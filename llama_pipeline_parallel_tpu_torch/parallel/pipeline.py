@@ -101,7 +101,7 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     microbatches,
     sum_over,
 )
-from llama_pipeline_parallel_tpu_torch.utils import host_stash
+from llama_pipeline_parallel_tpu_torch.utils import host_stash, numerics, timeline
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -778,6 +778,10 @@ class Pipeline:
         self.us = flush_unit_schedule(pcfg)
         usched.validate(self.us)
         self.transport = transport if transport is not None else make_transport(mesh)
+        self._act: dict | None = None
+        # the schedule observatory's segment boundary marks (utils/timeline.py)
+        self.timeline_marks = False
+        self._seg_ends = {seg.t1 - 1: seg.index + 1 for seg in usched.segments(self.us)}
         self.units = {s: dict.fromkeys(UNIT_KINDS, 0) for s in mesh.stages}
         self.computed = {s: dict.fromkeys(UNIT_KINDS, 0) for s in mesh.stages}
         self._act_slots = activation_ring_slots(pcfg) if pcfg.offload_activations else 0
@@ -798,17 +802,23 @@ class Pipeline:
                 stage == self.pcfg.num_stages - 1 and chunk == self.pcfg.virtual_stages - 1)
 
     def _chunk(self, params: Params, x: torch.Tensor | None, mb: _Microbatch, stage: int,
-               chunk: int, remat: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+               chunk: int, remat: bool, fold: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """(chunk output, the head's loss sum on the loss-owning chunk else
-        None)."""
+        None). `fold`: this unit's output (before the final norm) joins the
+        step's activation stats when they are collected."""
         first, last = self._owns(stage, chunk)
         pcfg = self.pcfg
         tp_group = self.mesh.tp_group
+        act = self._act
+        tap = (None if act is None or not fold
+               else functools.partial(numerics.act_fold, act, (stage, chunk)))
         h = llama.chunk_hidden(params, x, mb.ids, mb.mask, mb.cos, mb.sin, cfg=self.cfg,
                                first=first, last=last, attn_fn=self.attn_fn,
                                remat=remat and pcfg.remat,
                                kernel_prologue=pcfg.kernel_prologue,
-                               remat_policy=pcfg.remat_policy, tp_group=tp_group)
+                               remat_policy=pcfg.remat_policy, tp_group=tp_group,
+                               act_tap=tap)
         if not last:
             return h, None
         return h, head_loss_sum_count(params, h, mb.targets, self.cfg, self.head, tp_group)[0]
@@ -927,7 +937,8 @@ class Pipeline:
 
     # -- training ------------------------------------------------------------------
 
-    def loss_and_grad(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss_and_grad(self, batch: dict[str, torch.Tensor], act: dict | None = None
+                      ) -> torch.Tensor:
         """One step's forward and backward over `batch` ([num_microbatches *
         mb, s] on the params' device; this replica's rows under dp):
         accumulates the gradients of the mean token loss into stage_params'
@@ -937,7 +948,18 @@ class Pipeline:
         the loss are summed over them after (the reference's psums over dp:
         the embedding, norm and lm_head live on one stage each here, so the
         dp group is all their sum needs); under sp the same over the slabs
-        (`batch` is then this process's column slab)."""
+        (`batch` is then this process's column slab).
+
+        `act` (a dict; the numerics observatory's): each (stage, chunk)'s
+        activation stats of this step are folded into it
+        (utils/numerics.act_fold; the reference's `_act_stat_update`), once
+        per unit that computes the chunk with its parameters' gradients: the
+        B unit, or the W unit of a split-backward sequence (whose B on the
+        embedding chunk computes nothing). With `timeline_marks` set, each
+        flush records a boundary mark per stage of this process at its start
+        and at the end of every segment of `schedule.segments`
+        (utils/timeline.mark); off, nothing is recorded."""
+        self._act = act
         targets, mbs = self._microbatches(batch)
         dp_group, sp_group = self.mesh.dp_group, self.mesh.sp_group
         count = (targets != llama.IGNORE_INDEX).sum().float()
@@ -967,6 +989,7 @@ class Pipeline:
         loss = torch.zeros((), device=mbs[0].ids.device)
         like = torch.empty(mbs[0].ids.shape + (self.cfg.hidden_size,), dtype=self.cfg.dtype,
                            device=mbs[0].ids.device)
+        self._mark(0)
         for t in range(us.num_ticks):
             for s in self.mesh.stages:
                 f, g, w = (int(grid[t, s]) for grid in (us.f_unit, us.b_unit, us.w_unit))
@@ -977,7 +1000,17 @@ class Pipeline:
                 if w >= 0:
                     loss += self._weight_unit(s, w, mbs, global_count)
             tr.exchange(self._expected(t + 1, us.f_unit, us.b_unit), like)
+            if t in self._seg_ends:
+                self._mark(self._seg_ends[t])
         return loss
+
+    def _mark(self, boundary: int) -> None:
+        """A timeline boundary mark for each stage of this process. With
+        every stage in one process they share the card's one stream, so a
+        stage's segment wall is the card's wall between its marks, and only
+        a pipeline across processes can show a straggler."""
+        if self.timeline_marks:
+            timeline.mark(boundary, *self.mesh.stages)
 
     def _forward_unit(self, s: int, u: int, mbs: list[_Microbatch]) -> None:
         """F: buffer the received input; run the chunk for the next stage,
@@ -1016,7 +1049,7 @@ class Pipeline:
             params = self.stage_params.train_tree(s, ch)
         x_in = None if first else x.detach().requires_grad_()
         with torch.enable_grad():
-            y, mb_sum = self._chunk(params, x_in, mbs[mb], s, ch, remat=True)
+            y, mb_sum = self._chunk(params, x_in, mbs[mb], s, ch, remat=True, fold=not split)
             if last:
                 mb_loss = mb_sum / global_count
                 torch.autograd.backward(mb_loss)
@@ -1040,7 +1073,7 @@ class Pipeline:
         self.units[s]["W"] += 1
         with torch.enable_grad():
             y, mb_sum = self._chunk(self.stage_params.train_tree(s, ch), x, mbs[mb], s, ch,
-                                    remat=True)
+                                    remat=True, fold=True)
             if last:
                 mb_loss = mb_sum / global_count
                 torch.autograd.backward(mb_loss)

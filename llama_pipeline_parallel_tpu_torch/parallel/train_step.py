@@ -55,6 +55,7 @@ reference's psums over (dp, sp)); sp peers then hold the same gradients.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -73,6 +74,7 @@ from llama_pipeline_parallel_tpu_torch.parallel.tp import (
     tp_shard,
     vocab_parallel_loss_sum_count,
 )
+from llama_pipeline_parallel_tpu_torch.utils import numerics, timeline
 
 
 @dataclasses.dataclass
@@ -175,7 +177,9 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
                remat: bool = False, head: LossHead = LossHead(),
                kernel_prologue: bool = False, remat_policy: str = "nothing_saveable",
                pipeline: Any = None, grads: llama.Params | None = None,
-               dp_group: Any = None, tp_group: Any = None, sp_group: Any = None) -> dict:
+               dp_group: Any = None, tp_group: Any = None, sp_group: Any = None,
+               collect_stats: bool = False, poison_stage: int = -1, mesh: Any = None,
+               manifest: StageManifest | None = None) -> dict:
     """One optimizer step over `batch` ([num_microbatches * mb, s] tensors on
     the params' device), updating `state` in place. `kernel_prologue` runs
     each layer's norm -> QKV -> RoPE on the fused prologue kernels
@@ -189,7 +193,25 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     here; None: the params' own `.grad`. `dp_group`: the replicas' process
     group at pp = 1 (a pipeline has its mesh's), `tp_group` its tp ranks',
     `sp_group` its sequence slabs' (`attn_fn` is then the sp-wrapped one).
-    Returns the metrics."""
+    Returns the metrics.
+
+    `collect_stats` (the numerics observatory, utils/numerics.py) adds
+    `metrics["numerics"]`: the step's stats over `manifest`'s stages (the
+    pipeline's, else one stage of the model's layers), global over `mesh`'s
+    processes (default: the pipeline's), with the activation stats of each chunk's output and, on the
+    on-card optimizer, each stage's update norm. It also arms the nonfinite
+    guard there: when any gradient element is nonfinite, the params and the
+    AdamW moments keep their values and count (optax's state, which the
+    reference's where-select keeps) while the step counter still advances,
+    as in the reference. The verdict is read on the host: one scalar read
+    before the optimizer, the step's one synchronisation besides the loop's.
+    The host optimizer (optim/offload.py, `skip_nonfinite`) skips from its
+    global norm instead. `poison_stage` >= 0 scales that pipeline stage's
+    layer gradients by +inf before the norm (the `grad_nonfinite` fault
+    op). With the timeline installed (utils/timeline.py) the on-card
+    optimizer's end is marked (`OPTIMIZER_BOUNDARY`). The reported `lr` is
+    the schedule at the step counter (the reference's `schedule(state.step)`)
+    on the on-card optimizer, the host optimizer's own otherwise."""
     params = state.params
     if grads is None:
         for p in params.values():
@@ -197,19 +219,22 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
     else:
         for g in grads.values():
             g.zero_()
+    act = {} if collect_stats else None
     if pipeline is not None:
-        loss = pipeline.loss_and_grad(batch)
-        grad_norm = pipeline.global_norm()
+        loss = pipeline.loss_and_grad(batch, act=act)
+        manifest, mesh = pipeline.stage_params.manifest, mesh or pipeline.mesh
     else:
         targets, mbs = microbatches(batch, num_microbatches, sp_group)
         count = (targets != llama.IGNORE_INDEX).sum().float()
         global_count = sum_over(count, sp_group, dp_group).clamp(min=1)
         loss = torch.zeros((), device=targets.device)
+        tap = None if act is None else functools.partial(numerics.act_fold, act, (0, 0))
         for ids, mask, positions, mb_targets in mbs:
             mb_params = params if grads is None else bind_fp32_grads(params, grads)
             hn = llama.hidden_states(mb_params, ids, mask, positions, cfg=cfg, attn_fn=attn_fn,
                                      remat=remat, kernel_prologue=kernel_prologue,
-                                     remat_policy=remat_policy, tp_group=tp_group)
+                                     remat_policy=remat_policy, tp_group=tp_group,
+                                     act_tap=tap)
             mb_loss = head_loss_sum_count(mb_params, hn, mb_targets, cfg, head, tp_group)[0]
             mb_loss = mb_loss / global_count
             mb_loss.backward()
@@ -217,13 +242,35 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], cfg: LlamaConf
         sum_over(loss, sp_group, dp_group)
         for name, p in params.items():
             sum_over(p.grad if grads is None else grads[name], sp_group, dp_group)
-        named = {name: p.grad for name, p in params.items()} if grads is None else grads
-        grad_norm = grad_sq_sum(named, tp_group).sqrt()
+        if manifest is None:
+            manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=1)
     if grads is None:
         grads = {name: p.grad for name, p in params.items()}
-    lr = state.optimizer.step(params, grads, grad_norm)
+    numerics.poison_grads(grads, poison_stage)
+    grad_norm = (pipeline.global_norm() if pipeline is not None
+                 else grad_sq_sum(grads, tp_group).sqrt())
+    metrics = {"loss": loss, "grad_norm": grad_norm}
+    optimizer = state.optimizer
+    if collect_stats:
+        stats = numerics.step_stats(params, grads, manifest, act=act, mesh=mesh,
+                                    act_chunked=pipeline is not None
+                                    and pipeline.pcfg.schedule in numerics.CHUNKED_SCHEDULES)
+        metrics["numerics"] = stats
+    if isinstance(optimizer, AdamW):  # the on-card optimizer (ZeRO-1 too)
+        skip = collect_stats and bool(stats["nonfinite"])
+        update_sq = {} if collect_stats else None
+        metrics["lr"] = optimizer.schedule(state.step)
+        optimizer.step(params, grads, grad_norm, apply=not skip, update_sq=update_sq)
+        timeline.mark(timeline.OPTIMIZER_BOUNDARY,
+                      0 if pipeline is None else pipeline.mesh.stages[0])
+        if collect_stats:
+            stats["update_norm_per_stage"] = numerics.update_norms(
+                update_sq, manifest, loss.device, mesh)
+    else:  # the host optimizer (its own guard), or any object with step()
+        metrics["lr"] = optimizer.step(params, grads, grad_norm)
     state.step += 1
-    return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "step": state.step}
+    metrics["step"] = state.step
+    return metrics
 
 
 @torch.no_grad()

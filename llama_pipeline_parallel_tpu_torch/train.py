@@ -48,10 +48,16 @@ each leaf's masters and moments; the working copy all-gathered over dp).
 queue / stage inputs in host memory (parallel/pipeline.py). A fault plan (`fault_plan`, or
 LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
 `data_read`, `storage_write` and `ckpt_commit`. The metrics line goes to
-`metrics.jsonl` and, with `use_wandb` / `use_tensorboard`, to those sinks. The
-observatories and the resilience actions are not ported yet; a config that
-asks for a layout or feature this trainer does not have is refused, naming
-its key, and keys that mean nothing with one stage (the pipeline schedule) are
+`metrics.jsonl` and, with `use_wandb` / `use_tensorboard`, to those sinks.
+The observability layer is the JAX trainer's (train_run): spans.jsonl and
+goodput (utils/trace.py), health.json every `health_interval` seconds, the
+numerics observatory (`numerics.*`, on by default: numerics.jsonl and the
+nonfinite guard), the memory watch (`memory.*`), the schedule timeline
+(`timeline.*`), the triggered profiler (`profiler.*`), a `profile_steps`
+window, perf.jsonl, and the `grad_nonfinite` and `oom` drills at the `step`
+site. The resilience actions are not ported yet; a config that asks for a
+layout or feature this trainer does not have is refused, naming its key,
+and keys that mean nothing with one stage (the pipeline schedule) are
 logged once. A run of several processes saves through process 0 (which
 writes the canonical tree leaf by leaf from every process's pieces:
 ckpt/gather.py; ckpt/checkpoint.py's commit barriers),
@@ -61,6 +67,7 @@ signal to any one of them: the stop vote every `preempt_check_every` steps.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import os
@@ -131,7 +138,9 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     init_params_sharded,
     train_step,
 )
-from llama_pipeline_parallel_tpu_torch.utils import faults
+from llama_pipeline_parallel_tpu_torch.utils import faults, memwatch, numerics, perf, trace
+from llama_pipeline_parallel_tpu_torch.utils import profiler as profiler_mod
+from llama_pipeline_parallel_tpu_torch.utils import timeline as timeline_mod
 from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 from llama_pipeline_parallel_tpu_torch.utils.metrics import (
@@ -154,21 +163,12 @@ _PRESETS = {
     "codellama_34b_16k": LlamaConfig.codellama_34b_16k,
 }
 
-# config keys that name features of the JAX trainer this one does not have
-# yet, with what ports each
-_NOT_PORTED = {"profile_steps": "the profiler", "health_interval": "the health heartbeat"}
 # the fault sites this trainer fires (utils/faults.py); a plan with a rule at
 # any other site is refused
 FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit")
-# (site, op) rules this trainer cannot honour, with what each needs: a plan
-# that holds one is refused
-_NOT_PORTED_FAULTS = {("step", "grad_nonfinite"): "the numerics observatory",
-                      ("step", "oom"): "the memory observatory"}
-# blocks of the JAX trainer (the observatories, the resilience actions) that
-# ask for their feature when any of their values is set, with what ports each
-_NOT_PORTED_BLOCKS = {"numerics": "the numerics observatory",
-                      "timeline": "the schedule observatory", "profiler": "the profiler",
-                      "memory": "the memory observatory", "actions": "the resilience actions"}
+# blocks of the JAX trainer (the resilience actions) that ask for their
+# feature when any of their values is set, with what ports each
+_NOT_PORTED_BLOCKS = {"actions": "the resilience actions"}
 # keys that order the pipeline's stages, with their defaults: with one stage
 # (pp = 1) the microbatches run in order whatever they say
 _ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None,
@@ -432,13 +432,18 @@ def _check_supported(cfg: dict) -> None:
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
                          f"{PIPELINE_SCHEDULES}")
-    asked = {key: what for key, what in _NOT_PORTED.items() if cfg.get(key)}
-    asked.update({key: what for key, what in _NOT_PORTED_BLOCKS.items()
-                  if _block_asks(cfg.get(key))})
+    asked = {key: what for key, what in _NOT_PORTED_BLOCKS.items()
+             if _block_asks(cfg.get(key))}
     if asked:
         raise NotImplementedError(
             f"not ported yet: {list(asked)} ("
             + "; ".join(f"{key} comes with {what}" for key, what in asked.items()) + ")")
+    # the observatories' blocks, each refused on an unknown key or a value
+    # out of its range as the JAX trainer refuses it
+    numerics.NumericsConfig.from_cfg(cfg.get("numerics"))
+    timeline_mod.TimelineConfig.from_cfg(cfg.get("timeline"))
+    profiler_mod.CaptureConfig.from_cfg(cfg.get("profiler"))
+    memwatch.MemoryConfig.from_cfg(cfg.get("memory"))
     if mesh_cfg.pp == 1:
         chunks = int(cfg.get("gradient_accumulation_chunks") or 1)
         if chunks < 1 or cfg.get("gradient_accumulation_steps", 1) % chunks:
@@ -531,11 +536,13 @@ def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManife
         packed=_packing_factor(cfg) > 1)
 
 
-def _configure_faults(cfg: dict) -> None:
+def _configure_faults(cfg: dict, ncfg: numerics.NumericsConfig, num_stages: int) -> None:
     """Install the run's fault plan: LPT_FAULT_PLAN when set (it wins over
     the config, as in the JAX trainer), else `fault_plan`, else none. A plan
-    with a rule at a site this trainer does not fire, or with an op it cannot
-    honour there (_NOT_PORTED_FAULTS), is refused by name."""
+    with a rule at a site this trainer does not fire is refused by name; a
+    `grad_nonfinite` rule is refused, as the JAX trainer refuses it, with
+    numerics off (the guard would be unarmed) or at a stage outside
+    [0, `num_stages`) (the drill would poison nothing)."""
     if os.environ.get(faults.ENV_PLAN):
         source, injector = f"${faults.ENV_PLAN}", faults.configure_from_env()
     else:
@@ -547,13 +554,20 @@ def _configure_faults(cfg: dict) -> None:
         raise NotImplementedError(
             f"not ported yet: {source} has rules at site(s) {other}; this trainer fires "
             f"{list(FAULT_SITES)}")
-    needs = {f"{op}@{site}": what for (site, op), what in _NOT_PORTED_FAULTS.items()
-             if (site, op) in rules}
-    if needs:
-        faults.configure(None)
-        raise NotImplementedError(
-            f"not ported yet: {source} has rules {sorted(needs)}; "
-            + "; ".join(f"{rule} needs {what}" for rule, what in needs.items()))
+    if faults.has_rule("step", "grad_nonfinite"):
+        bad = [st for st in faults.rule_field_values("step", "grad_nonfinite", "stage")
+               if not 0 <= st < num_stages]
+        problem = None
+        if not ncfg.enabled:
+            problem = ("fault plan contains a grad_nonfinite rule but numerics.enabled is "
+                       "false — the nonfinite guard would be unarmed; enable numerics or "
+                       "drop the rule")
+        elif bad:
+            problem = (f"grad_nonfinite rule stage(s) {bad} out of range for "
+                       f"num_stages={num_stages}")
+        if problem:
+            faults.configure(None)
+            raise ValueError(problem)
 
 
 def _block_asks(node: Any) -> bool:
@@ -606,6 +620,8 @@ class Run:
     grads: dict[str, torch.Tensor] | None = None
     offload_static: dict = dataclasses.field(default_factory=dict)
     mesh: Mesh = dataclasses.field(default_factory=lambda: Mesh(MeshConfig(), (0,)))
+    numerics: numerics.NumericsConfig = dataclasses.field(
+        default_factory=numerics.NumericsConfig)
 
     def sharded_state(self) -> gather.ShardedState:
         """The params and the optimizer's state as this process holds them
@@ -705,16 +721,22 @@ class Run:
             out["data_quarantined_records"] = self.loader.quarantine_count
         return out
 
-    def step(self, batch: dict[str, torch.Tensor]) -> dict:
+    def step(self, batch: dict[str, torch.Tensor], fault: str | None = None) -> dict:
         """One step on a batch of this replica's rows (this process's
-        column slab of them under sp)."""
+        column slab of them under sp). With numerics on (the default) the
+        metrics carry the step's stats (`numerics`) and the nonfinite guard
+        is armed; `fault` is the step site's verdict (a `grad_nonfinite`
+        one poisons its stage's gradients)."""
         metrics = train_step(self.state, sp_slab(batch, self.mesh), self.model_cfg,
                              num_microbatches=self.num_microbatches, attn_fn=self.attn_fn,
                              remat=self.remat, head=self.head,
                              kernel_prologue=self.kernel_prologue,
                              remat_policy=self.remat_policy, pipeline=self.pipeline,
                              grads=self.grads, dp_group=self.mesh.dp_group,
-                             tp_group=self.mesh.tp_group, sp_group=self.mesh.sp_group)
+                             tp_group=self.mesh.tp_group, sp_group=self.mesh.sp_group,
+                             collect_stats=self.numerics.enabled,
+                             poison_stage=numerics.fault_stage(fault), mesh=self.mesh,
+                             manifest=self.manifest)
         if self.host is not None:  # the norm the host clipped by
             metrics["grad_norm"] = self.host.last_grad_norm
         return metrics
@@ -772,7 +794,10 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
         raise RuntimeError("device=cuda but torch.cuda.is_available() is false; pass "
                            "device='cpu' (--device cpu) to run on the CPU")
     _check_supported(cfg)
-    _configure_faults(cfg)
+    ncfg = numerics.NumericsConfig.from_cfg(cfg.get("numerics"))
+    _configure_faults(cfg, ncfg, _mesh_config(cfg).pp)
+    # the span stream from here on: until the step loop starts is `init`
+    trace.configure(cfg["output_dir"], write=distributed.process_index() == 0)
     remat, remat_policy = _remat(cfg)
     seed = cfg.get("seed", 42)
     model_cfg = build_model_config(cfg["model"])
@@ -852,7 +877,8 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     del chunks
     stage_kw = dict(tp_rank=mesh.tp_rank, tp=mesh.tp)
     if cfg.get("optimizer_offload"):
-        host, params, grads = _offload_state(cfg, ocfg, model_cfg, init, mesh, device)
+        host, params, grads = _offload_state(cfg, ocfg, model_cfg, init, mesh, device,
+                                             skip_nonfinite=ncfg.enabled)
         if pcfg is not None:
             stage_params = pl.StageParams(manifest, pl.chunks_like(structure, params),
                                           grads=pl.chunks_like(structure, grads), **stage_kw)
@@ -891,7 +917,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
               kernel_prologue=kernel_prologue, seq_length=seq_length, end_step=end_step,
               manifest=manifest, ckpt=mgr, topology=topology, remat_policy=remat_policy,
               eval_loader=eval_loader, pipeline=pipeline, host=host, grads=grads,
-              offload_static=offload_static, mesh=mesh)
+              offload_static=offload_static, mesh=mesh, numerics=ncfg)
     if cfg.get("resume", True):
         restored = _restore_with_fallback(
             mgr, lambda s: (_restore_offload if host is not None else _restore)(run, s))
@@ -911,7 +937,8 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
 
 
 def _offload_state(cfg: dict, ocfg: OptimizerConfig, model_cfg: LlamaConfig,
-                   init: dict[str, torch.Tensor], mesh: Mesh, device: torch.device) -> tuple:
+                   init: dict[str, torch.Tensor], mesh: Mesh, device: torch.device,
+                   skip_nonfinite: bool = False) -> tuple:
     """The host optimizer's state from this process's fp32 init (the JAX
     trainer's `_run_offload` set-up; `init` is named as the run's params):
     its masters copied to host memory leaf by leaf (the init's fp32 on the
@@ -942,6 +969,7 @@ def _offload_state(cfg: dict, ocfg: OptimizerConfig, model_cfg: LlamaConfig,
 
     several = distributed.process_count() > 1
     host = HostOffloadAdamW(ocfg, device_norm=cfg.get("offload_device_norm", True),
+                            skip_nonfinite=skip_nonfinite,
                             reduce_norm_sq=_all_reduce_float if several else None,
                             counts_in_norm=counts_in_norm if several else None,
                             dims=dims, dp=mesh.dp, index=mesh.replica, group=mesh.dp_group)
@@ -1298,34 +1326,195 @@ def run_training(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any 
     Runs on `device` (the card unless the caller asks for the CPU);
     `tokenizer` as in build_run. Installs the preemption handlers first (in
     every process of a run of several: the stop vote carries one process's
-    signal to all); the run's fault plan is cleared and the handlers
-    restored at the end."""
+    signal to all); the run's fault plan is cleared, its span stream closed
+    and the handlers restored at the end."""
     _install_preemption_handlers()
     try:
         return train_run(build_run(cfg, device, tokenizer))
     finally:
+        trace.configure(None)  # close this run's spans.jsonl writer
         faults.configure(None)
         _release_preemption_handlers()
 
 
+@dataclasses.dataclass
+class _Observatory:
+    """The run's observability pieces (the JAX trainer's
+    `_make_observatory` and monitor): the numerics monitor (on by default),
+    the schedule timeline (`timeline.*`), the triggered profiler (process 0;
+    without a `profiler:` block it arms only the capture-trigger file) and
+    the memory watch (`memory.*`)."""
+
+    monitor: numerics.NumericsMonitor | None
+    timeline: timeline_mod.StepTimeline | None
+    profiler: profiler_mod.TriggeredProfiler | None
+    memory: memwatch.MemoryWatch | None
+
+    @classmethod
+    def of(cls, run: Run) -> "_Observatory":
+        cfg, out = run.cfg, run.cfg["output_dir"]
+        first = distributed.process_index() == 0
+        several = distributed.process_count() > 1
+        monitor = (numerics.NumericsMonitor(out, run.numerics, write=first,
+                                            recorder=trace.recorder())
+                   if run.numerics.enabled else None)
+        tcfg = timeline_mod.TimelineConfig.from_cfg(cfg.get("timeline"))
+        step_tl = None
+        if tcfg.enabled:
+            # at pp = 1 the plan is one stage's (its analytic bubble, 0)
+            pcfg = (pl.PipelineConfig(num_stages=1, num_microbatches=run.num_microbatches)
+                    if run.pipeline is None else run.pipeline.pcfg)
+            step_tl = timeline_mod.StepTimeline(
+                pcfg, out, write=first,
+                window=tcfg.window, device=run.device,
+                group=distributed.host_group() if several else None)
+            if run.pipeline is not None:
+                run.pipeline.timeline_marks = step_tl.segmented
+            logger.info("timeline enabled: segment boundary marks on the card, every step "
+                        "synchronised (timeline.jsonl)")
+        pcap = profiler_mod.CaptureConfig.from_cfg(cfg.get("profiler"))
+        if pcap is None:
+            pcap = profiler_mod.CaptureConfig(zscore=0.0, on_anomaly=False)
+        prof = profiler_mod.TriggeredProfiler(pcap, out) if first else None
+        mcfg = memwatch.MemoryConfig.from_cfg(cfg.get("memory"))
+        mem = None
+        if mcfg.enabled:
+            # the host stash's resident bytes by its byte model (the rings
+            # fill during the first step)
+            stash = 0 if run.pipeline is None else pl.host_stash_bytes(
+                run.pipeline.pcfg, *pl.stash_dims(
+                    cfg.get("per_device_train_batch_size", 1), run.seq_length, run.mesh.sp,
+                    run.model_cfg.hidden_size, run.model_cfg.dtype))
+            mem = memwatch.MemoryWatch(out, every=mcfg.every, top_buffers=mcfg.top_buffers,
+                                       write=first, stash_bytes=stash or None)
+            logger.info("memory watch enabled: first step's measured peak, live sampler "
+                        "every %d step(s) (memory.jsonl)", mcfg.every)
+        return cls(monitor, step_tl, prof, mem)
+
+    def health_extra(self) -> Any:
+        """The live health.json contributions (the monitor's counters, the
+        timeline's rolling fields), or None."""
+        live = [m.health_fields for m in (self.monitor, self.timeline) if m is not None]
+        return collections.ChainMap(*live) if live else None
+
+    def scalars(self) -> dict:
+        out = {}
+        for part in (self.monitor, self.timeline):
+            if part is not None:
+                out.update(part.scalars())
+        return out
+
+    def close(self) -> None:
+        if self.profiler is not None:
+            trace.recorder().remove_listener(self.profiler.on_span)
+            self.profiler.close()  # a capture window open at exit is finalized
+        for part in (self.timeline, self.memory, self.monitor):
+            if part is not None:
+                part.close()
+
+
+def _health_static(run: Run) -> dict:
+    """The static health.json payload (the JAX trainer's
+    `_schedule_health_static`): the topology, the zb1 W-queue depth, the
+    host-stash keys."""
+    out = {"topology": run.topology, **run.offload_static}
+    depth = _schedule_scalars(run).get("wgrad_queue_depth")
+    if depth:
+        out["wgrad_queue_depth"] = depth
+    return out
+
+
+def _schedule_scalars(run: Run) -> dict:
+    """The schedule's run constants on every metrics line (the JAX
+    trainer's `_schedule_static_scalars`): its name, its counted bubble and,
+    under zb1, the W queue's peak depth."""
+    pcfg = None if run.pipeline is None else run.pipeline.pcfg
+    out = {"schedule": run.cfg.get("pipeline_schedule", "1f1b"),
+           "bubble_fraction": 0.0 if pcfg is None else round(pl.bubble_fraction(pcfg), 4)}
+    if pcfg is not None and pl.wgrad_queue_peak(pcfg):
+        out["wgrad_queue_depth"] = pl.wgrad_queue_peak(pcfg)
+    return out
+
+
+def _write_perf_rows(run: Run, obs: _Observatory) -> None:
+    """Close the run into the perf ledger (utils/perf.py), process 0: the
+    analytic bubble next to its timeline-measured counterpart, the step-time
+    percentiles and the card's peak, and the memory watch's rows."""
+    step_tl, mem = obs.timeline, obs.memory
+    if (step_tl is None and mem is None) or distributed.process_index() != 0:
+        return
+    out = run.cfg["output_dir"]
+    rows = []
+    if step_tl is not None:
+        pcfg = None if run.pipeline is None else run.pipeline.pcfg
+        rows.append(perf.make_row(
+            "bubble_fraction", model=0.0 if pcfg is None else pl.bubble_fraction(pcfg),
+            measured=step_tl.measured_bubble_median(), source="train", run=out,
+            schedule=run.cfg.get("pipeline_schedule", "1f1b"),
+            virtual_stages=run.manifest.virtual_stages))
+        sc = step_tl.scalars()
+        if "step_time_p50" in sc:
+            rows.append(perf.make_row(
+                "step_time_s", measured=sc["step_time_p50"], unit="s",
+                source="train", run=out, p95=sc.get("step_time_p95")))
+        peak_bytes, src = trace.device_peak_bytes()
+        if peak_bytes is not None and src == "device":
+            rows.append(perf.make_row(
+                "peak_gib", measured=peak_bytes / (1 << 30), unit="GiB",
+                source="train", run=out))
+    if mem is not None:
+        rows.extend(mem.perf_rows(run=out))
+    perf.append_rows(os.path.join(out, "perf.jsonl"), rows)
+
+
+def _profile_window(cfg: dict, start: int, end: int) -> tuple[int, int] | None:
+    """`profile_steps: [lo, hi]` clamped into [start, end), or None."""
+    window = cfg.get("profile_steps")
+    if not window:
+        return None
+    lo, hi = max(int(window[0]), start), min(int(window[1]), end)
+    if lo >= hi:
+        logger.info("profile_steps %s empty after clamping to [%d, %d); skipping trace",
+                    list(window), start, end)
+        return None
+    return lo, hi
+
+
 def train_run(run: Run) -> dict:
     """Steps `run.start_step` .. `run.end_step` (the JAX trainer's
-    `_train_loop`). Each step fires the `step` fault site, then stops the
-    run on a preemption signal: a blocking save at that step, and the
-    summary's `preempted_at` and `final_step` name it. One process reads its
-    flag every step; several vote (distributed.should_stop) at every step
-    that `preempt_check_every` divides, the same steps in every process, so
-    a signal to any one stops all of them at the same step. Every
-    `logging_steps` the metrics line: the window's mean loss, tokens/s over
-    its wall time (data wait, eval and saves included; `real_tokens_per_sec`
-    over the non-pad positions where they differ), and `step_time`, that
-    wall less the first step (the kernels' build and warm-up), eval and
-    checkpoint seconds, per step. Every `eval_steps` with an eval set,
-    `eval_loss`, before a save at the same step. Saves every `save_steps`
-    and, under `save_final` (true by default), at the end unless the last
-    step was just saved. The summary's `step_times` and `losses` are per
-    step, device-synchronised; the trained state stays in `run.state`."""
+    `_train_loop`). Each step fires the `step` fault site (a `grad_nonfinite`
+    verdict poisons its stage's gradients; an `oom` one raises the
+    allocation-failure error), then stops the run on a preemption signal: a
+    blocking save at that step, and the summary's `preempted_at` and
+    `final_step` name it. One process reads its flag every step; several
+    vote (distributed.should_stop) at every step that `preempt_check_every`
+    divides, the same steps in every process, so a signal to any one stops
+    all of them at the same step. Every `logging_steps` the metrics line:
+    the window's mean loss, tokens/s over its wall time (data wait, eval and
+    saves included; `real_tokens_per_sec` over the non-pad positions where
+    they differ), and `step_time`, that wall less the first step (the
+    kernels' build and warm-up), eval and checkpoint seconds, per step, with
+    `goodput`, the numerics counters and the timeline's fields. Every
+    `eval_steps` with an eval set, `eval_loss`, before a save at the same
+    step. Saves every `save_steps` and, under `save_final` (true by
+    default), at the end unless the last step was just saved. The summary's
+    `step_times` and `losses` are per step, device-synchronised; the trained
+    state stays in `run.state`.
+
+    Observability (utils/trace.py and the observatories): the spans
+    `init` (retroactive, from build_run), `data_wait`, `compile_block` (the
+    first step, synchronised), `step_dispatch`, `device_step` (the step's
+    synchronisation and loss read) and `eval`; the RunClock with the resumed
+    run's prior from health.json, the Heartbeat (process 0) every
+    `health_interval` seconds; the numerics monitor (lag one step;
+    `halt_on_nonfinite` -> a final checkpoint at the last completed step,
+    then NonfiniteHaltError); the timeline, the memory watch, the triggered
+    profiler and `profile_steps` (a torch.profiler window written to
+    `<output_dir>/profile`); an allocation failure writes the OOM snapshot,
+    triggers a capture and re-raises; `perf.jsonl` at close."""
     cfg, device = run.cfg, run.device
+    output_dir = cfg["output_dir"]
+    first = distributed.process_index() == 0
     logging_steps = cfg.get("logging_steps", 10)
     save_steps = cfg.get("save_steps", 0)
     eval_steps = cfg.get("eval_steps", 0) if run.eval_loader is not None else 0
@@ -1339,25 +1528,56 @@ def train_run(run: Run) -> dict:
     def peak_bytes():
         return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    writer = (MetricsWriter(cfg["output_dir"], config_snapshot=cfg,
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    writer = (MetricsWriter(output_dir, config_snapshot=cfg,
                             use_wandb=cfg.get("use_wandb", False),
                             use_tensorboard=cfg.get("use_tensorboard", False))
-              if distributed.process_index() == 0 else NullMetricsWriter())
+              if first else NullMetricsWriter())
     # the meter counts every replica's rows; its MFU is against the cards the
     # processes hold (several may share one under LPT_DIST_BACKEND=gloo)
     cards = (min(process_count, torch.cuda.device_count()) if device.type == "cuda"
              else process_count)
     meter = Throughput(run.model_cfg, run.seq_length, n_chips=cards, device=device)
+
+    # ---- run-health telemetry: everything since build_run configured the
+    # span stream is the `init` bucket, recorded retroactively
+    obs = _Observatory.of(run)
+    rec = trace.recorder()
+    if obs.profiler is not None:
+        rec.add_listener(obs.profiler.on_span)
+    rec.emit("init", rec.configured_at, time.time() - rec.configured_at)
+    prior = trace.load_health(output_dir) if run.start_step else None
+    init_secs = time.time() - rec.configured_at
+    clock = trace.RunClock(prior=(prior or {}).get("clock"), already_elapsed=init_secs)
+    clock.add("init", init_secs)
+    rec.add_listener(clock.on_span)
+    heartbeat = (trace.Heartbeat(output_dir, clock, interval=cfg.get("health_interval", 10.0),
+                                 extra=obs.health_extra(), static=_health_static(run))
+                 if first else None)
+    dev_peak, dev_src = trace.device_peak_bytes()
+    logger.info("device memory telemetry: %s (%s)",
+                "unavailable" if dev_peak is None else f"{dev_peak} B peak", dev_src)
+    profile_window = _profile_window(cfg, run.start_step, run.end_step)
+    static = _schedule_scalars(run)
+    trace_prof = None
+
     batches = run.batches()
     losses, step_times, window = [], [], []
     tokens_per_step = 0
     last_saved = -1
     preempted_at = None
+    completed = run.start_step  # steps whose update the live state reflects
     window_t0 = time.perf_counter()
     window_overhead = 0.0  # first-step, eval and checkpoint seconds: not step_time
     try:
         for step in range(run.start_step, run.end_step):
-            faults.fire("step", step=step)
+            iter_t0 = time.perf_counter()
+            fault = faults.fire("step", step=step)
+            if fault == "oom":
+                raise memwatch.oom_error(step)
             check_now = process_count == 1 or step % check_every == 0
             if check_now and distributed.should_stop(bool(_STOP_SIGNALS)):
                 logger.warning("preemption signal; checkpointing at step %d and exiting for "
@@ -1366,16 +1586,61 @@ def train_run(run: Run) -> dict:
                 run.save(step, final=True)  # joins an async save in flight first
                 last_saved = run.end_step  # no save_final after it
                 break
-            batch = next(batches)
+            if (profile_window and trace_prof is None
+                    and profile_window[0] <= step < profile_window[1]):
+                trace_prof = profiler_mod.start_profile(os.path.join(output_dir, "profile"))
+            with trace.span("data_wait", step=step):
+                batch = next(batches)
             tokens_per_step = batch["input_ids"].numel() * run.mesh.dp
+            if obs.timeline is not None:
+                obs.timeline.pre_step(step + 1)
+            measure = (obs.memory is not None and device.type == "cuda"
+                       and not obs.memory.compiled)
+            if measure:  # the first step's measured peak
+                sync()
+                torch.cuda.reset_peak_memory_stats(device)
+                at_start = torch.cuda.memory_allocated(device)
             t0 = time.perf_counter()
-            metrics = run.step(batch)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            try:
+                if step == run.start_step:
+                    # the kernels' build and first launches land in `compile`
+                    with trace.span("compile_block", step=step) as sp:
+                        metrics = _observed_step(run, obs, batch, step, fault)
+                        sync()
+                    window_overhead += sp["dur"]
+                else:
+                    with trace.span("step_dispatch", step=step):
+                        metrics = _observed_step(run, obs, batch, step, fault)
+            except numerics.NonfiniteHaltError:
+                # raised after this step's update: the halt's save labels it
+                completed = step + 1
+                raise
+            completed = step + 1
+            with trace.span("device_step", step=step + 1, steps=1):
+                sync()
+                losses.append(float(metrics["loss"]))
             step_times.append(time.perf_counter() - t0)
-            if step == run.start_step:
-                window_overhead += step_times[-1]
-            losses.append(float(metrics["loss"]))
+            if measure:
+                obs.memory.note_compiled("train_step" if run.host is None else "loss_and_grad",
+                                         at_start, torch.cuda.max_memory_allocated(device))
+            if obs.timeline is not None:
+                if run.host is not None:  # the host update has no mark on the card
+                    obs.timeline.add_host_segment(
+                        "optimizer_host", sum(run.host.last_timings.values()) / 1e3)
+                obs.timeline.post_step(step + 1, metrics["loss"])
+            if obs.memory is not None:
+                obs.memory.sample(step + 1)
+            if obs.profiler is not None:
+                # the first step stays out of the z-score baseline
+                obs.profiler.observe_step(step + 1, None if step == run.start_step
+                                          else time.perf_counter() - iter_t0)
+            if heartbeat is not None:
+                heartbeat.beat(step + 1)
+            if trace_prof is not None and (step + 1 >= profile_window[1]
+                                           or step + 1 == run.end_step):
+                trace_prof.stop()
+                trace_prof = None
+                logger.info("profiler trace written to %s/profile", output_dir)
             window.append(losses[-1])
             mask = batch.get("attention_mask")
             meter.update(tokens_per_step,
@@ -1387,40 +1652,89 @@ def train_run(run: Run) -> dict:
                 window_overhead = 0.0
                 writer.log(step + 1, {"loss": float(np.mean(window)), "lr": metrics["lr"],
                                       "grad_norm": float(metrics["grad_norm"]),
-                                      **meter.read_and_reset(), "step_time": step_time,
-                                      "device_peak_bytes": peak_bytes(),
+                                      **meter.read_and_reset(), **static,
+                                      **obs.scalars(),
+                                      "goodput": round(clock.goodput(), 4),
+                                      "step_time": step_time,
+                                      "device_peak_bytes": trace.device_peak_bytes()[0],
                                       **run.host_scalars()})
+                if heartbeat is not None:
+                    heartbeat.beat(step + 1, step_time)
                 window.clear()
             if eval_steps and (step + 1) % eval_steps == 0:
-                t_eval = time.perf_counter()
-                eval_loss = run.evaluate()
+                with trace.span("eval", step=step + 1) as sp:
+                    eval_loss = run.evaluate()
                 writer.log(step + 1, {"eval_loss": eval_loss})
                 run.last_eval = {"step": step + 1, "loss": eval_loss}
-                window_overhead += time.perf_counter() - t_eval
+                window_overhead += sp["dur"]
             if save_steps and (step + 1) % save_steps == 0:
                 t_save = time.perf_counter()
                 run.save(step + 1)
                 last_saved = step + 1
                 window_overhead += time.perf_counter() - t_save
-    except BaseException:
-        # join the in-flight commit, but never let ITS failure replace the
-        # training exception that actually killed the run
-        try:
-            run.ckpt.finalize()
-        except Exception:
-            logger.exception("async checkpoint commit also failed while "
-                             "unwinding a training error")
+        if obs.monitor is not None:
+            # the last step's verdict (a halt included) before the final save
+            obs.monitor.flush()
+    except numerics.NonfiniteHaltError as e:
+        # the nonfinite update was skipped, so the live state is finite: save
+        # it under `completed` (the halt surfaces a step after the nonfinite
+        # one), then exit nonzero
+        logger.error("halting on nonfinite gradients at step %d; writing a final checkpoint "
+                     "at step %d before exiting nonzero", e.step, completed)
+        _finalize_quietly(run)
+        run.save(completed, final=True)
+        raise
+    except BaseException as e:
+        if isinstance(e, Exception) and memwatch.is_resource_exhausted(e):
+            # write the bounded snapshot first, then re-raise; no final save:
+            # after an allocation failure the card's state is not trusted
+            logger.error("allocation failure at step %d; writing OOM snapshot to %s before "
+                         "exiting", completed, memwatch.oom_dir(output_dir))
+            memwatch.dump_oom_snapshot(output_dir, completed, e, memwatch=obs.memory)
+            if obs.profiler is not None:
+                obs.profiler.trigger("oom", completed)
+        _finalize_quietly(run)
         raise
     finally:
+        if trace_prof is not None:  # preemption break / exception inside the window
+            trace_prof.stop()
+            logger.info("profiler trace (early exit) written to %s/profile", output_dir)
+        obs.close()
         run.loader.close_ledger()
         writer.close()
+        if heartbeat is not None:
+            heartbeat.stop()
         _release_preemption_handlers()
     if cfg.get("save_final", True) and last_saved != run.end_step:
         run.save(run.end_step, final=True)
+        if heartbeat is not None:  # fold the final save into health.json
+            heartbeat.write()
     run.ckpt.finalize()  # surface any async-commit failure on the clean path
+    _write_perf_rows(run, obs)
     return {"final_step": run.end_step if preempted_at is None else preempted_at,
             "start_step": run.start_step, "preempted_at": preempted_at,
             "final_loss": losses[-1] if losses else float("nan"),
             "steps_per_epoch": len(run.loader), "output_dir": cfg["output_dir"],
             "losses": losses, "step_times": step_times,
             "tokens_per_step": tokens_per_step, "peak_memory_bytes": peak_bytes()}
+
+
+def _observed_step(run: Run, obs: _Observatory, batch: dict, step: int,
+                   fault: str | None) -> dict:
+    """run.step, then the numerics monitor's lag-1 observe (which may raise
+    NonfiniteHaltError for the previous step)."""
+    metrics = run.step(batch, fault)
+    if obs.monitor is not None:
+        obs.monitor.observe(step + 1, metrics["loss"], metrics["grad_norm"],
+                            metrics.get("numerics"))
+    return metrics
+
+
+def _finalize_quietly(run: Run) -> None:
+    """Join the in-flight commit, but never let ITS failure replace the
+    training exception that actually killed the run."""
+    try:
+        run.ckpt.finalize()
+    except Exception:
+        logger.exception("async checkpoint commit also failed while unwinding a training "
+                         "error")

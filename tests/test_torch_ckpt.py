@@ -365,8 +365,9 @@ def test_flipped_byte_quarantines_and_restore_falls_back(tmp_path):
     _flip_byte(tmp_path / "checkpoint-4" / "params.safetensors")
     run = t_train.build_run(_tiny_cfg(f"output_dir={tmp_path}", "max_steps=6"), "cpu")
     assert run.start_step == 2
-    assert sorted(os.listdir(tmp_path)) == ["checkpoint-2", "checkpoint-4.corrupt", "latest",
-                                            "metrics.jsonl", "training_config.json"]
+    assert sorted(os.listdir(tmp_path)) == ["checkpoint-2", "checkpoint-4.corrupt", "health.json",
+                                            "latest", "metrics.jsonl", "numerics.jsonl",
+                                            "spans.jsonl", "training_config.json"]
     mgr = t_ckpt.CheckpointManager(str(tmp_path))
     _flip_byte(tmp_path / "checkpoint-2" / "opt.safetensors", offset=-100)
     with pytest.raises(t_ckpt.CheckpointCorruptError, match="opt.safetensors: sha256"):

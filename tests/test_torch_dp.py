@@ -37,6 +37,8 @@ from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig as
 from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest as TManifest
 from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as t_pl
+from llama_pipeline_parallel_tpu_torch.parallel import train_step as t_ts
+from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from llama_pipeline_parallel_tpu_torch.utils import config as t_config
 from tests.test_torch_pipeline import (
     GRAD_RTOL,
@@ -137,7 +139,8 @@ def steps(ref, tmp_path_factory):
     for name, (out, procs) in runs.items():
         for rc, _, stderr in finish(procs):
             assert rc == 0, stderr[-3000:]
-        results[name] = [torch.load(out / f"rank{r}.pt") for r in range(LAYOUTS[name][2])]
+        results[name] = [{**torch.load(out / f"rank{r}.pt"), "path": str(out / f"rank{r}.pt")}
+                         for r in range(LAYOUTS[name][2])]
     return tree, batch, results
 
 
@@ -201,6 +204,41 @@ def test_zero1_masters_bit_equal_replicated_adamw(steps, layout):
             full = res["grads"][name].numel()
             assert mu.numel() == (full if dim is None else full // dp), name
             assert dim == t_optim.zero1_dim(tuple(res["grads"][name].shape), dp)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_numerics_across_processes_match_one_process(steps, layout):
+    """Process 0's numerics.jsonl record of the step (every process's stats
+    reduced to the global record) against the same step in one process on
+    the whole batch: per-stage grad, param and update norms and activation
+    rms / absmax within the gradients' rtol, the record's vectors of length
+    pp, finite."""
+    tree, batch, results = steps
+    pp, dp, _ = LAYOUTS[layout]
+    out = os.path.dirname(results[layout][0]["path"])
+    got = [json.loads(line) for line in open(os.path.join(out, "numerics.jsonl"))]
+    assert len(got) == 1 and not got[0]["nonfinite"]
+    cfg = TConfig.tiny()
+    manifest = TManifest(num_layers=cfg.num_hidden_layers, num_stages=pp)
+    params = convert.params_from_jax(tree)
+    pipe = None
+    if pp > 1:
+        sp = t_pl.StageParams.from_canonical(params, manifest)
+        pipe = t_pl.Pipeline(cfg, t_pl.PipelineConfig(num_stages=pp,
+                                                      num_microbatches=MICROBATCHES), make_mesh(
+            MeshConfig(pp=pp)), sp)
+        params = sp.flat()
+    else:
+        params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    state = t_ts.TrainState(step=0, params=params,
+                            optimizer=t_optim.AdamW(params, t_optim.OptimizerConfig(**OPT)))
+    want = t_ts.train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg,
+                           num_microbatches=MICROBATCHES, remat=True, pipeline=pipe,
+                           collect_stats=True, manifest=manifest)["numerics"]
+    for key in ("grad_norm_per_stage", "param_norm_per_stage", "update_norm_per_stage",
+                "act_rms_per_stage", "act_absmax_per_stage"):
+        assert len(got[0][key]) == pp, key
+        np.testing.assert_allclose(got[0][key], want[key].numpy(), rtol=GRAD_RTOL, err_msg=key)
 
 
 def _stacked_leaves(ref, cfg_j, pp):

@@ -177,7 +177,8 @@ def tp_runs(ref, tmp_path_factory):
                for name in STEPS}
     return dict(tree=tree, inputs=inputs, want=want, results=results,
                 ops=_results(four, "ops", 4), init=_results(eight, "init", 8),
-                train_dir=train_dir)
+                train_dir=train_dir,
+                dirs={name: four if _ranks(name) == 4 else eight for name in STEPS})
 
 
 @pytest.mark.parametrize("name", list(STEPS))
@@ -217,6 +218,31 @@ def test_norm_and_zero1_masters_under_tp(tp_runs, name):
             assert dim != t_tp.tp_dim(k, res["grads"][k].dim()) or dim is None, k
             full = res["grads"][k].numel()
             assert res["mu"][k].numel() == (full if dim is None else full // dp), k
+
+
+@pytest.mark.parametrize("name", list(STEPS))
+def test_numerics_record_under_tp_matches_one_process(tp_runs, name):
+    """Process 0's numerics.jsonl record of each step job (the stats of
+    every rank reduced to the global record: split leaves' squares added
+    over tp, replicated ones once, dp replicas once) against the norms of
+    the reference's gradients of the same step in one process: each
+    stage's grad norm within the whole norm's rtol 1e-5; per-stage vectors
+    of length pp; finite."""
+    pp, _, _, _, v, _ = STEPS[name]
+    want_grads = tp_runs["want"][name][1]
+    rec = [json.loads(line) for line in
+           open(os.path.join(tp_runs["dirs"][name], name, "numerics.jsonl"))]
+    assert len(rec) == 1 and not rec[0]["nonfinite"]
+    manifest = TManifest(num_layers=4, num_stages=pp, virtual_stages=v)
+    want = []
+    for s_ in range(pp):
+        rows = [r for c in range(v) for r in manifest.layers_of_chunk(s_, c)]
+        want.append(sum(float(g[rows].double().square().sum())
+                        for k, g in want_grads.items() if k.startswith("layers.")) ** 0.5)
+    for key in ("grad_norm_per_stage", "param_norm_per_stage", "update_norm_per_stage",
+                "act_rms_per_stage", "act_absmax_per_stage"):
+        assert len(rec[0][key]) == pp and all(np.isfinite(rec[0][key])), key
+    np.testing.assert_allclose(rec[0]["grad_norm_per_stage"], want, rtol=1e-5)
 
 
 def test_tp_operators_against_one_process(tp_runs):

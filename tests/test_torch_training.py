@@ -482,21 +482,20 @@ def _build_tiny(tmp_path, *overrides):
 _REFUSED_KEYS = [
     ("actions={resize_on_request: true}", NotImplementedError,
      r"'actions'.*the resilience actions"),
-    ("health_interval=5", NotImplementedError, r"'health_interval'.*the health heartbeat"),
+    ("profiler={zscore_min_history: 1}", ValueError, "zscore_min_history must be >= 2"),
     ("remat_policy=nothing_savable", ValueError, "unknown remat_policy"),
     ("offload={wgrad_stash: true}", ValueError, "offload.wgrad_stash requires schedule: zb1"),
     ("gradient_accumulation_chunks=3", ValueError, "must divide"),
     ("pipeline_schedule=zb2", ValueError, "unknown pipeline_schedule"),
-    ("fault_plan={faults: [{site: step, op: grad_nonfinite, at_step: 3}]}",
-     NotImplementedError, r"grad_nonfinite@step.*numerics observatory"),
-    ("numerics={enabled: true}", NotImplementedError, "numerics"),
-    ("timeline={enabled: true}", NotImplementedError, "timeline"),
-    ("profiler={at_step: [3]}", NotImplementedError, "profiler"),
-    ("memory={enabled: true}", NotImplementedError, "memory"),
+    ("fault_plan={faults: [{site: step, op: grad_nonfinite, at_step: 3, stage: 1}]}",
+     ValueError, r"grad_nonfinite rule stage\(s\) \[1\] out of range for num_stages=1"),
+    ("numerics={enabled: true, windows: 5}", ValueError, "unknown numerics config keys"),
+    ("timeline={enabled: true, every: 2}", ValueError, r"unknown timeline\.\* key"),
+    ("profiler={at_step: [3], window_steps: 0}", ValueError, "window_steps must be >= 1"),
+    ("memory={enabled: true, every: 0}", ValueError, "memory.every must be >= 1"),
     ("eval_dataset={synthetic: true, seq_length: 32, pseudo_dataset_len: 1}", ValueError,
      "eval dataset too small for one batch"),
-    ("fault_plan={faults: [{site: step, op: oom, at_step: 3}]}", NotImplementedError,
-     r"oom@step.*memory observatory"),
+    ("timeline={enabled: true, window: 1}", ValueError, "timeline.window must be >= 2"),
 ]
 
 
@@ -504,9 +503,11 @@ _REFUSED_KEYS = [
                          ids=[case[0] for case in _REFUSED_KEYS])
 def test_trainer_refuses_keys_it_does_not_run(tmp_path, override, error, match):
     """A key of the JAX trainer whose value asks for what this trainer does
-    not do is refused by name, with what would port it; a name outside the
-    JAX trainer's remat policies or schedules is refused as unknown, and an
-    eval set too small for one batch as such."""
+    not do (the resilience actions) is refused by name, with what would port
+    it; a name outside the JAX trainer's remat policies or schedules, an
+    observatory block with an unknown key or a value out of its range, a
+    grad_nonfinite rule at a stage the pipeline lacks, and an eval set too
+    small for one batch are refused as the JAX trainer refuses them."""
     with pytest.raises(error, match=match):
         _build_tiny(tmp_path, override)
 

@@ -5,10 +5,12 @@
 It reads `<dir>/inputs.pt` (canonical params, the global batch, the number of
 microbatches and the optimizer config), joins the gloo process group, runs
 one train_step of the tiny model at pp x dp with ZeRO-1 moments on this
-process's replica rows, and writes `<dir>/rank<r>.pt`: the loss, the
-gradient norm, the gradients (summed over dp), the masters after the update,
-the moments this process holds and the dims they are split on. Not a test
-module: it imports no JAX, so a process starts in a few seconds.
+process's replica rows, with the numerics observatory's stats (process 0
+writes them to `<dir>/numerics.jsonl` through the monitor), and writes
+`<dir>/rank<r>.pt`: the loss, the gradient norm, the gradients (summed over
+dp), the masters after the update, the moments this process holds and the
+dims they are split on. Not a test module: it imports no JAX, so a process
+starts in a few seconds.
 """
 
 import os
@@ -23,6 +25,7 @@ from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import TrainState, train_step
+from llama_pipeline_parallel_tpu_torch.utils import numerics
 
 
 def step(out_dir: str, pp: int, dp: int, schedule: str) -> None:
@@ -36,8 +39,8 @@ def step(out_dir: str, pp: int, dp: int, schedule: str) -> None:
     batch = {k: v[mesh.replica * rows:(mesh.replica + 1) * rows]
              for k, v in inputs["batch"].items()}
     pipe = None
+    manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp)
     if pp > 1:
-        manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp)
         sp = pl.StageParams.from_canonical(inputs["params"], manifest, mesh.stages)
         pcfg = pl.PipelineConfig(num_stages=pp, num_microbatches=m, schedule=schedule)
         pipe = pl.Pipeline(cfg, pcfg, mesh, sp)
@@ -48,7 +51,12 @@ def step(out_dir: str, pp: int, dp: int, schedule: str) -> None:
                            mesh.dp_group)
     state = TrainState(step=0, params=params, optimizer=optimizer)
     metrics = train_step(state, batch, cfg, num_microbatches=m, remat=True, pipeline=pipe,
-                         dp_group=mesh.dp_group)
+                         dp_group=mesh.dp_group, collect_stats=True, mesh=mesh,
+                         manifest=manifest)
+    monitor = numerics.NumericsMonitor(out_dir, numerics.NumericsConfig(), write=rank == 0)
+    monitor.observe(1, metrics["loss"], metrics["grad_norm"], metrics["numerics"])
+    monitor.flush()
+    monitor.close()
     torch.save({"loss": metrics["loss"], "norm": metrics["grad_norm"],
                 "replica": mesh.replica, "stages": mesh.stages,
                 "grads": {k: p.grad for k, p in params.items()},

@@ -10,9 +10,10 @@ layouts of the same process count), writing `<dir>/<job>-rank<r>.pt`:
 - "step": one train_step of the tiny model (with `kv_heads` kv heads, whose
   canonical params are `params_kv<n>` where n is not the preset's 2) at
   (pp, dp, tp) on this process's replica rows of `inputs.pt`'s batch, with
-  ZeRO-1 moments at dp > 1: loss, norm, this process's gradients and masters
-  (its tp slices, named as the optimizer names them), its moments and their
-  dims;
+  ZeRO-1 moments at dp > 1 and the numerics observatory's stats (process 0
+  writes them to `<dir>/<job>/numerics.jsonl` through the monitor): loss,
+  norm, this process's gradients and masters (its tp slices, named as the
+  optimizer names them), its moments and their dims;
 - "init": the trainer's init of what this process holds
   (init_params_sharded);
 - "ops": tp_copy / tp_reduce / tp_max and the vocab-parallel CE over this
@@ -47,6 +48,7 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     init_params_sharded,
     train_step,
 )
+from llama_pipeline_parallel_tpu_torch.utils import numerics
 from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
 
@@ -60,10 +62,10 @@ def step(job: dict, inputs: dict) -> dict:
     batch = {k: v[mesh.replica * rows:(mesh.replica + 1) * rows]
              for k, v in inputs["batch"].items()}
     pipe = None
+    v = job.get("v", 1)
+    manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=mesh.pp,
+                             virtual_stages=v)
     if mesh.pp > 1:
-        v = job.get("v", 1)
-        manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=mesh.pp,
-                                 virtual_stages=v)
         sp = pl.StageParams.from_canonical(canonical, manifest, mesh.stages,
                                            tp_rank=mesh.tp_rank, tp=mesh.tp)
         pcfg = pl.PipelineConfig(num_stages=mesh.pp, num_microbatches=m,
@@ -80,7 +82,13 @@ def step(job: dict, inputs: dict) -> dict:
     state = TrainState(step=0, params=params, optimizer=optimizer)
     metrics = train_step(state, batch, cfg, num_microbatches=m, remat=True, pipeline=pipe,
                          kernel_prologue=job.get("prologue", False), dp_group=mesh.dp_group,
-                         tp_group=mesh.tp_group)
+                         tp_group=mesh.tp_group, collect_stats=True, mesh=mesh,
+                         manifest=manifest)
+    monitor = numerics.NumericsMonitor(os.path.join(job["out_dir"], job["name"]),
+                                       numerics.NumericsConfig(), write=mesh.rank == 0)
+    monitor.observe(1, metrics["loss"], metrics["grad_norm"], metrics["numerics"])
+    monitor.flush()
+    monitor.close()
     return {"loss": metrics["loss"], "norm": metrics["grad_norm"], "replica": mesh.replica,
             "stages": mesh.stages, "tp_rank": mesh.tp_rank,
             "grads": {k: p.grad for k, p in params.items()},
@@ -164,7 +172,7 @@ def main(out_dir: str) -> None:
     rank = distributed.process_index()
     inputs = torch.load(os.path.join(out_dir, "inputs.pt"))
     for job in torch.load(os.path.join(out_dir, "jobs.pt")):
-        result = JOBS[job["kind"]](job, inputs)
+        result = JOBS[job["kind"]]({**job, "out_dir": out_dir}, inputs)
         torch.save(result, os.path.join(out_dir, f"{job['name']}-rank{rank}.pt"))
     distributed.shutdown()
 
