@@ -213,7 +213,7 @@ which raises on failure:
               (LPT_DIST_BACKEND=gloo: every tensor that crosses processes is
               staged through host memory), launched after the build so that
               no rank compiles a kernel: conf/llama_7b_pp4.yaml at LLaMA-7B
-              width, 4 layers (2 a stage), seq 2048, 1 row x 4 microbatches a
+              width, 2 layers (1 a stage), seq 2048, 1 row x 4 microbatches a
               replica, ZeRO-1 moments (MULTI_OVERRIDES). (a) A run that one
               rank gets SIGTERM in: every rank exits 0 at the same step N
               (a multiple of MULTI_CHECK_EVERY) with one checkpoint-N. (b) The
@@ -280,6 +280,27 @@ which raises on failure:
               tokens/s, max_memory_allocated and peak host RSS a rank, the
               gloo staging and collective seconds by group (this one-card
               gloo mode, not a multi-card figure).
+16. serving -- decode and continuous batching at conf/llama_7b_pp4.yaml's
+              model, LLaMA-7B at all 32 layers, bf16 weights drawn on the card
+              from SERVE_SEED (13.48 GB): prefill_prompt's last logits against
+              the trainer's forward (exact attention) on two 512-token rows,
+              one left-padded, in fp32 by the 2^-8 rule and in bf16 within
+              SERVE_BF16_NOISE x the trainer's own distance from fp32, the last
+              token's rope position shifted by one planted; 8 requests
+              (SERVE_REQUESTS: buckets 64-1024, two sampled at temperature 0.8,
+              top-k 40, top-p 0.95, four sharing a 512-token prefix, 64 new
+              tokens each) through the dense ServeEngine (8 slots x 2048), each
+              stream equal to `generate` on its padded prompt and seed; the same
+              through paged fp pages (64), chunked prefill (256) and the prefix
+              cache (hits counted), each equal to dense; int8 pages (first
+              tokens equal; the reference's int8 gate at this size); no launch of
+              the nine kernels; readings: prefill ms at 64 / 256 / 1024, the
+              decode tick at 1 and 8 active slots (dense, paged fp, paged int8)
+              at position 2047, each beside its bound, tokens/s, p50 TTFT and
+              TPOT, peak memory and kv bytes; then tools.serve in a subprocess
+              on a 2-layer checkpoint written here, SERVE_EP_TRAFFIC streamed
+              through serve_traffic's HTTP client and held to the in-process
+              engine, exit 0 on SIGTERM.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -559,11 +580,12 @@ OFFLOAD_CKPT_RUN_B = ["optimizer_offload=true", "save_steps=0", "save_final=fals
                       "resume=true"]
 # the multirank phase: pp 2 x dp 2, 4 ranks on card 0 over gloo; a replica is
 # 1 row x 4 microbatches, so the global batch is the pipeline phase's 8 rows
-# cut to 4 layers. MULTI_ONE runs the same global batch in one process (dp 1:
-# 8 microbatches), MULTI_ONE_PP1 without the pipeline.
-MULTI_OVERRIDES = PIPE_OVERRIDES + ["model.num_hidden_layers=4", "mesh.pp=2", "mesh.dp=2",
+# cut to 2 layers (a layer a stage; 4 until the serving phase needed the
+# time). MULTI_ONE runs the same global batch in one process (dp 1: 8
+# microbatches), MULTI_ONE_PP1 without the pipeline.
+MULTI_OVERRIDES = PIPE_OVERRIDES + ["model.num_hidden_layers=2", "mesh.pp=2", "mesh.dp=2",
                                     "gradient_accumulation_steps=4", "total_steps=16"]
-MULTI_ONE = PIPE_OVERRIDES + ["model.num_hidden_layers=4", "mesh.pp=2", "total_steps=16"]
+MULTI_ONE = PIPE_OVERRIDES + ["model.num_hidden_layers=2", "mesh.pp=2", "total_steps=16"]
 MULTI_ONE_PP1 = MULTI_ONE + ["mesh.pp=1"]
 MULTI_CHECK_EVERY = 2
 MULTI_RANKS = 4
@@ -4776,6 +4798,602 @@ def phase_sp() -> None:
     log(f"[sp] phase {time.perf_counter() - t0:.1f} s")
 
 
+# -- serving (phase 16) --------------------------------------------------------
+
+SERVE_CONFIG = "llama_7b_pp4.yaml"   # its model: LLaMA-7B, bf16, all 32 layers
+SERVE_DEVICE = "cuda"                # where the phase runs (a CPU rehearsal sets "cpu")
+SERVE_SEED = 18
+SERVE_SLOTS = 8
+SERVE_MAX_LEN = 2048
+SERVE_BUCKETS = (64, 128, 256, 512, 1024)
+SERVE_NEW = 64                       # new tokens a request
+SERVE_PAGE = 64
+SERVE_CHUNK = 256                    # prefill_chunk_tokens of the chunked variant
+SERVE_PREFIX = 512                   # the prefix the 900-token requests share
+# (prompt tokens, sampled) of the 8 requests: buckets 64, 128, 256, 512 and
+# four of 1024 whose prompts open with the same SERVE_PREFIX tokens
+SERVE_REQUESTS = ((40, False), (120, True), (250, False), (400, False),
+                  (900, False), (900, False), (900, True), (900, False))
+SERVE_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+SERVE_PARITY = dict(rows=2, bucket=512, pad=100)   # decode vs the trainer's forward
+SERVE_BF16_NOISE = 2.0               # bf16 decode's distance from fp32 / the bf16 trainer's
+SERVE_INT8_TICKS = 6                 # the reference's int8 gate: forced-stream greedy ticks
+SERVE_INT8_NOISE = 3.0               # int8's logit perturbation / bf16's (serve_parity)
+# |dequant(quant(x)) - x| <= INT8_HALF_CODE codes of scale / 127: half a code,
+# plus the fp32 roundings of x * (127 / scale) (<= 2 ulp of <= 127 codes) and
+# of q * (scale / 127) (<= 2 ulp): 0.5 + 4 * 127 * 2^-24 < 0.50004. (The
+# reference's test states 0.5000001, below its own fp32 rounding.)
+INT8_HALF_CODE = 0.50004
+SERVE_TICK_POS = SERVE_MAX_LEN - 1   # decode-tick readings: every row's full 2048 positions
+SERVE_EP_LAYERS = 2                  # the entry point's checkpoint
+SERVE_EP_TRAFFIC = dict(seed=5, rate=200.0, n=4, prompt="100:0.5,300:0.5", output="16:1.0")
+
+
+def serve_model(cfg, seed: int, device: str) -> dict:
+    """Serving params at cfg's width and depth: each leaf drawn by the
+    trainer's init (`init_leaf`) on `device` and cast to the compute dtype at
+    once (decode.compute_params), so the fp32 masters never sit there whole."""
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+
+    out = {}
+    for name in llama.param_shapes(cfg):
+        out.update(decode.compute_params({name: llama.init_leaf(cfg, name, seed,
+                                                                device=device)}, cfg))
+    return out
+
+
+def serve_requests(vocab: int) -> list:
+    """SERVE_REQUESTS as (prompt ids, GenerationConfig, seed), from SERVE_SEED."""
+    import numpy as np
+
+    from llama_pipeline_parallel_tpu_torch.models.llama.decode import GenerationConfig
+
+    rs = np.random.RandomState(SERVE_SEED)
+    prefix = rs.randint(3, vocab, SERVE_PREFIX).tolist()
+    out = []
+    for i, (n, sampled) in enumerate(SERVE_REQUESTS):
+        ids = (prefix + rs.randint(3, vocab, n - SERVE_PREFIX).tolist() if n > SERVE_PREFIX
+               else rs.randint(3, vocab, n).tolist())
+        gen = GenerationConfig(max_new_tokens=SERVE_NEW, **(SERVE_SAMPLED if sampled else {}))
+        out.append((ids, gen, SERVE_SEED + i))
+    return out
+
+
+def padded(ids: list, bucket: int):
+    import numpy as np
+
+    pad = bucket - len(ids)
+    return (np.asarray([[0] * pad + ids], np.int64), np.asarray([[0] * pad + [1] * len(ids)],
+                                                               np.int32))
+
+
+def serve_run(params, cfg, reqs, device: str, staged: bool = False, **kw) -> dict:
+    """The requests through one ServeEngine (SERVE_SLOTS x SERVE_MAX_LEN,
+    SERVE_BUCKETS, `kw` the cache's keys): all submitted at once, or with
+    `staged` the first prefix request alone until its prefill is done (so
+    its pages are in the prefix index), then the rest. Returns the tokens,
+    the wall seconds, the metrics snapshot and each handle's cached tokens."""
+    from llama_pipeline_parallel_tpu_torch.serve import ServeConfig, ServeEngine, ServeRequest
+
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prompt_buckets=SERVE_BUCKETS,
+        max_queue=2 * len(reqs), **kw), device=device)
+    order = list(range(len(reqs)))
+    first = next(i for i, (ids, _, _) in enumerate(reqs) if len(ids) > SERVE_PREFIX)
+    if staged:
+        order = [first] + [i for i in order if i != first]
+    t0 = time.perf_counter()
+    handles = {}
+    for i in order:
+        ids, gen, seed = reqs[i]
+        handles[i] = engine.submit(ServeRequest(input_ids=ids, gen=gen, seed=seed))
+        if staged and i == first:
+            while not handles[i].tokens_out:
+                engine.step()
+    engine.drain(timeout_s=600)
+    wall = time.perf_counter() - t0
+    out = {"tokens": [handles[i].result(timeout=1) for i in range(len(reqs))], "wall": wall,
+           "snap": engine.metrics_snapshot(),
+           "cached": [handles[i].prefix_cached_tokens for i in range(len(reqs))]}
+    engine.shutdown()
+    return out
+
+
+def first_difference(a: list, b: list) -> str:
+    for r, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            t = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v), min(len(x), len(y)))
+            return f"request {r}, token {t}: {x[t:t + 4]} vs {y[t:t + 4]}"
+    return "none"
+
+
+def expect_tokens(name: str, got: list, want: list) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: tokens differ, first at {first_difference(got, want)}")
+    log(f"  {name}: {sum(len(t) for t in got)} tokens of {len(got)} requests equal")
+
+
+def reference_tokens(params, cfg, reqs, buckets) -> list:
+    """Each request's tokens from `generate` on its prompt left-padded to its
+    bucket and a generator seeded with its seed; requests of one bucket and
+    one GenerationConfig share a call (a row's tokens do not depend on its
+    batch: models/llama/decode.py, "Row invariance")."""
+    import numpy as np
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+
+    dev = decode._device(params)
+    groups: dict = {}
+    for i, (ids, gen, seed) in enumerate(reqs):
+        bucket = next(b for b in buckets if b >= len(ids))
+        groups.setdefault((bucket, gen), []).append(i)
+    out = [None] * len(reqs)
+    for (bucket, gen), idx in groups.items():
+        rows = [padded(reqs[i][0], bucket) for i in idx]
+        gens = [torch.Generator(device=dev).manual_seed(reqs[i][2]) for i in idx]
+        res = decode.generate(params, np.concatenate([r[0] for r in rows]),
+                              np.concatenate([r[1] for r in rows]), cfg, gen, generator=gens)
+        for i, row in zip(idx, res["tokens"].tolist()):
+            out[i] = row
+    return out
+
+
+def serve_parity(params, cfg, vocab: int, device: str) -> float:
+    """(2) prefill_prompt's last-position logits against the trainer's
+    forward (exact attention) on the same rows, one of them left-padded.
+    Gated in fp32 compute on the same (upcast) weights, by the 2^-8 rule:
+    there the two differ by their summation orders alone. In bf16 both are
+    far from fp32 (bf16 rounding through every layer of a random model), so
+    the bf16 gate is relative: decode's distance from the fp32 forward at
+    most SERVE_BF16_NOISE times the trainer's own. The last token's rope
+    position shifted by one is planted (a uniform shift would be invisible:
+    RoPE scores see position differences only). Returns the bf16 noise
+    floor: max |bf16 trainer - fp32 trainer| over the logits."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+
+    p = SERVE_PARITY
+    rs = np.random.RandomState(SERVE_SEED + 100)
+    ids = rs.randint(3, vocab, (p["rows"], p["bucket"]))
+    mask = np.ones_like(ids, dtype=np.int32)
+    mask[1, :p["pad"]] = 0
+    ids[1, :p["pad"]] = 0
+    ids_t = torch.as_tensor(ids, device=device)
+    mask_t = torch.as_tensor(mask, device=device)
+    pos = (mask_t.cumsum(1) - 1).clamp_min(0)
+    shifted = pos.clone()
+    shifted[:, -1] += 1
+    rows = f"{p['rows']} x {p['bucket']} (row 1 left-padded by {p['pad']})"
+    out = {}
+    for tag, dt in (("bf16", cfg.dtype), ("fp32", torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        w = params if dt == cfg.dtype else {n: t.to(dt) for n, t in params.items()}
+        with torch.no_grad():
+            ref = llama.forward(w, ids_t, mask_t, pos, cfg=c)[:, -1]
+            got = decode.prefill_prompt(w, ids, mask, c, p["bucket"])["logits"]
+            cache = decode.init_kv_cache(c, p["rows"], p["bucket"], device=device)
+            planted = decode._head(w, decode._prefill_dense(w, c, ids_t, shifted, cache,
+                                                            mask_t.clone())[:, -1], c)
+        out[tag] = (ref, got, planted)
+        del w
+    ref32, got32, planted32 = out["fp32"]
+    tol = tolerance(ref32, False)
+    check(f"prefill_prompt vs the trainer's forward, fp32, {rows}, last-position logits",
+          got32, ref32, tol)
+    expect_rejected("the last token's rope position shifted by one (fp32)", planted32, ref32,
+                    tol)
+    ref16, got16, planted16 = out["bf16"]
+    floor = (ref16.float() - ref32).abs().max().item()
+    dist = (got16.float() - ref32).abs().max().item()
+    planted = (planted16.float() - ref32).abs().max().item()
+    log(f"  bf16: max |trainer - fp32 trainer| {floor:.4f}, max |decode - fp32 trainer| "
+        f"{dist:.4f} (limit {SERVE_BF16_NOISE} x the first), max |decode - bf16 trainer| "
+        f"{(got16 - ref16).abs().max().item():.4f}; planted {planted:.4f}")
+    if not dist <= SERVE_BF16_NOISE * floor:
+        raise AssertionError(f"bf16 decode is {dist} from the fp32 forward, more than "
+                             f"{SERVE_BF16_NOISE} x the bf16 trainer's {floor}")
+    if not planted > SERVE_BF16_NOISE * floor:
+        raise AssertionError(f"the bf16 check passes the planted fault ({planted})")
+    return floor
+
+
+def int8_gate(params, cfg, reqs, device: str, noise: float) -> None:
+    """(5) the reference's int8 gate (tests/test_paged_serving.py:459-525)
+    at this size: one request's prompt pages within the per-page bound of
+    the fp pool's (INT8_HALF_CODE: half a code and fp32's rounding), and
+    SERVE_INT8_TICKS greedy ticks with the fp and int8 pools fed the same
+    (fp) stream. The reference asks the tokens to agree; at 32 random
+    layers fp's top two logits can sit closer than any quantization keeps
+    them, so a tick passes when the tokens agree or fp's logit of int8's
+    token is within int8's perturbation of that tick (max |int8 - fp
+    logits|), and every perturbation must stay within SERVE_INT8_NOISE x
+    `noise` (bf16's own distance from fp32, serve_parity). Planted: every
+    key page read at twice its scale, which the perturbation bound must
+    reject."""
+    import numpy as np
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+    from llama_pipeline_parallel_tpu_torch.serve import PagedKVCache
+
+    ids, _, _ = reqs[3]
+    bucket = next(b for b in SERVE_BUCKETS if b >= len(ids))
+    row_ids, row_mask = padded(ids, bucket)
+    caches = {}
+    for quant in ("fp", "int8", "planted"):
+        c = PagedKVCache(cfg, 2, SERVE_MAX_LEN, SERVE_PAGE, 2 * SERVE_MAX_LEN // SERVE_PAGE,
+                         "fp" if quant == "fp" else "int8", device=device)
+        c.acquire("r", c.demand_pages(bucket, SERVE_INT8_TICKS + 1))
+        out = decode.prefill_prompt(params, row_ids, row_mask, cfg, bucket)
+        c.admit(0, out)
+        caches[quant] = (c, out)
+    (fp_c, fp_out), (q_c, _), (bad_c, _) = caches["fp"], caches["int8"], caches["planted"]
+    bad_c.pool["k_scale"] *= 2.0
+    n = bucket // SERVE_PAGE
+    fp_pages = torch.as_tensor(fp_c.page_table[0, :n], device=device)
+    q_pages = torch.as_tensor(q_c.page_table[0, :n], device=device)
+    valid = torch.as_tensor(row_mask[0], device=device).bool().view(n, SERVE_PAGE)
+    worst = 0.0
+    for name in ("k", "v"):   # pools [L, kv_h, pages, page, hd], scales [L, pages, kv_h]
+        fp_kv = fp_c.pool[name][:, :, fp_pages].float()
+        sk = q_c.pool[f"{name}_scale"][:, q_pages].transpose(1, 2)[..., None, None]
+        deq = q_c.pool[name][:, :, q_pages].float() * (sk / 127.0)
+        bound = sk / 127.0 * INT8_HALF_CODE + 1e-7
+        ratio = ((deq - fp_kv).abs() / bound)[:, :, valid]
+        worst = max(worst, ratio.max().item())
+    log(f"  int8 prompt pages ({bucket}-token bucket, {int(valid.sum())} real positions): "
+        f"worst |dequant - fp| {worst * INT8_HALF_CODE:.7f} codes (limit {INT8_HALF_CODE})")
+    if not worst <= 1.0:
+        raise AssertionError(f"int8 pages exceed the per-page quantization bound ({worst})")
+
+    def tick(c, tok, pos, wp):
+        c.ensure_capacity(0, wp + 1)
+        out = decode.paged_decode_step(params, [tok, 0], c.pool, c.page_table, [pos, 0],
+                                       [wp, 0], c.kv_mask, [1, 0], [None, None], [0.0, 0.0],
+                                       [0, 0], [1.0, 1.0], cfg)
+        c.update_from_step(out)
+        return int(out["token"][0]), out["logits"][0]
+
+    tok = int(fp_out["logits"][0].argmax())
+    pos, wp = int(fp_out["next_pos"][0]), bucket
+    limit = SERVE_INT8_NOISE * noise
+    toks, worst_bad = [], 0.0
+    for t in range(SERVE_INT8_TICKS):
+        nf, lf = tick(fp_c, tok, pos, wp)
+        nq, lq = tick(q_c, tok, pos, wp)
+        _, lb = tick(bad_c, tok, pos, wp)
+        d = (lq - lf).abs().max().item()
+        worst_bad = max(worst_bad, (lb - lf).abs().max().item())
+        top2 = lf.topk(2).values
+        lead = (lf[nf] - lf[nq]).item()
+        log(f"    tick {t}: fp {nf}, int8 {nq}; fp's top-2 gap {(top2[0] - top2[1]).item():.4f}, "
+            f"fp's lead over int8's token {lead:.4f}, max |int8 - fp logits| {d:.4f} "
+            f"(limit {limit:.4f})")
+        if not d <= limit:
+            raise AssertionError(f"int8 moves tick {t}'s logits by {d}, above {limit}")
+        if nq != nf and not lead <= d:
+            raise AssertionError(f"tick {t}: int8 picks {nq}, which fp ranks {lead} below its "
+                                 f"{nf}: more than int8's perturbation {d}")
+        toks.append((nf, nq))
+        tok, pos, wp = nf, pos + 1, wp + 1
+    log(f"  int8 forced-stream ticks (fp, int8): {toks}; planted (key scales doubled): max "
+        f"|planted - fp logits| {worst_bad:.4f} (must exceed {limit:.4f})")
+    if not worst_bad > limit:
+        raise AssertionError(f"the int8 gate passes the planted fault ({worst_bad})")
+
+
+def kernel_launch_totals() -> dict:
+    """Launches of the nine kernels since the last reset_kernel_counts()."""
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+
+    return {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+
+
+def weight_bytes(params: dict) -> int:
+    """Bytes a decode tick reads of the weights: every leaf but the
+    embedding (a gather of one row a token)."""
+    return sum(t.numel() * t.element_size() for n, t in params.items()
+               if n != "embed.embedding")
+
+
+def kv_bytes_per_position(cfg, quant: str) -> int:
+    elem = 1 if quant == "int8" else 2
+    return 2 * cfg.num_hidden_layers * cfg.kv_heads * cfg.head_dim * elem
+
+
+def prefill_reading(params, cfg, bucket: int, vocab: int) -> dict:
+    """prefill_prompt at one bucket (one row, no padding): ms beside the bound
+    max(weights / memory rate, flops / peak bf16 rate)."""
+    import numpy as np
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+    from llama_pipeline_parallel_tpu_torch.utils.metrics import param_count
+
+    ids = np.random.RandomState(bucket).randint(3, vocab, (1, bucket))
+    mask = np.ones((1, bucket), np.int32)
+    ms = cuda_ms(lambda: decode.prefill_prompt(params, ids, mask, cfg, bucket), reps=3)
+    d, v = cfg.hidden_size, cfg.vocab_size
+    layer_params = param_count(cfg) - 2 * v * d - d
+    # the layers on every token, the head on the last, causal attention
+    flops = (2 * layer_params * bucket + 2 * d * v
+             + 4 * cfg.num_hidden_layers * d * bucket * (bucket + 1) // 2)
+    bound = 1e3 * max(weight_bytes(params) / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS)
+    return {"bucket": bucket, "ms": round(ms, 3), "bound_ms": round(bound, 3),
+            "tokens_per_s": round(bucket / ms * 1e3, 1)}
+
+
+def tick_reading(params, cfg, kind: str, active: int) -> dict:
+    """One decode tick over SERVE_SLOTS rows with `active` of them decoding
+    at position SERVE_TICK_POS (every earlier position visible): ms beside
+    the bound (weights + the active rows' kv) / memory rate, as the engine
+    runs it (the forward replayed as a CUDA graph) and eager, and whether
+    the two give the same logits bit for bit (a tick's writes are its own,
+    so repeating it changes nothing)."""
+    import numpy as np
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+    from llama_pipeline_parallel_tpu_torch.serve.pages import dense_kv_cache_bytes, \
+        paged_pool_bytes
+
+    s, lm, dev = SERVE_SLOTS, SERVE_MAX_LEN, SERVE_DEVICE
+    wp = np.zeros(s, np.int64)
+    wp[:active] = SERVE_TICK_POS
+    mask = torch.zeros((s, lm), dtype=torch.int32, device=dev)
+    mask[:active] = 1
+    knobs = ([None] * s, np.zeros(s), np.zeros(s, np.int64), np.ones(s))
+    tok = np.zeros(s, np.int64)
+    quant = "int8" if kind == "paged int8" else "fp"
+    if kind == "dense":
+        cache = decode.init_kv_cache(cfg, s, lm, device=dev)
+        resident = dense_kv_cache_bytes(cfg, s, lm)
+
+        def fn():
+            return decode.decode_step(params, tok, cache, wp, wp, mask, *knobs, cfg)["logits"]
+    else:
+        per = lm // SERVE_PAGE
+        pool = decode.init_page_pool(cfg, s * per, SERVE_PAGE, quant, device=dev)
+        table = np.full((s, per), s * per, np.int64)
+        table[:active] = np.arange(active * per).reshape(active, per)
+        act = (np.arange(s) < active).astype(np.int64)
+        resident = paged_pool_bytes(cfg, s * per, SERVE_PAGE, quant)
+
+        def fn():
+            return decode.paged_decode_step(params, tok, pool, table, wp, wp, mask, act, *knobs,
+                                            cfg)["logits"]
+    ms = cuda_ms(fn, reps=5)
+    graphed = fn()
+    decode.CUDA_GRAPHS = False
+    try:
+        eager_ms = cuda_ms(fn, reps=3)
+        same = torch.equal(graphed, fn())
+    finally:
+        decode.CUDA_GRAPHS = True
+    kv_read = active * (SERVE_TICK_POS + 1) * kv_bytes_per_position(cfg, quant)
+    bound = 1e3 * (weight_bytes(params) + kv_read) / PEAK_BYTES_PER_S
+    return {"kv": kind, "active": active, "ms": round(ms, 3), "bound_ms": round(bound, 3),
+            "eager_ms": round(eager_ms, 3), "graph_bits_equal_eager": same,
+            "kv_read_gb": round(kv_read / 1e9, 3), "kv_resident_gb": round(resident / 1e9, 3)}
+
+
+def start_entry_point(cfg, out_dir: str) -> dict:
+    """(6), first half: a checkpoint of SERVE_EP_LAYERS layers at LLaMA-7B
+    width written here (init_params, fp32 masters), then tools.serve
+    started on it in a subprocess, which loads while the phase goes on."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+    from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
+
+    t0 = time.perf_counter()
+    ecfg = dataclasses.replace(cfg, num_hidden_layers=SERVE_EP_LAYERS)
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    params = llama.init_params(ecfg, SERVE_SEED, device=SERVE_DEVICE)
+    CheckpointManager(ckpt_dir).save(0, params, StageManifest(num_layers=SERVE_EP_LAYERS,
+                                                              num_stages=1), ecfg)
+    del params
+    torch.cuda.empty_cache()
+    t_save = time.perf_counter() - t0
+    cmd = [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.tools.serve",
+           "--checkpoint_dir", ckpt_dir, "--output_dir", os.path.join(out_dir, "replica"),
+           "--max_slots", str(SERVE_SLOTS), "--max_len", str(SERVE_MAX_LEN),
+           "--buckets", ",".join(map(str, SERVE_BUCKETS)), "--health_interval", "1"]
+    log_path = os.path.join(out_dir, "serve.log")
+    shutil.rmtree(os.path.join(out_dir, "replica"), ignore_errors=True)
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+    log(f"  tools.serve started on a {SERVE_EP_LAYERS}-layer checkpoint written in "
+        f"{t_save:.1f} s")
+    return {"proc": proc, "cfg": ecfg, "ckpt_dir": ckpt_dir, "log": log_path,
+            "serve_json": os.path.join(out_dir, "replica", "serve.json")}
+
+
+def finish_entry_point(ep: dict) -> None:
+    """(6), second half: SERVE_EP_TRAFFIC's requests through serve_traffic's
+    streaming HTTP client against tools.serve, their tokens against an
+    in-process engine on the same checkpoint; SIGTERM -> exit 0."""
+    import signal
+
+    from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import load_module_checkpoint
+    from llama_pipeline_parallel_tpu_torch.serve import ServeConfig, ServeEngine
+    from llama_pipeline_parallel_tpu_torch.tools import serve_traffic as st
+
+    t0 = time.perf_counter()
+    proc, ecfg = ep["proc"], ep["cfg"]
+    tr = SERVE_EP_TRAFFIC
+    trace = st.poisson_trace(tr["seed"], tr["rate"], tr["n"], st.parse_mix(tr["prompt"]),
+                             st.parse_mix(tr["output"]))
+    eparams, _, _, _ = load_module_checkpoint(ep["ckpt_dir"], device="cpu")
+    engine = ServeEngine(eparams, ecfg, ServeConfig(
+        max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prompt_buckets=SERVE_BUCKETS),
+        device=SERVE_DEVICE)
+    del eparams
+    local = st.run_trace(engine, trace, collect_tokens=True)
+    engine.shutdown()
+    del engine
+    deadline = time.monotonic() + 300
+    while not os.path.exists(ep["serve_json"]):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"tools.serve did not come up (rc {proc.poll()}); "
+                                 f"log {ep['log']}")
+        time.sleep(0.2)
+    with open(ep["serve_json"]) as f:
+        port = json.load(f)["port"]
+    t_http = time.perf_counter()
+    remote = st.run_trace_gateway(f"http://127.0.0.1:{port}", trace, ecfg.vocab_size,
+                                  collect_tokens=True)
+    t_http = time.perf_counter() - t_http
+    if remote["completed"] != tr["n"]:
+        raise AssertionError(f"tools.serve completed {remote['completed']} of {tr['n']} "
+                             f"requests: {remote}")
+    expect_tokens(f"tools.serve over HTTP (streamed) vs the in-process engine, "
+                  f"{SERVE_EP_LAYERS} layers", remote["tokens"], local["tokens"])
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    if rc != 0:
+        raise AssertionError(f"tools.serve exited {rc} on SIGTERM; log {ep['log']}")
+    log(f"  tools.serve: {tr['n']} streamed requests in {t_http:.2f} s, exit 0 on SIGTERM "
+        f"({time.perf_counter() - t0:.1f} s after the rest of the phase)")
+
+
+def phase_serving() -> None:
+    """Decode and continuous-batching serving at LLaMA-7B width and all 32
+    layers (module docstring, phase 16)."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.train import build_model_config
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    card = card_line()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "serving")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = build_model_config(load_config(os.path.join(ROOT, "conf", SERVE_CONFIG))["model"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = start_entry_point(cfg, out_dir)
+    try:
+        serve_checks(cfg, out_dir, card, t0)
+        finish_entry_point(ep)
+    finally:
+        if ep["proc"].poll() is None:
+            ep["proc"].kill()
+            ep["proc"].wait()
+    shutil.rmtree(os.path.join(out_dir, "ckpt"), ignore_errors=True)
+    log(f"[serving] ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def serve_checks(cfg, out_dir: str, card: str, t0: float) -> None:
+    """Steps (1)-(5) and the readings (7) of phase_serving."""
+    import gc
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.serve.pages import dense_kv_cache_bytes
+
+    vocab = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+
+    # (1) the model
+    params = serve_model(cfg, SERVE_SEED, SERVE_DEVICE)
+    log(f"[serving] {SERVE_CONFIG}'s model: d {cfg.hidden_size}, {cfg.num_hidden_layers} "
+        f"layers, {cfg.num_attention_heads} heads, ffn {cfg.intermediate_size}, vocab {vocab}, "
+        f"{cfg.dtype}; {sum(t.numel() * t.element_size() for t in params.values()) / 1e9:.2f} "
+        f"GB of compute weights ({time.perf_counter() - t0:.1f} s)")
+
+    # (2) decode against the trainer's forward
+    noise = serve_parity(params, cfg, vocab, SERVE_DEVICE)
+
+    # (3) the dense engine against generate
+    reqs = serve_requests(vocab)
+    dense = serve_run(params, cfg, reqs, SERVE_DEVICE)
+    snap = dense["snap"]
+    expect_tokens("dense engine vs generate", dense["tokens"],
+                  reference_tokens(params, cfg, reqs, SERVE_BUCKETS))
+
+    # (4) the paged variants against the dense run
+    variants = {"paged fp": dict(kv_cache="paged", page_size=SERVE_PAGE),
+                "paged fp, chunked prefill": dict(kv_cache="paged", page_size=SERVE_PAGE,
+                                                  prefill_chunk_tokens=SERVE_CHUNK),
+                "paged fp, prefix cache": dict(kv_cache="paged", page_size=SERVE_PAGE,
+                                               prefix_cache=True)}
+    runs = {}
+    for name, kw in variants.items():
+        runs[name] = serve_run(params, cfg, reqs, SERVE_DEVICE, staged="prefix" in name, **kw)
+        expect_tokens(f"{name} vs dense", runs[name]["tokens"], dense["tokens"])
+    psnap = runs["paged fp, prefix cache"]["snap"]
+    cached = runs["paged fp, prefix cache"]["cached"]
+    sharing = [i for i, (ids, _, _) in enumerate(reqs) if len(ids) > SERVE_PREFIX]
+    log(f"  prefix cache: hits {psnap.get('prefix_hits')}, cached tokens a request {cached}, "
+        f"shared pages {psnap.get('prefix_shared_pages')}, cow forks "
+        f"{psnap.get('prefix_cow_forks')}")
+    if psnap.get("prefix_hits", 0) < len(sharing) - 1 or \
+            any(cached[i] < SERVE_PREFIX for i in sharing[1:]):
+        raise AssertionError(f"the prefix-sharing requests {sharing[1:]} did not hit the "
+                             f"cache: {cached}, {psnap}")
+    chunks = runs["paged fp, chunked prefill"]["snap"]["prefill_chunks_total"]
+    log(f"  chunked prefill: {chunks} prefill units")
+
+    # (5) int8 pages
+    q = serve_run(params, cfg, reqs, SERVE_DEVICE, kv_cache="paged", page_size=SERVE_PAGE,
+                  kv_quant="int8")
+    firsts = [t[0] for t in q["tokens"]], [t[0] for t in dense["tokens"]]
+    if firsts[0] != firsts[1]:
+        raise AssertionError(f"int8 first tokens {firsts[0]} differ from fp's {firsts[1]}")
+    agree = sum(a == b for x, y in zip(q["tokens"], dense["tokens"]) for a, b in zip(x, y))
+    log(f"  paged int8: first tokens equal fp's; {agree} of {SERVE_NEW * len(reqs)} tokens "
+        f"equal the fp stream's")
+    int8_gate(params, cfg, reqs, SERVE_DEVICE, noise)
+
+    counts = kernel_launch_totals()
+    if any(counts.values()):
+        raise AssertionError(f"the serving path launched a kernel of the nine: {counts}")
+    log("  the serving path launched none of the nine kernels (counts 0), as the JAX "
+        "package's decode reaches none of its Pallas kernels")
+
+    # (7) readings
+    readings = {"card": card, "prefill": [prefill_reading(params, cfg, b, vocab)
+                                          for b in (64, 256, 1024)]}
+    readings["decode_tick"] = [tick_reading(params, cfg, kind, active)
+                               for kind in ("dense", "paged fp", "paged int8")
+                               for active in (1, SERVE_SLOTS)]
+    readings["engine"] = {
+        "tokens_per_s": round(snap["tokens_generated"] / dense["wall"], 1),
+        "wall_s": round(dense["wall"], 3), "ttft_p50_ms": snap.get("ttft_p50_ms"),
+        "tpot_p50_ms": snap.get("tpot_p50_ms"), "decode_steps": snap["decode_steps"],
+        "paged_tokens_per_s": {n: round(r["snap"]["tokens_generated"] / r["wall"], 1)
+                               for n, r in runs.items()}}
+    readings["memory"] = {
+        "max_memory_allocated_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "dense_kv_gb": round(dense_kv_cache_bytes(cfg, SERVE_SLOTS, SERVE_MAX_LEN) / 1e9, 3),
+        "weights_gb": round(weight_bytes(params) / 1e9, 3)}
+    for key in ("prefill", "decode_tick"):
+        for r in readings[key]:
+            log(f"  {key} {json.dumps(r)}")
+    log(f"  engine {json.dumps(readings['engine'])}")
+    log(f"  memory {json.dumps(readings['memory'])}")
+    with open(os.path.join(out_dir, "readings.json"), "w") as f:
+        json.dump(readings, f, indent=1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4816,6 +5434,7 @@ def main() -> int:
     timed(phase_multirank)
     timed(phase_tp)
     timed(phase_sp)
+    timed(phase_serving)
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s; seconds by phase {seconds}")
