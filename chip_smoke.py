@@ -213,7 +213,7 @@ which raises on failure:
               (LPT_DIST_BACKEND=gloo: every tensor that crosses processes is
               staged through host memory), launched after the build so that
               no rank compiles a kernel: conf/llama_7b_pp4.yaml at LLaMA-7B
-              width, 2 layers (1 a stage), seq 2048, 1 row x 4 microbatches a
+              width, 2 layers (1 a stage), seq 2048, 1 row x 2 microbatches a
               replica, ZeRO-1 moments (MULTI_OVERRIDES). (a) A run that one
               rank gets SIGTERM in: every rank exits 0 at the same step N
               (a multiple of MULTI_CHECK_EVERY) with one checkpoint-N. (b) The
@@ -234,11 +234,11 @@ which raises on failure:
               build: conf/llama_65b_pp8_tp2_dp2.yaml as published (seq 512, 8
               rows a microbatch, bf16, optimizer_offload with
               optimizer_offload_zero2) with TP_OVERRIDES: 2 of 80 layers, pp 2,
-              4 microbatches a replica, TP_STEPS steps, flash attention and
+              2 microbatches a replica, TP_STEPS steps, flash attention and
               the prologue kernels. First the prologue and flash kernels at a
               tp rank's shapes (TP_PRO, TP_FLASH: d 8192, 32 local heads)
               against their plain versions, with their readings; then one
-              process at pp 2 x tp 1 x dp 1 on the same 64 rows (TP_ONE): its
+              process at pp 2 x tp 1 x dp 1 on the same 32 rows (TP_ONE): its
               step-1 loss and gradients, and bf16's own distance from fp32
               there (TP_BF16_ROWS). The 8 ranks: step 1's loss
               (STEP_LOSS_TOL) and every rank's slices of the dp-reduced
@@ -258,7 +258,7 @@ which raises on failure:
               build: conf/codellama_34b_16k.yaml as published (16,384-token
               rows of 1 row a microbatch, ring attention, flash, bf16,
               optimizer_offload, nothing_saveable remat) with SP_OVERRIDES: 2
-              of 48 layers, pp 2, 4 microbatches, SP_STEPS steps, the
+              of 48 layers, pp 2, 2 microbatches, SP_STEPS steps, the
               prologue kernels; 8,192-token slabs. First the flash kernels at
               an sp rank's slab (SP_FLASH, real offsets) against their plain
               versions on the ring's three kinds of slab: diagonal, fully
@@ -301,6 +301,46 @@ which raises on failure:
               on a 2-layer checkpoint written here, SERVE_EP_TRAFFIC streamed
               through serve_traffic's HTTP client and held to the in-process
               engine, exit 0 on SIGTERM.
+17. resilience -- the resilience layer, two legs sharing one fleet root.
+              The trainer leg: tools.supervisor (--actuate, --fleet-root, the
+              ladder RES_LADDER: dp2 on 2 devices, dp1 on 1 with the
+              accumulation doubled) over `python -m torch.distributed.run
+              -m llama_pipeline_parallel_tpu_torch.cli` on
+              conf/llama_7b_pp4.yaml at LLaMA-7B width (RES_OVERRIDES: 2
+              layers, seq 2048, the nine kernels, save_steps 2, RES_STEPS
+              steps, actions.resize_on_request, the sample ledger), 2 ranks
+              over gloo on card 0; after checkpoint-2, tools.fleetd --once
+              sees the trainer's step-time alert and tools.fleetctl's
+              autoscaler borrows (action.request -> the supervisor ->
+              resize.request): both ranks vote and stop at one step (2, or 3
+              for a request later than checkpoint-2's save: the dp2 rung
+              holds its ranks RES_LATE_HOLD_S before step 3's vote), save,
+              ack and exit 0, and the supervisor relaunches one rank at dp1
+              (--nproc_per_node 1), which resumes from that checkpoint and
+              finishes. Checked: every rank's vote at one step, its
+              checkpoint saved and resumed; the ledger's layouts [dp2, dp1],
+              resized, clean; the journal's
+              borrow done and the ack; the final meta.json's topology (dp 1)
+              and consumed_samples; the nine kernels launched in both
+              incarnations (perf.jsonl's kernel_launches rows); the sample
+              ledger against a straight dp1 run of the same global batch in
+              this process, no id twice; the last loss within STEP_LOSS_TOL
+              of it; goodput_report's resize. The serving leg: two
+              tools.serve replicas of the final checkpoint, each under its
+              own supervisor (role serve), tools.gateway over the fleet
+              registry, RES_TRAFFIC streamed through it with replica a
+              SIGKILLed mid-stream (once a stream on it has the WAL's first
+              watermark): every stream equal to `generate` in this
+              process on the same checkpoint, one WAL terminal row a request
+              and a replay's routed row; a's supervisor relaunches it (its
+              device probe held RES_PROBE_STALL_S by a fault-plan stall), the
+              fleet aggregator records a's stale-heartbeat edge firing, then
+              resolving, and a's relaunch consumes exactly one capture
+              trigger; every process exits 0 on SIGTERM. Prints each leg's
+              seconds, the resize's wall from dp2's exit to dp1's first step
+              beside goodput_report's resize_lost_seconds, the replayed
+              tokens and the gateway's TTFT. Checkpoints carry no sha256 digests here
+              (res_env).
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -579,31 +619,42 @@ OFFLOAD_CKPT_RUN_A = ["optimizer_offload=true", "save_steps=4", "save_final=fals
 OFFLOAD_CKPT_RUN_B = ["optimizer_offload=true", "save_steps=0", "save_final=false",
                       "resume=true"]
 # the multirank phase: pp 2 x dp 2, 4 ranks on card 0 over gloo; a replica is
-# 1 row x 4 microbatches, so the global batch is the pipeline phase's 8 rows
-# cut to 2 layers (a layer a stage; 4 until the serving phase needed the
-# time). MULTI_ONE runs the same global batch in one process (dp 1: 8
-# microbatches), MULTI_ONE_PP1 without the pipeline.
+# 1 row x MULTI_MICROBATCHES microbatches (4 until the resilience phase needed
+# the time), cut to 2 layers (a layer a stage; 4 until the serving phase
+# needed the time). MULTI_ONE runs the same global batch in one process (dp
+# 1: twice the microbatches), MULTI_ONE_PP1 without the pipeline.
+MULTI_MICROBATCHES = 2
 MULTI_OVERRIDES = PIPE_OVERRIDES + ["model.num_hidden_layers=2", "mesh.pp=2", "mesh.dp=2",
-                                    "gradient_accumulation_steps=4", "total_steps=16"]
-MULTI_ONE = PIPE_OVERRIDES + ["model.num_hidden_layers=2", "mesh.pp=2", "total_steps=16"]
+                                    f"gradient_accumulation_steps={MULTI_MICROBATCHES}",
+                                    "total_steps=16"]
+MULTI_ONE = PIPE_OVERRIDES + ["model.num_hidden_layers=2", "mesh.pp=2", "total_steps=16",
+                              f"gradient_accumulation_steps={2 * MULTI_MICROBATCHES}"]
 MULTI_ONE_PP1 = MULTI_ONE + ["mesh.pp=1"]
 MULTI_CHECK_EVERY = 2
 MULTI_RANKS = 4
 # phase 14 (tp): conf/llama_65b_pp8_tp2_dp2.yaml (the run of record: LLaMA-65B
 # width, seq 512, 8 rows a microbatch, bf16, optimizer_offload with
 # optimizer_offload_zero2, 1F1B without per-layer remat) cut to 2 of 80
-# layers, pp 8 -> 2 (a layer a stage), 256 -> 4 microbatches a replica and
-# TP_STEPS steps, with flash attention and the prologue kernels: pp 2 x tp 2
-# x dp 2 in TP_RANKS processes on card 0 over gloo. TP_ONE is the one-process
-# reference on the same global batch (the two replicas' rows as 8
-# microbatches, tp 1).
+# layers, pp 8 -> 2 (a layer a stage), 256 -> TP_MICROBATCHES microbatches a
+# replica (4 until the resilience phase needed the time) and TP_STEPS steps
+# (step 2's loss reads the parameters after the host ZeRO-2 update), with
+# flash attention and the prologue kernels: pp 2 x tp 2 x dp 2 in TP_RANKS
+# processes on card 0 over gloo. TP_ONE is the one-process reference on the
+# same global batch (the two replicas' rows as twice the microbatches, tp
+# 1); it takes no optimizer step, so it holds its optimizer on the card
+# (optimizer_offload=false: the same gradients, bit for bit, without the
+# host state's allocation).
 TP_CONFIG = "llama_65b_pp8_tp2_dp2.yaml"
 TP_RANKS = 8
 TP_STEPS = 2
-TP_OVERRIDES = ["model.num_hidden_layers=2", "mesh.pp=2", "gradient_accumulation_steps=4",
+TP_MICROBATCHES = 2
+TP_OVERRIDES = ["model.num_hidden_layers=2", "mesh.pp=2",
+                f"gradient_accumulation_steps={TP_MICROBATCHES}",
                 "attention=flash", "kernels.prologue=pallas", "total_steps=500",
                 "save_steps=0", "save_final=false", "resume=false", "logging_steps=1"]
-TP_ONE = TP_OVERRIDES + ["mesh.tp=1", "mesh.dp=1", "gradient_accumulation_steps=8"]
+TP_ONE = TP_OVERRIDES + ["mesh.tp=1", "mesh.dp=1",
+                         f"gradient_accumulation_steps={2 * TP_MICROBATCHES}",
+                         "optimizer_offload=false", "optimizer_offload_zero2=false"]
 # the tight gradient parity runs in fp32 compute, one step at 4 rows a
 # microbatch (fp32 doubles the activations of eight ranks on one card) ...
 TP_FP32 = ["model.dtype=float32", "per_device_train_batch_size=4", "max_steps=1"]
@@ -624,17 +675,21 @@ TP_FLASH = dict(b=8, h=32, h_kv=32, s=512, hd=128)
 # conf/codellama_34b_16k.yaml (CodeLlama-34B: d 8192, 64 heads of 128, 8 kv
 # heads, FFN 22016, vocab 32000, rope theta 1e6; 16,384-token rows, 1 row a
 # microbatch, bf16, optimizer_offload, ring attention, flash, nothing_saveable
-# remat) cut to 2 of 48 layers, pp 4 -> 2, 32 -> 4 microbatches and SP_STEPS
-# steps, with the prologue kernels: pp 2 x tp 2 x sp 2 in SP_RANKS processes
-# on card 0 over gloo, 8,192-token slabs. SP_ONE is the one-process reference
-# on the same rows (pp 2 in memory, tp 1, sp 1).
+# remat) cut to 2 of 48 layers, pp 4 -> 2, 32 -> 2 microbatches (4 until the
+# resilience phase needed the time) and SP_STEPS steps, with the prologue
+# kernels: pp 2 x tp 2 x sp 2 in SP_RANKS processes on card 0 over gloo,
+# 8,192-token slabs. SP_ONE
+# is the one-process reference on the same rows (pp 2 in memory, tp 1, sp 1),
+# its optimizer on the card as TP_ONE's.
 SP_CONFIG = "codellama_34b_16k.yaml"
 SP_RANKS = 8
 SP_STEPS = 2
-SP_OVERRIDES = ["model.num_hidden_layers=2", "mesh.pp=2", "gradient_accumulation_steps=4",
+SP_MICROBATCHES = 2
+SP_OVERRIDES = ["model.num_hidden_layers=2", "mesh.pp=2",
+                f"gradient_accumulation_steps={SP_MICROBATCHES}",
                 "attention=flash", "kernels.prologue=pallas", "total_steps=500",
                 "save_steps=0", "save_final=false", "resume=false", "logging_steps=1"]
-SP_ONE = SP_OVERRIDES + ["mesh.tp=1", "mesh.sp=1"]
+SP_ONE = SP_OVERRIDES + ["mesh.tp=1", "mesh.sp=1", "optimizer_offload=false"]
 # the fp32 gradient parity at 4,096-token rows (2,048-token slabs): fp32
 # doubles eight ranks' state on one card, and the fp32 kernels are SIMT
 SP_FP32 = ["model.dtype=float32", "dataset.seq_length=4096"]
@@ -655,6 +710,14 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def step_label(step_times: list) -> str:
+    """What a multi-rank phase's step ms is: the median of the steps after the
+    first, or the one step's, warm-up included."""
+    if len(step_times) > 1:
+        return f"median of steps 2-{len(step_times)}; step 1 {1e3 * step_times[0]:.1f}"
+    return "step 1, its warm-up included"
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -4085,7 +4148,8 @@ def phase_multirank() -> None:
     grad_rel = math.sqrt(sum(r["grad_sq_diff"] for r in replica0)
                          / sum(r["grad_sq_ref"] for r in replica0))
     loss_diff = abs(losses[0] - ref_loss)
-    log(f"[multirank] (b) step 1 against one process (pp 2, dp 1, same 8 rows): loss "
+    log(f"[multirank] (b) step 1 against one process (pp 2, dp 1, same "
+        f"{2 * MULTI_MICROBATCHES} rows): loss "
         f"{losses[0]:.6f} vs {ref_loss:.6f}, |diff| {loss_diff:.3e} (tol {STEP_LOSS_TOL}); "
         f"gradient rel diff {grad_rel:.3e} (tol {GRAD_REL_TOL})")
     if not loss_diff <= STEP_LOSS_TOL or not grad_rel <= GRAD_REL_TOL:
@@ -4354,7 +4418,8 @@ def phase_tp() -> None:
                              sp.to_canonical(sp.grads()))
         del run, sp, batch
         release_host_cache()
-        log(f"[tp] one process, pp 2 x tp 1 x dp 1, 8 microbatches, {tag}, step 1: loss "
+        log(f"[tp] one process, pp 2 x tp 1 x dp 1, {2 * TP_MICROBATCHES} microbatches, {tag}, "
+            f"step 1: loss "
             f"{ref[tag]:.6f}; gradients written; max_memory_allocated "
             f"{ref_peak / 2**30:.2f} GiB, host RSS {ref_rss and round(ref_rss, 2)} GB after the "
             f"step "
@@ -4461,8 +4526,8 @@ def phase_tp() -> None:
     tokens = ranks[0]["tokens_per_step"]
     log(f"[tp] {steps} steps, pp 2 x tp 2 x dp 2 in {TP_RANKS} processes sharing one card over "
         f"gloo (this one-card gloo mode, not a multi-card figure): step "
-        f"{1e3 * step_s:.1f} ms (median of steps 2-{steps}; step 1 "
-        f"{1e3 * ranks[0]['step_times'][0]:.1f}), {tokens / step_s:.0f} tokens/s, {tokens} "
+        f"{1e3 * step_s:.1f} ms ({step_label(ranks[0]['step_times'])}), "
+        f"{tokens / step_s:.0f} tokens/s, {tokens} "
         f"tokens a step; max_memory_allocated a rank "
         f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB, "
         f"{sum(r['peak_bytes'] for r in ranks) / 2**30:.2f} GiB in all; host RSS a rank after "
@@ -4712,7 +4777,8 @@ def phase_sp() -> None:
                              sp.to_canonical(sp.grads()))
         del run, sp, batch
         release_host_cache()
-        log(f"[sp] one process, pp 2 x tp 1 x sp 1, 4 microbatches, {tag}, step 1: loss "
+        log(f"[sp] one process, pp 2 x tp 1 x sp 1, {SP_MICROBATCHES} microbatches, {tag}, "
+            f"step 1: loss "
             f"{ref[tag]:.6f}; gradients written; max_memory_allocated "
             f"{ref_peak / 2**30:.2f} GiB, host RSS {ref_rss and round(ref_rss, 2)} GB after the "
             f"step ({time.perf_counter() - t_ref:.1f} s)")
@@ -4784,8 +4850,8 @@ def phase_sp() -> None:
     tokens = ranks[0]["tokens_per_step"]
     log(f"[sp] {steps} steps, pp 2 x tp 2 x sp 2 in {SP_RANKS} processes sharing one card over "
         f"gloo (this one-card gloo mode, not a multi-card figure): step "
-        f"{1e3 * step_s:.1f} ms (median of steps 2-{steps}; step 1 "
-        f"{1e3 * ranks[0]['step_times'][0]:.1f}), {tokens / step_s:.0f} tokens/s, {tokens} "
+        f"{1e3 * step_s:.1f} ms ({step_label(ranks[0]['step_times'])}), "
+        f"{tokens / step_s:.0f} tokens/s, {tokens} "
         f"tokens a step; max_memory_allocated a rank "
         f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB, "
         f"{sum(r['peak_bytes'] for r in ranks) / 2**30:.2f} GiB in all; host RSS a rank after "
@@ -5394,6 +5460,515 @@ def serve_checks(cfg, out_dir: str, card: str, t0: float) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 17. resilience: the supervised resize and the gateway's failover
+# ---------------------------------------------------------------------------
+
+# the trainer leg: conf/llama_7b_pp4.yaml at LLaMA-7B width, 2 layers, seq
+# 2048, 1 row a microbatch, the nine kernels; dp 2 in 2 ranks over gloo on
+# card 0, then dp 1 in one rank with the accumulation doubled (the same
+# global batch of 2 rows)
+RES_DEVICE = "cuda"                  # where the phase runs (a CPU rehearsal sets "cpu")
+RES_STEPS = 4
+RES_OVERRIDES = [
+    "mesh.pp=1", "mesh.dp=2", "model.num_hidden_layers=2", "dataset.seq_length=2048",
+    "max_seq_length=2048", "per_device_train_batch_size=1", "gradient_accumulation_steps=1",
+    f"max_steps={RES_STEPS}", "total_steps=500", "warmup_steps=1", "attention=flash",
+    "activation_checkpointing=false", "kernels.ce=pallas", "loss_vocab_chunks=4",
+    "kernels.prologue=pallas", "save_steps=2", "save_final=true", "async_save=false",
+    "logging_steps=1", "preempt_check_every=1", "data.log_sample_ids=true",
+    "actions={resize_on_request: true}",
+]
+# the dp2 rung holds its ranks RES_LATE_HOLD_S at the top of step 3 before
+# that step's vote: a request that missed step 2's vote (it lands while the
+# ranks write checkpoint-2, so only a round trip longer than that save misses
+# it) is then voted at step 3, and the dp1 rung still trains step 4
+RES_LATE_HOLD_S = 30.0
+RES_LADDER = [{"name": "dp2", "devices": 2, "overrides": [
+                  "fault_plan={faults: [{site: step, op: stall, at_step: 3, seconds: "
+                  f"{RES_LATE_HOLD_S}}}]}}"]},
+              {"name": "dp1", "devices": 1,
+               "overrides": ["mesh.dp=1", "gradient_accumulation_steps=2"]}]
+RES_KERNELS = ("fwd", "dq", "dkv", "ce_fwd", "ce_dh", "ce_dw", "prologue_fwd",
+               "prologue_dhidden", "prologue_dw")
+# the serving leg: two replicas of the trainer leg's final checkpoint, each
+# under its own supervisor; replica a's decode stretched so the SIGKILL lands
+# mid-stream (it is killed once a stream routed to it has the gateway's first
+# delivered-token watermark, 8 of 32 tokens); RES_TRAFFIC through
+# tools.gateway; the relaunch's device probe
+# held RES_PROBE_STALL_S (a fault-plan stall) so a's stale heartbeat shows
+RES_SERVE = ["--max_slots", "4", "--max_len", "256", "--buckets", "64", "--metrics_every", "1",
+             "--health_interval", "0.25", "--drain_s", "10"]
+RES_TRAFFIC = dict(seed=19, rate=8.0, n=4, prompt="16", output="32")
+RES_STEP_DELAY_S = 0.05
+RES_STALE_S = 1.0
+RES_PROBE_STALL_S = 2.0
+
+
+def phase_resilience() -> None:
+    """The supervisor's actuated elastic resize over torch.distributed.run,
+    then the gateway's failover across a replica's SIGKILL (module
+    docstring, phase 17)."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "resilience")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    gc_cuda()
+    trained = resilience_trainer(out_dir)
+    t_train = time.perf_counter() - t0
+    resilience_serving(out_dir, trained)
+    t_serve = time.perf_counter() - t0 - t_train
+    log(f"[resilience] legs: trainer {t_train:.1f} s, serving {t_serve:.1f} s")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[resilience] ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def res_env(**extra) -> dict:
+    """The phase's processes: ranks over gloo on card 0, and checkpoints
+    without sha256 digests (LPT_CKPT_DIGESTS=0; the checkpoint phase holds
+    the digests and the quarantine: here three 8 GB saves and four loads
+    would spend ~60 s on sha256 at 0.88 GB/s)."""
+    return {**os.environ, "PYTHONPATH": ROOT, "LPT_DIST_BACKEND": "gloo",
+            "OMP_NUM_THREADS": "4", "LPT_CKPT_DIGESTS": "0", **extra}
+
+
+def res_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def res_lines(path: str) -> int:
+    """Whole lines of a JSONL file (0 while it does not exist)."""
+    try:
+        with open(path) as f:
+            return sum(1 for line in f if line.endswith("\n"))
+    except OSError:
+        return 0
+
+
+def res_ledger(path: str) -> dict:
+    """{(epoch, batch): sorted ids} of the trained batches of a sample
+    ledger, the last row of a batch winning (a resumed incarnation re-trains
+    the batches after its checkpoint; the prefetcher's rows past the last
+    step were never trained)."""
+    return {(r["epoch"], r["batch"]): sorted(r["indices"]) for r in res_jsonl(path)
+            if r["epoch"] == 0 and r["batch"] < RES_STEPS}
+
+
+def res_launch_blocks(run_dir: str) -> list:
+    """Each incarnation's launches of the nine kernels: its process 0 appends
+    one `kernel_launches` row a kernel to perf.jsonl when its loop ends."""
+    blocks, block = [], {}
+    for row in res_jsonl(os.path.join(run_dir, "perf.jsonl")):
+        if row.get("metric") != "kernel_launches":
+            continue
+        name = row["context"]["kernel"]
+        if name in block:
+            blocks.append(block)
+            block = {}
+        block[name] = int(row["measured"])
+    return blocks + [block]
+
+
+def resilience_trainer(out_dir: str) -> str:
+    """The trainer leg. Returns the run's directory (its final checkpoint
+    is the serving leg's)."""
+    import re
+    import socket
+
+    from llama_pipeline_parallel_tpu_torch.tools import fleetctl, fleetd, goodput_report
+    from llama_pipeline_parallel_tpu_torch.train import run_training
+    from llama_pipeline_parallel_tpu_torch.utils import actions
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    run_dir, fleet_root = os.path.join(out_dir, "train"), os.path.join(out_dir, "fleet")
+    config = os.path.join(ROOT, "conf", "llama_7b_pp4.yaml")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.tools.supervisor",
+           "--output-dir", run_dir, "--fleet-root", fleet_root, "--actuate", "--poll-s", "0.2",
+           "--hang-timeout-s", "600", "--max-restarts", "2",
+           "--layout-ladder", json.dumps(RES_LADDER), "--",
+           sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_port", str(port), "-m", "llama_pipeline_parallel_tpu_torch.cli",
+           "--config", config, "--device", RES_DEVICE, *RES_OVERRIDES, f"output_dir={run_dir}"]
+    log_path = os.path.join(out_dir, "trainer.log")
+    res_mark("the supervisor starts")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        sup = subprocess.Popen(cmd, cwd=ROOT, env=res_env(LPT_DEVICE_COUNT="2"), stdout=logf,
+                               stderr=subprocess.STDOUT)
+    try:
+        # a straight dp1 run of the same global batch, in this process while
+        # the ranks start (they only import and build for its ~10 s)
+        straight_dir = os.path.join(out_dir, "straight")
+        summary = run_training(load_config(config, [
+            *RES_OVERRIDES, *RES_LADDER[1]["overrides"], "save_steps=0", "save_final=false",
+            f"output_dir={straight_dir}"]), device=RES_DEVICE)
+        gc_cuda()
+        # step 2's metrics line: the ranks are writing checkpoint-2, and the
+        # request lands before the vote at step 2 that follows the save
+        deadline = time.monotonic() + 600
+        metrics = os.path.join(run_dir, "metrics.jsonl")
+        while not (os.path.exists(metrics)
+                   and any(r.get("step") == 2 for r in res_jsonl(metrics))):
+            if sup.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"no step 2 (supervisor rc {sup.poll()}); log {log_path}")
+            time.sleep(0.1)
+        t_step2 = time.perf_counter() - t0
+        # the fleet sees the trainer's step-time breach (a threshold every
+        # step exceeds) and fleetctl's autoscaler borrows: dp1
+        with open(os.devnull, "w") as quiet:
+            saved, sys.stdout = sys.stdout, quiet
+            try:
+                fleetd.main(["--fleet-root", fleet_root, "--once", "--no-capture",
+                             "--alerts", json.dumps({"step_time_p95_s": 1e-6})])
+            finally:
+                sys.stdout = saved
+        if fleetctl.main(["--fleet-root", fleet_root, "--once", "--actions", json.dumps(
+                {"autoscale": {"trainer_dir": run_dir, "borrow_rung": "dp1",
+                               "restore_rung": "dp2", "breach_alerts": ["step_time_p95"]}})]):
+            raise AssertionError("fleetctl --once failed")
+        t_request = time.perf_counter() - t0
+        # the resize's wall: from the dp2 incarnation's end (its ledger row)
+        # to the dp1 incarnation's first metrics line (relaunch, build,
+        # restore and the first step; goodput_report's resize_lost_seconds
+        # counts only the probe and relaunch gap before the launch)
+        ledger_path, resize_wall = os.path.join(run_dir, "incarnations.jsonl"), None
+        while sup.poll() is None and time.monotonic() < deadline and \
+                res_lines(ledger_path) == 0:
+            time.sleep(0.05)
+        if sup.poll() is None:
+            ended = res_jsonl(ledger_path)[0]["end"]
+            logged = res_lines(metrics)
+            while sup.poll() is None and time.monotonic() < deadline and \
+                    res_lines(metrics) == logged:
+                time.sleep(0.05)
+            resize_wall = time.time() - ended
+        rc = sup.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        if sup.poll() is None:
+            res_kill_tree(sup)
+    wall = time.perf_counter() - t0
+    res_timeline(log_path)
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"the supervisor exited {rc}; log {log_path}: {text[-3000:]}")
+    # the first vote's step N (2, or 3 for a late request): every rank voted
+    # at N, checkpoint-N was saved, and the dp1 incarnation resumed from it
+    voted = [int(n) for n in re.findall(r"resize request; checkpointing at step (\d+)", text)]
+    vote_step = voted[0] if voted else None
+    saves = text.count(f"saved checkpoint-{vote_step} ")
+    resumed = re.search(r"resumed full state from checkpoint-(\d+)", text)
+    ledger = res_jsonl(os.path.join(run_dir, "incarnations.jsonl"))
+    layouts = [r.get("layout") for r in ledger]
+    if voted != [vote_step, vote_step] or not 2 <= vote_step < RES_STEPS or saves < 1 or (
+            resumed is None or int(resumed.group(1)) != vote_step) or layouts != [
+            "dp2", "dp1"] or [r["outcome"] for r in ledger] != ["clean", "clean"] or not \
+            ledger[1].get("resized"):
+        raise AssertionError(f"the resize: rank votes at steps {voted}, checkpoint-{vote_step} "
+                             f"logged {saves} time(s), resumed "
+                             f"{resumed and resumed.group(0)}, ledger {ledger}")
+    history = actions.ActionJournal(fleet_root).history()
+    if [(h["kind"], (h.get("result") or {}).get("outcome")) for h in history] != [
+            ("borrow", "done")]:
+        raise AssertionError(f"the action journal: {history}")
+    with open(os.path.join(run_dir, "resize.request.ack")) as f:
+        if json.load(f).get("id") != history[0]["id"]:
+            raise AssertionError("the trainer's ack names another action")
+    with open(os.path.join(run_dir, f"checkpoint-{RES_STEPS}", "meta.json")) as f:
+        meta = json.load(f)
+    global_batch = 2
+    if meta["topology"]["dp"] != 1 or \
+            meta["data_state"]["consumed_samples"] != RES_STEPS * global_batch:
+        raise AssertionError(f"checkpoint-{RES_STEPS}: topology {meta['topology']}, data "
+                             f"state {meta['data_state']}")
+    blocks = res_launch_blocks(run_dir)
+    if len(blocks) != 2 or any(b.get(k, 0) <= 0 for b in blocks for k in RES_KERNELS):
+        raise AssertionError(f"the nine kernels' launches by incarnation: {blocks}")
+    log(f"  trainer leg: {RES_STEPS} steps of LLaMA-7B width, 2 layers, seq 2048, dp 2 in 2 "
+        f"ranks over gloo then dp 1 in one; step 2 logged at {t_step2:.1f} s, the resize "
+        f"request (fleetd -> fleetctl -> supervisor) at {t_request:.1f} s; both ranks voted "
+        f"at step {vote_step} and stopped on checkpoint-"
+        f"{vote_step}, the dp1 incarnation resumed from it, "
+        f"incarnations {layouts} clean; launches by incarnation {blocks}")
+
+    got, want = (res_ledger(os.path.join(d, "samples.jsonl")) for d in (run_dir, straight_dir))
+    ids = [i for v in got.values() for i in v]
+    if got != want or len(ids) != len(set(ids)) or len(ids) != RES_STEPS * global_batch:
+        raise AssertionError(f"the sample ledger differs from the straight run's: {got} vs "
+                             f"{want}")
+    last = {r["step"]: r["loss"] for r in res_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+            if "loss" in r}[RES_STEPS]
+    diff = abs(last - summary["losses"][-1])
+    if not math.isfinite(last) or diff > STEP_LOSS_TOL:
+        raise AssertionError(f"step {RES_STEPS}'s loss {last} vs the straight run's "
+                             f"{summary['losses'][-1]}")
+    inc = goodput_report.incarnation_summary(run_dir)
+    if inc["resize_events"] != 1:
+        raise AssertionError(f"goodput_report: {inc}")
+    log(f"  the sample ledger equals the straight dp1 run's ({len(ids)} ids, none twice); "
+        f"step {RES_STEPS}'s loss {last:.6f} vs {summary['losses'][-1]:.6f} ({diff:.2e}, "
+        f"limit {STEP_LOSS_TOL}); goodput_report: {inc['resize_events']} resize, "
+        f"resize_lost_seconds {inc['resize_lost_seconds']} (the probe and relaunch gap), "
+        f"lost_seconds {inc['lost_seconds']}; the resize's wall from dp2's exit to dp1's "
+        f"first step {resize_wall and round(resize_wall, 1)} s; the leg's wall {wall:.1f} s")
+    return run_dir
+
+
+def resilience_serving(out_dir: str, ckpt_dir: str) -> None:
+    """The serving leg: two supervised tools.serve replicas of `ckpt_dir`,
+    tools.gateway over the fleet registry, RES_TRAFFIC streamed with replica
+    a SIGKILLed mid-stream."""
+    import glob
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.ckpt.checkpoint import load_module_checkpoint
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+    from llama_pipeline_parallel_tpu_torch.serve import gateway
+    from llama_pipeline_parallel_tpu_torch.tools import serve_traffic as st
+    from llama_pipeline_parallel_tpu_torch.utils import fleet
+
+    t0 = time.perf_counter()
+    fleet_root = os.path.join(out_dir, "fleet")
+    reps = {n: os.path.join(out_dir, f"serve_{n}") for n in ("a", "b")}
+    gw_dir = os.path.join(out_dir, "gateway")
+    procs, logs = {}, {}
+
+    def wait_json(path, changed_from=None, timeout_s=300.0):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                with open(path) as f:
+                    data = json.load(f)
+                if changed_from is None or data.get("pid") != changed_from:
+                    return data
+            except (OSError, ValueError):
+                pass
+            if any(p.poll() is not None for p in procs.values()):
+                raise AssertionError(f"a process of the serving leg exited: "
+                                     f"{ {k: p.poll() for k, p in procs.items()} }; logs {logs}")
+            time.sleep(0.1)
+        raise AssertionError(f"{path} did not appear; logs {logs}")
+
+    def refresh_until(agg, pred, what, timeout_s=120.0):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            status = agg.refresh()
+            if pred(status):
+                return status
+            time.sleep(0.1)
+        raise AssertionError(f"the fleet never showed {what}; logs {logs}")
+
+    plan = {"faults": [{"site": "device_probe", "op": "stall", "seconds": RES_PROBE_STALL_S,
+                        "after": 1}]}
+    try:
+        for name, rep in reps.items():
+            logs[name] = os.path.join(out_dir, f"serve_{name}.log")
+            env = res_env(LPT_DEVICE_COUNT="1", LPT_FAULT_PLAN=json.dumps(plan),
+                          LPT_SERVE_STEP_DELAY_S=str(RES_STEP_DELAY_S) if name == "a" else "0")
+            with open(logs[name], "w") as logf:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.tools.supervisor",
+                     "--output-dir", rep, "--fleet-root", fleet_root, "--role", "serve",
+                     "--replica", name, "--poll-s", "0.1", "--hang-timeout-s", "600",
+                     "--layout-ladder", json.dumps([{"name": "card", "devices": 1}]), "--",
+                     sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.tools.serve",
+                     "--device", RES_DEVICE, "--checkpoint_dir", ckpt_dir, "--output_dir", rep,
+                     "--port", "0", *RES_SERVE], cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        logs["gateway"] = os.path.join(out_dir, "gateway.log")
+        with open(logs["gateway"], "w") as logf:
+            procs["gateway"] = subprocess.Popen(
+                [sys.executable, "-m", "llama_pipeline_parallel_tpu_torch.tools.gateway",
+                 "--output_dir", gw_dir, "--fleet_root", fleet_root, "--stale_s", "60",
+                 "--retry_attempts", "6", "--retry_base_delay_s", "0.05",
+                 "--metrics_every_s", "0.5"], cwd=ROOT, env=res_env(), stdout=logf,
+                stderr=subprocess.STDOUT)
+
+        res_mark('started')
+        # the reference: generate in this process on the same checkpoint
+        params, cfg, _, step = load_module_checkpoint(ckpt_dir, device=RES_DEVICE)
+        cparams = decode.compute_params(params, cfg)
+        del params
+        trace = st.poisson_trace(RES_TRAFFIC["seed"], RES_TRAFFIC["rate"], RES_TRAFFIC["n"],
+                                 st.parse_mix(RES_TRAFFIC["prompt"]),
+                                 st.parse_mix(RES_TRAFFIC["output"]))
+        reqs = [(np.random.RandomState(r.seed).randint(3, cfg.vocab_size,
+                                                        size=r.prompt_len).tolist(),
+                 decode.GenerationConfig(max_new_tokens=r.max_new_tokens), r.seed)
+                for r in trace]
+        want = reference_tokens(cparams, cfg, reqs, (64,))
+        del cparams
+        gc_cuda()
+
+        res_mark('reference generated')
+        info = {n: wait_json(os.path.join(rep, "serve.json")) for n, rep in reps.items()}
+        for rep in reps.values():
+            wait_json(os.path.join(rep, "health.json"))
+        # one request straight to each replica first: its first ticks (the
+        # CUDA graphs' capture) are done before the kill is timed
+        for name in reps:
+            res_post(info[name]["port"], {"input_ids": reqs[0][0], "seed": 0,
+                                          "max_new_tokens": 4})
+        gw_port = wait_json(os.path.join(gw_dir, gateway.GATEWAY_JSON_NAME))["port"]
+        res_mark('replicas, warm-up and gateway up')
+        agg = fleet.FleetAggregator(fleet_root, fleet.AlertRules(heartbeat_stale_s=RES_STALE_S))
+        if "heartbeat_stale:serve:a" in agg.refresh()["pod"]["alerts_firing"]:
+            raise AssertionError("replica a is stale before the kill")
+        t_up = time.perf_counter() - t0
+        t_traffic = time.perf_counter()
+        stop, killed = threading.Event(), []
+        killer = threading.Thread(target=res_kill_mid_stream, daemon=True, args=(
+            os.path.join(gw_dir, gateway.JOURNAL_NAME), reps["a"], "a", stop, killed))
+        killer.start()
+        try:
+            summary = st.run_trace_gateway(f"http://127.0.0.1:{gw_port}", trace,
+                                           cfg.vocab_size, collect_tokens=True,
+                                           result_timeout_s=300.0)
+        finally:
+            stop.set()
+            killer.join()
+        t_traffic = time.perf_counter() - t_traffic
+        if not killed or killed[0] != info["a"]["pid"]:
+            raise AssertionError(f"replica a was not killed mid-stream: {killed}, {summary}")
+        res_mark('traffic done')
+        refresh_until(agg, lambda s: "heartbeat_stale:serve:a" in s["pod"]["alerts_firing"],
+                      "a's stale heartbeat")
+        if summary["completed"] != RES_TRAFFIC["n"] or summary["replayed"] < 1:
+            raise AssertionError(f"the gateway's traffic: {summary}")
+        expect_tokens(f"the gateway's streams across replica a's SIGKILL vs generate on "
+                      f"checkpoint-{step}", summary["tokens"], want)
+        rows = res_jsonl(os.path.join(gw_dir, gateway.JOURNAL_NAME))
+        terminals = [r for r in rows if r["kind"] == "terminal"]
+        intents = [r for r in rows if r["kind"] == "intent"]
+        replay_rows = [r for r in rows if r["kind"] == "routed" and r["attempt"] > 1]
+        if sorted(r["gid"] for r in terminals) != sorted(r["gid"] for r in intents) or \
+                any(r["outcome"] != "completed" for r in terminals) or not replay_rows:
+            raise AssertionError(f"the WAL: {rows}")
+
+        res_mark('stale alert fired; checks of the traffic done')
+        wait_json(os.path.join(reps["a"], "serve.json"), changed_from=info["a"]["pid"])
+        refresh_until(agg, lambda s: "heartbeat_stale:serve:a" not in s["pod"]["alerts_firing"],
+                      "a's stale heartbeat resolve")
+        res_mark('a relaunched, alert resolved')
+        captures = os.path.join(reps["a"], "captures", "*")
+        deadline = time.monotonic() + 120
+        while not glob.glob(captures) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        edges = [e["state"] for e in fleet.read_alerts(fleet_root)
+                 if e["alert"] == "heartbeat_stale" and e["member"] == "serve:a"]
+        trigger_left = os.path.exists(os.path.join(reps["a"], fleet.CAPTURE_TRIGGER_NAME))
+        if len(glob.glob(captures)) != 1 or trigger_left or edges != ["firing", "resolved"]:
+            raise AssertionError(f"captures {glob.glob(captures)}, trigger left {trigger_left}, "
+                                 f"edges {edges}")
+        res_mark('capture seen')
+        a_ledger = res_jsonl(os.path.join(reps["a"], "incarnations.jsonl"))
+        if [r["outcome"] for r in a_ledger] != ["crash"]:
+            raise AssertionError(f"replica a's ledger: {a_ledger}")
+        gw = summary.get("gateway", {})
+        log(f"  serving leg: 2 replicas of checkpoint-{step} and the gateway up in {t_up:.1f} s; "
+            f"{summary['completed']} of {RES_TRAFFIC['n']} requests complete in "
+            f"{t_traffic:.1f} s, {summary['replayed']} replayed ({summary['attempts_total']} "
+            f"attempts), replayed tokens skipped {gw.get('replay_skipped_tokens')}, TTFT p50 "
+            f"{gw.get('ttft_p50_ms')} ms p95 {gw.get('ttft_p95_ms')} ms; the WAL: "
+            f"{len(terminals)} terminal rows, {len(replay_rows)} replay routed row(s); replica a "
+            f"relaunched, its stale-heartbeat edges {edges}, one capture consumed")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                res_kill_tree(proc)
+    bad = {n: p.returncode for n, p in procs.items() if p.returncode != 0}
+    if bad:
+        raise AssertionError(f"exit codes after SIGTERM: {bad}; logs {logs}")
+
+
+def res_kill_mid_stream(journal: str, replica_dir: str, replica: str, stop, killed: list) -> None:
+    """SIGKILL `replica` (its serve.json pid) once a stream routed to it has
+    a delivered-token watermark in the gateway's WAL, so the kill lands
+    mid-stream whatever the host's speed; the pid goes to `killed`."""
+    from llama_pipeline_parallel_tpu_torch.tools import serve_traffic
+
+    on = {}
+    while not stop.is_set():
+        try:
+            rows = res_jsonl(journal)
+        except (OSError, ValueError):  # not there yet, or a row half written
+            rows = []
+        for r in rows:
+            if r["kind"] == "routed":
+                on[r["gid"]] = r["replica"]
+            elif r["kind"] == "watermark" and on.get(r["gid"]) == replica:
+                killed.append(serve_traffic.kill_replica(replica_dir))
+                return
+        time.sleep(0.01)
+
+
+def res_post(port: int, body: dict, timeout_s: float = 300.0) -> list:
+    """One non-streamed POST to a replica's /v1/generate; its tokens."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate",
+                                 data=json.dumps(dict(body, stream=False)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+        return json.loads(resp.read())["tokens"]
+
+
+def res_kill_tree(proc) -> None:
+    """SIGKILL a supervisor and every process below it (its child runs in
+    a session of its own, so the supervisor's death would strand it)."""
+    import signal
+
+    from llama_pipeline_parallel_tpu_torch.tools import supervisor
+
+    below = supervisor._descendants(proc.pid)
+    proc.kill()
+    proc.wait()
+    for pid, start in below:
+        if supervisor._alive(pid, start):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+
+def res_mark(what: str) -> None:
+    log(f"    | {time.strftime('%H:%M:%S')} {what}")
+
+
+def res_timeline(log_path: str) -> None:
+    """The trainer leg's log lines that place its time: launches, resumes,
+    saves, the vote."""
+    import re
+
+    keep = re.compile(r"\[supervisor\]|^\d\d:\d\d:\d\d ")
+    with open(log_path) as f:
+        for line in f:
+            if keep.search(line):
+                log(f"    | {line.rstrip()[:200]}")
+
+
+def gc_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -5435,6 +6010,7 @@ def main() -> int:
     timed(phase_tp)
     timed(phase_sp)
     timed(phase_serving)
+    timed(phase_resilience)
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s; seconds by phase {seconds}")

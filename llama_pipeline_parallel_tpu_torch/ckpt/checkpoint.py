@@ -59,6 +59,7 @@ around each restored file.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -130,21 +131,33 @@ def _file_digest(path: str) -> str:
     return h.hexdigest()
 
 
+def _digests(files: dict[str, str]) -> dict[str, str]:
+    """sha256 of each file of {relative name: path}, each under the storage
+    retry policy, the files hashed at once on threads of their own (hashlib
+    releases the GIL, so a checkpoint's files take the time of its largest)."""
+    def one(item):
+        rel, full = item
+        return rel, retry.retry_call(lambda: _file_digest(full), policy=_storage_policy(),
+                                     describe=f"digest {rel}")
+
+    if len(files) < 2:
+        return dict(map(one, files.items()))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(files), 8)) as pool:
+        return dict(pool.map(one, files.items()))
+
+
 def _dir_digests(root: str) -> dict[str, str]:
     """sha256 of every file under `root` (relative posix paths), meta.json
     excluded -- the digests live INSIDE meta.json, which is written after
     this walk, so it can never hash itself."""
-    out: dict[str, str] = {}
+    files: dict[str, str] = {}
     for dirpath, _dirnames, filenames in os.walk(root):
         for name in sorted(filenames):
             full = os.path.join(dirpath, name)
             rel = os.path.relpath(full, root).replace(os.sep, "/")
-            if rel == "meta.json":
-                continue
-            out[rel] = retry.retry_call(
-                lambda full=full: _file_digest(full), policy=_storage_policy(),
-                describe=f"digest {rel}")
-    return out
+            if rel != "meta.json":
+                files[rel] = full
+    return _digests(files)
 
 
 def _config_meta(cfg: LlamaConfig) -> dict:
@@ -570,15 +583,17 @@ class CheckpointManager:
             logger.info("%s has no integrity digests; skipping verification", name)
             return
         bad: list[str] = []
-        for rel, want in integrity.get("files", {}).items():
+        present: dict[str, str] = {}
+        for rel in integrity.get("files", {}):
             full = os.path.join(path, rel.replace("/", os.sep))
-            if not os.path.isfile(full):
+            if os.path.isfile(full):
+                present[rel] = full
+            else:
                 bad.append(f"{rel}: missing")
-                continue
-            got = retry.retry_call(lambda full=full: _file_digest(full),
-                                   policy=_storage_policy(), describe=f"digest {rel}")
-            if got != want:
-                bad.append(f"{rel}: sha256 {got[:12]}... != recorded {want[:12]}...")
+        got = _digests(present)
+        for rel, want in integrity.get("files", {}).items():
+            if rel in got and got[rel] != want:
+                bad.append(f"{rel}: sha256 {got[rel][:12]}... != recorded {want[:12]}...")
         if bad:
             self._quarantine(name, f"{len(bad)} corrupt item(s)")
             raise CheckpointCorruptError(

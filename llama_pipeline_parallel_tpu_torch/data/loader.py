@@ -13,7 +13,8 @@ Every record read fires the `data_read` fault site and runs under the shared
 transient-retry policy (utils/faults.py, utils/retry.py). With
 `quarantine_bad_records` a record that stays unreadable is replaced by the
 next healthy index instead of ending the run; `sample_ledger` appends each
-batch's indices to a JSONL file; `PrefetchIterator` collates the next batches
+batch's indices to a JSONL file (every replica's, whatever `dp_range` this
+loader reads); `PrefetchIterator` collates the next batches
 on a background thread.
 """
 
@@ -97,11 +98,15 @@ class DataLoader:
             raise ValueError(f"dp_range {self.dp_range} outside dp_size {self.dp_size}")
         self._local_dp = range(first, first + count)
         self._retry_policy = retry.RetryPolicy.from_env()  # once, not per record
-        self._samplers = [
+        # every replica's sampler: this process reads its own `_local_dp`, and
+        # the sample ledger names the whole global batch (every replica's ids),
+        # so it reads the same however many processes split the dp
+        self._all_samplers = [
             ShardedSampler(len(self.dataset), self.dp_size, rank=d, shuffle=self.shuffle,
                            seed=self.seed)
-            for d in self._local_dp
+            for d in range(self.dp_size)
         ]
+        self._samplers = [self._all_samplers[d] for d in self._local_dp]
         self.records_read = 0       # successful dataset fetches
         self.quarantine_count = 0   # records skipped as persistently bad
         self._quarantined: set[int] = set()
@@ -119,7 +124,7 @@ class DataLoader:
                 pass
 
     def set_epoch(self, epoch: int) -> None:
-        for s in self._samplers:
+        for s in self._all_samplers:
             s.set_epoch(epoch)
 
     def __len__(self) -> int:
@@ -188,7 +193,9 @@ class DataLoader:
         costs no record reads."""
         if not 0 <= start_batch <= len(self):
             raise ValueError(f"start_batch {start_batch} outside [0, {len(self)}]")
-        per_replica = [s.indices() for s in self._samplers]
+        wanted = range(self.dp_size) if self._ledger_f is not None else self._local_dp
+        orders = {d: self._all_samplers[d].indices() for d in wanted}
+        per_replica = [orders[d] for d in self._local_dp]
         epoch = self._samplers[0]._epoch
         b_rows = self.per_replica_batch
         for b in range(start_batch, len(self)):
@@ -196,8 +203,11 @@ class DataLoader:
             rows = [self._read_record(i) for i in ids]
             ledger = self._ledger_f
             if ledger is not None:
+                named = [int(orders[d][i]) for d in range(self.dp_size)
+                         for i in range(b * b_rows, (b + 1) * b_rows)]
                 try:
-                    ledger.write(json.dumps({"epoch": epoch, "batch": b, "indices": ids}) + "\n")
+                    ledger.write(json.dumps({"epoch": epoch, "batch": b, "indices": named})
+                                 + "\n")
                 except ValueError:
                     pass  # closed by the trainer's teardown mid-prefetch
             yield self.collate_fn(rows)

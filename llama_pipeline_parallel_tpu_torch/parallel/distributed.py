@@ -41,6 +41,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from llama_pipeline_parallel_tpu_torch.utils import faults, retry
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -62,6 +63,11 @@ _labels: dict = {}
 class BarrierTimeoutError(RuntimeError):
     """The barrier's deadline expired: a peer is dead or hung. Never
     retried: peers that already passed will not re-enter it."""
+
+
+class TransientBarrierError(RuntimeError):
+    """A barrier attempt failed before it reached its peers (the `barrier`
+    fault site's injected error): retried, as the reference retries it."""
 
 
 def _env_int(name: str) -> int | None:
@@ -329,16 +335,40 @@ def barrier(tag: str = "sync", timeout_s: float = _DEFAULT_BARRIER_TIMEOUT_S) ->
     """Wait for every process (a no-op alone), over the commit's gloo group,
     so the checkpoint commit thread can wait here while the main thread's
     collectives run. A peer that has not arrived within `timeout_s` raises
-    BarrierTimeoutError naming `tag`."""
-    if process_count() == 1:
-        return
+    BarrierTimeoutError naming `tag`.
+
+    The `barrier` fault site fires inside each attempt, before the lone
+    process's early-out (the reference's `host_barrier`): a `stall` rule
+    delays the attempt, an `error` rule becomes TransientBarrierError, which
+    is retried up to LPT_BARRIER_RETRIES times (default 1) under the shared
+    backoff policy. The injected error is raised before this process enters
+    the gloo barrier, so a retry re-enters the same barrier its peers wait
+    in; a real failure inside gloo is never retried."""
     timeout = float(timeout_s)
-    work = dist.barrier(group=commit_group(), async_op=True)
-    try:
-        done = work.wait(timeout=datetime.timedelta(seconds=timeout))
-    except RuntimeError as e:
-        raise BarrierTimeoutError(f"barrier {tag!r}: a peer did not arrive within "
-                                  f"{timeout:.0f} s ({e})") from e
-    if done is False:
-        raise BarrierTimeoutError(f"barrier {tag!r}: a peer did not arrive within "
-                                  f"{timeout:.0f} s")
+    t0 = time.monotonic()
+    state = {"attempt": 0}
+
+    def wait_once():
+        state["attempt"] += 1
+        try:
+            faults.fire("barrier", tag=tag)
+        except faults.InjectedFault as e:
+            raise TransientBarrierError(
+                f"barrier {tag!r} failed after {time.monotonic() - t0:.1f}s (injected, "
+                f"attempt {state['attempt']}): {e}") from e
+        if process_count() == 1:
+            return
+        work = dist.barrier(group=commit_group(), async_op=True)
+        try:
+            done = work.wait(timeout=datetime.timedelta(seconds=timeout))
+        except RuntimeError as e:
+            raise BarrierTimeoutError(f"barrier {tag!r}: a peer did not arrive within "
+                                      f"{timeout:.0f} s ({e})") from e
+        if done is False:
+            raise BarrierTimeoutError(f"barrier {tag!r}: a peer did not arrive within "
+                                      f"{timeout:.0f} s")
+
+    retries = int(os.environ.get("LPT_BARRIER_RETRIES", "1"))
+    retry.retry_call(wait_once, retryable=(TransientBarrierError,),
+                     policy=retry.RetryPolicy.from_env(max_attempts=max(retries, 0) + 1),
+                     describe=f"barrier {tag!r}")

@@ -159,7 +159,7 @@ def _incarnation_label(row: dict) -> str | None:
 
 def incarnation_summary(output_dir: str) -> dict | None:
     """Roll-up of the supervisor's goodput ledger (incarnations.jsonl, one
-    row per launch — tools/supervisor.py), or None when the run was never
+    row per launch — tools.supervisor), or None when the run was never
     supervised. Restart badput = wall seconds spent in incarnations that
     did not end cleanly; `resize_lost_seconds` is a SIBLING bucket — the
     failed-incarnation time that forced each topology resize plus the
@@ -193,7 +193,7 @@ def incarnation_summary(output_dir: str) -> dict | None:
         "crashes": sum(1 for r in failed if r.get("outcome") == "crash"),
         "hangs": sum(1 for r in failed if r.get("outcome") == "hang"),
         # the supervisor labels an allocation-failure death distinctly
-        # (crash + fresh oom/ snapshot — tools/supervisor.py): a capacity
+        # (crash + fresh oom/ snapshot — tools.supervisor): a capacity
         # problem every relaunch will hit again, unlike a transient crash
         "ooms": sum(1 for r in failed if r.get("outcome") == "oom"),
         "lost_seconds": sum(_num(r.get("duration_s")) or 0.0 for r in failed),
@@ -210,7 +210,7 @@ def incarnation_summary(output_dir: str) -> dict | None:
 
 def supervisor_summary(output_dir: str) -> dict | None:
     """Roll-up of the watchdog's OWN heartbeat (supervisor_health.json,
-    tools/supervisor.py), or None when the run is unsupervised — so the
+    tools.supervisor), or None when the run is unsupervised — so the
     report labels the directory's supervisor distinctly instead of
     treating every health file as the trainer's."""
     import time

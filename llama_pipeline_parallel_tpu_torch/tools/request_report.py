@@ -1,8 +1,7 @@
 """Offline tail-latency forensics from a request-trace directory.
 
 The counterpart of the JAX package's tools/request_report.py, copied line
-for line (the gateway's journal name is kept here, as the gateway is not
-ported yet).
+for line (the gateway's journal name comes from the port's serve/gateway.py).
 
 Reads the artifacts a tracing-enabled serve run left behind —
 `request_trace.jsonl` (one span tree per finished request, written by
@@ -41,6 +40,7 @@ import json
 import os
 import sys
 
+from llama_pipeline_parallel_tpu_torch.serve.gateway import JOURNAL_NAME
 from llama_pipeline_parallel_tpu_torch.serve.reqtrace import (
     EXEMPLARS_NAME,
     REQUEST_TRACE_NAME,
@@ -48,10 +48,6 @@ from llama_pipeline_parallel_tpu_torch.serve.reqtrace import (
 from llama_pipeline_parallel_tpu_torch.serve.telemetry import (
     percentiles_ms,
 )
-
-# the gateway's write-ahead journal (the reference's serve/gateway.py name,
-# which this package does not port yet)
-JOURNAL_NAME = "gateway_journal.jsonl"
 
 
 def load_trace(output_dir: str) -> list[dict]:

@@ -175,7 +175,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # the profiler is ALWAYS armed: without SLO thresholds it captures
     # nothing on its own, but its capture.trigger poll is what lets a
-    # fleet-level alert (the reference's tools/fleetd.py) reach this replica for a
+    # fleet-level alert (tools.fleetd) reach this replica for a
     # bounded trace (docs/OBSERVABILITY.md "Fleet")
     prof = TriggeredProfiler(
         CaptureConfig(zscore=0.0, max_captures=args.capture_max,

@@ -24,7 +24,7 @@ seeds. Wall-clock replay obviously isn't deterministic; the trace is.
 
 `--gateway URL` replays the SAME trace over HTTP, streaming, instead of an
 in-process engine — no checkpoint load in this process: against the
-reference's routing tier (tools/gateway.py, not ported yet) the summary
+routing tier (`tools.gateway`) the summary
 gains its per-request attempt/replay/hedge counts; against one serve
 process (`tools.serve`'s own /v1/generate) it is a plain HTTP client.
 `--chaos kill:<t_s>` pairs with it: SIGKILL the replica named by

@@ -33,6 +33,12 @@ the exact token-mean loss of a held-out set (`per_device_eval_batch_size`
 rows a microbatch) with no autograd graph, and later checkpoints carry it
 (`eval_loss`, `eval_step`). SIGTERM or SIGINT stops the run at the next
 step with a checkpoint there (`preempted_at`); a second signal force-quits.
+`actions.resize_on_request` (utils/actions.TrainActions) makes the run watch
+for `<output_dir>/resize.request`, which the supervisor (tools.supervisor
+--actuate) drops to move the run to another layout rung: on the stop vote's
+cadence every process votes on it, all stop at one step with a checkpoint
+there, and process 0 renames the request to `resize.request.ack` once the
+save has committed; the run then ends cleanly for the relaunch.
 `activation_checkpointing` recomputes each layer under `remat_policy`
 (models/llama/model.remat_layer). `optimizer_offload` keeps the fp32
 masters and Adam moments in host memory (optim/offload.py): the card holds
@@ -47,7 +53,7 @@ each leaf's masters and moments; the working copy all-gathered over dp).
 `offload.wgrad_stash` / `offload.activations` keep a pipeline's W
 queue / stage inputs in host memory (parallel/pipeline.py). A fault plan (`fault_plan`, or
 LPT_FAULT_PLAN, which wins) drives the sites this trainer has: `step`,
-`data_read`, `storage_write` and `ckpt_commit`. The metrics line goes to
+`data_read`, `storage_write`, `ckpt_commit` and `barrier`. The metrics line goes to
 `metrics.jsonl` and, with `use_wandb` / `use_tensorboard`, to those sinks.
 The observability layer is the JAX trainer's (train_run): spans.jsonl and
 goodput (utils/trace.py), health.json every `health_interval` seconds, the
@@ -55,7 +61,7 @@ numerics observatory (`numerics.*`, on by default: numerics.jsonl and the
 nonfinite guard), the memory watch (`memory.*`), the schedule timeline
 (`timeline.*`), the triggered profiler (`profiler.*`), a `profile_steps`
 window, perf.jsonl, and the `grad_nonfinite` and `oom` drills at the `step`
-site. The resilience actions are not ported yet; a config that asks for a
+site. A config that asks for a
 layout or feature this trainer does not have is refused, naming its key,
 and keys that mean nothing with one stage (the pipeline schedule) are
 logged once. A run of several processes saves through process 0 (which
@@ -106,6 +112,9 @@ from llama_pipeline_parallel_tpu_torch.models.llama.model import (
     LlamaForCausalLM,
     param_shapes,
 )
+from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa_mod
+from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc_mod
+from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp_mod
 from llama_pipeline_parallel_tpu_torch.ops.attention import attention
 from llama_pipeline_parallel_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
@@ -141,6 +150,11 @@ from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
 from llama_pipeline_parallel_tpu_torch.utils import faults, memwatch, numerics, perf, trace
 from llama_pipeline_parallel_tpu_torch.utils import profiler as profiler_mod
 from llama_pipeline_parallel_tpu_torch.utils import timeline as timeline_mod
+from llama_pipeline_parallel_tpu_torch.utils.actions import (
+    RESIZE_ACK_NAME,
+    RESIZE_REQUEST_NAME,
+    TrainActions,
+)
 from llama_pipeline_parallel_tpu_torch.utils.config import instantiate
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 from llama_pipeline_parallel_tpu_torch.utils.metrics import (
@@ -163,12 +177,9 @@ _PRESETS = {
     "codellama_34b_16k": LlamaConfig.codellama_34b_16k,
 }
 
-# the fault sites this trainer fires (utils/faults.py); a plan with a rule at
-# any other site is refused
-FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit")
-# blocks of the JAX trainer (the resilience actions) that ask for their
-# feature when any of their values is set, with what ports each
-_NOT_PORTED_BLOCKS = {"actions": "the resilience actions"}
+# the fault sites this trainer fires (utils/faults.py); the plan's rules at
+# the others are the supervisor's, the actuators' and the gateway's
+FAULT_SITES = ("step", "data_read", "storage_write", "ckpt_commit", "barrier")
 # keys that order the pipeline's stages, with their defaults: with one stage
 # (pp = 1) the microbatches run in order whatever they say
 _ONE_STAGE_KEYS = {"pipeline_schedule": "1f1b", "virtual_stages": 1, "schedule_file": None,
@@ -432,12 +443,7 @@ def _check_supported(cfg: dict) -> None:
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline_schedule {schedule!r}; choose one of "
                          f"{PIPELINE_SCHEDULES}")
-    asked = {key: what for key, what in _NOT_PORTED_BLOCKS.items()
-             if _block_asks(cfg.get(key))}
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: {list(asked)} ("
-            + "; ".join(f"{key} comes with {what}" for key, what in asked.items()) + ")")
+    TrainActions.from_cfg(cfg.get("actions"))
     # the observatories' blocks, each refused on an unknown key or a value
     # out of its range as the JAX trainer refuses it
     numerics.NumericsConfig.from_cfg(cfg.get("numerics"))
@@ -539,7 +545,10 @@ def build_pipeline_config(cfg: dict, mesh_cfg: MeshConfig, manifest: StageManife
 def _configure_faults(cfg: dict, ncfg: numerics.NumericsConfig, num_stages: int) -> None:
     """Install the run's fault plan: LPT_FAULT_PLAN when set (it wins over
     the config, as in the JAX trainer), else `fault_plan`, else none. A plan
-    with a rule at a site this trainer does not fire is refused by name; a
+    is the pod's: its rules at the sites this trainer does not fire
+    (`device_probe`, `action_execute`, `gateway_dispatch`: the supervisor,
+    the actuators and the gateway fire them from the same plan) are taken
+    and named once in the log; a
     `grad_nonfinite` rule is refused, as the JAX trainer refuses it, with
     numerics off (the guard would be unarmed) or at a stage outside
     [0, `num_stages`) (the drill would poison nothing)."""
@@ -550,10 +559,8 @@ def _configure_faults(cfg: dict, ncfg: numerics.NumericsConfig, num_stages: int)
     rules = {(rule["site"], rule["op"]) for rule in injector.stats()} if injector else set()
     other = sorted({site for site, _ in rules} - set(FAULT_SITES))
     if other:
-        faults.configure(None)
-        raise NotImplementedError(
-            f"not ported yet: {source} has rules at site(s) {other}; this trainer fires "
-            f"{list(FAULT_SITES)}")
+        logger.info("%s has rules at site(s) %s, which this trainer does not fire (the "
+                    "supervisor, the actuators or the gateway do)", source, other)
     if faults.has_rule("step", "grad_nonfinite"):
         bad = [st for st in faults.rule_field_values("step", "grad_nonfinite", "stage")
                if not 0 <= st < num_stages]
@@ -568,14 +575,6 @@ def _configure_faults(cfg: dict, ncfg: numerics.NumericsConfig, num_stages: int)
         if problem:
             faults.configure(None)
             raise ValueError(problem)
-
-
-def _block_asks(node: Any) -> bool:
-    """Whether a config block asks for its feature: any value set, unless
-    it says `enabled: false`."""
-    if not isinstance(node, dict):
-        return bool(node)
-    return node.get("enabled", True) is not False and any(bool(v) for v in node.values())
 
 
 @dataclasses.dataclass
@@ -816,7 +815,7 @@ def build_run(cfg: dict, device: str | torch.device = "cuda", tokenizer: Any = N
     data_node = cfg.get("data") or {}
     ledger = None
     if data_node.get("log_sample_ids") and distributed.process_index() == 0:
-        # the ledger covers process 0's replica, as in the JAX trainer
+        # process 0 writes it; each row names the whole global batch
         os.makedirs(cfg["output_dir"], exist_ok=True)
         ledger = os.path.join(cfg["output_dir"], "samples.jsonl")
     # with packing the loader feeds packing_factor examples per emitted row,
@@ -1436,15 +1435,25 @@ def _schedule_scalars(run: Run) -> dict:
     return out
 
 
-def _write_perf_rows(run: Run, obs: _Observatory) -> None:
+def _kernel_launches() -> dict:
+    """Launches of the nine CUDA kernels in this process so far (each
+    wrapper's count; nothing counts on the CPU, where the plain versions run)."""
+    return {**fa_mod.launch_counts, **fc_mod.launch_counts, **fp_mod.launch_counts}
+
+
+def _write_perf_rows(run: Run, obs: _Observatory, launches: dict) -> None:
     """Close the run into the perf ledger (utils/perf.py), process 0: the
     analytic bubble next to its timeline-measured counterpart, the step-time
-    percentiles and the card's peak, and the memory watch's rows."""
+    percentiles and the card's peak, the memory watch's rows, and one
+    `kernel_launches` row for each kernel this process launched in the loop
+    (`launches`), so a run driven from outside (a supervised launch) shows
+    which kernels it went through."""
     step_tl, mem = obs.timeline, obs.memory
-    if (step_tl is None and mem is None) or distributed.process_index() != 0:
+    if (step_tl is None and mem is None and not launches) or distributed.process_index() != 0:
         return
     out = run.cfg["output_dir"]
-    rows = []
+    rows = [perf.make_row("kernel_launches", measured=n, unit="launches", source="train",
+                          run=out, kernel=name) for name, n in launches.items()]
     if step_tl is not None:
         pcfg = None if run.pipeline is None else run.pipeline.pcfg
         rows.append(perf.make_row(
@@ -1485,7 +1494,8 @@ def train_run(run: Run) -> dict:
     `_train_loop`). Each step fires the `step` fault site (a `grad_nonfinite`
     verdict poisons its stage's gradients; an `oom` one raises the
     allocation-failure error), then stops the run on a preemption signal: a
-    blocking save at that step, and the summary's `preempted_at` and
+    blocking save at that step (or, when the step's periodic save was just
+    written, its commit joined), and the summary's `preempted_at` and
     `final_step` name it. One process reads its flag every step; several
     vote (distributed.should_stop) at every step that `preempt_check_every`
     divides, the same steps in every process, so a signal to any one stops
@@ -1524,6 +1534,10 @@ def train_run(run: Run) -> dict:
     # in every process whatever its own flag says.
     process_count = distributed.process_count()
     check_every = max(int(cfg.get("preempt_check_every", 10)), 1)
+    # actions.resize_on_request: the resize vote rides the same cadence and
+    # the same collective; the config is the same in every process, so every
+    # process makes the same calls
+    resize_watch = TrainActions.from_cfg(cfg.get("actions")).resize_on_request
 
     def peak_bytes():
         return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
@@ -1565,6 +1579,7 @@ def train_run(run: Run) -> dict:
     trace_prof = None
 
     batches = run.batches()
+    launches_at_start = _kernel_launches()
     losses, step_times, window = [], [], []
     tokens_per_step = 0
     last_saved = -1
@@ -1579,12 +1594,27 @@ def train_run(run: Run) -> dict:
             if fault == "oom":
                 raise memwatch.oom_error(step)
             check_now = process_count == 1 or step % check_every == 0
-            if check_now and distributed.should_stop(bool(_STOP_SIGNALS)):
-                logger.warning("preemption signal; checkpointing at step %d and exiting for "
-                               "clean resume", step)
+            # both votes are taken before they are combined: each is a
+            # collective, so neither may be skipped because the other is true
+            stop_vote = check_now and distributed.should_stop(bool(_STOP_SIGNALS))
+            resize_vote = (resize_watch and check_now
+                           and distributed.should_stop(_resize_requested(output_dir)))
+            if stop_vote or resize_vote:
+                logger.warning("%s; checkpointing at step %d and exiting for clean resume",
+                               "resize request" if resize_vote else "preemption signal", step)
                 preempted_at = step
-                run.save(step, final=True)  # joins an async save in flight first
+                if last_saved == step:
+                    # the boundary's periodic save holds this very state:
+                    # wait for its commit instead of writing it again
+                    run.ckpt.finalize()
+                else:
+                    run.save(step, final=True)  # joins an async save in flight first
                 last_saved = run.end_step  # no save_final after it
+                if resize_vote and first:
+                    # ack only after the (blocking) save has committed: a
+                    # request that outlives a crash mid-save is honoured by
+                    # the relaunch
+                    _ack_resize_request(output_dir)
                 break
             if (profile_window and trace_prof is None
                     and profile_window[0] <= step < profile_window[1]):
@@ -1710,13 +1740,33 @@ def train_run(run: Run) -> dict:
         if heartbeat is not None:  # fold the final save into health.json
             heartbeat.write()
     run.ckpt.finalize()  # surface any async-commit failure on the clean path
-    _write_perf_rows(run, obs)
+    launches = {name: n - launches_at_start[name]
+                for name, n in _kernel_launches().items() if n > launches_at_start[name]}
+    _write_perf_rows(run, obs, launches)
     return {"final_step": run.end_step if preempted_at is None else preempted_at,
             "start_step": run.start_step, "preempted_at": preempted_at,
             "final_loss": losses[-1] if losses else float("nan"),
             "steps_per_epoch": len(run.loader), "output_dir": cfg["output_dir"],
             "losses": losses, "step_times": step_times,
             "tokens_per_step": tokens_per_step, "peak_memory_bytes": peak_bytes()}
+
+
+def _resize_requested(output_dir: str) -> bool:
+    """Whether an actuator's `resize.request` (utils/actions) is in the run's
+    output directory: the supervisor asking this run to move to another
+    layout rung at a step boundary instead of taking a SIGTERM mid-step."""
+    return os.path.exists(os.path.join(output_dir, RESIZE_REQUEST_NAME))
+
+
+def _ack_resize_request(output_dir: str) -> None:
+    """Rename `resize.request` -> `resize.request.ack` (atomic on POSIX): the
+    actuator sees the request honoured exactly once; a crash before the
+    rename leaves the request for the relaunched incarnation."""
+    try:
+        os.replace(os.path.join(output_dir, RESIZE_REQUEST_NAME),
+                   os.path.join(output_dir, RESIZE_ACK_NAME))
+    except OSError:
+        pass  # never landed, or already acked
 
 
 def _observed_step(run: Run, obs: _Observatory, batch: dict, step: int,

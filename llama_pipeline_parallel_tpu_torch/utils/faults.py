@@ -52,13 +52,14 @@ Ops:
             synthetic allocation failure
 
 Sites: `storage_write` (checkpoint file I/O), `ckpt_commit` (between the
-files' durability and the meta/tag write), `barrier` (host_barrier entry),
-`data_read` (per-record dataset reads), `step` (top of every training step),
-`device_probe` (the supervisor's available-device probe). This package fires
-`step`, `storage_write`, `ckpt_commit` and `data_read` (train.py,
-ckpt/checkpoint.py, data/loader.py); its trainer refuses a plan with a rule
-at any other site (train.FAULT_SITES), or with `grad_nonfinite` or `oom` at
-`step`.
+files' durability and the meta/tag write), `barrier` (inside each attempt of
+parallel/distributed.barrier), `data_read` (per-record dataset reads), `step`
+(top of every training step), `device_probe` (the supervisor's
+available-device probe), `action_execute` (an actuator between its intent
+and outcome rows, utils/actions.py) and `gateway_dispatch` (each dispatch
+attempt of serve/gateway.py). The trainer fires the first five
+(train.FAULT_SITES); tools.supervisor, the actuators and the gateway fire
+the other three from the same plan.
 """
 
 from __future__ import annotations

@@ -369,6 +369,21 @@ def dump_oom_snapshot(output_dir: str, step: int | None,
         return None
 
 
+def latest_oom_mtime(output_dir: str) -> float | None:
+    """mtime of the newest OOM snapshot, or None — the one spelling the
+    supervisor ("crash + fresh snapshot => oom outcome") and the fleet
+    alert (`oom_recent`: snapshot newer than the member's registration)
+    both compare timestamps against."""
+    d = oom_dir(output_dir)
+    try:
+        times = [os.path.getmtime(os.path.join(d, p))
+                 for p in os.listdir(d)
+                 if p.startswith("oom-") and p.endswith(".json")]
+    except OSError:
+        return None
+    return max(times) if times else None
+
+
 def read_oom_snapshots(output_dir: str) -> list[dict]:
     """Every parseable snapshot under `<output_dir>/oom/`, newest first —
     missing dir, torn or garbage files degrade to whatever parses."""

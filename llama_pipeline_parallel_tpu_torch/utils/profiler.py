@@ -43,13 +43,10 @@ from typing import Any
 
 import numpy as np
 
+from llama_pipeline_parallel_tpu_torch.utils.fleet import CAPTURE_TRIGGER_NAME
 from llama_pipeline_parallel_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
-
-# the file a fleet alert drops into a run's output dir to ask for a capture
-# (the reference's utils/fleet.py name, which this package does not port)
-CAPTURE_TRIGGER_NAME = "capture.trigger"
 
 PROFILER_KEYS = {"at_step", "window_steps", "max_captures", "zscore",
                  "zscore_window", "zscore_min_history", "trigger_poll_s",

@@ -10,6 +10,7 @@ model trained inside the test; the JSONL is written by the test.
 
 import importlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from llama_pipeline_parallel_tpu_torch import convert
+from llama_pipeline_parallel_tpu_torch import train as t_train
 from llama_pipeline_parallel_tpu_torch.ckpt import checkpoint as t_ckpt
 from llama_pipeline_parallel_tpu_torch.data import collator as t_collator
 from llama_pipeline_parallel_tpu_torch.data.tokenization import expand_special_tokenizer
@@ -345,20 +347,38 @@ def test_storage_read_fault_is_retried_on_restore(tmp_path, no_backoff):
     assert t_faults.active().stats()[0]["fired"] == 1
 
 
-@pytest.mark.parametrize("site", ["action_execute", "barrier", "device_probe"])
+@pytest.mark.parametrize("site", ["action_execute", "barrier", "device_probe",
+                                  "gateway_dispatch"])
 def test_fault_plan_at_a_site_this_trainer_lacks_is_refused(tmp_path, no_backoff, monkeypatch,
                                                             site):
-    """A rule at a site this trainer does not fire is refused by name, from
-    the config and from LPT_FAULT_PLAN (which wins over the config)."""
-    with pytest.raises(NotImplementedError, match=f"fault_plan has rules at site.*'{site}'"):
+    """Every fault site has its firer in the port now: the trainer fires
+    `barrier` (parallel/distributed.barrier), and a rule at a site it does
+    not fire is the pod's (the supervisor's `device_probe`, the actuators'
+    `action_execute`, the gateway's `gateway_dispatch`), so it is taken, from
+    the config and from LPT_FAULT_PLAN (which wins over the config), and
+    names itself in the log when it is not the trainer's. A site no
+    component fires is refused by the plan's own check."""
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    t_train.logger.addHandler(handler)
+    try:
         build_run(_tiny(tmp_path, f"fault_plan={{faults: [{{site: {site}, op: stall}}]}}"),
                   "cpu")
-    assert t_faults.active() is None
-    monkeypatch.setenv(t_faults.ENV_PLAN, json.dumps(
-        {"faults": [{"site": site, "op": "stall"}, {"site": "data_read", "op": "slow"}]}))
-    with pytest.raises(NotImplementedError, match=f"LPT_FAULT_PLAN has rules at.*'{site}'"):
+        assert [r["site"] for r in t_faults.active().stats()] == [site]
+        monkeypatch.setenv(t_faults.ENV_PLAN, json.dumps(
+            {"faults": [{"site": site, "op": "stall"}, {"site": "data_read", "op": "slow"}]}))
         build_run(_tiny(tmp_path, "fault_plan={faults: [{site: data_read, op: slow}]}"), "cpu")
+        assert [r["site"] for r in t_faults.active().stats()] == [site, "data_read"]
+    finally:
+        t_train.logger.removeHandler(handler)
+    named = [r.getMessage() for r in records if "does not fire" in r.getMessage()]
+    assert len(named) == (0 if site == "barrier" else 2)
+    assert all(f"'{site}'" in m for m in named)
     monkeypatch.setenv(t_faults.ENV_PLAN, json.dumps(
         {"faults": [{"site": "data_read", "op": "slow", "seconds": 0}]}))
     build_run(_tiny(tmp_path, f"fault_plan={{faults: [{{site: {site}, op: stall}}]}}"), "cpu")
     assert t_faults.active().stats()[0]["site"] == "data_read"
+    monkeypatch.delenv(t_faults.ENV_PLAN)
+    with pytest.raises(t_faults.FaultPlanError, match="unknown site 'nowhere'"):
+        build_run(_tiny(tmp_path, "fault_plan={faults: [{site: nowhere, op: stall}]}"), "cpu")

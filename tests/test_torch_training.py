@@ -480,8 +480,11 @@ def _build_tiny(tmp_path, *overrides):
 
 
 _REFUSED_KEYS = [
-    ("actions={resize_on_request: true}", NotImplementedError,
-     r"'actions'.*the resilience actions"),
+    # the trainer's actions block takes resize_on_request alone; fleetctl's
+    # actuator blocks are refused by name, as the JAX trainer refuses them
+    pytest.param("actions={resize_on_request: true, autoscale: {for_s: 1}}", ValueError,
+                 r"unknown actions\.\* key\(s\) \['autoscale'\]",
+                 id="actions={resize_on_request: true}"),
     ("profiler={zscore_min_history: 1}", ValueError, "zscore_min_history must be >= 2"),
     ("remat_policy=nothing_savable", ValueError, "unknown remat_policy"),
     ("offload={wgrad_stash: true}", ValueError, "offload.wgrad_stash requires schedule: zb1"),
@@ -500,11 +503,12 @@ _REFUSED_KEYS = [
 
 
 @pytest.mark.parametrize("override,error,match", _REFUSED_KEYS,
-                         ids=[case[0] for case in _REFUSED_KEYS])
+                         ids=[case[0] if isinstance(case, tuple) else None
+                              for case in _REFUSED_KEYS])
 def test_trainer_refuses_keys_it_does_not_run(tmp_path, override, error, match):
-    """A key of the JAX trainer whose value asks for what this trainer does
-    not do (the resilience actions) is refused by name, with what would port
-    it; a name outside the JAX trainer's remat policies or schedules, an
+    """An `actions` block with a key the trainer's block does not have (an
+    actuator's) is refused by name; a name outside the JAX trainer's remat
+    policies or schedules, an
     observatory block with an unknown key or a value out of its range, a
     grad_nonfinite rule at a stage the pipeline lacks, and an eval set too
     small for one batch are refused as the JAX trainer refuses them."""
