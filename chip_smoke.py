@@ -93,8 +93,9 @@ which raises on failure:
               and a planted CE fault is rejected; and with the prologue
               kernels and the composed prologue: step losses and gradients
               agree, and a planted prologue fault is rejected.
-6. checkpoint -- the trainer's checkpoints at LLaMA-7B width cut to 2 layers
-              (CKPT_OVERRIDES): free disk checked first; run A trains 6 steps
+6. checkpoint -- the trainer's checkpoints at LLaMA-7B width cut to 1 layer
+              (CKPT_OVERRIDES; 2 until the preflight and tp decode phases
+              needed the time): free disk checked first; run A trains 6 steps
               and saves step 4 with async_save; meta.json's keys checked;
               run B resumes from it and repeats steps 5-6 through every
               kernel (launch and tensor-core counts checked), its losses
@@ -109,7 +110,7 @@ which raises on failure:
               cleared at the start of the script and the phase removes what
               it wrote.
 7. packed  -- the fine-tune config conf/llama_7b_flan_packed.yaml at LLaMA-7B
-              width (PACKED_OVERRIDES: 4 layers, 8 rows of 512 tokens a
+              width (PACKED_OVERRIDES: 2 layers, 8 rows of 512 tokens a
               microbatch, packing_factor 4, 2 microbatches, 4 steps) on a
               JSONL of synthetic {"inputs", "targets"} rows (FLAN's record
               format) written from a seed and a
@@ -281,8 +282,9 @@ which raises on failure:
               gloo staging and collective seconds by group (this one-card
               gloo mode, not a multi-card figure).
 16. serving -- decode and continuous batching at conf/llama_7b_pp4.yaml's
-              model, LLaMA-7B at all 32 layers, bf16 weights drawn on the card
-              from SERVE_SEED (13.48 GB): prefill_prompt's last logits against
+              model, LLaMA-7B cut to SERVE_LAYERS of its 32 layers, bf16
+              weights drawn on the card from SERVE_SEED: prefill_prompt's last
+              logits against
               the trainer's forward (exact attention) on two 512-token rows,
               one left-padded, in fp32 by the 2^-8 rule and in bf16 within
               SERVE_BF16_NOISE x the trainer's own distance from fp32, the last
@@ -306,8 +308,8 @@ which raises on failure:
               ladder RES_LADDER: dp2 on 2 devices, dp1 on 1 with the
               accumulation doubled) over `python -m torch.distributed.run
               -m llama_pipeline_parallel_tpu_torch.cli` on
-              conf/llama_7b_pp4.yaml at LLaMA-7B width (RES_OVERRIDES: 2
-              layers, seq 2048, the nine kernels, save_steps 2, RES_STEPS
+              conf/llama_7b_pp4.yaml at LLaMA-7B width (RES_OVERRIDES: 1
+              layer, seq 2048, the nine kernels, save_steps 2, RES_STEPS
               steps, actions.resize_on_request, the sample ledger), 2 ranks
               over gloo on card 0; after checkpoint-2, tools.fleetd --once
               sees the trainer's step-time alert and tools.fleetctl's
@@ -341,6 +343,32 @@ which raises on failure:
               beside goodput_report's resize_lost_seconds, the replayed
               tokens and the gateway's TTFT. Checkpoints carry no sha256 digests here
               (res_env).
+18. preflight -- the port's tools.preflight at the card's own budget
+              (torch.cuda.get_device_properties), peak and host link: the
+              --all verdict of every conf/*.yaml; its byte model beside the
+              max_memory_allocated each earlier phase read at its exact cut
+              (the slice, pp 4 at depth 8 under flat 1F1B and zb1, the host
+              optimizer's deep cell, the largest tp and sp rank), with the
+              ratio; every verdict held to PREFLIGHT_FITS and a config whose
+              model raises failing the phase; --calibrate on
+              PREFLIGHT_CALIBRATE (one tp rank's step at 1 and 2 layers,
+              extrapolated to its stage's depth) and --all again at the
+              calibrated mem_scale, each peak printed beside it times the
+              allocator's measured reserved / allocated ratio; a --select
+              --emit-schedule solver file for conf/llama_7b_pp4.yaml at the
+              pipeline phase's cut, run through the trainer as
+              pipeline_schedule: solver for the pipeline phase's steps:
+              launches exactly its unit grid's, each step's gradient norm
+              within PREFLIGHT_GRAD_RTOL and loss within PREFLIGHT_LOSS_RTOL
+              of the pipeline phase's flat 1F1B run from the same init.
+19. tp decode -- generate with tp-sharded params at LLaMA-2-70B width
+              (TPD_CONFIG's model, TPD_LAYERS of 80 layers, fp32): tp 4 in
+              4 processes on card 0 over gloo, 16 q / 2 kv heads a rank,
+              TPD_PROMPTS left-padded prompts, TPD_NEW greedy tokens: the
+              tokens of every rank equal to the unsharded one-process
+              generate's; each step's logits, teacher-forced on its tokens,
+              within 2^-8 |ref| + 2^-8 rms(ref); the ranks' generate, prefill
+              and tick time beside the unsharded reference's.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then, as the last line,
@@ -400,7 +428,7 @@ DRILL_OVERRIDES = TRAIN_OVERRIDES + ["model.num_hidden_layers=1", "logging_steps
 # SentencePiece-Unigram tokenizer trained on it in the process (tokenizers +
 # transformers)
 PACKED_OVERRIDES = [
-    "mesh.pp=1", "mesh.dp=1", "model.num_hidden_layers=4", "per_device_train_batch_size=8",
+    "mesh.pp=1", "mesh.dp=1", "model.num_hidden_layers=2", "per_device_train_batch_size=8",
     "gradient_accumulation_steps=2", "max_steps=4", "total_steps=8", "warmup_steps=1",
     "attention=flash", "kernels.ce=pallas", "kernels.prologue=pallas", "save_final=false",
     "resume=false",
@@ -429,12 +457,13 @@ TILE_EDGE = 32
 # through every kernel (the SIMT flash and prologue routes, cuBLAS without
 # TF32): other segments add exact zeros, so only summation order moves them
 PACKED_LOGIT_TOL = 1e-4
-# the checkpoint phase: the slice cut to 2 layers (666.9 M parameters, 12
-# bytes each on disk: fp32 weights and both Adam moments, ~8.0 GB). Run A
+# the checkpoint phase: the slice cut to 1 layer (464.5 M parameters, 12
+# bytes each on disk: fp32 weights and both Adam moments, ~5.6 GB; 2 layers
+# and ~8.0 GB until the preflight and tp decode phases needed the time). Run A
 # trains 6 steps and saves the full state once, at step 4, in the background
 # while steps 5-6 run (save_steps=4; a multiple of 2 would also save at the
 # last step and prune step 4 away); run B resumes from it and takes steps 5-6
-CKPT_OVERRIDES = TRAIN_OVERRIDES + ["model.num_hidden_layers=2", "max_steps=6"]
+CKPT_OVERRIDES = TRAIN_OVERRIDES + ["model.num_hidden_layers=1", "max_steps=6"]
 CKPT_RUN_A = ["save_steps=4", "save_final=false", "async_save=true", "save_total_limit=1",
               "resume=false"]
 CKPT_RUN_B = ["save_steps=0", "save_final=false", "resume=true"]
@@ -699,6 +728,51 @@ SP_FP32 = ["model.dtype=float32", "dataset.seq_length=4096"]
 SP_FLASH = dict(b=1, h=32, s=8192, hd=128)
 SP_SLABS = {"diagonal": (8192, 8192), "visible": (8192, 0), "masked": (0, 8192)}
 SP_PRO = dict(b=1, s=8192, d=8192, h=32, kv=4, pos0=8192)
+# phase 18 (preflight): the port's tools.preflight. Its --all verdicts over
+# conf/*.yaml at the card's budget, its byte model beside MEASURED's peaks,
+# --calibrate on PREFLIGHT_CALIBRATE (one tp rank's step at 1 and 2 layers),
+# and a --select --emit-schedule solver file for conf/llama_7b_pp4.yaml at the
+# pipeline phase's cut (PIPE_OVERRIDES) run through the trainer for the
+# pipeline phase's steps from the same init: each step's gradient norm within
+# PREFLIGHT_GRAD_RTOL and loss within PREFLIGHT_LOSS_RTOL of flat 1F1B's
+# (step 1 runs at lr 0 under warmup_steps=1, so step 3's loss is the first
+# to read an update; the named schedules' step-3 losses differ by 1.8e-5
+# relative, the H100 at 700 W). PREFLIGHT_FITS: the --all verdict of every
+# conf/*.yaml at the card's budget and mem_scale 1, as PERF.md records them;
+# a config whose model raises, or a verdict that differs, fails the phase
+PREFLIGHT_CALIBRATE = "llama2_70b_pp4_tp4_dp2.yaml"
+PREFLIGHT_GRAD_RTOL = 1e-3
+PREFLIGHT_LOSS_RTOL = 1e-4
+PREFLIGHT_FITS = {
+    "codellama_34b_16k.yaml": True, "llama2_70b_pp4_tp4_dp2.yaml": True,
+    "llama_13b_pp4_dp2.yaml": True, "llama_65b_pp8_tp2_dp2.yaml": True,
+    "llama_65b_pp8_v2_tp2_dp2.yaml": True, "llama_65b_pp8_zb1_offload_tp2_dp2.yaml": True,
+    "llama_65b_pp8_zb1_tp2_dp2.yaml": True, "llama_7b_flan_packed.yaml": True,
+    "llama_7b_pp4.yaml": True, "tiny_smoke.yaml": True,
+}
+# phase 19 (tp decode): conf/llama2_70b_pp4_tp4_dp2.yaml's model (LLaMA-2-70B:
+# d 8192, 64 q / 8 kv heads of 128, FFN 28672, vocab 32000) cut to TPD_LAYERS
+# of 80 layers, fp32, weights from TPD_SEED; tp 4 in TPD_RANKS processes on
+# card 0 over gloo (16 q and 2 kv heads a rank); TPD_PROMPTS left-padded
+# prompts of TPD_PROMPT_LENS tokens, TPD_NEW greedy tokens each. The tokens
+# must equal the unsharded one-process generate's; each step's logits,
+# teacher-forced on the reference's tokens, within 2^-8 |ref| + 2^-8 rms(ref)
+TPD_CONFIG = "llama2_70b_pp4_tp4_dp2.yaml"
+TPD_LAYERS = 2
+TPD_RANKS = 4
+TPD_SEED = 29
+TPD_PROMPTS = 8
+TPD_PROMPT_LENS = (48, 40, 33, 47, 24, 48, 16, 31)
+TPD_NEW = 64
+TPD_DEVICE = "cuda"
+
+
+# what earlier phases measured that later phases read: each phase's
+# max_memory_allocated at its exact cut (config, overrides, whether every
+# pipeline stage ran in the one process; the preflight phase holds the byte
+# model to them), the offload phase's link reading, the pipeline phase's
+# step-1 loss
+MEASURED: dict = {"peaks": {}}
 
 
 def log(msg: str) -> None:
@@ -1474,6 +1548,8 @@ def phase_trainer() -> tuple[dict, list]:
     fc.reset_launch_counts()
     fp.reset_launch_counts()
     summary = run_training(cfg, device="cuda")
+    MEASURED["peaks"]["slice"] = ("llama_7b_pp4.yaml", TRAIN_OVERRIDES + OBS_OVERRIDES,
+                                  torch.cuda.max_memory_allocated(), True)
     launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
     tensor_core = {**fa.tensor_core_counts, **fc.tensor_core_counts, **fp.tensor_core_counts}
     losses = summary["losses"]
@@ -3209,6 +3285,10 @@ def phase_pipeline() -> None:
                               / peak_flops(torch.device("cuda"))),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "bubble": bubble if name in PIPE_SCHEDULES else 0.0}
+        if name in ("1f1b", "zb1"):
+            MEASURED["peaks"][f"pp 4 at depth 8 ({name})"] = (
+                "llama_7b_pp4.yaml", PIPE_OVERRIDES + extra + timeline,
+                torch.cuda.max_memory_allocated(), True)
         del summary
         if name not in PIPE_SCHEDULES:
             continue
@@ -3221,6 +3301,9 @@ def phase_pipeline() -> None:
             raise AssertionError(f"[pipeline] {name}: calls on the tensor cores {tensor_core}, "
                                  f"expected every launch {want}")
         first_loss = losses[0] if first_loss is None else first_loss
+        if name == "1f1b":
+            MEASURED["pipe_flat"] = {"losses": losses,
+                                     "grad_norms": run_grad_norms(os.path.join(out_dir, name))}
         if timeline:
             check_timeline(os.path.join(out_dir, name), pcfg, steps)
     card = card_line()
@@ -3236,6 +3319,12 @@ def phase_pipeline() -> None:
     torch.cuda.empty_cache()
     pipeline_parity(config, first_loss)
     log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+
+
+def run_grad_norms(run_dir: str) -> list:
+    """Each logged step's gradient norm, from a run's metrics.jsonl."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [r["grad_norm"] for r in map(json.loads, f) if "grad_norm" in r]
 
 
 def check_timeline(run_dir: str, pcfg, steps: int) -> None:
@@ -3774,6 +3863,9 @@ def offload_full_depth(config: str) -> None:
     stream_ms = statistics.median(p["stream_d2h_update_h2d_ms"] for p in phases[1:])
     down, up = 4 * n, 2 * n  # fp32 gradients down, the bf16 working copy up
     floor_s = down / 1e9 / bw["d2h_gbps"] + up / 1e9 / bw["h2d_gbps"]
+    MEASURED["link"] = bw
+    MEASURED["peaks"]["host optimizer"] = (
+        os.path.basename(config), overrides, torch.cuda.max_memory_allocated(), True)
     touched = 34 * n  # AdamW reads g, p, m, v and writes p, m, v; the cast reads p, writes bf16
     log(f"[offload] deep cell ({mcfg.num_hidden_layers} layers, {n / 1e9:.3f} B parameters, "
         f"{card}): build_run {build_s:.1f} s (init on the card, masters to the host, working "
@@ -4451,6 +4543,9 @@ def phase_tp() -> None:
     procs = launch_ranks(TP_RANKS, ["--tp-worker", out_dir, str(TP_STEPS)], out_dir, "tp",
                          {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
     ranks = finish_ranks("tp", procs, out_dir, "tp", timeout=900)
+    MEASURED["peaks"]["one tp rank (largest of 8)"] = (
+        TP_CONFIG, TP_OVERRIDES + [f"max_steps={TP_STEPS}"],
+        max(r["peak_bytes"] for r in ranks), False)
     losses = ranks[0]["losses"]
     if any(r["losses"] != losses for r in ranks) or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[tp] losses differ across ranks or are not finite: "
@@ -4787,6 +4882,9 @@ def phase_sp() -> None:
     procs = launch_ranks(SP_RANKS, ["--sp-worker", out_dir, str(SP_STEPS)], out_dir, "sp",
                          {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
     ranks = finish_ranks("sp", procs, out_dir, "sp", timeout=900)
+    MEASURED["peaks"]["one sp rank (largest of 8)"] = (
+        SP_CONFIG, SP_OVERRIDES + [f"max_steps={SP_STEPS}"],
+        max(r["peak_bytes"] for r in ranks), False)
     for key in ("bf16", "planted", "ulysses", "fp32"):
         got = [r["losses"] if key == "bf16" else r[key]["losses"] for r in ranks]
         if any(x != got[0] for x in got) or not all(math.isfinite(x) for x in got[0]):
@@ -4866,7 +4964,10 @@ def phase_sp() -> None:
 
 # -- serving (phase 16) --------------------------------------------------------
 
-SERVE_CONFIG = "llama_7b_pp4.yaml"   # its model: LLaMA-7B, bf16, all 32 layers
+SERVE_CONFIG = "llama_7b_pp4.yaml"   # its model: LLaMA-7B, bf16, 32 layers
+SERVE_LAYERS = 8                     # of them (32 until the preflight and tp decode
+                                     # phases needed the time, then 16; 8 for room
+                                     # under the time limit on a slow host)
 SERVE_DEVICE = "cuda"                # where the phase runs (a CPU rehearsal sets "cpu")
 SERVE_SEED = 18
 SERVE_SLOTS = 8
@@ -5335,8 +5436,9 @@ def finish_entry_point(ep: dict) -> None:
 
 
 def phase_serving() -> None:
-    """Decode and continuous-batching serving at LLaMA-7B width and all 32
-    layers (module docstring, phase 16)."""
+    """Decode and continuous-batching serving at LLaMA-7B width and
+    SERVE_LAYERS layers (module docstring, phase 16)."""
+    import dataclasses
     import gc
 
     import torch
@@ -5348,7 +5450,8 @@ def phase_serving() -> None:
     card = card_line()
     out_dir = os.path.join(ROOT, "build", "chip_smoke", "serving")
     os.makedirs(out_dir, exist_ok=True)
-    cfg = build_model_config(load_config(os.path.join(ROOT, "conf", SERVE_CONFIG))["model"])
+    cfg = dataclasses.replace(build_model_config(load_config(
+        os.path.join(ROOT, "conf", SERVE_CONFIG))["model"]), num_hidden_layers=SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     ep = start_entry_point(cfg, out_dir)
@@ -5464,14 +5567,15 @@ def serve_checks(cfg, out_dir: str, card: str, t0: float) -> None:
 # 17. resilience: the supervised resize and the gateway's failover
 # ---------------------------------------------------------------------------
 
-# the trainer leg: conf/llama_7b_pp4.yaml at LLaMA-7B width, 2 layers, seq
+# the trainer leg: conf/llama_7b_pp4.yaml at LLaMA-7B width, 1 layer (2 until
+# the preflight and tp decode phases needed the time), seq
 # 2048, 1 row a microbatch, the nine kernels; dp 2 in 2 ranks over gloo on
 # card 0, then dp 1 in one rank with the accumulation doubled (the same
 # global batch of 2 rows)
 RES_DEVICE = "cuda"                  # where the phase runs (a CPU rehearsal sets "cpu")
 RES_STEPS = 4
 RES_OVERRIDES = [
-    "mesh.pp=1", "mesh.dp=2", "model.num_hidden_layers=2", "dataset.seq_length=2048",
+    "mesh.pp=1", "mesh.dp=2", "model.num_hidden_layers=1", "dataset.seq_length=2048",
     "max_seq_length=2048", "per_device_train_batch_size=1", "gradient_accumulation_steps=1",
     f"max_steps={RES_STEPS}", "total_steps=500", "warmup_steps=1", "attention=flash",
     "activation_checkpointing=false", "kernels.ce=pallas", "loss_vocab_chunks=4",
@@ -5959,6 +6063,325 @@ def res_timeline(log_path: str) -> None:
                 log(f"    | {line.rstrip()[:200]}")
 
 
+def preflight_sweep(preflight, args: list) -> tuple[dict, int]:
+    """`preflight --all` over `args`, its table echoed to the log: ({config
+    file name: (peak GiB, fits)}, exit code). A config whose model raised
+    (its peak printed as "?") fails the phase."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = preflight.main(["--all", *args])
+    rows = {}
+    for line in text.getvalue().splitlines():
+        log(line)
+        verdict, _, rest = line.partition(" ")
+        if verdict in ("OK", "FAIL") and ": peak " in rest:
+            path, _, peak = rest.strip().rpartition(": peak ")
+            if peak.startswith("?"):
+                raise AssertionError(f"[preflight] {path}: the byte model raised\n"
+                                     f"{text.getvalue()[-2000:]}")
+            rows[os.path.basename(path)] = (float(peak.split()[0]), verdict == "OK")
+    return rows, rc
+
+
+def phase_preflight() -> None:
+    """The port's preflight on the card (module docstring, phase 18)."""
+    import contextlib
+    import io
+
+    from llama_pipeline_parallel_tpu_torch.ops import flash_attention as fa
+    from llama_pipeline_parallel_tpu_torch.ops import fused_ce as fc
+    from llama_pipeline_parallel_tpu_torch.ops import fused_prologue as fp
+    from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
+    from llama_pipeline_parallel_tpu_torch.parallel import schedule as usched
+    from llama_pipeline_parallel_tpu_torch.tools import preflight
+    from llama_pipeline_parallel_tpu_torch.train import (
+        build_manifest,
+        build_model_config,
+        build_pipeline_config,
+        run_training,
+    )
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    card = card_line()
+    conf = os.path.join(ROOT, "conf")
+    hbm = preflight.card_hbm_gib()
+    link = MEASURED.get("link")
+    if link:
+        slower = min(link["d2h_gbps"], link["h2d_gbps"]) * 1e9 / 2**30
+        log(f"[preflight] host link (offload phase, pinned 1 GiB): d2h {link['d2h_gbps']:.2f} "
+            f"GB/s, h2d {link['h2d_gbps']:.2f} GB/s, the slower {slower:.2f} GiB/s; "
+            f"--host-bw-gibps default {preflight.HOST_BW_GIBPS} GiB/s ({card})")
+    # the verdicts at the card's budget (the model as written, mem_scale 1)
+    verdicts, rc = preflight_sweep(preflight, [os.path.join(conf, "*.yaml")])
+    log(f"[preflight] --all at the card's {hbm} GiB ({card}): rc {rc}")
+    fits = {name: ok for name, (_, ok) in verdicts.items()}
+    if fits != PREFLIGHT_FITS or rc != (0 if all(fits.values()) else 1):
+        raise AssertionError(f"[preflight] --all verdicts {fits} (rc {rc}), expected "
+                             f"{PREFLIGHT_FITS}")
+    # the byte model beside what the earlier phases' runs allocated at most
+    log(f"[preflight] the byte model against max_memory_allocated at each phase's cut "
+        f"({card}):")
+    ratios = {}
+    for name, (config, overrides, peak, in_process) in MEASURED["peaks"].items():
+        cfg = load_config(os.path.join(conf, config), overrides)
+        rows = preflight.device_rows_gib(cfg, in_process=in_process)
+        model = sum(rows.values())
+        ratios[name] = peak / 2**30 / model
+        log(f"  {name:32s} measured {peak / 2**30:7.2f} GiB  model {model:7.2f} GiB  "
+            f"measured/model {ratios[name]:.3f}  ("
+            + ", ".join(f"{k[:-4]} {v:.2f}" for k, v in rows.items() if abs(v) >= 0.005)
+            + ")")
+    if not ratios:
+        raise AssertionError("[preflight] no earlier phase recorded its peak")
+    # the memory check on the card: one tp rank's step at 1 and 2 layers
+    gc_cuda()
+    cal_cfg = load_config(os.path.join(conf, PREFLIGHT_CALIBRATE))
+    t_cal = time.perf_counter()
+    cal = preflight.calibrate(cal_cfg)
+    log(f"[preflight] --calibrate {PREFLIGHT_CALIBRATE} ({card}, "
+        f"{time.perf_counter() - t_cal:.1f} s): {cal}")
+    if not (cal.get("mem_scale") and math.isfinite(cal["mem_scale"])):
+        raise AssertionError(f"[preflight] --calibrate read no peak: {cal}")
+    scaled, rc_cal = preflight_sweep(preflight, [os.path.join(conf, "*.yaml"),
+                                                 "--mem-scale", str(cal["mem_scale"])])
+    log(f"[preflight] --all at mem_scale {cal['mem_scale']} (the calibrated ratio): rc {rc_cal}")
+    ratio = cal["reserved_over_allocated"]
+    log(f"[preflight] the verdicts hold allocated bytes; the calibrated step's allocator "
+        f"reserved {ratio}x what it allocated at 2 layers ({card}). Applied to each peak "
+        f"(an estimate, not measured at depth):")
+    for name, (peak, _) in scaled.items():
+        log(f"  {name:40s} allocated {peak:6.2f} GiB  x {ratio} = {peak * ratio:6.2f} GiB "
+            f"{'within' if peak * ratio <= hbm else 'OVER'} {hbm} GiB")
+    # a solver file for the pipeline phase's cut, trained as flat 1F1B was
+    gc_cuda()
+    config = os.path.join(conf, "llama_7b_pp4.yaml")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "preflight")
+    os.makedirs(out_dir, exist_ok=True)
+    sched = os.path.join(out_dir, "schedule.json")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc_sel = preflight.main(["--config", config, "--select", "--emit-schedule", sched]
+                                + PIPE_OVERRIDES)
+    selected = [line for line in text.getvalue().splitlines() if line.startswith("selected:")]
+    log(f"[preflight] --select --emit-schedule on {config} at the pipeline phase's cut: rc "
+        f"{rc_sel}; {selected[0] if selected else 'no winner'}")
+    if rc_sel != 0 or not selected or not os.path.isfile(sched):
+        raise AssertionError(f"[preflight] no schedule emitted:\n{text.getvalue()[-3000:]}")
+    us = usched.load(sched)
+    accum = 8 // us.num_microbatches
+    flat = MEASURED["pipe_flat"]
+    steps = len(flat["losses"])
+    run_dir = os.path.join(out_dir, "run")
+    cfg = load_config(config, PIPE_OVERRIDES + [
+        "pipeline_schedule=solver", f"schedule_file={sched}",
+        f"virtual_stages={us.virtual_stages}", f"gradient_accumulation_chunks={accum}",
+        f"max_steps={steps}", f"output_dir={run_dir}"])
+    mcfg = build_model_config(cfg["model"])
+    manifest = build_manifest(cfg, mcfg, 4)
+    pcfg = build_pipeline_config(cfg, MeshConfig(pp=4), manifest)
+    per_step = pipeline_launches(pl.flush_unit_schedule(pcfg), manifest, pcfg.accum_chunks,
+                                 pcfg.remat)
+    want = {key: c * steps for key, c in per_step.items()}
+    for module in (fa, fc, fp):
+        module.reset_launch_counts()
+    summary = run_training(cfg, device="cuda")
+    launches = {**fa.launch_counts, **fc.launch_counts, **fp.launch_counts}
+    losses, norms = summary["losses"], run_grad_norms(run_dir)
+    log(f"[preflight] the emitted sequence ({us.label}, v {us.virtual_stages}, accum {accum}) "
+        f"through the trainer, {steps} steps from the pipeline phase's init: losses "
+        f"{losses} (flat 1F1B's {flat['losses']}), gradient norms {norms} (flat 1F1B's "
+        f"{flat['grad_norms']}), launches {launches} (expected {want}) ({card})")
+    if launches != want:
+        raise AssertionError(f"[preflight] launches {launches}, expected {want}")
+    if len(norms) != steps or any(
+            abs(a - b) > PREFLIGHT_GRAD_RTOL * abs(b) for a, b in zip(norms, flat["grad_norms"])):
+        raise AssertionError(f"[preflight] the emitted schedule's gradient norms {norms} "
+                             f"against flat 1F1B's {flat['grad_norms']}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) or any(
+            abs(a - b) > PREFLIGHT_LOSS_RTOL * abs(b) for a, b in zip(losses, flat["losses"])):
+        raise AssertionError(f"[preflight] the emitted schedule's losses {losses} against "
+                             f"flat 1F1B's {flat['losses']}")
+    del summary
+    gc_cuda()
+    log(f"[preflight] phase {time.perf_counter() - t0:.1f} s")
+
+
+def tpd_model():
+    """The tp decode phase's model config: TPD_CONFIG's at TPD_LAYERS, fp32."""
+    import dataclasses
+
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.train import build_model_config
+    from llama_pipeline_parallel_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "conf", TPD_CONFIG))
+    return dataclasses.replace(build_model_config(cfg["model"]), num_hidden_layers=TPD_LAYERS,
+                               dtype=torch.float32), int(cfg["mesh"]["tp"])
+
+
+def tpd_forced(params, cfg, ids, mask, tokens, tp_group=None, tp: int = 1):
+    """Each step's fp32 logits [TPD_NEW, b, V], teacher-forced on `tokens`:
+    the prompt's prefill (its last position), then one decode step a token;
+    and the prefill's seconds."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+
+    b, p = ids.shape
+    n = tokens.shape[1]
+    cache = decode.init_kv_cache(cfg, b, p + n, device=TPD_DEVICE, tp=tp)
+    kv_mask = F.pad(mask.to(torch.int32), (0, n))
+    positions = (mask.cumsum(1) - 1).clamp_min(0)
+    tpd_sync()
+    t = time.perf_counter()
+    logits, _ = decode.forward_with_cache(params, ids, cache, positions, 0, kv_mask, cfg,
+                                          last_only=True, tp_group=tp_group)
+    tpd_sync()
+    prefill_s = time.perf_counter() - t
+    out = [logits[:, 0]]
+    pos = positions[:, -1] + 1
+    for i in range(n - 1):
+        kv_mask[:, p + i] = 1
+        step, _ = decode.forward_with_cache(params, tokens[:, i:i + 1], cache, pos[:, None],
+                                            p + i, kv_mask, cfg, causal=False,
+                                            tp_group=tp_group)
+        out.append(step[:, 0])
+        pos = pos + 1
+    return torch.stack(out), prefill_s
+
+
+def tpd_generate(params, cfg, ids, mask, tp_group=None) -> tuple:
+    """Greedy generate's tokens and its seconds."""
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+
+    tpd_sync()
+    t = time.perf_counter()
+    tokens = decode.generate(params, ids, mask, cfg,
+                             decode.GenerationConfig(max_new_tokens=TPD_NEW),
+                             tp_group=tp_group)["tokens"]
+    tpd_sync()
+    return tokens, time.perf_counter() - t
+
+
+def tpd_sync() -> None:
+    import torch
+
+    if TPD_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_decode_worker(out_dir: str) -> int:
+    """One rank of the tp decode phase (RANK / WORLD_SIZE / MASTER_* and
+    LPT_DIST_BACKEND=gloo in its environment): its Megatron shard of the
+    model (init_params_sharded: the same values as the unsharded init),
+    greedy generate on the phase's prompts, then the teacher-forced logits
+    on the reference's tokens (`inputs.pt` in out_dir). Writes
+    `tpd-rank<r>.json` and, rank 0, `tpd-logits.pt`."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama.manifest import StageManifest
+    from llama_pipeline_parallel_tpu_torch.parallel import distributed
+    from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from llama_pipeline_parallel_tpu_torch.parallel.train_step import init_params_sharded
+
+    distributed.initialize_distributed(TPD_DEVICE)
+    rank = distributed.process_index()
+    cfg, _ = tpd_model()
+    mesh = make_mesh(MeshConfig(tp=TPD_RANKS))
+    t0 = time.perf_counter()
+    params = init_params_sharded(cfg, TPD_SEED, StageManifest.for_config(cfg, 1), (0,),
+                                 tp_rank=mesh.tp_rank, tp=mesh.tp, device=TPD_DEVICE)[0][0]
+    build_s = time.perf_counter() - t0
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"))
+    ids, mask = inputs["ids"].to(TPD_DEVICE), inputs["mask"].to(TPD_DEVICE)
+    tokens, gen_s = tpd_generate(params, cfg, ids, mask, mesh.tp_group)
+    logits, prefill_s = tpd_forced(params, cfg, ids, mask, inputs["tokens"].to(TPD_DEVICE),
+                                   mesh.tp_group, mesh.tp)
+    if rank == 0:
+        torch.save(logits.cpu(), os.path.join(out_dir, "tpd-logits.pt"))
+    with open(os.path.join(out_dir, f"tpd-rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "tp_rank": mesh.tp_rank, "tokens": tokens.tolist(),
+                   "generate_s": gen_s, "prefill_s": prefill_s, "build_s": build_s,
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if TPD_DEVICE == "cuda" else 0),
+                   "local_heads": [int(params["layers.attn.wq"].shape[-1]) // cfg.head_dim,
+                                   int(params["layers.attn.wk"].shape[-1]) // cfg.head_dim]},
+                  f)
+    distributed.shutdown()
+    return 0
+
+
+def phase_tp_decode() -> None:
+    """Generation with tp-sharded params at LLaMA-2-70B width (module
+    docstring, phase 19)."""
+    import torch
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import model as llama
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg, tp = tpd_model()
+    if tp != TPD_RANKS:
+        raise AssertionError(f"[tp decode] {TPD_CONFIG} has tp {tp}, not {TPD_RANKS}")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "tp_decode")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator().manual_seed(TPD_SEED)
+    width = max(TPD_PROMPT_LENS)
+    ids = torch.randint(3, cfg.vocab_size, (TPD_PROMPTS, width), generator=gen)
+    mask = (torch.arange(width)[None] >= width - torch.tensor(TPD_PROMPT_LENS)[:, None]).long()
+    params = llama.init_params(cfg, TPD_SEED, device=TPD_DEVICE)
+    ids_d, mask_d = ids.to(TPD_DEVICE), mask.to(TPD_DEVICE)
+    ref_tokens, ref_gen_s = tpd_generate(params, cfg, ids_d, mask_d)
+    ref_logits, ref_prefill_s = tpd_forced(params, cfg, ids_d, mask_d, ref_tokens)
+    torch.save({"ids": ids, "mask": mask, "tokens": ref_tokens.cpu()},
+               os.path.join(out_dir, "inputs.pt"))
+    ref_s = time.perf_counter() - t0
+    t_ranks = time.perf_counter()
+    ranks = finish_ranks("tp decode", launch_ranks(TPD_RANKS, ["--tp-decode-worker", out_dir],
+                                                   out_dir, "tpd"), out_dir, "tpd", timeout=600)
+    ranks_s = time.perf_counter() - t_ranks
+    got = torch.load(os.path.join(out_dir, "tpd-logits.pt")).to(TPD_DEVICE)
+    ref = ref_logits
+    bound = 2.0 ** -8 * ref.abs() + 2.0 ** -8 * ref.square().mean(-1, keepdim=True).sqrt()
+    worst = float(((got - ref).abs() / bound).amax())
+    per_step = ((got - ref).abs() / bound).amax(dim=(1, 2))
+    want = ref_tokens.cpu().tolist()
+    diff = [(r["rank"], first_difference(r["tokens"], want)) for r in ranks
+            if r["tokens"] != want]
+    r0 = ranks[0]
+    tick_ms = 1e3 * (r0["generate_s"] - r0["prefill_s"]) / (TPD_NEW - 1)
+    ref_tick_ms = 1e3 * (ref_gen_s - ref_prefill_s) / (TPD_NEW - 1)
+    log(f"[tp decode] {TPD_CONFIG}'s model at {TPD_LAYERS} of 80 layers, fp32, tp "
+        f"{TPD_RANKS} in {TPD_RANKS} processes on card 0 over gloo (local heads q / kv "
+        f"{r0['local_heads']}), {TPD_PROMPTS} prompts of {list(TPD_PROMPT_LENS)} tokens, "
+        f"{TPD_NEW} greedy tokens each ({card})")
+    log(f"[tp decode] tokens equal to the unsharded generate's on "
+        f"{TPD_RANKS - len(diff)} of {TPD_RANKS} ranks; logits, teacher-forced on its tokens: "
+        f"max |tp - ref| / (2^-8 |ref| + 2^-8 rms(ref)) {worst:.4f} (per step, first 8: "
+        f"{[round(float(x), 4) for x in per_step[:8]]})")
+    log(f"[tp decode] rank 0: generate {r0['generate_s']:.2f} s (prefill {1e3 * r0['prefill_s']:.1f} "
+        f"ms, tick {tick_ms:.2f} ms: eager, gloo staging), max_memory_allocated "
+        f"{r0['peak_bytes'] / 2**30:.2f} GiB, shard built in {r0['build_s']:.1f} s; the unsharded "
+        f"reference in this process: generate {ref_gen_s:.2f} s (prefill "
+        f"{1e3 * ref_prefill_s:.1f} ms, tick {ref_tick_ms:.2f} ms: CUDA graph), reference "
+        f"{ref_s:.1f} s, ranks {ranks_s:.1f} s")
+    del params, ref_logits, got, ref, bound
+    gc_cuda()
+    if diff:
+        raise AssertionError(f"[tp decode] tokens differ from the unsharded run: {diff}")
+    if worst > 1.0:
+        raise AssertionError(f"[tp decode] logits beyond the 2^-8 rule: {worst:.4f}x")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[tp decode] phase {time.perf_counter() - t0:.1f} s")
+
+
 def gc_cuda() -> None:
     import gc
 
@@ -6011,6 +6434,8 @@ def main() -> int:
     timed(phase_sp)
     timed(phase_serving)
     timed(phase_resilience)
+    timed(phase_preflight)
+    timed(phase_tp_decode)
     for key, row in rows.items():
         row["launches"] = launches[key]
     log(f"[done] {time.perf_counter() - t0:.1f} s; seconds by phase {seconds}")
@@ -6029,4 +6454,6 @@ if __name__ == "__main__":
         sys.exit(tp_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(sp_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-decode-worker"]:
+        sys.exit(tp_decode_worker(*sys.argv[2:]))
     sys.exit(main())

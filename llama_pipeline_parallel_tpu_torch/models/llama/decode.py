@@ -12,6 +12,13 @@ plain functions on the flat parameter dict (models/llama/model.py):
   kv head)), `paged_decode_step`, `paged_prefill_chunk` and
   `paged_prefill_span` over it.
 
+`generate` and `forward_with_cache` also run with tp-sharded params (the
+reference's decode under a Megatron-sharded tree, where GSPMD inserts the
+collectives): each rank of `tp_group` holds its shard (parallel/tp.tp_shard)
+and a cache of its kv heads, wo / down partial products are summed over the
+group, and the vocab-parallel logits are gathered, so every rank samples
+the same tokens. The tick then runs eagerly (no CUDA graph).
+
 JAX's buffer donation becomes in-place writes: the cache, the pool and the
 kv mask handed to an entry point are updated where they lie and returned.
 Out-of-range ids and positions, which JAX would clamp, raise.
@@ -57,6 +64,8 @@ from llama_pipeline_parallel_tpu_torch.models.llama.config import LlamaConfig
 from llama_pipeline_parallel_tpu_torch.ops.attention import NEG_INF
 from llama_pipeline_parallel_tpu_torch.ops.rmsnorm import rms_norm
 from llama_pipeline_parallel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from llama_pipeline_parallel_tpu_torch.parallel import distributed
+from llama_pipeline_parallel_tpu_torch.parallel.tp import tp_reduce
 
 Params = dict[str, torch.Tensor]
 Generators = Sequence[torch.Generator | None]
@@ -141,12 +150,14 @@ def _check_range(x, hi: int, what: str) -> np.ndarray:
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, *,
-                  device: str | torch.device = "cuda") -> dict:
+                  device: str | torch.device = "cuda", tp: int = 1) -> dict:
     """Zeroed cache. k/v: [n_layers, kv_h, b, max_len, hd] in cfg.dtype:
     heads first, where the reference's is [n_layers, b, max_len, kv_h, hd],
     so that a block of positions of a tile of rows is a strided view the
-    attention's batched products read in place (the page pool's layout)."""
-    shape = (cfg.num_hidden_layers, cfg.kv_heads, batch, max_len, cfg.head_dim)
+    attention's batched products read in place (the page pool's layout).
+    Under tensor parallelism (`tp` ranks) a rank's cache holds its own
+    kv_h / tp heads."""
+    shape = (cfg.num_hidden_layers, cfg.kv_heads // tp, batch, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -190,21 +201,31 @@ def _qkv(layer: Params, cfg: LlamaConfig):
     return fn
 
 
-def _post(layer: Params, cfg: LlamaConfig):
-    """Row-wise epilogue of a layer: out-projection, residual, the MLP."""
+def _post(layer: Params, cfg: LlamaConfig, tp_group=None):
+    """Row-wise epilogue of a layer: out-projection, residual, the MLP; under
+    `tp_group` wo and down are row-parallel, their partial products summed
+    over the group (tp_reduce)."""
     dt = cfg.dtype
 
     def fn(x, attn):
-        x = x + attn.reshape(x.shape[0], -1) @ layer["attn.wo"].to(dt)
-        return llama.mlp_block(layer, x, cfg)
+        x = x + tp_reduce(attn.reshape(x.shape[0], -1) @ layer["attn.wo"].to(dt), tp_group)
+        return llama.mlp_block(layer, x, cfg, tp_group)
 
     return fn
 
 
-def _head(params: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """final norm -> lm_head on [n, d] rows in ROW_TILE tiles -> fp32 [n, V]."""
-    return _rows(lambda h: llama.lm_head(params, llama.final_norm(params, h, cfg), cfg),
-                 ROW_TILE, x)
+def _head(params: Params, x: torch.Tensor, cfg: LlamaConfig, tp_group=None) -> torch.Tensor:
+    """final norm -> lm_head on [n, d] rows in ROW_TILE tiles -> fp32 [n, V];
+    under `tp_group` the lm_head is vocab-parallel and each rank's logits
+    columns are gathered in rank order, so every rank holds the same
+    [n, V] and samples the same tokens."""
+    local = _rows(lambda h: llama.lm_head(params, llama.final_norm(params, h, cfg), cfg),
+                  ROW_TILE, x)
+    return distributed.all_gather_dim(local, tp_group, -1)
+
+
+def _tp(tp_group) -> int:
+    return distributed.group_place(tp_group)[1]
 
 
 BlockFn = Callable[[int], tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -458,14 +479,17 @@ def _embed_rope(params, ids, positions, cfg):
 
 def _prefill_rows(params: Params, cfg: LlamaConfig, ids: torch.Tensor, positions: torch.Tensor,
                   q_pos: np.ndarray, write: Callable, blocks: Callable, length: int,
-                  first_seen: Sequence[int]) -> torch.Tensor:
+                  first_seen: Sequence[int], tp_group=None) -> torch.Tensor:
     """The layers over prompt tokens ids [b, C] at rope `positions` [b, C]
     and slot positions q_pos [C] (host): each layer computes q/k/v in
     PREFILL_TILE tiles, `write(i, k, v)` stores layer i's k/v [b, C, kv_h,
     hd], then each row attends causally over `blocks(i, row)`, a row of
     `length` positions whose first real one is first_seen[row]. Returns the
-    last layer's hidden states [b, C, d]."""
+    last layer's hidden states [b, C, d]. Under `tp_group` the layers hold
+    the rank's heads and columns (q/k/v and gate/up column-parallel, wo and
+    down row-parallel)."""
     b, c = ids.shape
+    n_kv = cfg.kv_heads // _tp(tp_group)
     x, cos, sin = _embed_rope(params, ids, positions, cfg)
     x = x.reshape(b * c, -1)
     cos, sin = cos.reshape(b * c, -1), sin.reshape(b * c, -1)
@@ -474,8 +498,8 @@ def _prefill_rows(params: Params, cfg: LlamaConfig, ids: torch.Tensor, positions
         write(i, k.view(b, c, *k.shape[1:]), v.view(b, c, *v.shape[1:]))
         q = q.view(b, c, *q.shape[1:])
         attn = torch.cat([_attend_prefill(q[r], q_pos, blocks(i, r), length, first_seen[r],
-                                          cfg.kv_heads) for r in range(b)])
-        x = _rows(_post(layer, cfg), PREFILL_TILE, x, attn)
+                                          n_kv) for r in range(b)])
+        x = _rows(_post(layer, cfg, tp_group), PREFILL_TILE, x, attn)
     return x.view(b, c, -1)
 
 
@@ -486,7 +510,8 @@ def _first_seen(mask: torch.Tensor) -> list[int]:
 
 
 def _decode_rows(params: Params, cfg: LlamaConfig, token: torch.Tensor, pos: torch.Tensor,
-                 last_pos: int, write: Callable, block_rows: Callable) -> torch.Tensor:
+                 last_pos: int, write: Callable, block_rows: Callable,
+                 tp_group=None) -> torch.Tensor:
     """The layers over one token a row (token / pos [R]): q/k/v in ROW_TILE
     tiles, `write(i, k, v)` stores layer i's k/v [R, kv_h, hd], attention
     over `block_rows(i, a, b)` for blocks 0..last_pos. Returns fp32 logits
@@ -494,13 +519,14 @@ def _decode_rows(params: Params, cfg: LlamaConfig, token: torch.Tensor, pos: tor
     x, cos, sin = _embed_rope(params, token[:, None], pos[:, None], cfg)
     x, cos, sin = x[:, 0], cos[:, 0], sin[:, 0]
     n_blocks = _n_blocks(last_pos)
+    n_kv = cfg.kv_heads // _tp(tp_group)
     for i, layer in enumerate(_layers(params, cfg)):
         q, k, v = _rows(_qkv(layer, cfg), ROW_TILE, x, cos, sin)
         write(i, k, v)
         attn = _attend_rows(q[:, None], lambda a, b, i=i: block_rows(i, a, b), n_blocks,
-                            cfg.kv_heads)
-        x = _rows(_post(layer, cfg), ROW_TILE, x, attn[:, 0])
-    return _head(params, x, cfg)
+                            n_kv)
+        x = _rows(_post(layer, cfg, tp_group), ROW_TILE, x, attn[:, 0])
+    return _head(params, x, cfg, tp_group)
 
 
 def _dev_long(x, device) -> torch.Tensor:
@@ -510,7 +536,7 @@ def _dev_long(x, device) -> torch.Tensor:
 @torch.no_grad()
 def forward_with_cache(params: Params, input_ids, cache: dict, positions, write_pos,
                        kv_mask: torch.Tensor, cfg: LlamaConfig, causal: bool = True,
-                       last_only: bool = False) -> tuple[torch.Tensor, dict]:
+                       last_only: bool = False, tp_group=None) -> tuple[torch.Tensor, dict]:
     """Embed -> cached layers -> final norm -> fp32 logits [b, s, V]; the
     cache is updated in place and returned.
 
@@ -518,7 +544,9 @@ def forward_with_cache(params: Params, input_ids, cache: dict, positions, write_
     history, written at slot 0 (`write_pos` must be 0). `causal=False` is
     the decode step: s == 1, every row writes slot `write_pos` and attends
     over its cache row gated by kv_mask alone. `last_only` projects the
-    final position only."""
+    final position only. `tp_group`: this rank's Megatron shard of the
+    params (parallel/tp.tp_shard) and a cache of its kv heads
+    (init_kv_cache's `tp`); every rank gets the whole [b, s, V] logits."""
     dev = _device(params)
     ids = _dev_long(input_ids, dev)
     check_ids(ids, cfg.vocab_size)
@@ -531,18 +559,19 @@ def forward_with_cache(params: Params, input_ids, cache: dict, positions, write_
             raise ValueError("causal (prefill) forward writes from slot 0; got write_pos "
                              f"{wp}")
         _check_range([s - 1], max_len, "prompt positions")
-        x = _prefill_dense(params, cfg, ids, pos, cache, kv_mask)
+        x = _prefill_dense(params, cfg, ids, pos, cache, kv_mask, tp_group)
         x = x[:, -1:] if last_only else x
-        return _head(params, x.reshape(-1, x.shape[-1]), cfg).view(b, x.shape[1], -1), cache
+        return (_head(params, x.reshape(-1, x.shape[-1]), cfg, tp_group).view(b, x.shape[1], -1),
+                cache)
     if s != 1:
         raise ValueError(f"decode forward takes one token a row, got {s}")
     _check_range([wp], max_len, "write_pos")
     logits = _decode_dense(params, cfg, ids[:, 0], pos[:, 0], torch.full((b,), wp), cache,
-                           kv_mask)
+                           kv_mask, tp_group)
     return logits[:, None], cache
 
 
-def _prefill_dense(params, cfg, ids, pos, cache, kv_mask):
+def _prefill_dense(params, cfg, ids, pos, cache, kv_mask, tp_group=None):
     """Prefill rows [b, P] from slot 0 into a dense cache (in place)."""
     p = ids.shape[1]
 
@@ -555,7 +584,7 @@ def _prefill_dense(params, cfg, ids, pos, cache, kv_mask):
                              kv_mask[r:r + 1])
 
     return _prefill_rows(params, cfg, ids, pos, np.arange(p), write, blocks, p,
-                         _first_seen(kv_mask[:, :p]))
+                         _first_seen(kv_mask[:, :p]), tp_group)
 
 
 # id of a state tensor (a cache's or a pool's k) -> {signature: _Graph},
@@ -605,8 +634,10 @@ def _replay(state: torch.Tensor, signature: tuple, run: Callable,
     return g(inputs)
 
 
-def _decode_dense(params, cfg, token, pos, write_pos, cache, kv_mask):
-    """One decode step over dense cache rows; write_pos [R] host ints."""
+def _decode_dense(params, cfg, token, pos, write_pos, cache, kv_mask, tp_group=None):
+    """One decode step over dense cache rows; write_pos [R] host ints. Under
+    `tp_group` the tick runs eagerly: its collectives (gloo's, staged
+    through host memory) cannot be captured in a CUDA graph."""
     wp = _host(write_pos).astype(np.int64)
     dev = cache["k"].device
     last = int(wp.max())
@@ -623,11 +654,12 @@ def _decode_dense(params, cfg, token, pos, write_pos, cache, kv_mask):
                                  _pad_rows(cache["v"][i, :, a:b], ROW_TILE, 1),
                                  _pad_rows(kv_mask[a:b], ROW_TILE))
 
-        return _decode_rows(params, cfg, tok_d, pos_d, last, write, block_rows)
+        return _decode_rows(params, cfg, tok_d, pos_d, last, write, block_rows, tp_group)
 
     signature = ("dense", len(wp), _n_blocks(last), kv_mask.data_ptr(),
                  params["lm_head"].data_ptr())
-    return _replay(cache["k"], signature, run, [
+    replay = _replay if tp_group is None else (lambda state, sig, fn, inputs: fn(*inputs))
+    return replay(cache["k"], signature, run, [
         torch.as_tensor(token, dtype=torch.int64).to(dev),
         torch.as_tensor(pos, dtype=torch.int64).to(dev), torch.as_tensor(wp).to(dev)])
 
@@ -647,7 +679,7 @@ def _generators(generator, b: int) -> list:
 
 @torch.no_grad()
 def generate(params: Params, input_ids, attention_mask, cfg: LlamaConfig, gen: GenerationConfig,
-             generator: torch.Generator | Generators | None = None) -> dict:
+             generator: torch.Generator | Generators | None = None, tp_group=None) -> dict:
     """Batched generation from LEFT-padded prompts.
 
     input_ids / attention_mask: [b, P] (mask 0 = pad) on any device; the
@@ -655,7 +687,12 @@ def generate(params: Params, input_ids, attention_mask, cfg: LlamaConfig, gen: G
     on that device for the batch (rows draw in order), or one a row; only
     sampling (temperature > 0) reads it. Returns {"tokens": [b,
     max_new_tokens] int64 (pad_token_id after eos), "done": [b] bool}.
-    Params are the canonical layout (the trainer's or `compute_params`).
+    Params are the canonical layout (the trainer's or `compute_params`);
+    under `tp_group` each rank holds its Megatron shard of them
+    (parallel/tp.tp_shard: q/k/v/gate/up column-parallel, wo/down
+    row-parallel, the lm_head vocab-parallel) and a cache of its kv heads,
+    the gathered logits are the same on every rank, and so are the tokens
+    (sampling ranks need generators seeded alike).
     """
     dev = _device(params)
     ids = _dev_long(input_ids, dev)
@@ -666,10 +703,10 @@ def generate(params: Params, input_ids, attention_mask, cfg: LlamaConfig, gen: G
     max_len = prompt_len + gen.max_new_tokens
     positions = (mask.cumsum(1) - 1).clamp_min(0)
 
-    cache = init_kv_cache(cfg, b, max_len, device=dev)
+    cache = init_kv_cache(cfg, b, max_len, device=dev, tp=_tp(tp_group))
     kv_mask = F.pad(mask, (0, gen.max_new_tokens))
-    x = _prefill_dense(params, cfg, ids, positions, cache, kv_mask)
-    token = _sample(_head(params, x[:, -1], cfg), gen, gens)
+    x = _prefill_dense(params, cfg, ids, positions, cache, kv_mask, tp_group)
+    token = _sample(_head(params, x[:, -1], cfg, tp_group), gen, gens)
 
     pos = positions[:, -1] + 1
     done = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -677,7 +714,8 @@ def generate(params: Params, input_ids, attention_mask, cfg: LlamaConfig, gen: G
     for t in range(gen.max_new_tokens - 1):
         write_pos = prompt_len + t
         kv_mask[:, write_pos] = 1
-        logits = _decode_dense(params, cfg, token, pos, np.full(b, write_pos), cache, kv_mask)
+        logits = _decode_dense(params, cfg, token, pos, np.full(b, write_pos), cache, kv_mask,
+                               tp_group)
         nxt = _sample(logits, gen, gens)
         out.append(torch.where(done, gen.pad_token_id, token))
         if gen.eos_token_id is not None:

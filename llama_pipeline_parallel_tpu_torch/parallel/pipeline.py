@@ -404,6 +404,22 @@ def host_stash_bytes(pcfg: PipelineConfig, mb_rows: int, local_seqlen: int,
     return total
 
 
+def loss_head_bytes(pcfg: PipelineConfig, mb_rows: int, local_seqlen: int,
+                    hidden_size: int, vocab_size: int) -> int:
+    """Live bytes of the last stage's loss head (the reference's term,
+    which tools/preflight.py's byte model adds and its selection scores as
+    the ce axis): the dense and chunked heads hold one fp32 [tokens,
+    V / loss_chunks] logits block, plus, when chunked, the backward's fp32
+    [tokens, hidden] dh accumulator; the CE kernels (`kernels.ce: pallas`)
+    keep only [tokens]-sized statistics, ~0."""
+    tokens = mb_rows * local_seqlen
+    if pcfg.kernel_ce:
+        return 0
+    logits_block = tokens * (vocab_size // max(pcfg.loss_chunks, 1)) * 4
+    dh_acc = tokens * hidden_size * 4 if pcfg.loss_chunks > 1 else 0
+    return logits_block + dh_acc
+
+
 # ---------------------------------------------------------------------------
 # Parameters: the canonical [num_layers, ...] tree <-> per-chunk trees
 # ---------------------------------------------------------------------------

@@ -144,6 +144,9 @@ _LAUNCHER_FLAGS = {"-m", "--module", "--no-python", "--no_python", "--standalone
                    "--run-path", "--run_path", "--virtual-local-rank",
                    "--virtual_local_rank"}
 _NPROC = ("--nproc_per_node", "--nproc-per-node")
+# seconds a launcher whose workers all left on the graceful stop is given to
+# exit by itself before it is killed (its exit code is the incarnation's)
+LAUNCHER_EXIT_S = 30.0
 
 
 def _launcher_index(cmd: list[str]) -> int | None:
@@ -565,16 +568,23 @@ class Supervisor:
 
     # -- the child's process tree --------------------------------------------
 
-    def _graceful_stop(self, child: subprocess.Popen, sig: int) -> None:
+    def _graceful_stop(self, child: subprocess.Popen, sig: int
+                       ) -> set[tuple[int, int]]:
         """Deliver the graceful stop: to a launcher's workers (each saves and
         exits 0, and the launcher then exits 0), else to the child itself. A
-        launcher whose workers have not started yet gets the signal itself."""
+        launcher whose workers have not started yet gets the signal itself.
+        Returns (pid, start time) of the workers signalled."""
         targets = (_children(child.pid) if self._launcher_child else [])
+        workers = set()
         for pid in targets or [child.pid]:
+            st = _stat(pid) if targets else None
             try:
                 os.kill(pid, sig)
             except OSError:
-                pass
+                continue
+            if st is not None:
+                workers.add((pid, st[1]))
+        return workers
 
     def _track_tree(self, child: subprocess.Popen) -> None:
         """Remember every process below the child, with its start time (a
@@ -694,13 +704,21 @@ class Supervisor:
 
     def _kill_hung(self, child: subprocess.Popen) -> None:
         """The graceful stop (the trainer checkpoints and exits cleanly),
-        grace, then SIGKILL to the whole tree."""
+        grace, then SIGKILL to the whole tree. A launcher whose workers all
+        complied within the grace is given LAUNCHER_EXIT_S more to exit."""
         self._track_tree(child)
-        self._graceful_stop(child, signal.SIGTERM)
+        workers = self._graceful_stop(child, signal.SIGTERM)
         try:
             child.wait(timeout=self.cfg.grace_s)
         except subprocess.TimeoutExpired:
-            pass
+            # the grace is the workers' to comply; once all have exited, the
+            # launcher exits on its own at its next monitor poll and store
+            # shutdown (~0.4 s on an idle host, more on a loaded one)
+            if workers and not any(_alive(p, s) for p, s in workers):
+                try:
+                    child.wait(timeout=LAUNCHER_EXIT_S)
+                except subprocess.TimeoutExpired:
+                    pass
         self._kill_tree(child)
 
     def _run_once(self, incarnation: int, cmd: list[str] | None = None,

@@ -246,25 +246,31 @@ time.sleep(120)
 """
 
 
-@pytest.mark.parametrize("mode", ["graceful", "hard"])
+@pytest.mark.parametrize("mode", ["graceful", "hard", "graceful-slow-launcher"])
 def test_no_rank_outlives_a_hung_incarnation(tmp_path, mode):
     """A torch.distributed.run launch of 2 ranks whose heartbeat stops is
     hung: the graceful stop goes to the ranks (not the launcher), so ranks
     that honour SIGTERM exit 0 and the launcher exits 0; ranks that ignore it
     are SIGKILLed with the launcher after the grace. Either way no rank is
-    alive when the supervisor returns."""
+    alive when the supervisor returns. The grace is the ranks': a launcher
+    that sees its ranks' exit only after the grace (a monitor interval of 5 s
+    here, a loaded host in practice) still exits 0."""
     script = tmp_path / "rank.py"
     script.write_text(_RANK)
     out = str(tmp_path / "run")
+    slow = ["--monitor_interval", "5"] if mode.endswith("slow-launcher") else []
+    mode = mode.split("-")[0]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
-           "--master_port", str(tr.free_port()), str(script), str(tmp_path), mode, out]
+           *slow, "--master_port", str(tr.free_port()), str(script), str(tmp_path),
+           mode, out]
     # a heartbeat stamped ahead covers the launch however long it takes on a
     # loaded machine; rank 0's last heartbeat replaces it once both ranks run
     os.makedirs(out)
     with open(os.path.join(out, "health.json"), "w") as f:
         json.dump({"time": time.time() + 600}, f)
     sup = t_sup.Supervisor(cmd, t_sup.SupervisorConfig(
-        output_dir=out, max_restarts=0, hang_timeout_s=2.0, grace_s=1.0,
+        output_dir=out, max_restarts=0, hang_timeout_s=2.0,
+        grace_s=10.0 if mode == "graceful" and not slow else 1.0,
         crash_loop_threshold=99, poll_s=0.1), env=tr.env())
     t0 = time.monotonic()
     assert sup.run() == 2  # the one incarnation hung: the budget is spent

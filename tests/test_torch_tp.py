@@ -74,6 +74,12 @@ TRAIN_LAYOUTS = {"pp2xtp2": ["mesh.dp=1", "gradient_accumulation_steps=4"],
 TRAIN_ARGS = ["mesh.tp=2", "max_steps=3", "logging_steps=1", "save_final=true",
               "resume=false", "dataset.pseudo_dataset_len=64"]
 INIT_SEED = 11
+# generation with tp-sharded params: the tiny preset (4 q heads, 2 kv heads)
+# at tp 2 in fp32, on left-padded prompts; greedy and seeded sampling
+GEN_TP = dict(kind="generate", name="generate", pp=1, dp=2, tp=2, seed=7,
+              greedy=dict(max_new_tokens=8),
+              sampled=dict(max_new_tokens=8, temperature=0.8, top_k=20, top_p=0.9))
+GEN_LOGITS_ATOL = 1e-5
 
 
 def _job_step(name):
@@ -150,7 +156,10 @@ def tp_runs(ref, tmp_path_factory):
               "lm_head": torch.from_numpy(0.3 * rng.randn(64, 256).astype(np.float32)),
               "targets": torch.from_numpy(np.where(rng.rand(2, 6) < 0.2, -100,
                                                    rng.randint(0, 256, (2, 6)))
-                                          .astype(np.int64))}
+                                          .astype(np.int64)),
+              "gen_ids": torch.from_numpy(rng.randint(3, 256, (3, 7)).astype(np.int64)),
+              "gen_mask": torch.from_numpy((np.arange(7)[None] >= np.array([[0], [2], [4]]))
+                                           .astype(np.int64))}
     four, eight = tmp_path_factory.mktemp("tp4"), tmp_path_factory.mktemp("tp8")
     train_dir = tmp_path_factory.mktemp("tp_train")
     _warm_checkpoints(ref, train_dir)
@@ -159,7 +168,7 @@ def tp_runs(ref, tmp_path_factory):
         f"output_dir={train_dir}/{name}", f"model_name_or_path={train_dir}/warm_port"])
         for name, extra in TRAIN_LAYOUTS.items()}
     _write_jobs(four, [_job_step(n) for n in STEPS if _ranks(n) == 4]
-                + [dict(kind="ops", name="ops", pp=2, dp=1, tp=2),
+                + [dict(kind="ops", name="ops", pp=2, dp=1, tp=2), GEN_TP,
                        trains["pp2xtp2"], trains["pp1xtp2xdp2"]], inputs)
     _write_jobs(eight, [_job_step(n) for n in STEPS if _ranks(n) == 8]
                 + [dict(kind="init", name="init", pp=2, dp=2, tp=2, seed=INIT_SEED),
@@ -177,8 +186,51 @@ def tp_runs(ref, tmp_path_factory):
                for name in STEPS}
     return dict(tree=tree, inputs=inputs, want=want, results=results,
                 ops=_results(four, "ops", 4), init=_results(eight, "init", 8),
+                generate=_results(four, "generate", 4),
                 train_dir=train_dir,
                 dirs={name: four if _ranks(name) == 4 else eight for name in STEPS})
+
+
+def test_generate_with_tp_sharded_params(ref, tp_runs):
+    """Generation with Megatron-sharded params at tp 2 (GQA: 2 q heads and 1
+    kv head a rank): greedy tokens equal the port's unsharded `generate`
+    and the JAX package's on the same weights, on every rank;
+    forward_with_cache's logits (prefill and one decode step) within 1e-5 of
+    the unsharded; a seeded sampling run gives the same tokens on both tp
+    ranks of each replica and in the unsharded run."""
+    import importlib
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode as td
+
+    rdecode = importlib.import_module("llama_pipeline_parallel_tpu.models.llama.decode")
+    cfg = TConfig.tiny(dtype=torch.float32)
+    params = tp_runs["inputs"]["params"]
+    ids, mask = tp_runs["inputs"]["gen_ids"], tp_runs["inputs"]["gen_mask"]
+    greedy = td.generate(params, ids, mask, cfg, td.GenerationConfig(**GEN_TP["greedy"]))
+    want = np.asarray(rdecode.generate(
+        tp_runs["tree"], jnp.asarray(ids.numpy().astype(np.int32)),
+        jnp.asarray(mask.numpy().astype(np.int32)), ref.config.LlamaConfig.tiny(
+            dtype=jnp.float32), rdecode.GenerationConfig(**GEN_TP["greedy"]))["tokens"])
+    np.testing.assert_array_equal(greedy["tokens"].numpy(), want)
+    sampled = td.generate(params, ids, mask, cfg, td.GenerationConfig(**GEN_TP["sampled"]),
+                          generator=torch.Generator().manual_seed(GEN_TP["seed"]))["tokens"]
+    b, p = ids.shape
+    cache = td.init_kv_cache(cfg, b, p + 1, device="cpu")
+    kv_mask = torch.nn.functional.pad(mask.to(torch.int32), (0, 1))
+    positions = (mask.cumsum(1) - 1).clamp_min(0)
+    prefill, cache = td.forward_with_cache(params, ids, cache, positions, 0, kv_mask, cfg)
+    kv_mask[:, p] = 1
+    step, _ = td.forward_with_cache(params, greedy["tokens"][:, :1], cache,
+                                    positions[:, -1:] + 1, p, kv_mask, cfg, causal=False)
+    ranks = tp_runs["generate"]
+    assert sorted(r["tp_rank"] for r in ranks) == [0, 0, 1, 1]
+    for r in ranks:
+        np.testing.assert_array_equal(r["greedy"].numpy(), want)
+        np.testing.assert_array_equal(r["sampled"].numpy(), sampled.numpy())
+        np.testing.assert_allclose(r["prefill"].numpy(), prefill.numpy(), rtol=0,
+                                   atol=GEN_LOGITS_ATOL)
+        np.testing.assert_allclose(r["step"].numpy(), step.numpy(), rtol=0,
+                                   atol=GEN_LOGITS_ATOL)
 
 
 @pytest.mark.parametrize("name", list(STEPS))

@@ -25,7 +25,12 @@ layouts of the same process count), writing `<dir>/<job>-rank<r>.pt`:
   waits for it;
 - "resave": a run built on a config (resuming its output_dir's newest
   checkpoint) saves that step again at once, into `save_dir` (not the
-  directory its peers may still be reading).
+  directory its peers may still be reading);
+- "generate": decode with tp-sharded params over the tp group of (pp, dp,
+  tp): this rank's Megatron shard of `inputs.pt`'s params, greedy
+  `generate` on its left-padded prompts, `forward_with_cache` logits of the
+  prompt (prefill) and of one decode step on the greedy tokens' first, and
+  a seeded sampling run.
 
 Not a test module: it imports no JAX, so a process starts in a few seconds.
 """
@@ -163,8 +168,38 @@ def resave(job: dict, inputs: dict) -> dict:
     return {"step": run.start_step}
 
 
+def generate(job: dict, inputs: dict) -> dict:
+    import torch.nn.functional as F
+
+    from llama_pipeline_parallel_tpu_torch.models.llama import decode
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    mesh = make_mesh(MeshConfig(pp=job["pp"], dp=job["dp"], tp=job["tp"]))
+    group = mesh.tp_group
+    shard = {k: t_tp.tp_shard(k, v, mesh.tp_rank, mesh.tp).clone()
+             for k, v in inputs["params"].items()}
+    ids, mask = inputs["gen_ids"], inputs["gen_mask"]
+    greedy = decode.generate(shard, ids, mask, cfg, decode.GenerationConfig(**job["greedy"]),
+                             tp_group=group)["tokens"]
+    b, p = ids.shape
+    cache = decode.init_kv_cache(cfg, b, p + 1, device="cpu", tp=mesh.tp)
+    kv_mask = F.pad(mask.to(torch.int32), (0, 1))
+    positions = (mask.cumsum(1) - 1).clamp_min(0)
+    prefill, cache = decode.forward_with_cache(shard, ids, cache, positions, 0, kv_mask, cfg,
+                                               tp_group=group)
+    kv_mask[:, p] = 1
+    step_logits, _ = decode.forward_with_cache(shard, greedy[:, :1], cache,
+                                               positions[:, -1:] + 1, p, kv_mask, cfg,
+                                               causal=False, tp_group=group)
+    sampled = decode.generate(shard, ids, mask, cfg, decode.GenerationConfig(**job["sampled"]),
+                              generator=torch.Generator().manual_seed(job["seed"]),
+                              tp_group=group)["tokens"]
+    return {"tp_rank": mesh.tp_rank, "greedy": greedy, "prefill": prefill,
+            "step": step_logits, "sampled": sampled}
+
+
 JOBS = {"step": step, "init": init, "ops": ops, "train": train, "copy": copy,
-        "resave": resave}
+        "resave": resave, "generate": generate}
 
 
 def main(out_dir: str) -> None:
