@@ -22,7 +22,9 @@ only the tests call. The library's OpenMP thread count is set explicitly on
 the calling thread before every call: `threads` (default: this process's
 CPU affinity), fewer for a piece under PER_THREAD elements a thread (a team
 woken for a few thousand elements costs more than it saves, and its idle
-threads spin on cores other processes need).
+threads spin on cores other processes need). The count is restored after
+each call: the library runs on the OpenMP runtime that torch's intra-op pool
+uses, so a count left set would be torch's thread count from then on.
 
 On the card, the step streams piece by piece (`update_and_refresh`; a piece
 is a leaf, or PIECE elements of a larger one: the update is elementwise):
@@ -71,6 +73,7 @@ in order, as it does into the fp32 masters' `.grad` on the on-device path.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -396,17 +399,24 @@ class HostOffloadAdamW:
             self._up[dtype] = _Staging(self._slot_numel(), dtype)
         return self._up[dtype]
 
-    def _team(self, n: int) -> None:
-        """The OpenMP threads of the next library call on n elements."""
+    @contextlib.contextmanager
+    def _team(self, n: int):
+        """The OpenMP threads of the library calls inside, on n elements; the
+        process's count (torch's intra-op threads) is restored after."""
+        before = self._native.omp_get_max_threads()
         self._native.omp_set_num_threads(max(1, min(self.threads, n // PER_THREAD)))
+        try:
+            yield
+        finally:
+            self._native.omp_set_num_threads(before)
 
     def _cast_into(self, master: torch.Tensor, out: torch.Tensor) -> None:
         """The working-copy value of `master` into the host tensor `out` (both
         flat): bf16 by the library's round to nearest even, other dtypes by
         torch."""
         if out.dtype == torch.bfloat16:
-            self._team(master.numel())
-            self._native.f32_to_bf16(_ptr(master), _ptr(out), master.numel())
+            with self._team(master.numel()):
+                self._native.f32_to_bf16(_ptr(master), _ptr(out), master.numel())
         else:
             out.copy_(master)
 
@@ -564,8 +574,8 @@ class HostOffloadAdamW:
             name for name in self.masters if self.counts_in_norm(name)}
         norm_sq = 0.0
         for _, _, g in self._grads_down(grads, names):
-            self._team(g.numel())
-            norm_sq += self._native.l2_norm_sq(_ptr(g), g.numel())
+            with self._team(g.numel()):
+                norm_sq += self._native.l2_norm_sq(_ptr(g), g.numel())
         if self.reduce_norm_sq is not None:
             norm_sq = self.reduce_norm_sq(norm_sq)
         return math.sqrt(norm_sq)
@@ -575,10 +585,10 @@ class HostOffloadAdamW:
         cfg = self.cfg
         name, a, b = piece
         p, m, v = (t[name].view(-1)[a:b] for t in (self.masters, self.m, self.v))
-        self._team(b - a)
-        self._native.adamw_step(_ptr(p), _ptr(m), _ptr(v), _ptr(g), b - a, lr, cfg.beta1,
-                                cfg.beta2, cfg.eps, cfg.weight_decay, self.step_count,
-                                grad_scale)
+        with self._team(b - a):
+            self._native.adamw_step(_ptr(p), _ptr(m), _ptr(v), _ptr(g), b - a, lr, cfg.beta1,
+                                    cfg.beta2, cfg.eps, cfg.weight_decay, self.step_count,
+                                    grad_scale)
 
     def update(self, grads: Params) -> None:
         """One clipped AdamW step of every master (host-path norm), without

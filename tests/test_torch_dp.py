@@ -1,5 +1,6 @@
-"""The port's data parallelism (pp x dp across processes, ZeRO-1, the stop
-vote) against the JAX package's, on the CPU at the `tiny` preset in fp32.
+"""The port's data parallelism (pp x dp across processes, ZeRO-1, evaluation,
+the pipeline's host tiers over DistTransport, the stop vote) against the JAX
+package's, on the CPU at the `tiny` preset in fp32.
 
 The processes are gloo ranks started here (tests/torch_dist_worker.py, or
 the CLI), each with RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT; the
@@ -11,9 +12,11 @@ replicas' valid-target counts differ (a count not summed over dp would show).
 Tolerances: the loss within rtol 1e-5 of the reference's, each gradient leaf
 within 1e-4 of its own largest element (tests/test_torch_pipeline.py's
 rules); trainer losses 1e-5 and final params 1e-4 against the reference's
-run_training. Where both sides are this package (ZeRO-1 against the
-replicated AdamW on the same gradients) the arithmetic is the same element
-for element, and the test says bit-equal.
+run_training; the eval sum 1e-5 (tests/test_torch_eval.py's) and its count
+exactly. Where both sides are this package (ZeRO-1 against the replicated
+AdamW on the same gradients, a pipeline with its host tiers against the same
+without) the arithmetic is the same element for element, and the test says
+bit-equal.
 """
 
 import json
@@ -58,6 +61,14 @@ OPT = dict(learning_rate=5e-3, total_steps=20, warmup_steps=1)
 # replica a process (every stage in each, over the local transport)
 LAYOUTS = {"pp2xdp2": (2, 2, 4), "pp2xdp2-2proc": (2, 2, 2), "pp1xdp2": (1, 2, 2)}
 MICROBATCHES = 4
+# the pipeline runs after the step at pp 2 x dp 2 in 4 processes (one stage a
+# process: DistTransport): zb1 with both host tiers, and without them
+TIERS = dict(offload_wgrad=True, offload_activations=True)
+VARIANTS = {"zb1": ("zb1", {}), "zb1-stash": ("zb1", TIERS)}
+VARIANT_LAYOUT = "pp2xdp2"
+# the eval sum against the reference's (tests/test_torch_eval.py's: fp32
+# through 4 layers, summed in other orders)
+EVAL_SUM_RTOL = 1e-5
 
 
 def launch(n: int, argv: list[str], env: dict | None = None) -> list[subprocess.Popen]:
@@ -107,24 +118,55 @@ def _dp_batch(seed=3):
     return batch
 
 
-def _ref_loss_and_grad(ref, tree, batch, pp, dp):
+def _eval_batch():
+    """_dp_batch from another seed: row i right-padded by i positions, so
+    replica 0 of 2 holds more valid targets than replica 1."""
+    return _dp_batch(seed=4)
+
+
+def _ref_loss_and_grad(ref, tree, batch, pp, dp, schedule="1f1b", tiers=None):
+    """The reference's pipeline at MeshConfig(pp, dp), with its offload knobs
+    `tiers` (their stores kept in regular memory on the CPU, as
+    tests/test_torch_host_stash.py runs them)."""
     cfg = ref.config.LlamaConfig.tiny()
     manifest = ref.manifest.StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp)
-    pcfg = ref.pl.PipelineConfig(num_stages=pp, num_microbatches=MICROBATCHES, remat=True)
+    pcfg = ref.pl.PipelineConfig(num_stages=pp, num_microbatches=MICROBATCHES, remat=True,
+                                 schedule=schedule, **(tiers or {}))
     mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=pp, dp=dp))
     stacked = ref.pl.stack_stages(tree, manifest)
     fn = jax.jit(ref.pl.make_pipeline_loss_and_grad(mesh, cfg, pcfg, stacked,
                                                     attn_fn=ref.attn.attention))
-    loss, grads = fn(stacked, {k: jnp.asarray(v) for k, v in batch.items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LPT_HOST_STASH_FORCE", "0")
+        loss, grads = fn(stacked, {k: jnp.asarray(v) for k, v in batch.items()})
     canonical = convert.unstack_stages(jax.device_get(grads), TManifest(
         num_layers=cfg.num_hidden_layers, num_stages=pp))
     return float(loss), convert.params_from_jax(canonical)
 
 
+def _ref_eval(ref, tree, batches, pp, dp, tp=1, microbatches=MICROBATCHES):
+    """The reference's make_pipeline_eval_fn at the layout on each global
+    batch: [(loss sum, valid count)]."""
+    cfg = ref.config.LlamaConfig.tiny()
+    manifest = ref.manifest.StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp)
+    pcfg = ref.pl.PipelineConfig(num_stages=pp, num_microbatches=microbatches)
+    mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=pp, dp=dp, tp=tp))
+    stacked = ref.pl.stack_stages(tree, manifest)
+    fn = jax.jit(ref.pl.make_pipeline_eval_fn(mesh, cfg, pcfg, stacked,
+                                              attn_fn=ref.attn.attention))
+    out = []
+    for batch in batches:
+        loss_sum, count = fn(stacked, {k: jnp.asarray(np.asarray(x)) for k, x in batch.items()})
+        out.append((float(loss_sum), int(count)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def steps(ref, tmp_path_factory):
     """One train_step at each of LAYOUTS in its processes (started together),
-    from the reference's init on _dp_batch: {layout: (dir, [rank results])}."""
+    from the reference's init on _dp_batch, after the loss-only pass over an
+    eval batch, and at VARIANT_LAYOUT followed by the VARIANTS pipelines:
+    {layout: (dir, [rank results])}."""
     tree = _tree(ref)
     batch = _dp_batch()
     runs = {}
@@ -132,6 +174,8 @@ def steps(ref, tmp_path_factory):
         out = tmp_path_factory.mktemp(name)
         torch.save({"params": convert.params_from_jax(tree),
                     "batch": {k: torch.from_numpy(v) for k, v in batch.items()},
+                    "eval_batch": {k: torch.from_numpy(v) for k, v in _eval_batch().items()},
+                    "variants": VARIANTS if name == VARIANT_LAYOUT else {},
                     "microbatches": MICROBATCHES, "optimizer": OPT}, out / "inputs.pt")
         runs[name] = (out, launch(n, [sys.executable, WORKER, "step", str(out), str(pp),
                                       str(dp), "1f1b"]))
@@ -144,13 +188,15 @@ def steps(ref, tmp_path_factory):
     return tree, batch, results
 
 
-def _canonical(results, pp, key):
-    """The canonical tree of `key` ("grads", "masters") from replica 0's
-    processes (every stage), and each replica's the same."""
+def _canonical(results, pp, key, variant=None):
+    """The canonical tree of `key` ("grads", "masters"; with `variant`, that
+    VARIANTS pipeline's gradients) from replica 0's processes (every stage),
+    and each replica's the same."""
     manifest = TManifest(num_layers=TConfig.tiny().num_hidden_layers, num_stages=pp)
     trees = {}
     for res in results:
-        trees.setdefault(res["replica"], {}).update(res[key])
+        trees.setdefault(res["replica"], {}).update(
+            res[key] if variant is None else res["variants"][variant][1])
     if pp == 1:
         canon = {r: tree for r, tree in trees.items()}
     else:
@@ -239,6 +285,69 @@ def test_numerics_across_processes_match_one_process(steps, layout):
                 "act_rms_per_stage", "act_absmax_per_stage"):
         assert len(got[0][key]) == pp, key
         np.testing.assert_allclose(got[0][key], want[key].numpy(), rtol=GRAD_RTOL, err_msg=key)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_eval_across_processes_matches_reference(ref, steps, layout):
+    """The loss-only pass (eval_step; at pp 2 the pipeline's loss_sum_count,
+    over DistTransport in 4 processes and in memory in 2) on an eval batch
+    padded unevenly across the replicas, against the reference's
+    make_pipeline_eval_fn at pp 2 x dp 2 on the same params and batch: on
+    every process the valid count exactly (summed over the replicas) and the
+    loss sum within EVAL_SUM_RTOL (summed over the stages and the
+    replicas)."""
+    tree, _, results = steps
+    batch = _eval_batch()
+    per_replica = [int((batch["labels"][r * 4:(r + 1) * 4, 1:] != -100).sum()) for r in (0, 1)]
+    assert per_replica[0] > per_replica[1]
+    (want_sum, want_count), = _ref_eval(ref, tree, [batch], 2, 2)
+    assert want_count == sum(per_replica)
+    for res in results[layout]:
+        loss_sum, count = res["eval"]
+        assert int(count) == want_count
+        np.testing.assert_allclose(float(loss_sum), want_sum, rtol=EVAL_SUM_RTOL)
+
+
+def test_stash_tiers_across_processes_bit_equal_to_off(steps):
+    """zb1 at pp 2 x dp 2 in 4 processes (one stage each, DistTransport) with
+    both host tiers (offload.wgrad_stash, offload.activations) against the
+    same pipeline without them: every process's loss and gradients
+    bit-equal, as the tiers only move bytes; every process pushed to its
+    rings, and each replica's two stages hold the byte model's bytes of one
+    stage (stage 0 the cotangents' W ring, stage 1 the inputs' W ring and
+    the activation ring)."""
+    _, batch, results = steps
+    pp, dp, _ = LAYOUTS[VARIANT_LAYOUT]
+    held = {}
+    for res in results[VARIANT_LAYOUT]:
+        on, off = res["variants"]["zb1-stash"], res["variants"]["zb1"]
+        assert torch.equal(on[0], off[0])
+        assert set(on[1]) == set(off[1])
+        for k in on[1]:
+            assert torch.equal(on[1][k], off[1][k]), k
+        assert on[3] > 0 and off[2] == off[3] == 0
+        held[res["replica"]] = held.get(res["replica"], 0) + on[2]
+    pcfg = t_pl.PipelineConfig(num_stages=pp, num_microbatches=MICROBATCHES,
+                               schedule="zb1", **TIERS)
+    rows, seqlen = batch["input_ids"].shape
+    per_stage = t_pl.host_stash_bytes(pcfg, *t_pl.stash_dims(
+        rows // dp // MICROBATCHES, seqlen, 1, TConfig.tiny().hidden_size, torch.float32))
+    assert held == {0: per_stage, 1: per_stage} and per_stage > 0
+
+
+def test_stash_tiers_across_processes_match_reference(ref, steps):
+    """The tiered zb1 pipeline at pp 2 x dp 2 across processes against the
+    reference's zb1 pipeline with its offload knobs on MeshConfig(pp 2, dp
+    2): the loss on every process, and the gradients summed over dp."""
+    tree, batch, results = steps
+    results = results[VARIANT_LAYOUT]
+    pp, dp, _ = LAYOUTS[VARIANT_LAYOUT]
+    want_loss, want_grads = _ref_loss_and_grad(ref, tree, batch, pp, dp, "zb1", TIERS)
+    losses = {res["variants"]["zb1-stash"][0].item() for res in results}
+    assert len(losses) == 1, losses
+    np.testing.assert_allclose(losses.pop(), want_loss, rtol=LOSS_RTOL)
+    _assert_grads_close(_canonical(results, pp, "grads", "zb1-stash"), want_grads,
+                        rtol=GRAD_RTOL)
 
 
 def _stacked_leaves(ref, cfg_j, pp):

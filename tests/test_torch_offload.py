@@ -23,7 +23,6 @@ import importlib
 import json
 import logging
 import os
-import socket
 import subprocess
 import sys
 import types
@@ -46,8 +45,19 @@ from llama_pipeline_parallel_tpu_torch.optim import offload as t_off
 from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
 from llama_pipeline_parallel_tpu_torch.parallel import train_step as t_ts
 from llama_pipeline_parallel_tpu_torch.utils import config as t_config
+from tests.test_torch_pipeline import _free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# pytest-xdist's workers share the CPUs: each worker's torch takes its share
+# of them for its intra-op threads (as the host AdamW's teams take theirs,
+# t_off.default_threads), so that six workers on eight cores do not run
+# forty-eight spinning OpenMP threads. Set as the module is imported: every
+# worker imports every test module before its first test.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
 RTOL, ATOL = 2e-5, 1e-6
 LOSS_TOL = 1e-5
 # masters of two trainers whose gradients differ in fp32 summation order: Adam
@@ -115,9 +125,10 @@ def test_library_builds_into_the_build_dir():
     assert os.path.exists(path) and os.path.basename(path).startswith("host_adamw-")
     for fn in ("adamw_step", "l2_norm_sq", "f32_to_bf16"):
         assert hasattr(lib, fn)
+    before = lib.omp_get_max_threads()
     lib.omp_set_num_threads(2)
     assert lib.omp_get_max_threads() == 2
-    lib.omp_set_num_threads(t_off.default_threads())
+    lib.omp_set_num_threads(before)
 
 
 def test_build_failure_raises(monkeypatch, tmp_path):
@@ -261,6 +272,22 @@ def test_working_copy_is_the_rne_cast_of_the_masters():
     for name, master in host.masters.items():
         assert torch.equal(work[name].view(torch.int16),
                            master.to(torch.bfloat16).view(torch.int16))
+
+
+def test_host_step_leaves_torch_thread_count_unchanged():
+    """The library shares torch's OpenMP runtime: each of its calls sets its
+    own team size (one thread for these small leaves), and one host AdamW
+    step (norm, update, bf16 refresh) leaves the process's count, which is
+    torch's intra-op thread count, as it found it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        host = _host()
+        work = {k: torch.empty(s, dtype=torch.bfloat16) for k, s in SHAPES.items()}
+        host.update_and_refresh(_torch(_grads(0)), work)
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(before)
 
 
 def test_update_and_refresh_equals_update_then_device_params():
@@ -509,11 +536,8 @@ def test_two_processes_equal_one_process(tmp_path):
     args = ["mesh.pp=2", "mesh.dp=1", "max_steps=3", "total_steps=6", "logging_steps=1",
             "save_final=false", "resume=false", "optimizer_offload=true",
             "offload_device_norm=false"]
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
-           "--master_addr", "localhost", "--master_port", str(port),
+           "--master_addr", "localhost", "--master_port", str(_free_port()),
            "-m", "llama_pipeline_parallel_tpu_torch.cli", "--config", "conf/tiny_smoke.yaml",
            "--device", "cpu", *args, f"output_dir={tmp_path}/two"]
     res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120,

@@ -19,6 +19,7 @@ import dataclasses
 import importlib
 import json
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -327,9 +328,21 @@ def test_local_transport_refuses_a_grid_out_of_step(ref):
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
+    """A free port for a process group's store, drawn at random below the
+    kernel's ephemeral range: bind(0) and outgoing connections (every gloo
+    pair's, in whatever runs beside the test) take their ports from that
+    range, so one of them could take a port picked there before the group's
+    rank 0 listens on it; below it only another such draw can."""
+    low = int(open("/proc/sys/net/ipv4/ip_local_port_range").read().split()[0])
+    rng = random.SystemRandom()
+    while True:
+        port = rng.randrange(max(1024, low - 12288), low)
+        with socket.socket() as sock:
+            try:
+                sock.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
 
 
 def _barrier_worker(out_dir: str) -> None:

@@ -1,8 +1,10 @@
 """The port's tensor parallelism (pp x tp x dp across processes: the
 Megatron layers, the prologue's tp all-reduce, the vocab-parallel CE, ZeRO-1
-under tp, the init by shard) against the JAX package's, on the CPU at the
-`tiny` preset in fp32 (4 heads, 2 kv heads, FFN 128, vocab 256: tp = 2
-divides them all; the one tp = 4 step runs it with 4 kv heads).
+under tp, the init by shard, evaluation, the pipeline's host tiers) against
+the JAX package's, on the CPU at the `tiny` preset in fp32 (4 heads, 2 kv
+heads, FFN 128, vocab 256: tp = 2 divides them all; the one tp = 4 step runs
+it with 4 kv heads, and two tp = 2 steps with 8 q / 4 kv heads, 2 kv heads a
+rank).
 
 The processes are gloo ranks started here (tests/torch_tp_worker.py, or the
 CLI), each with RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT and a join
@@ -41,7 +43,15 @@ from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as t_pl
 from llama_pipeline_parallel_tpu_torch.parallel import tp as t_tp
 from llama_pipeline_parallel_tpu_torch.utils import config as t_config
-from tests.test_torch_dp import OPT, _dp_batch, _warm_checkpoints, finish, launch
+from tests.test_torch_dp import (
+    EVAL_SUM_RTOL,
+    OPT,
+    _dp_batch,
+    _ref_eval,
+    _warm_checkpoints,
+    finish,
+    launch,
+)
 from tests.test_torch_pipeline import (
     GRAD_RTOL,
     LOSS_RTOL,
@@ -63,14 +73,31 @@ STEPS = {
     "pp2xtp2xdp2-interleaved": (2, 2, 2, "interleaved_1f1b", 2, False),
     "pp2xtp2xdp2-zb1": (2, 2, 2, "zb1", 1, False),
     "pp1xtp4": (1, 1, 4, "1f1b", 1, False),
+    "pp2xtp2-gqa": (2, 1, 2, "1f1b", 1, False),
+    "pp2xtp2-gqa-prologue": (2, 1, 2, "1f1b", 1, True),
+    "pp2xtp2xdp2-zb1-stash": (2, 2, 2, "zb1", 1, False),
 }
-# tp 4 needs 4 kv heads (the tiny preset has 2): that step job runs the tiny
-# preset with 4, from a tree of its own (inputs.pt's "params_kv4")
-KV_HEADS = {"pp1xtp4": 4}
+# (q heads, kv heads) of the step jobs off the tiny preset's (4, 2), each from
+# a tree of its own (inputs.pt's `_params_key`): tp 4 needs 4 kv heads, and 8
+# q / 4 kv heads (head dim 8) give each tp 2 rank 4 q heads on 2 kv heads, two
+# GQA groups inside a rank (llama2_70b_pp4_tp4_dp2 gives a rank 16 on 2)
+HEADS = {"pp1xtp4": (4, 4), "pp2xtp2-gqa": (8, 4), "pp2xtp2-gqa-prologue": (8, 4)}
+TINY_HEADS = (4, 2)
+# the host tiers (PipelineConfig's offload knobs) of a step job, and the job
+# of the same layout and schedule with them off
+TIERS = {"pp2xtp2xdp2-zb1-stash": dict(offload_wgrad=True, offload_activations=True)}
+TIERS_OFF = {"pp2xtp2xdp2-zb1-stash": "pp2xtp2xdp2-zb1"}
+# the step jobs that first evaluate inputs.pt's eval batch (eval_step: the
+# pipeline's loss_sum_count at pp 2)
+EVALS = ("pp1xtp2xdp2", "pp2xtp2xdp2")
 # the trainer's 3 steps at each layout, all on tiny_smoke's 8 rows a step
 # (dp 1 takes them as 4 microbatches), warm-started from the same weights
 TRAIN_LAYOUTS = {"pp2xtp2": ["mesh.dp=1", "gradient_accumulation_steps=4"],
                  "pp1xtp2xdp2": ["mesh.pp=1"], "pp2xtp2xdp2": []}
+# the trainer's eval set at pp 2 x tp 2 x dp 2 (evaluated before its steps):
+# rows padded at random, 2 batches of 2 microbatches of 2 rows a replica
+TRAIN_EVAL = ["eval_dataset={synthetic: true, seq_length: 32, pseudo_dataset_len: 16, "
+              "pad_fraction: 0.5}", "per_device_eval_batch_size=2"]
 TRAIN_ARGS = ["mesh.tp=2", "max_steps=3", "logging_steps=1", "save_final=true",
               "resume=false", "dataset.pseudo_dataset_len=64"]
 INIT_SEED = 11
@@ -85,11 +112,14 @@ GEN_LOGITS_ATOL = 1e-5
 def _job_step(name):
     pp, dp, tp, schedule, v, prologue = STEPS[name]
     return dict(kind="step", name=name, pp=pp, dp=dp, tp=tp, schedule=schedule, v=v,
-                prologue=prologue, microbatches=MICROBATCHES, kv_heads=KV_HEADS.get(name, 2))
+                prologue=prologue, microbatches=MICROBATCHES,
+                heads=HEADS.get(name, TINY_HEADS), params=_params_key(name),
+                tiers=TIERS.get(name, {}), eval=name in EVALS)
 
 
 def _params_key(name):
-    return "params" if name not in KV_HEADS else f"params_kv{KV_HEADS[name]}"
+    q, kv = HEADS.get(name, TINY_HEADS)
+    return "params" if (q, kv) == TINY_HEADS else f"params_q{q}kv{kv}"
 
 
 def _ranks(name):
@@ -106,18 +136,25 @@ def _results(out, name, n):
     return [torch.load(out / f"{name}-rank{r}.pt") for r in range(n)]
 
 
-def _ref_loss_and_grad(ref, tree, batch, pp, dp, tp, schedule, v, prologue, kv_heads=2):
-    cfg = ref.config.LlamaConfig.tiny(num_key_value_heads=kv_heads)
+def _ref_loss_and_grad(ref, tree, batch, pp, dp, tp, schedule, v, prologue, heads=TINY_HEADS,
+                       tiers=None):
+    """The reference's pipeline at the layout, with its offload knobs `tiers`
+    (their stores kept in regular memory on the CPU, as
+    tests/test_torch_host_stash.py runs them)."""
+    cfg = ref.config.LlamaConfig.tiny(num_attention_heads=heads[0],
+                                      num_key_value_heads=heads[1])
     manifest = ref.manifest.StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp,
                                           virtual_stages=v)
     pcfg = ref.pl.PipelineConfig(num_stages=pp, num_microbatches=MICROBATCHES,
                                  schedule=schedule, virtual_stages=v, remat=True,
-                                 kernel_prologue=prologue)
+                                 kernel_prologue=prologue, **(tiers or {}))
     mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=pp, dp=dp, tp=tp))
     stacked = ref.pl.stack_stages(tree, manifest)
     fn = jax.jit(ref.pl.make_pipeline_loss_and_grad(mesh, cfg, pcfg, stacked,
                                                     attn_fn=ref.attn.attention))
-    loss, grads = fn(stacked, {k: jnp.asarray(x) for k, x in batch.items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LPT_HOST_STASH_FORCE", "0")
+        loss, grads = fn(stacked, {k: jnp.asarray(x) for k, x in batch.items()})
     canonical = convert.unstack_stages(jax.device_get(grads), TManifest(
         num_layers=cfg.num_hidden_layers, num_stages=pp, virtual_stages=v))
     return float(loss), convert.params_from_jax(canonical)
@@ -142,13 +179,17 @@ def tp_runs(ref, tmp_path_factory):
     computes its side: its pipeline at each step job's layout and its
     run_training at pp 2 x tp 2 x dp 2."""
     tree = _tree(ref)
-    trees = {4: jax.device_get(ref.llama.init_params(
-        jax.random.PRNGKey(1), ref.config.LlamaConfig.tiny(num_key_value_heads=4)))}
-    batch = _dp_batch()
+    trees = {TINY_HEADS: tree}
+    for q, kv in set(HEADS.values()):
+        trees[(q, kv)] = jax.device_get(ref.llama.init_params(
+            jax.random.PRNGKey(1), ref.config.LlamaConfig.tiny(num_attention_heads=q,
+                                                               num_key_value_heads=kv)))
+    batch, eval_batch = _dp_batch(), _dp_batch(seed=4)
     rng = np.random.RandomState(5)
-    inputs = {"params": convert.params_from_jax(tree),
-              "params_kv4": convert.params_from_jax(trees[4]),
+    inputs = {**{_params_key(name): convert.params_from_jax(trees[HEADS.get(name, TINY_HEADS)])
+                 for name in STEPS},
               "batch": {k: torch.from_numpy(x) for k, x in batch.items()},
+              "eval_batch": {k: torch.from_numpy(x) for k, x in eval_batch.items()},
               "optimizer": OPT,
               "x": torch.from_numpy(rng.randn(2, 3, 5).astype(np.float32)),
               "g": torch.from_numpy(rng.randn(2, 3, 5).astype(np.float32)),
@@ -162,11 +203,13 @@ def tp_runs(ref, tmp_path_factory):
                                            .astype(np.int64))}
     four, eight = tmp_path_factory.mktemp("tp4"), tmp_path_factory.mktemp("tp8")
     train_dir = tmp_path_factory.mktemp("tp_train")
-    _warm_checkpoints(ref, train_dir)
+    warm = _warm_checkpoints(ref, train_dir)
     conf = os.path.join(REPO, "conf", "tiny_smoke.yaml")
     trains = {name: dict(kind="train", name=f"train-{name}", config=conf, overrides=TRAIN_ARGS + extra + [
         f"output_dir={train_dir}/{name}", f"model_name_or_path={train_dir}/warm_port"])
         for name, extra in TRAIN_LAYOUTS.items()}
+    trains["pp2xtp2xdp2"].update(eval=True, overrides=trains["pp2xtp2xdp2"]["overrides"]
+                                 + TRAIN_EVAL)
     _write_jobs(four, [_job_step(n) for n in STEPS if _ranks(n) == 4]
                 + [dict(kind="ops", name="ops", pp=2, dp=1, tp=2), GEN_TP,
                        trains["pp2xtp2"], trains["pp1xtp2xdp2"]], inputs)
@@ -175,8 +218,10 @@ def tp_runs(ref, tmp_path_factory):
                    trains["pp2xtp2xdp2"]], inputs)
     procs = {4: launch(4, [sys.executable, WORKER, str(four)]),
              8: launch(8, [sys.executable, WORKER, str(eight)])}
-    want = {name: _ref_loss_and_grad(ref, trees.get(KV_HEADS.get(name), tree), batch,
-                                     *STEPS[name], KV_HEADS.get(name, 2)) for name in STEPS}
+    want = {name: _ref_loss_and_grad(ref, trees[HEADS.get(name, TINY_HEADS)], batch,
+                                     *STEPS[name], HEADS.get(name, TINY_HEADS),
+                                     TIERS.get(name)) for name in STEPS}
+    want_eval, = _ref_eval(ref, tree, [eval_batch], 2, 2, 2)
     ref.train.run_training(t_config.load_config(conf, TRAIN_ARGS + [
         f"output_dir={train_dir}/ref", f"model_name_or_path={train_dir}/warm_ref"]))
     for p in procs.values():
@@ -187,7 +232,8 @@ def tp_runs(ref, tmp_path_factory):
     return dict(tree=tree, inputs=inputs, want=want, results=results,
                 ops=_results(four, "ops", 4), init=_results(eight, "init", 8),
                 generate=_results(four, "generate", 4),
-                train_dir=train_dir,
+                train_dir=train_dir, want_eval=want_eval, eval_batch=eval_batch, warm=warm,
+                train_eval=_results(eight, "train-pp2xtp2xdp2", 8),
                 dirs={name: four if _ranks(name) == 4 else eight for name in STEPS})
 
 
@@ -237,9 +283,12 @@ def test_generate_with_tp_sharded_params(ref, tp_runs):
 def test_step_matches_reference_pipeline(tp_runs, name):
     """One step at each layout (and, at pp 2 x tp 2 x dp 2, with the
     prologue kernels' plain twins against the reference's interpret-mode
-    Pallas prologue, and under interleaved v2 and zb1) against the
-    reference's make_pipeline_loss_and_grad on the same layout: the loss on
-    every rank, and every rank's slice of every gradient."""
+    Pallas prologue, under interleaved v2 and zb1, and zb1 with both host
+    tiers against the reference's with its offload knobs; at pp 2 x tp 2 with
+    8 q / 4 kv heads, 2 kv heads a rank, composed and with the prologue
+    twins) against the reference's make_pipeline_loss_and_grad on the same
+    layout: the loss on every rank, and every rank's slice of every
+    gradient."""
     pp, dp, tp, _, v, _ = STEPS[name]
     want_loss, want_grads = tp_runs["want"][name]
     for res in tp_runs["results"][name]:
@@ -247,7 +296,8 @@ def test_step_matches_reference_pipeline(tp_runs, name):
         _assert_grads_close(res["grads"], _slices(want_grads, res, pp, v, tp))
 
 
-@pytest.mark.parametrize("name", ["pp2xtp2", "pp1xtp2xdp2", "pp2xtp2xdp2", "pp1xtp4"])
+@pytest.mark.parametrize("name", ["pp2xtp2", "pp1xtp2xdp2", "pp2xtp2xdp2", "pp1xtp4",
+                                  "pp2xtp2-gqa"])
 def test_norm_and_zero1_masters_under_tp(tp_runs, name):
     """The gradient norm each rank clips by is the reference gradient's
     whole norm (each split leaf's slices added over tp, each replicated leaf
@@ -270,6 +320,82 @@ def test_norm_and_zero1_masters_under_tp(tp_runs, name):
             assert dim != t_tp.tp_dim(k, res["grads"][k].dim()) or dim is None, k
             full = res["grads"][k].numel()
             assert res["mu"][k].numel() == (full if dim is None else full // dp), k
+
+
+@pytest.mark.parametrize("name", EVALS)
+def test_eval_under_tp_matches_reference(tp_runs, name):
+    """The loss-only pass (eval_step; at pp 2 the pipeline's loss_sum_count)
+    at each layout of EVALS on an eval batch whose rows are padded unevenly
+    across the dp replicas (row i by i tokens: replica 0 holds more valid
+    targets than replica 1), against the reference's make_pipeline_eval_fn
+    at pp 2 x tp 2 x dp 2 on the same params and batch: on every rank the
+    valid count exactly (summed over dp, not over tp) and the loss sum within
+    EVAL_SUM_RTOL (summed over pp and dp, not twice over tp)."""
+    want_sum, want_count = tp_runs["want_eval"]
+    labels = tp_runs["eval_batch"]["labels"]
+    per_replica = [int((labels[r * 4:(r + 1) * 4, 1:] != -100).sum()) for r in range(2)]
+    assert per_replica[0] > per_replica[1] and sum(per_replica) == want_count
+    for res in tp_runs["results"][name]:
+        loss_sum, count = res["eval"]
+        assert int(count) == want_count
+        np.testing.assert_allclose(float(loss_sum), want_sum, rtol=EVAL_SUM_RTOL)
+
+
+def test_trainer_eval_under_tp_matches_reference(ref, tp_runs):
+    """The trainer's evaluation of its `eval_dataset` (Run.eval_sum_count
+    over each batch of its eval loader, this replica's rows) at pp 2 x tp 2
+    x dp 2, at the warm-start weights: each batch's (loss sum, valid count)
+    on every rank against the reference's make_pipeline_eval_fn at the same
+    layout on the replicas' rows joined: the count exactly, the sum within
+    EVAL_SUM_RTOL."""
+    ranks = tp_runs["train_eval"]
+    by_replica = {r["replica"]: r for r in ranks}
+    assert sorted(by_replica) == [0, 1]
+    batches = [{k: torch.cat([by_replica[r]["eval_batches"][i][k] for r in (0, 1)]).numpy()
+                for k in local} for i, local in enumerate(ranks[0]["eval_batches"])]
+    assert len(batches) == len(ranks[0]["eval"]) >= 1
+    want = _ref_eval(ref, tp_runs["warm"], batches, 2, 2, 2,
+                     microbatches=ranks[0]["microbatches"])
+    for i, (want_sum, want_count) in enumerate(want):
+        for res in ranks:
+            loss_sum, count = res["eval"][i]
+            assert int(count) == want_count
+            np.testing.assert_allclose(float(loss_sum), want_sum, rtol=EVAL_SUM_RTOL)
+
+
+@pytest.mark.parametrize("name", list(TIERS))
+def test_stash_tiers_under_tp_bit_equal_to_off(tp_runs, name):
+    """A step with the pipeline's host tiers on (offload.wgrad_stash and
+    offload.activations under zb1 at pp 2 x tp 2 x dp 2) against the same
+    job with them off: every rank's loss, norm, gradients (its tp slices)
+    and masters bit-equal, as the tiers only move bytes. Every rank pushed
+    to its rings, and on each replica and tp rank its two stages' rings
+    hold the byte model's bytes of one stage (stage 0 the cotangents' W
+    ring, stage 1 the inputs' W ring and the activation ring) at the full
+    hidden width, which tp does not split. Its match with the reference's
+    step is test_step_matches_reference_pipeline's."""
+    on, off = tp_runs["results"][name], tp_runs["results"][TIERS_OFF[name]]
+    pp, dp, tp, schedule, v, prologue = STEPS[name]
+    for a, b in zip(on, off):
+        assert (a["replica"], a["tp_rank"], a["stages"]) == (b["replica"], b["tp_rank"],
+                                                               b["stages"])
+        assert torch.equal(a["loss"], b["loss"]) and torch.equal(a["norm"], b["norm"])
+        for key in ("grads", "masters"):
+            assert set(a[key]) == set(b[key])
+            for k in a[key]:
+                assert torch.equal(a[key][k], b[key][k]), (key, k)
+        assert a["pushes"] > 0 and b["pushes"] == b["host_stash_bytes"] == 0
+    pcfg = t_pl.PipelineConfig(num_stages=pp, num_microbatches=MICROBATCHES,
+                               schedule=schedule, virtual_stages=v, **TIERS[name])
+    mb_rows = tp_runs["inputs"]["batch"]["input_ids"].shape[0] // dp // MICROBATCHES
+    seqlen = tp_runs["inputs"]["batch"]["input_ids"].shape[1]
+    per_stage = t_pl.host_stash_bytes(pcfg, *t_pl.stash_dims(mb_rows, seqlen, 1, 64,
+                                                             torch.float32))
+    held = {}
+    for res in on:
+        key = (res["replica"], res["tp_rank"])
+        held[key] = held.get(key, 0) + res["host_stash_bytes"]
+    assert len(held) == dp * tp and set(held.values()) == {per_stage} and per_stage > 0
 
 
 @pytest.mark.parametrize("name", list(STEPS))

@@ -32,6 +32,7 @@ from llama_pipeline_parallel_tpu_torch.optim import optimizer as t_optim
 from llama_pipeline_parallel_tpu_torch.parallel import train_step as t_ts
 from llama_pipeline_parallel_tpu_torch.train import build_run, run_training, select_attention
 from llama_pipeline_parallel_tpu_torch.utils import config as t_config
+from tests.test_torch_pipeline import GRAD_RTOL, LOSS_RTOL, _assert_grads_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # fp32 forward through 4 layers: matmul summation order differs between XLA
@@ -249,52 +250,99 @@ def test_optimizer_matches_optax_over_several_updates(ref):
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
 
 
-def test_optimizer_state_carries_from_the_reference_and_back(ref):
-    """The reference trains 2 steps at tiny; its params and optax moments
-    (convert.optimizer_state_from_jax) carried into the port, one port step
-    equals the reference's third step, with the train step's tolerances.
-    The carried state converts back (optimizer_state_to_jax) leaf for leaf."""
-    cfg_j, cfg_t = ref.config.LlamaConfig.tiny(), TConfig.tiny()
+@pytest.fixture(scope="module")
+def carried(ref):
+    """The reference trains 2 steps at tiny, then its third; its params and
+    optax moments after 2 steps are carried into the port
+    (convert.optimizer_state_from_jax). Holds both sides' third step: the
+    reference's gradients (make_pipeline_loss_and_grad on the same params
+    and batch), metrics and params after it."""
+    cfg_j = ref.config.LlamaConfig.tiny()
     tree, _ = _params(ref, seed=2)
     mesh = ref.mesh.make_mesh(ref.mesh.MeshConfig(pp=1, dp=1))
     manifest = ref.manifest.StageManifest.for_config(cfg_j, 1)
-    kw = dict(learning_rate=5e-3, total_steps=20, warmup_steps=1)
-    tx, sched = ref.optim.make_optimizer(ref.optim.OptimizerConfig(**kw))
+    tx, sched = ref.optim.make_optimizer(ref.optim.OptimizerConfig(**CARRY_OPT))
     stacked = ref.pl.stack_stages(tree, manifest)
     state = ref.ts.init_train_state(stacked, tx, mesh)
-    step_fn = ref.ts.make_train_step(
-        mesh, cfg_j, ref.pl.PipelineConfig(num_stages=1, num_microbatches=2), tx, sched,
-        stacked, attn_fn=ref.attn.attention)
-    batches = [_batch(cfg_t.vocab_size, 4, 32, seed=s, pad_tail=3) for s in (7, 8, 9)]
+    pcfg = ref.pl.PipelineConfig(num_stages=1, num_microbatches=2)
+    step_fn = ref.ts.make_train_step(mesh, cfg_j, pcfg, tx, sched, stacked,
+                                     attn_fn=ref.attn.attention)
+    batches = [_batch(cfg_j.vocab_size, 4, 32, seed=s, pad_tail=3) for s in (7, 8, 9)]
     for b in batches[:2]:
         state, _ = step_fn(state, {k: jnp.asarray(v) for k, v in b.items()})
-    params = convert.params_from_jax(jax.device_get(ref.pl.unstack_stages(state.params,
-                                                                          manifest)))
-    canonical = ref.ckpt._canonicalize_moments(jax.device_get(state.opt_state), manifest,
-                                               to_canonical=True)
-    leaves = {k: v.requires_grad_() for k, v in params.items()}
-    opt = t_optim.AdamW(leaves, t_optim.OptimizerConfig(**kw))
-    carried = convert.optimizer_state_from_jax(canonical)
-    assert carried["count"] == 2
-    opt.load_state_dict(carried)
-    back = convert.optimizer_state_to_jax(opt.state_dict(), canonical)
-    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(canonical)
-    for got, want in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(canonical)):
-        np.testing.assert_array_equal(got, np.asarray(want))
 
-    state, want = step_fn(state, {k: jnp.asarray(v) for k, v in batches[2].items()})
-    t_state = t_ts.TrainState(step=2, params=leaves, optimizer=opt)
-    got = t_ts.train_step(t_state, {k: torch.from_numpy(v) for k, v in batches[2].items()},
-                          cfg_t, num_microbatches=2)
-    np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=1e-5)
-    np.testing.assert_allclose(got["grad_norm"].item(), float(want["grad_norm"]), rtol=1e-4)
+    def canonical(stacked_tree):
+        return convert.params_from_jax(jax.device_get(ref.pl.unstack_stages(stacked_tree,
+                                                                            manifest)))
+
+    third = {k: jnp.asarray(v) for k, v in batches[2].items()}
+    grad_fn = jax.jit(ref.pl.make_pipeline_loss_and_grad(mesh, cfg_j, pcfg, stacked,
+                                                         attn_fn=ref.attn.attention))
+    grads = canonical(grad_fn(state.params, third)[1])
+    moments = ref.ckpt._canonicalize_moments(jax.device_get(state.opt_state), manifest,
+                                             to_canonical=True)
+    params = canonical(state.params)
+    state, metrics = step_fn(state, third)
+    return types.SimpleNamespace(params=params, moments=moments, batch=batches[2],
+                                 grads=grads, metrics=metrics, final=canonical(state.params))
+
+
+# the reference's optimizer in the carried-state tests
+CARRY_OPT = dict(learning_rate=5e-3, total_steps=20, warmup_steps=1)
+
+
+def _carried_optimizer(carried, leaves):
+    opt = t_optim.AdamW(leaves, t_optim.OptimizerConfig(**CARRY_OPT))
+    opt.load_state_dict(convert.optimizer_state_from_jax(carried.moments))
+    return opt
+
+
+def test_optimizer_state_carries_from_the_reference_and_back(ref, carried):
+    """The reference's optax moments after 2 steps, carried into the port's
+    AdamW (count 2), convert back leaf for leaf; given the reference's own
+    third-step gradients, the carried AdamW's update gives the reference's
+    third-step params within the optimizer parity test's limits (rtol 1e-6,
+    atol 1e-7): the moments, the count that the schedule and the bias
+    correction read, and the clip all carried. (Fed the port's own
+    gradients instead, the params would differ by the gradients' fp32
+    summation order, which Adam magnifies where a gradient element is near
+    zero and its moments are zero: test_carried_step_gradients_match_reference
+    holds those gradients.)"""
+    leaves = {k: v.clone() for k, v in carried.params.items()}
+    opt = _carried_optimizer(carried, leaves)
+    assert opt.count == 2
+    back = convert.optimizer_state_to_jax(opt.state_dict(), carried.moments)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(carried.moments))
+    for got, want in zip(jax.tree_util.tree_leaves(back),
+                         jax.tree_util.tree_leaves(carried.moments)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    lr = opt.step(leaves, carried.grads)
+    np.testing.assert_allclose(lr, float(carried.metrics["lr"]), rtol=1e-6)
+    assert opt.count == int(carried.metrics["step"]) == 3
+    for k, v in carried.final.items():
+        np.testing.assert_allclose(leaves[k].numpy(), v.numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_carried_step_gradients_match_reference(ref, carried):
+    """One port train_step from the carried params and moments on the
+    reference's third batch: its loss, gradient norm, learning rate and step
+    are the reference's third step's, and its gradients are the reference's
+    within GRAD_RTOL of each leaf's largest element (the train step's
+    limits)."""
+    leaves = {k: v.clone().requires_grad_() for k, v in carried.params.items()}
+    t_state = t_ts.TrainState(step=2, params=leaves,
+                              optimizer=_carried_optimizer(carried, leaves))
+    got = t_ts.train_step(t_state, {k: torch.from_numpy(v) for k, v in carried.batch.items()},
+                          TConfig.tiny(), num_microbatches=2)
+    want = carried.metrics
+    np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["grad_norm"].item(), float(want["grad_norm"]),
+                               rtol=GRAD_RTOL)
     np.testing.assert_allclose(got["lr"], float(want["lr"]), rtol=1e-6)
     assert got["step"] == int(want["step"]) == 3
-    final = convert.params_from_jax(jax.device_get(ref.pl.unstack_stages(state.params,
-                                                                         manifest)))
-    for k, v in final.items():
-        np.testing.assert_allclose(leaves[k].detach().numpy(), v.numpy(), rtol=0, atol=2e-5,
-                                   err_msg=k)
+    _assert_grads_close({k: p.grad for k, p in leaves.items()}, carried.grads)
 
 
 # ---------------------------------------------------------------------------

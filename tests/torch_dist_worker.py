@@ -9,8 +9,16 @@ process's replica rows, with the numerics observatory's stats (process 0
 writes them to `<dir>/numerics.jsonl` through the monitor), and writes
 `<dir>/rank<r>.pt`: the loss, the gradient norm, the gradients (summed over
 dp), the masters after the update, the moments this process holds and the
-dims they are split on. Not a test module: it imports no JAX, so a process
-starts in a few seconds.
+dims they are split on. In the same process group, where inputs.pt holds
+them:
+- "eval_batch": before the step, the loss-only pass (eval_step; the
+  pipeline's loss_sum_count at pp > 1) over this replica's rows: "eval",
+  (loss sum, valid count);
+- "variants" ({name: (schedule, PipelineConfig offload knobs)}, pp > 1):
+  after the step, each variant's pipeline loss_and_grad from the same
+  params on the same rows: "variants", {name: (loss, gradients, bytes of the
+  host rings, pushes to them)}.
+Not a test module: it imports no JAX, so a process starts in a few seconds.
 """
 
 import os
@@ -24,7 +32,7 @@ from llama_pipeline_parallel_tpu_torch.optim.optimizer import OptimizerConfig, Z
 from llama_pipeline_parallel_tpu_torch.parallel import distributed
 from llama_pipeline_parallel_tpu_torch.parallel import pipeline as pl
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
-from llama_pipeline_parallel_tpu_torch.parallel.train_step import TrainState, train_step
+from llama_pipeline_parallel_tpu_torch.parallel.train_step import TrainState, eval_step, train_step
 from llama_pipeline_parallel_tpu_torch.utils import numerics
 
 
@@ -36,8 +44,12 @@ def step(out_dir: str, pp: int, dp: int, schedule: str) -> None:
     mesh = make_mesh(MeshConfig(pp=pp, dp=dp))
     m = inputs["microbatches"]
     rows = inputs["batch"]["input_ids"].shape[0] // dp
-    batch = {k: v[mesh.replica * rows:(mesh.replica + 1) * rows]
-             for k, v in inputs["batch"].items()}
+
+    def replica_rows(global_batch):
+        return {k: v[mesh.replica * rows:(mesh.replica + 1) * rows]
+                for k, v in global_batch.items()}
+
+    batch = replica_rows(inputs["batch"])
     pipe = None
     manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=pp)
     if pp > 1:
@@ -49,6 +61,10 @@ def step(out_dir: str, pp: int, dp: int, schedule: str) -> None:
         params = {k: v.clone().requires_grad_() for k, v in inputs["params"].items()}
     optimizer = Zero1AdamW(params, OptimizerConfig(**inputs["optimizer"]), dp, mesh.replica,
                            mesh.dp_group)
+    evaluated = None
+    if "eval_batch" in inputs:
+        evaluated = eval_step(params, replica_rows(inputs["eval_batch"]), cfg,
+                              num_microbatches=m, pipeline=pipe, dp_group=mesh.dp_group)
     state = TrainState(step=0, params=params, optimizer=optimizer)
     metrics = train_step(state, batch, cfg, num_microbatches=m, remat=True, pipeline=pipe,
                          dp_group=mesh.dp_group, collect_stats=True, mesh=mesh,
@@ -57,11 +73,22 @@ def step(out_dir: str, pp: int, dp: int, schedule: str) -> None:
     monitor.observe(1, metrics["loss"], metrics["grad_norm"], metrics["numerics"])
     monitor.flush()
     monitor.close()
+    variants = {}
+    for name, (schedule_v, tiers) in inputs.get("variants", {}).items():
+        sp = pl.StageParams.from_canonical(inputs["params"], manifest, mesh.stages)
+        pcfg = pl.PipelineConfig(num_stages=pp, num_microbatches=m, schedule=schedule_v,
+                                 **tiers)
+        pipe_v = pl.Pipeline(cfg, pcfg, mesh, sp)
+        loss = pipe_v.loss_and_grad(batch)
+        variants[name] = (loss, {k: p.grad for k, p in sp.flat().items()},
+                          pipe_v.host_stash_bytes(),
+                          sum(e[0] == "push" for e in pipe_v.stash_trace))
     torch.save({"loss": metrics["loss"], "norm": metrics["grad_norm"],
                 "replica": mesh.replica, "stages": mesh.stages,
                 "grads": {k: p.grad for k, p in params.items()},
                 "masters": {k: p.detach() for k, p in params.items()},
-                "mu": optimizer.mu, "dims": optimizer.dims},
+                "mu": optimizer.mu, "dims": optimizer.dims, "eval": evaluated,
+                "variants": variants},
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 

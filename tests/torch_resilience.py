@@ -4,7 +4,6 @@ tests/test_torch_actions.py): the tiny_smoke trainer through the CLI, under
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -18,11 +17,10 @@ LADDER = [{"name": "dp2", "devices": 2, "overrides": []},
 
 
 def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """tests/test_torch_pipeline._free_port: a port below the ephemeral range."""
+    from tests.test_torch_pipeline import _free_port
+
+    return _free_port()
 
 
 def cli_args(out: str, *extra: str) -> list[str]:

@@ -7,20 +7,25 @@ It joins the gloo process group and runs `<dir>/jobs.pt`'s jobs in order, all
 in this one group (each builds its own mesh, so one launch covers several
 layouts of the same process count), writing `<dir>/<job>-rank<r>.pt`:
 
-- "step": one train_step of the tiny model (with `kv_heads` kv heads, whose
-  canonical params are `params_kv<n>` where n is not the preset's 2) at
-  (pp, dp, tp) on this process's replica rows of `inputs.pt`'s batch, with
-  ZeRO-1 moments at dp > 1 and the numerics observatory's stats (process 0
-  writes them to `<dir>/<job>/numerics.jsonl` through the monitor): loss,
-  norm, this process's gradients and masters (its tp slices, named as the
-  optimizer names them), its moments and their dims;
+- "step": one train_step of the tiny model (with `heads`, its (q, kv)
+  heads, from the canonical params `inputs.pt[params]`) at (pp, dp, tp) on
+  this process's replica rows of `inputs.pt`'s batch, with ZeRO-1 moments at
+  dp > 1, the pipeline's host tiers `tiers` (PipelineConfig's offload
+  knobs) and the numerics observatory's stats (process 0 writes them to
+  `<dir>/<job>/numerics.jsonl` through the monitor): loss, norm, this
+  process's gradients and masters (its tp slices, named as the optimizer
+  names them), its moments and their dims, the bytes of its host rings and
+  its pushes to them; with `eval`, first the loss-only pass (eval_step) over
+  its replica rows of `inputs.pt`'s eval batch: (loss sum, valid count);
 - "init": the trainer's init of what this process holds
   (init_params_sharded);
 - "ops": tp_copy / tp_reduce / tp_max and the vocab-parallel CE over this
   stage's tp group, forward and backward, on inputs.pt's tensors;
 - "train": build_run and train_run on a config and overrides: the losses
   and, under the host optimizer, the shapes of its masters and moments (its
-  slices) beside the whole leaves';
+  slices) beside the whole leaves'; with `eval`, first the trainer's
+  `eval_sum_count` of each batch of its `eval_dataset` (this replica's
+  rows), beside those rows;
 - "copy": process 0 copies checkpoint directories, then every process
   waits for it;
 - "resave": a run built on a config (resuming its output_dir's newest
@@ -50,6 +55,7 @@ from llama_pipeline_parallel_tpu_torch.parallel import tp as t_tp
 from llama_pipeline_parallel_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from llama_pipeline_parallel_tpu_torch.parallel.train_step import (
     TrainState,
+    eval_step,
     init_params_sharded,
     train_step,
 )
@@ -57,15 +63,19 @@ from llama_pipeline_parallel_tpu_torch.utils import numerics
 from llama_pipeline_parallel_tpu_torch.utils.config import load_config
 
 
+def replica_rows(batch: dict, mesh) -> dict:
+    """This process's replica's rows of a global batch."""
+    rows = batch["input_ids"].shape[0] // mesh.dp
+    return {k: v[mesh.replica * rows:(mesh.replica + 1) * rows] for k, v in batch.items()}
+
+
 def step(job: dict, inputs: dict) -> dict:
-    kv = job.get("kv_heads", 2)
-    cfg = LlamaConfig.tiny(num_key_value_heads=kv)
-    canonical = inputs["params" if kv == 2 else f"params_kv{kv}"]
+    q, kv = job["heads"]
+    cfg = LlamaConfig.tiny(num_attention_heads=q, num_key_value_heads=kv)
+    canonical = inputs[job["params"]]
     mesh = make_mesh(MeshConfig(pp=job["pp"], dp=job["dp"], tp=job["tp"]))
     m = job["microbatches"]
-    rows = inputs["batch"]["input_ids"].shape[0] // mesh.dp
-    batch = {k: v[mesh.replica * rows:(mesh.replica + 1) * rows]
-             for k, v in inputs["batch"].items()}
+    batch = replica_rows(inputs["batch"], mesh)
     pipe = None
     v = job.get("v", 1)
     manifest = StageManifest(num_layers=cfg.num_hidden_layers, num_stages=mesh.pp,
@@ -75,7 +85,8 @@ def step(job: dict, inputs: dict) -> dict:
                                            tp_rank=mesh.tp_rank, tp=mesh.tp)
         pcfg = pl.PipelineConfig(num_stages=mesh.pp, num_microbatches=m,
                                  schedule=job.get("schedule", "1f1b"), virtual_stages=v,
-                                 kernel_prologue=job.get("prologue", False))
+                                 kernel_prologue=job.get("prologue", False),
+                                 **job.get("tiers", {}))
         pipe = pl.Pipeline(cfg, pcfg, mesh, sp)
         params = sp.flat()
     else:
@@ -84,6 +95,11 @@ def step(job: dict, inputs: dict) -> dict:
     ocfg = OptimizerConfig(**inputs["optimizer"])
     optimizer = (Zero1AdamW(params, ocfg, mesh.dp, mesh.replica, mesh.dp_group, tp=mesh.tp)
                  if mesh.dp > 1 else AdamW(params, ocfg))
+    evaluated = None
+    if job.get("eval"):
+        evaluated = eval_step(params, replica_rows(inputs["eval_batch"], mesh), cfg,
+                              num_microbatches=m, kernel_prologue=job.get("prologue", False),
+                              pipeline=pipe, dp_group=mesh.dp_group, tp_group=mesh.tp_group)
     state = TrainState(step=0, params=params, optimizer=optimizer)
     metrics = train_step(state, batch, cfg, num_microbatches=m, remat=True, pipeline=pipe,
                          kernel_prologue=job.get("prologue", False), dp_group=mesh.dp_group,
@@ -98,7 +114,9 @@ def step(job: dict, inputs: dict) -> dict:
             "stages": mesh.stages, "tp_rank": mesh.tp_rank,
             "grads": {k: p.grad for k, p in params.items()},
             "masters": {k: p.detach() for k, p in params.items()},
-            "mu": optimizer.mu, "dims": getattr(optimizer, "dims", None)}
+            "mu": optimizer.mu, "dims": getattr(optimizer, "dims", None), "eval": evaluated,
+            "host_stash_bytes": 0 if pipe is None else pipe.host_stash_bytes(),
+            "pushes": 0 if pipe is None else sum(e[0] == "push" for e in pipe.stash_trace)}
 
 
 def init(job: dict, inputs: dict) -> dict:
@@ -139,8 +157,14 @@ def ops(job: dict, inputs: dict) -> dict:
 
 def train(job: dict, inputs: dict) -> dict:
     run = t_train.build_run(load_config(job["config"], job["overrides"]), device="cpu")
-    out = {"losses": t_train.train_run(run)["losses"], "replica": run.mesh.replica,
-           "tp_rank": run.mesh.tp_rank, "stages": run.mesh.stages}
+    out = {}
+    if job.get("eval"):
+        batches = list(run.eval_loader)
+        out["eval"] = [run.eval_sum_count(run.on_device(b)) for b in batches]
+        out["eval_batches"] = [run.on_device(b) for b in batches]
+        out["microbatches"] = run.num_microbatches
+    out.update(losses=t_train.train_run(run)["losses"], replica=run.mesh.replica,
+               tp_rank=run.mesh.tp_rank, stages=run.mesh.stages)
     if run.host is not None:
         host = run.host
         out["host"] = {name: (tuple(host.masters[name].shape), tuple(host.m[name].shape),
